@@ -1,0 +1,163 @@
+"""ResNet backbone (counterpart of ``ioudet/models/backbones/resnet.py``).
+
+mmdet module names (``conv1``, ``bn1``, ``layer{i}.{j}.conv{k}``,
+``layer{i}.{j}.downsample.{0,1}``), FrozenBN, 'pytorch' style (stride on the
+3x3) and 'caffe' style (stride on the first 1x1) bottlenecks, and
+``frozen_stages``.  Takes NCHW and returns the NCHW stage outputs selected by
+``out_indices``.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Optional, Sequence
+
+import torch
+from torch import nn
+
+from ..utils.layers import FrozenBatchNorm, check_norm_cfg
+
+
+def _conv(cin, cout, k, stride=1):
+    return nn.Conv2d(cin, cout, k, stride, (k - 1) // 2, bias=False)
+
+
+class BasicBlock(nn.Module):
+    expansion = 1
+
+    def __init__(self, inplanes: int, planes: int, stride: int = 1,
+                 downsample: bool = False, style: str = "pytorch"):
+        super().__init__()
+        self.conv1 = _conv(inplanes, planes, 3, stride)
+        self.bn1 = FrozenBatchNorm(planes)
+        self.conv2 = _conv(planes, planes, 3)
+        self.bn2 = FrozenBatchNorm(planes)
+        self.relu = nn.ReLU(inplace=True)
+        self.downsample = nn.Sequential(
+            _conv(inplanes, planes, 1, stride), FrozenBatchNorm(planes)) \
+            if downsample else None
+
+    def forward(self, x):
+        identity = x if self.downsample is None else self.downsample(x)
+        out = self.relu(self.bn1(self.conv1(x)))
+        out = self.bn2(self.conv2(out))
+        return self.relu(out + identity)
+
+
+class Bottleneck(nn.Module):
+    expansion = 4
+
+    def __init__(self, inplanes: int, planes: int, stride: int = 1,
+                 downsample: bool = False, style: str = "pytorch"):
+        super().__init__()
+        if style not in ("pytorch", "caffe"):
+            raise ValueError(f"style must be 'pytorch' or 'caffe', got {style!r}")
+        c1_stride, c2_stride = (stride, 1) if style == "caffe" else (1, stride)
+        out = planes * self.expansion
+        self.conv1 = _conv(inplanes, planes, 1, c1_stride)
+        self.bn1 = FrozenBatchNorm(planes)
+        self.conv2 = _conv(planes, planes, 3, c2_stride)
+        self.bn2 = FrozenBatchNorm(planes)
+        self.conv3 = _conv(planes, out, 1)
+        self.bn3 = FrozenBatchNorm(out)
+        self.relu = nn.ReLU(inplace=True)
+        self.downsample = nn.Sequential(
+            _conv(inplanes, out, 1, stride), FrozenBatchNorm(out)) \
+            if downsample else None
+
+    def forward(self, x):
+        identity = x if self.downsample is None else self.downsample(x)
+        out = self.relu(self.bn1(self.conv1(x)))
+        out = self.relu(self.bn2(self.conv2(out)))
+        out = self.bn3(self.conv3(out))
+        return self.relu(out + identity)
+
+
+ARCH_SETTINGS = {
+    18: (BasicBlock, (2, 2, 2, 2)),
+    34: (BasicBlock, (3, 4, 6, 3)),
+    50: (Bottleneck, (3, 4, 6, 3)),
+    101: (Bottleneck, (3, 4, 23, 3)),
+    152: (Bottleneck, (3, 8, 36, 3)),
+}
+
+
+class ResNet(nn.Module):
+    def __init__(self, depth: int = 50, num_stages: int = 4,
+                 out_indices: Sequence[int] = (0, 1, 2, 3),
+                 strides: Sequence[int] = (1, 2, 2, 2),
+                 frozen_stages: int = -1, style: str = "pytorch",
+                 norm_cfg: Optional[dict] = None,
+                 conv_cfg: Optional[dict] = None,
+                 zero_init_residual: bool = False,
+                 stage_with_dcn: Sequence[bool] = (False,) * 4,
+                 dcn_modulated: bool = False,
+                 stage_with_gcb: Sequence[bool] = (False,) * 4,
+                 stem_space_to_depth: bool = False):
+        super().__init__()
+        if depth not in ARCH_SETTINGS:
+            raise KeyError(f"invalid depth {depth} for resnet")
+        check_norm_cfg(norm_cfg)
+        not_ported = dict(conv_cfg=conv_cfg is not None,
+                          dcn=any(stage_with_dcn) or dcn_modulated,
+                          gcb=any(stage_with_gcb),
+                          stem_space_to_depth=stem_space_to_depth)
+        for name, used in not_ported.items():
+            if used:
+                raise NotImplementedError(f"ResNet option {name} is not ported yet")
+        self.out_indices = tuple(out_indices)
+        self.frozen_stages = frozen_stages
+        self.zero_init_residual = zero_init_residual
+        block, stage_blocks = ARCH_SETTINGS[depth]
+        self.conv1 = nn.Conv2d(3, 64, 7, 2, 3, bias=False)
+        self.bn1 = FrozenBatchNorm(64)
+        self.relu = nn.ReLU(inplace=True)
+        self.maxpool = nn.MaxPool2d(3, 2, 1)
+        inplanes = 64
+        self.num_stages = num_stages
+        for i, num_blocks in enumerate(stage_blocks[:num_stages]):
+            planes = 64 * 2 ** i
+            blocks = []
+            for j in range(num_blocks):
+                stride = strides[i] if j == 0 else 1
+                downsample = j == 0 and (stride != 1 or
+                                         inplanes != planes * block.expansion)
+                blocks.append(block(inplanes, planes, stride, downsample, style))
+                inplanes = planes * block.expansion
+            setattr(self, f"layer{i + 1}", nn.Sequential(*blocks))
+        self._freeze_stages()
+
+    def _freeze_stages(self) -> None:
+        if self.frozen_stages < 0:
+            return
+        frozen = [self.conv1, self.bn1] + [getattr(self, f"layer{i}")
+                                           for i in range(1, self.frozen_stages + 1)]
+        for m in frozen:
+            for p in m.parameters():
+                p.requires_grad_(False)
+
+    def init_weights(self, generator: torch.Generator) -> None:
+        """Random init drawn from ``generator``: He-normal (fan_out) convs,
+        identity FrozenBN (zero scale on each block's last BN when
+        ``zero_init_residual``)."""
+        with torch.no_grad():
+            for m in self.modules():
+                if isinstance(m, nn.Conv2d):
+                    fan_out = m.out_channels * m.kernel_size[0] * m.kernel_size[1]
+                    m.weight.normal_(0.0, math.sqrt(2.0 / fan_out),
+                                     generator=generator)
+            if self.zero_init_residual:
+                for m in self.modules():
+                    if isinstance(m, Bottleneck):
+                        m.bn3.weight.zero_()
+                    elif isinstance(m, BasicBlock):
+                        m.bn2.weight.zero_()
+
+    def forward(self, x: torch.Tensor):
+        x = self.maxpool(self.relu(self.bn1(self.conv1(x))))
+        outs = []
+        for i in range(self.num_stages):
+            x = getattr(self, f"layer{i + 1}")(x)
+            if i in self.out_indices:
+                outs.append(x)
+        return tuple(outs)

@@ -30,7 +30,7 @@ setup(
     version=get_version(),
     description="TPU-native IoU-aware single-stage object detection framework",
     packages=find_packages(exclude=("tests", "tools", "configs", "csrc")),
-    package_data={"ioudet": ["_native/*.so"]},
+    package_data={"ioudet": ["_native/*.so"], "ioudet_torch": ["csrc/*.cu"]},
     python_requires=">=3.10",
     install_requires=["jax", "flax", "optax", "numpy", "Pillow"],
     cmdclass={"build_py": BuildWithNative},

@@ -29,3 +29,8 @@ jax.config.update("jax_platforms", "cpu")
 jax.config.update("jax_default_matmul_precision", "float32")
 
 assert jax.default_backend() == "cpu", jax.default_backend()
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "cuda: needs an NVIDIA GPU; skips where CUDA is unavailable")

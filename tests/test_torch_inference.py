@@ -1,0 +1,120 @@
+"""The port's inference API on the CPU at a tiny config: init_detector,
+predict and inference_detector, the absence of jax from a run of the port,
+and no silent CPU fallback when a card is asked for."""
+
+import os
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+from ioudet_torch.apis.inference import (init_detector, inference_detector,
+                                         pipeline_settings, predict)
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+CFG = dict(
+    model=dict(
+        type="IoUAwareRetinaNet",
+        backbone=dict(type="ResNet", depth=18, frozen_stages=1,
+                      norm_cfg=dict(type="FrozenBN")),
+        neck=dict(type="FPN", in_channels=[64, 128, 256, 512], out_channels=32,
+                  start_level=1, add_extra_convs=True, num_outs=5),
+        bbox_head=dict(type="IoUAwareRetinaHead", num_classes=4, in_channels=32,
+                       feat_channels=32, stacked_convs=1,
+                       anchor_strides=(8, 16, 32, 64, 128))),
+    test_cfg=dict(nms_pre=100, score_thr=0.05, nms=dict(type="nms", iou_thr=0.5),
+                  max_per_img=10, rescoring_alpha=0.5, class_topk=2),
+    data=dict(test=dict(pipeline=[
+        dict(type="LoadImageFromFile"),
+        dict(type="Resize", img_scale=(96, 64), keep_ratio=True),
+        dict(type="Normalize", mean=(123.675, 116.28, 103.53),
+             std=(58.395, 57.12, 57.375), to_rgb=True),
+        dict(type="Pad", size_divisor=32, size=(64, 96)),
+        dict(type="Collect", keys=["img"]),
+    ])),
+)
+
+
+@pytest.fixture(scope="module")
+def handle():
+    h = init_detector(CFG, device="cpu", seed=0)
+    with torch.no_grad():
+        h.model.bbox_head.retina_cls.bias.zero_()  # random weights: let scores clear score_thr
+    return h
+
+
+def test_init_detector_is_seeded(handle):
+    again = init_detector(CFG, device="cpu", seed=0)
+    other = init_detector(CFG, device="cpu", seed=1)
+    sd, sa, so = (h.model.state_dict() for h in (handle, again, other))
+    key = "backbone.layer1.0.conv1.weight"
+    assert torch.equal(sd[key], sa[key]) and not torch.equal(sd[key], so[key])
+    assert not handle.model.training
+    assert not handle.model.backbone.layer1[0].conv1.weight.requires_grad
+    assert handle.model.backbone.layer2[0].conv1.weight.requires_grad
+
+
+def test_predict_and_inference_detector(handle):
+    rng = np.random.default_rng(0)
+    imgs = torch.from_numpy(rng.normal(0, 1, (2, 64, 96, 3)).astype(np.float32))
+    shapes = torch.tensor([[64, 96], [48, 80]], dtype=torch.int32)
+    dets, labels = predict(handle, imgs, shapes, torch.tensor([1.0, 0.5]),
+                           torch.tensor([[64, 96]] * 2, dtype=torch.int32))
+    assert tuple(dets.shape) == (2, 10, 5) and tuple(labels.shape) == (2, 10)
+    assert bool(torch.isfinite(dets).all())
+    assert bool(((labels >= -1) & (labels < 3)).all()) and int((labels >= 0).sum()) > 0
+
+    for hw in ((50, 70), (70, 50)):
+        img = rng.integers(0, 256, hw + (3,), dtype=np.uint8)
+        res = inference_detector(handle, img)
+        assert len(res) == 3
+        assert all(r.dtype == np.float32 and r.shape[1:] == (5,) for r in res)
+        assert 0 < sum(map(len, res)) <= 10
+        # boxes are clipped to (new - 1) on the canvas, then scaled back to
+        # the original image: within [0, size] there
+        allb = np.concatenate(res)
+        assert (allb[:, :4] >= 0).all()
+        assert (allb[:, [0, 2]] <= hw[1]).all() and (allb[:, [1, 3]] <= hw[0]).all()
+
+
+def test_pipeline_settings():
+    canvas, scale, mean, std, to_rgb = pipeline_settings(CFG)
+    assert (canvas, scale, to_rgb) == ((64, 96), (96, 64), True)
+    assert pipeline_settings(dict(model=CFG["model"]))[:2] == ((832, 1344), (1333, 800))
+
+
+def test_cuda_without_a_card_raises():
+    if torch.cuda.is_available():
+        pytest.skip("a card is present")
+    with pytest.raises(RuntimeError):
+        init_detector(CFG, device="cuda")
+
+
+def test_rejects_paths_and_bad_images(handle):
+    with pytest.raises(TypeError):
+        inference_detector(handle, "image.jpg")
+    with pytest.raises(ValueError):
+        inference_detector(handle, np.zeros((10, 10), np.uint8))
+
+
+def test_port_runs_without_jax():
+    """import ioudet_torch and a CPU run of the slice leave jax (and flax,
+    cv2) out of sys.modules."""
+    code = (
+        "import sys, numpy as np, torch\n"
+        "import ioudet_torch\n"
+        "from ioudet_torch.apis.inference import init_detector, inference_detector\n"
+        "from tests.test_torch_inference import CFG\n"
+        "h = init_detector(CFG, device='cpu')\n"
+        "inference_detector(h, np.zeros((40, 60, 3), np.uint8))\n"
+        "bad = [m for m in ('jax', 'flax', 'cv2', 'PIL') if m in sys.modules]\n"
+        "ours = [m for m in sys.modules if m == 'ioudet' or m.startswith('ioudet.')]\n"
+        "print(bad, ours)\n"
+        "sys.exit(1 if bad or ours else 0)\n")
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                          capture_output=True, text=True, timeout=300,
+                          env=dict(os.environ, PYTHONPATH=ROOT))
+    assert proc.returncode == 0, proc.stdout + proc.stderr
