@@ -1,32 +1,49 @@
-"""Drive the PyTorch port's serving path once on one NVIDIA GPU and check it.
+"""Drive the PyTorch port's serving and training paths once on one NVIDIA GPU
+and check them.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py                  # everything, as below
+    python3 chip_smoke.py --kernels-only   # phases 1-2: a short first run
+                                           # after a change to a kernel
 
 Phases (any failure exits non-zero):
-  1. build the CUDA NMS kernels from ioudet_torch/csrc with nvcc;
-  2. each kernel against its plain torch version on the card, bit for bit,
-     on adversarial cases (N in 1, 63, 64, 65, 1000, 2000 at batch 16);
+  1. build the three CUDA sources of ioudet_torch/csrc with nvcc, side by side;
+  2. each kernel against its plain torch version on the card: the NMS pair
+     bit for bit on adversarial cases (N in 1, 63, 64, 65, 1000, 2000 at
+     batch 16); the anchor-assignment pair bit for bit (dw/dh to 1e-6) on
+     duplicated gts, anchors equal to gts, invalid anchors and gts, A up to
+     209,538 and G up to 128; the focal pair to rtol 1e-6 (sum) and 1e-5 (dx)
+     on the flagship's five level shapes, f32 and bf16, contiguous and as the
+     permuted NCHW view, and the autograd function against autograd through
+     the plain version;
   3. the flagship IoU-aware RetinaNet R-50-FPN (configs/
      iou_aware_retinanet_r50_fpn_1x.py with class_topk=4, the model of
      __graft_entry__.FLAGSHIP/TEST_CFG) at full width with seeded random
-     weights: ``predict`` on a batch of 832x1344 canvases with host syncs
-     made errors, then three ``inference_detector`` requests, with launch
-     counts, output checks, a plain-NMS replay and a GPU-vs-CPU forward on a
-     small canvas;
-  4. timings: ``predict`` at batch 1 and 16, each kernel against its plain
-     version at N=2000, batch 16.
+     weights, serving: ``predict`` on a batch of 832x1344 canvases with host
+     syncs made errors, then three ``inference_detector`` requests, with
+     launch counts, output checks, a plain-NMS replay and a GPU-vs-CPU
+     forward on a small canvas;
+  4. the same model, training: ``train_detector`` for 6 SGD steps on a batch
+     of 8 canvases with seeded gts, steps 2-6 with host syncs made errors;
+     launch counts, finite and falling losses, frozen parameters unchanged,
+     step 1 replayed with the plain versions in the kernels' place, and a
+     save / resume round trip;
+  5. timings: ``predict`` at batch 1 and 16, the train step, its parts and
+     a torch.profiler summary of it, each kernel against its plain version
+     and its bound at the shape the main path gives it.
 The last two lines are the card's name and power limit, then
 ``{"ok": true, "device": {...}}``; the line before them lists the kernels.
 """
 
 from __future__ import annotations
 
+import copy
 import json
 import os
 import runpy
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -36,6 +53,20 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 CONFIG = os.path.join(ROOT, "configs", "iou_aware_retinanet_r50_fpn_1x.py")
 NMS_SIZES = (1, 63, 64, 65, 1000, 2000)
 BATCH = 16
+TRAIN_BATCH = 8
+TRAIN_STEPS = 6
+NUM_GTS = 100
+# (B, A, G) of the anchor-assignment cases; the last is the flagship's
+ASSIGN_SHAPES = ((3, 1, 1), (3, 500, 17), (3, 4096, 17), (3, 9000, 17),
+                 (2, 9000, 128), (8, 209538, 100))
+# (B, H, W, A, C) of the focal cases: two ragged small ones, then the
+# flagship's five levels at batch 2
+FOCAL_SHAPES = ((2, 6, 9, 3, 7), (3, 5, 7, 9, 80), (2, 104, 168, 9, 80),
+                (2, 52, 84, 9, 80), (2, 26, 42, 9, 80), (2, 13, 21, 9, 80),
+                (2, 7, 11, 9, 80))
+P3_SHAPE = (TRAIN_BATCH, 104, 168, 9, 80)
+HBM_BYTES_PER_S = 3.35e12   # H100 SXM data sheet
+F32_FLOPS_PER_S = 67e12     # f32 outside the tensor cores, same sheet
 
 
 # ------------------------------------------------------------ NMS test cases
@@ -81,6 +112,70 @@ def nms_cases(n: int, batch: int, seed: int = 0):
              ("iou_at_threshold", thresh, all_valid)]
     return [(name, np.ascontiguousarray(b, dtype=np.float32), v)
             for name, b, v in cases]
+
+
+# ------------------------------------------- assignment and focal test cases
+
+def assign_case(batch: int, num_anchors: int, num_gts: int, seed: int = 0,
+                gts_valid: bool = True):
+    """Adversarial input for the anchor-assignment kernels, built with numpy
+    from ``seed``: duplicated gts (ties that force the later-gt-wins rule),
+    anchors equal to gts (IoU exactly 1), 10% invalid anchors, 30% invalid
+    gts (all of them with ``gts_valid=False``).  Returns anchors (A, 4) f32,
+    valid (B, A) bool, gt_bboxes (B, G, 4) f32, gt_valid (B, G) bool,
+    gt_labels (B, G) int32."""
+    rng = np.random.default_rng(seed)
+    xy = rng.uniform(0, 600, (batch, num_gts, 2))
+    wh = rng.uniform(8, 300, (batch, num_gts, 2))
+    gt = np.concatenate([xy, xy + wh], -1).astype(np.float32)
+    ndup = int(num_gts * 0.3)
+    if ndup:
+        src = rng.integers(0, num_gts, (batch, ndup))
+        dst = rng.integers(0, num_gts, (batch, ndup))
+        for b in range(batch):
+            gt[b, dst[b]] = gt[b, src[b]]
+    axy = rng.uniform(0, 640, (num_anchors, 2))
+    awh = rng.uniform(4, 256, (num_anchors, 2))
+    anchors = np.concatenate([axy, axy + awh], -1).astype(np.float32)
+    hits = rng.integers(0, num_anchors, min(40, num_anchors))
+    anchors[hits] = gt[rng.integers(0, batch, hits.size),
+                       rng.integers(0, num_gts, hits.size)]
+    valid = rng.uniform(size=(batch, num_anchors)) < 0.9
+    gt_valid = (rng.uniform(size=(batch, num_gts)) < 0.7) & gts_valid
+    gt_labels = rng.integers(1, 81, (batch, num_gts)).astype(np.int32)
+    return anchors, valid, gt, gt_valid, gt_labels
+
+
+def focal_case(shape, seed: int = 0):
+    """logits (B, C*A, H, W) f32 in the convolution's NCHW layout, labels
+    (B, H*W*A + 13) int32 in 0..C and lw of that shape, f32 in [0, 1): the
+    level's labels and weights are the columns 5 : 5 + H*W*A, as a slice of
+    the all-level tensors would be."""
+    b, h, w, a, c = shape
+    rng = np.random.default_rng(seed)
+    logits = rng.normal(0, 3, (b, a * c, h, w)).astype(np.float32)
+    labels = rng.integers(0, c + 1, (b, h * w * a + 13)).astype(np.int32)
+    lw = rng.uniform(size=labels.shape).astype(np.float32)
+    return logits, labels, lw
+
+
+def train_batch(batch: int, num_gts: int, canvas=(832, 1344), seed: int = 3) -> dict:
+    """A seeded synthetic training batch as numpy arrays: normalised-image
+    noise, ``num_gts`` gt slots per image, about 60% valid, boxes of 16-600
+    px inside the canvas, labels 1..80."""
+    rng = np.random.default_rng(seed)
+    h, w = canvas
+    bw = rng.uniform(16, 600, (batch, num_gts))
+    bh = rng.uniform(16, 600, (batch, num_gts))
+    x1 = rng.uniform(0, 1, (batch, num_gts)) * (w - 1 - bw)
+    y1 = rng.uniform(0, 1, (batch, num_gts)) * (h - 1 - bh)
+    shapes = np.tile(np.array([[h, w]], np.int32), (batch, 1))
+    return dict(
+        img=rng.normal(0, 1, (batch, h, w, 3)).astype(np.float32),
+        gt_bboxes=np.stack([x1, y1, x1 + bw, y1 + bh], -1).astype(np.float32),
+        gt_labels=rng.integers(1, 81, (batch, num_gts)).astype(np.int32),
+        gt_valid=rng.uniform(size=(batch, num_gts)) < 0.6,
+        img_shape=shapes, pad_shape=shapes.copy())
 
 
 # ----------------------------------------------------------------- helpers
@@ -162,10 +257,111 @@ def phase_kernels(K) -> dict:
     return err
 
 
+def to_cuda(*arrays):
+    return tuple(torch.from_numpy(np.ascontiguousarray(a)).cuda() for a in arrays)
+
+
+def max_abs(a: torch.Tensor, b: torch.Tensor) -> float:
+    return float((a.double() - b.double()).abs().max()) if a.numel() else 0.0
+
+
+def phase_assign_kernels(A) -> dict:
+    """K2a / K2b against their plain versions on the card: gt max, labels,
+    weights, positive mask, matched gt and dx/dy bit for bit, dw/dh to 1e-6
+    (logf against torch.log); two runs of the kernels give the same bits."""
+    err = {"assign_gtmax_kernel": 0.0, "assign_targets_kernel": 0.0}
+    settings = ((0.0, -1.0, (0.0,) * 4, (1.0,) * 4),
+                (0.3, 2.0, (0.0,) * 4, (0.1, 0.1, 0.2, 0.2)))
+    for bsz, na, ng in ASSIGN_SHAPES:
+        for min_pos, pw, means, stds in settings:
+            for gts_valid in (True, False):
+                anchors, valid, gt, gtv, gtl = to_cuda(*assign_case(
+                    bsz, na, ng, seed=na + ng, gts_valid=gts_valid))
+                table = A.gt_table(gt, gtl, gtv)
+                args = (0.5, 0.4, min_pos, 1.0 if pw <= 0 else pw, means, stds)
+                gtmax = A.assign_gtmax(anchors, valid, table)
+                outs = A.assign_targets(anchors, valid, table, gtmax, *args)
+                torch.cuda.synchronize()
+                again = (A.assign_gtmax(anchors, valid, table),
+                         *A.assign_targets(anchors, valid, table, gtmax, *args))
+                plain_gtmax = A.assign_gtmax_plain(anchors, valid, table)
+                plain = A.assign_targets_plain(anchors, valid, table, plain_gtmax, *args)
+                torch.cuda.synchronize()
+                err["assign_gtmax_kernel"] = max(err["assign_gtmax_kernel"],
+                                                 max_abs(gtmax, plain_gtmax))
+                err["assign_targets_kernel"] = max(
+                    [err["assign_targets_kernel"]] +
+                    [max_abs(o, q) for o, q in zip(outs, plain)])
+                exact = (torch.equal(gtmax, plain_gtmax) and
+                         all(torch.equal(o, q) for o, q in
+                             zip(outs[:3] + outs[4:], plain[:3] + plain[4:])) and
+                         torch.equal(outs[3][..., :2], plain[3][..., :2]))
+                same = all(torch.equal(o, q) for o, q in zip((gtmax, *outs), again))
+                dwh = max_abs(outs[3][..., 2:], plain[3][..., 2:])
+                npos = int(outs[2].sum())
+                check(exact and same and dwh <= 1e-6 and
+                      bool(torch.isfinite(outs[3]).all()) and (gts_valid or npos == 0),
+                      f"assign B={bsz} A={na} G={ng} min_pos={min_pos} pos_weight={pw} "
+                      f"gts_valid={gts_valid}: bit-equal to plain and from run to run, "
+                      f"dw/dh within {dwh:.1e} ({npos} positives)")
+    return err
+
+
+def phase_focal_kernels(Fc) -> dict:
+    """K3a / K3b against their plain versions on the card, and the autograd
+    function against autograd through the plain version."""
+    err = {"focal_sum_kernel": 0.0, "focal_dx_kernel": 0.0}
+    for shape in FOCAL_SHAPES:
+        b, h, w, a, c = shape
+        n = h * w * a
+        nchw, labels_all, lw_all = to_cuda(*focal_case(shape, seed=h))
+        labels, lw = labels_all[:, 5:5 + n], lw_all[:, 5:5 + n]
+        for dtype, dx_tol in ((torch.float32, dict(rtol=1e-5, atol=1e-6)),
+                              (torch.bfloat16, dict(rtol=2e-2, atol=1e-6))):
+            view = nchw.to(dtype).permute(0, 2, 3, 1)   # what the heads return
+            for name, x in (("permuted NCHW view", view),
+                            ("contiguous", view.contiguous())):
+                total = Fc.focal_level_sum(x, labels, lw, 2.0, 0.25, a)
+                again = Fc.focal_level_sum(x, labels, lw, 2.0, 0.25, a)
+                want = Fc.focal_level_sum_plain(x, labels, lw, 2.0, 0.25, a)
+                worst = 0.0
+                for g in (1.0, 3.0):
+                    gt = torch.full((), g, device="cuda")
+                    dx = Fc.focal_level_dx(gt, x, labels, lw, 2.0, 0.25, a)
+                    dx_want = Fc.focal_level_dx_plain(gt, x, labels, lw, 2.0, 0.25, a)
+                    torch.cuda.synchronize()
+                    check(dx.dtype == dtype and dx.stride() == x.stride(),
+                          f"focal {shape} {dtype} {name} g={g}: dx in the logits' "
+                          "type and strides")
+                    torch.testing.assert_close(dx.float(), dx_want.float(), **dx_tol)
+                    worst = max(worst, max_abs(dx, dx_want))
+                torch.testing.assert_close(total, want, rtol=1e-6, atol=0.0)
+                check(torch.equal(total, again),
+                      f"focal {shape} {dtype} {name}: sum {float(total):.6g} within 1e-6 "
+                      f"of plain, same bits twice; dx max abs err {worst:.2e}")
+                err["focal_sum_kernel"] = max(err["focal_sum_kernel"], max_abs(total, want))
+                if dtype == torch.float32:
+                    err["focal_dx_kernel"] = max(err["focal_dx_kernel"], worst)
+        # the autograd function against autograd through the plain version
+        x1 = nchw.permute(0, 2, 3, 1).clone().requires_grad_(True)
+        x2 = x1.detach().clone().requires_grad_(True)
+        (3.0 * Fc.FusedLevelFocalSum.apply(x1, labels, lw, 2.0, 0.25, a)).backward()
+        (3.0 * Fc.focal_level_sum_plain(x2, labels, lw, 2.0, 0.25, a)).backward()
+        torch.testing.assert_close(x1.grad, x2.grad, rtol=1e-4, atol=1e-6)
+        check(True, f"focal {shape}: gradient of FusedLevelFocalSum within 1e-4 of "
+                    "autograd through the plain version")
+    return err
+
+
 def flagship_cfg() -> dict:
     cfg = runpy.run_path(CONFIG)
     test_cfg = dict(cfg["test_cfg"], class_topk=4)  # __graft_entry__.TEST_CFG
-    return dict(model=cfg["model"], test_cfg=test_cfg, data=cfg["data"])
+    keys = ("model", "train_cfg", "data", "optimizer", "lr_config", "checkpoint_config")
+    # one epoch of TRAIN_STEPS iterations; one log record, at the last step;
+    # mmdet's gradient clipping for RetinaNet (the weights are random)
+    return dict({k: cfg[k] for k in keys}, test_cfg=test_cfg, total_epochs=1,
+                log_config=dict(interval=TRAIN_STEPS),
+                optimizer_config=dict(grad_clip=dict(max_norm=35, norm_type=2)))
 
 
 def canvases(batch: int, rng) -> tuple:
@@ -178,14 +374,14 @@ def canvases(batch: int, rng) -> tuple:
     return img, img_shapes, factors, pad
 
 
-def phase_slice(K, handle, inputs) -> dict:
+def phase_slice(B, K, handle, inputs) -> dict:
     """Returns the kernels' launch counts of the main path's run."""
     from ioudet_torch.apis.inference import inference_detector, predict
 
     nc = handle.model.bbox_head.cls_out_channels
     predict(handle, *inputs)  # warm-up: anchors reach the device here
     torch.cuda.synchronize()
-    K.reset_launches()
+    B.reset_launches()
     torch.cuda.set_sync_debug_mode("error")
     try:
         dets, labels = predict(handle, *inputs)
@@ -196,9 +392,9 @@ def phase_slice(K, handle, inputs) -> dict:
                 for h, w in ((480, 640), (800, 1333), (1333, 800))]
     results = [inference_detector(handle, im) for im in requests]
     torch.cuda.synchronize()
-    counts = dict(K.launches)
-    check(all(c >= 1 for c in counts.values()),
-          f"main path launched every kernel: {counts}")
+    counts = dict(B.launches)
+    check(counts["nms_mask_kernel"] >= 1 and counts["nms_reduce_kernel"] >= 1,
+          f"serving path launched both NMS kernels: {counts}")
     bsz = inputs[0].shape[0]
     check(tuple(dets.shape) == (bsz, 100, 5) and tuple(labels.shape) == (bsz, 100),
           f"predict shapes {tuple(dets.shape)} {tuple(labels.shape)}")
@@ -233,10 +429,136 @@ def phase_slice(K, handle, inputs) -> dict:
     return counts
 
 
+def loss_and_head_grads(model, batch) -> tuple:
+    """One forward and backward without an update: the detached loss dict and
+    the weight gradients of the three output convolutions."""
+    model.zero_grad(set_to_none=True)
+    losses = model.forward_train(batch["img"], batch["gt_bboxes"], batch["gt_labels"],
+                                 batch["gt_valid"], batch["img_shape"], batch["pad_shape"])
+    sum(losses.values()).backward()
+    head = model.bbox_head
+    grads = {n: getattr(head, n).weight.grad.clone()
+             for n in ("retina_cls", "retina_reg", "retina_iou")}
+    model.zero_grad(set_to_none=True)
+    return {k: v.detach() for k, v in losses.items()}, grads
+
+
+def phase_train(B, A, Fc, handle, cfg) -> tuple:
+    """The flagship's train path through ``train_detector``; returns the
+    kernels' launch counts of that run, the Runner and the batch."""
+    from ioudet_torch.apis.checkpoint import load_checkpoint
+    from ioudet_torch.apis.train import (build_optimizer, make_lr_schedule,
+                                         make_train_step, make_trainable_mask,
+                                         train_detector)
+    model = handle.model
+    batch = {k: torch.from_numpy(v).cuda()
+             for k, v in train_batch(TRAIN_BATCH, NUM_GTS).items()}
+    frozen = ("backbone.conv1.", "backbone.bn1.", "backbone.layer1.")
+    before = {k: v.clone() for k, v in model.state_dict().items()}
+
+    # step 1 with the kernels, then with the plain versions in their place
+    model.train()
+    kernel_losses, kernel_grads = loss_and_head_grads(model, batch)
+    swapped = {(A, "assign_gtmax"): A.assign_gtmax_plain,
+               (A, "assign_targets"): A.assign_targets_plain,
+               (Fc, "focal_level_sum"): Fc.focal_level_sum_plain,
+               (Fc, "focal_level_dx"): Fc.focal_level_dx_plain}
+    kept = {key: getattr(*key) for key in swapped}
+    for (mod, name), fn in swapped.items():
+        setattr(mod, name, fn)
+    try:
+        plain_losses, plain_grads = loss_and_head_grads(model, batch)
+    finally:
+        for (mod, name), fn in kept.items():
+            setattr(mod, name, fn)
+    for k in kernel_losses:
+        torch.testing.assert_close(kernel_losses[k], plain_losses[k], rtol=1e-5, atol=0.0)
+    for k in kernel_grads:
+        scale = float(plain_grads[k].abs().max())
+        diff = max_abs(kernel_grads[k], plain_grads[k])
+        check(diff <= 1e-3 * scale, f"step 1, grad of {k}.weight: kernels against the "
+              f"plain replay, max abs diff {diff:.2e} of max {scale:.2e} (limit 1e-3)")
+    check(True, "step 1 losses through the kernels within 1e-5 of the plain replay: "
+          + ", ".join(f"{k} {float(v):.6f}" for k, v in kernel_losses.items()))
+
+    history = []
+
+    def hook(step, log_vars):
+        history.append(log_vars)
+        # steps 2..TRAIN_STEPS must not sync the host
+        torch.cuda.set_sync_debug_mode("error" if step < TRAIN_STEPS else 0)
+
+    torch.cuda.synchronize()
+    B.reset_launches()
+    with tempfile.TemporaryDirectory() as work_dir:
+        try:
+            runner = train_detector(handle, [batch] * TRAIN_STEPS, cfg, work_dir,
+                                    device="cuda", step_hook=hook)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        torch.cuda.synchronize()
+        counts = dict(B.launches)
+        with open(os.path.join(work_dir, "log.json")) as f:
+            records = [json.loads(line) for line in f]
+        check(len(records) == 1 and records[0]["step"] == TRAIN_STEPS,
+              f"log.json holds the record of step {TRAIN_STEPS}")
+        print(f"ok: steps 2-{TRAIN_STEPS} ran under torch.cuda.set_sync_debug_mode('error')")
+        want = {"assign_gtmax_kernel": TRAIN_STEPS, "assign_targets_kernel": TRAIN_STEPS,
+                "focal_sum_kernel": 5 * TRAIN_STEPS, "focal_dx_kernel": 5 * TRAIN_STEPS}
+        check(all(counts[k] == n for k, n in want.items()),
+              f"train path launched every kernel, 1 + 1 + 5 + 5 a step: {counts}")
+
+        losses = [{k: float(v) for k, v in h.items()} for h in history]
+        for i, rec in enumerate(losses):
+            print(f"step {i + 1}: " + ", ".join(f"{k} {v:.6f}" for k, v in rec.items()))
+        check(all(np.isfinite(v) for rec in losses for v in rec.values()),
+              "every loss of every step is finite")
+        check(losses[-1]["loss"] < losses[0]["loss"],
+              f"loss fell on the same batch: {losses[0]['loss']:.6f} -> "
+              f"{losses[-1]['loss']:.6f}")
+        for k, v in kernel_losses.items():
+            check(abs(losses[0][k] - float(v)) <= 1e-5 * abs(float(v)),
+                  f"step 1 {k} equals the replay's")
+        after = model.state_dict()
+        names = [n for n, _ in model.named_parameters()]
+        still = [n for n in names if n.startswith(frozen)]
+        check(all(torch.equal(before[n], after[n]) for n in still) and
+              all(torch.equal(before[n], after[n]) for n in after if n not in names),
+              f"{len(still)} frozen parameters and the FrozenBN statistics bit-unchanged")
+        moved = [n for n in names if not n.startswith(frozen)]
+        check(all(not torch.equal(before[n], after[n]) for n in moved),
+              f"{len(moved)} trained parameters changed")
+
+        # save / resume: one more step from the checkpoint equals the step
+        # taken without the round trip (cuDNN held to deterministic kernels)
+        torch.backends.cudnn.deterministic = True
+        ckpt = os.path.join(work_dir, "epoch_1.pth")
+        twin = copy.deepcopy(model)
+        with torch.no_grad():
+            for prm in twin.parameters():
+                prm.zero_()
+        make_trainable_mask(twin)
+        twin_opt = build_optimizer(twin, cfg["optimizer"])
+        meta = load_checkpoint(twin, ckpt, optimizer=twin_opt)
+        check(meta["step"] == TRAIN_STEPS and meta["epoch"] == 1,
+              f"checkpoint meta: step {meta['step']}, epoch {meta['epoch']}")
+        sched = make_lr_schedule(cfg["optimizer"]["lr"], cfg["lr_config"], TRAIN_STEPS, 1)
+        twin_step = make_train_step(twin, twin_opt, sched,
+                                    cfg["optimizer_config"]["grad_clip"])
+        runner.train_step(batch, TRAIN_STEPS)
+        twin_step(batch, TRAIN_STEPS)
+        torch.cuda.synchronize()
+        torch.backends.cudnn.deterministic = False
+        live = model.state_dict()
+        worst = max(max_abs(v, live[k]) for k, v in twin.state_dict().items())
+        check(worst == 0.0, "save, resume, one more step: parameters bit-equal to the "
+              "step taken without the round trip")
+    return counts, runner, batch
+
+
 def phase_reference(handle) -> None:
     """Full-width model on a small canvas, GPU against CPU (f32, TF32 off):
     every branch to 2e-3 (f32 sums over 100+ layers in another order)."""
-    import copy
     rng = np.random.default_rng(2)
     x = torch.from_numpy(rng.normal(0, 1, (1, 128, 192, 3)).astype(np.float32))
     with torch.inference_mode():
@@ -250,10 +572,116 @@ def phase_reference(handle) -> None:
     check(worst <= 2e-3, f"GPU forward matches CPU forward: max rel err {worst:.2e}")
 
 
-def phase_timing(K, handle, rng, card: str) -> dict:
+IOU_FLOPS = 16    # one IoU given the areas: intersection 10, product, union 2, floor, division, compare
+AREA_FLOPS = 5
+FOCAL_FWD_FLOPS = 22   # per element: exp, log1p and the division count 1 each
+FOCAL_BWD_FLOPS = 33
+
+
+def bound(nbytes: float, flops: float) -> tuple:
+    """(bound_ms, bound_by): the larger of the bytes over the card's memory
+    rate and the f32 operations over its peak rate (H100 SXM data sheet)."""
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, flops / F32_FLOPS_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def library_focal(x, onehot, lw, gamma=2.0, alpha=0.25):
+    """The focal sum built on F.binary_cross_entropy_with_logits, the usual
+    composition in plain PyTorch.  A yardstick only: the port never calls it."""
+    import torch.nn.functional as F
+    p = torch.sigmoid(x)
+    ce = F.binary_cross_entropy_with_logits(x, onehot, reduction="none")
+    p_t = p * onehot + (1 - p) * (1 - onehot)
+    a_t = alpha * onehot + (1 - alpha) * (1 - onehot)
+    return (a_t * (1 - p_t) ** gamma * ce * lw).sum()
+
+
+def train_step_parts(runner, batch, reps: int = 5) -> dict:
+    """Medians by CUDA events of the parts of one train step: forward (the
+    network), loss (of which the assignment alone), backward, update."""
+    model, head, opt = runner.model, runner.model.bbox_head, runner.optimizer
+    cfg = dict(model.train_cfg)
+    gts = (batch["gt_bboxes"], batch["gt_labels"], batch["gt_valid"],
+           batch["img_shape"], batch["pad_shape"])
+    parts = {k: [] for k in ("forward", "loss", "assignment", "backward", "update")}
+    for _ in range(reps + 1):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(7)]
+        opt.zero_grad(set_to_none=True)
+        ev[0].record()
+        outs = model(batch["img"])
+        ev[1].record()
+        losses = head.loss(*outs, *gts, cfg)
+        ev[2].record()
+        sum(losses.values()).backward()
+        ev[3].record()
+        opt.step()
+        ev[4].record()
+        with torch.no_grad():
+            ev[5].record()
+            head._targets([tuple(o.shape[1:3]) for o in outs[0]], *gts, cfg, None, None)
+            ev[6].record()
+        torch.cuda.synchronize()
+        for name, (a, b) in zip(parts, ((0, 1), (1, 2), (5, 6), (2, 3), (3, 4))):
+            parts[name].append(ev[a].elapsed_time(ev[b]))
+    return {k: statistics.median(v[1:]) for k, v in parts.items()}
+
+
+def profile_train_step(runner, batch, step: int, tag: str, steps: int = 2) -> None:
+    """torch.profiler over ``steps`` train steps: the device's busy share and
+    the kernels that take most of its time, by name.  Prints "not measured"
+    if the profiler saw no device activity."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        for _ in range(steps):
+            runner.train_step(batch, step)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t) * 1e3
+    rows = {}
+    for e in prof.key_averages():
+        if getattr(e, "device_type", None) == DeviceType.CUDA:
+            us = getattr(e, "self_device_time_total", None)
+            us = getattr(e, "self_cuda_time_total", 0.0) if us is None else us
+            rows[e.key] = rows.get(e.key, 0.0) + us / 1e3
+    busy = sum(rows.values())
+    if busy <= 0.0:
+        print(f"train step profile: not measured (no device activity seen) {tag}]")
+        return
+    # by kind: the port's kernels by their names, PyTorch's own elementwise,
+    # reduction and copy kernels (at::native), the layout changes cuDNN puts
+    # around its kernels, and the rest, which is cuDNN's and cuBLAS's
+    # convolution kernels (implicit GEMM, FFT, wgrad, dgrad)
+    kinds = {"port": 0.0, "at::native": 0.0, "layout": 0.0, "convolution": 0.0}
+    for name, ms in rows.items():
+        if any(k in name for k in KERNELS):
+            kinds["port"] += ms
+        elif "at::native" in name:
+            kinds["at::native"] += ms
+        elif "nchwToNhwc" in name or "nhwcToNchw" in name:
+            kinds["layout"] += ms
+        else:
+            kinds["convolution"] += ms
+    print(f"train step profile over {steps} steps: device busy {busy:.3f} ms of "
+          f"{wall:.3f} ms wall ({100 * busy / wall:.1f}%); by kind, ms: " +
+          ", ".join(f"{k} {v:.3f}" for k, v in kinds.items()) + f" {tag}]", flush=True)
+    for name, ms in sorted(rows.items()):
+        if any(k in name for k in KERNELS):
+            each = sorted((e.time_range.start, e.time_range.elapsed_us()) for e in prof.events()
+                          if e.device_type == DeviceType.CUDA and e.name == name)
+            print(f"  {ms:9.3f} ms {100 * ms / busy:5.1f}%  {name[:60]}; each launch, us: "
+                  + " ".join(f"{us:.0f}" for _, us in each), flush=True)
+    for name, ms in sorted(rows.items(), key=lambda kv: -kv[1])[:12]:
+        print(f"  {ms:9.3f} ms {100 * ms / busy:5.1f}%  {name[:90]}", flush=True)
+
+
+def phase_timing(K, A, Fc, handle, runner, batch, rng, card: str) -> dict:
+    """Timings; returns per kernel (ms, plain_ms, bound_ms, bound_by, library_ms)."""
     from ioudet_torch.apis.inference import predict
 
     tag = f"[{card}; f32"
+    runner.model.eval()
     for tf32 in (False, True):
         set_tf32(tf32)
         for bsz in (1, BATCH):
@@ -262,22 +690,138 @@ def phase_timing(K, handle, rng, card: str) -> dict:
             print(f"predict batch {bsz}: median of 10 {ms:.3f} ms, "
                   f"{bsz * 1e3 / ms:.2f} img/s "
                   f"{tag}, TF32 {'on' if tf32 else 'off'}]", flush=True)
-    set_tf32(False)
+            del inputs
+    torch.cuda.empty_cache()
 
+    runner.model.train()
+    step = runner.step + 1
+    for tf32 in (False, True):
+        set_tf32(tf32)
+        torch.cuda.reset_peak_memory_stats()
+        ms = host_ms(lambda: runner.train_step(batch, step), reps=10, warmup=2)
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        print(f"train step batch {TRAIN_BATCH}: median of 10 {ms:.3f} ms, "
+              f"{TRAIN_BATCH * 1e3 / ms:.2f} img/s, peak memory {peak:.2f} GiB "
+              f"{tag}, TF32 {'on' if tf32 else 'off'}]", flush=True)
+        parts = train_step_parts(runner, batch)
+        print(f"train step parts (CUDA events, median of 5), ms: " +
+              ", ".join(f"{k} {v:.3f}" for k, v in parts.items()) +
+              f" {tag}, TF32 {'on' if tf32 else 'off'}]", flush=True)
+        profile_train_step(runner, batch, step, f"{tag}, TF32 {'on' if tf32 else 'off'}")
+    set_tf32(False)
+    runner.optimizer.zero_grad(set_to_none=True)
+    torch.cuda.empty_cache()
+
+    times = {}
+    # K1 at N=2000, batch 16
     _, boxes, valid = nms_cases(2000, BATCH, seed=7)[0]
-    b = torch.from_numpy(boxes).cuda()
-    v = torch.from_numpy(valid).cuda()
+    b, v = to_cuda(boxes, valid)
     words = K.nms_mask(b, 0.5)
-    times = {
-        "nms_mask_kernel": (cuda_ms(lambda: K.nms_mask(b, 0.5), 50),
-                            cuda_ms(lambda: K.nms_mask_plain(b, 0.5), 10)),
-        "nms_reduce_kernel": (cuda_ms(lambda: K.nms_reduce(words, v), 50),
-                              cuda_ms(lambda: K.nms_reduce_plain(words, v), 2, 1)),
-    }
-    for name, (ms, plain) in times.items():
-        print(f"{name} N=2000 batch {BATCH}: kernel {ms:.4f} ms, plain torch "
-              f"{plain:.4f} ms {tag}]", flush=True)
+    keep = K.nms_reduce(words, v)
+    n, nw = 2000, K.num_words(2000)
+    pairs = BATCH * n * (n - 1) // 2
+    times["nms_mask_kernel"] = (
+        cuda_ms(lambda: K.nms_mask(b, 0.5), 50), cuda_ms(lambda: K.nms_mask_plain(b, 0.5), 10),
+        *bound(b.numel() * 4 + words.numel() * 8,
+               pairs * IOU_FLOPS + BATCH * n * AREA_FLOPS), None)
+    # the walk reads the diagonal word of every row and the later words of
+    # the rows it keeps: what this run's data needs
+    kept = keep.sum(dim=1).double()
+    need = float((kept * nw * 8).sum()) + BATCH * n * (8 + 1 + 1)
+    times["nms_reduce_kernel"] = (
+        cuda_ms(lambda: K.nms_reduce(words, v), 50),
+        cuda_ms(lambda: K.nms_reduce_plain(words, v), 2, 1),
+        *bound(need, float(kept.sum()) * nw), None)
+
+    # K2 at the flagship's shape: its own anchors, the training batch's gts
+    head = runner.model.bbox_head
+    sizes = [(104, 168), (52, 84), (26, 42), (13, 21), (7, 11)]
+    anchors, avalid = head.get_anchors(sizes, batch["pad_shape"])
+    anchors, avalid = anchors.contiguous(), avalid.contiguous()
+    table = A.gt_table(batch["gt_bboxes"], batch["gt_labels"], batch["gt_valid"])
+    args = (0.5, 0.4, 0.0, 1.0, (0.0,) * 4, (1.0,) * 4)
+    gtmax = A.assign_gtmax(anchors, avalid, table)
+    outs = A.assign_targets(anchors, avalid, table, gtmax, *args)
+    na, bsz, ng = anchors.shape[0], table.shape[0], table.shape[1]
+    # IoUs the data needs: valid gts x valid anchors, image by image
+    live = float((batch["gt_valid"].sum(1).double() * avalid.sum(1).double()).sum())
+    in_bytes = na * 16 + bsz * na + table.numel() * 4
+    times["assign_gtmax_kernel"] = (
+        cuda_ms(lambda: A.assign_gtmax(anchors, avalid, table), 20),
+        cuda_ms(lambda: A.assign_gtmax_plain(anchors, avalid, table), 3, 1),
+        *bound(in_bytes + gtmax.numel() * 4,
+               live * (IOU_FLOPS + 1) + na * AREA_FLOPS), None)
+    times["assign_targets_kernel"] = (
+        cuda_ms(lambda: A.assign_targets(anchors, avalid, table, gtmax, *args), 20),
+        cuda_ms(lambda: A.assign_targets_plain(anchors, avalid, table, gtmax, *args), 3, 1),
+        *bound(in_bytes + gtmax.numel() * 4 + sum(o.numel() * 4 for o in outs),
+               live * (IOU_FLOPS + 4) + na * AREA_FLOPS + bsz * na * 30), None)
+    del outs
+
+    # K3 at P3, batch 8, on what the train step gives it: the head's own
+    # classification output (a permuted NCHW view) and the targets' slices
+    bsz, h, w, a, c = P3_SHAPE
+    nl = h * w * a
+    with torch.no_grad():
+        x = runner.model(batch["img"])[0][0]
+        _, targets, _ = head._targets(
+            sizes, batch["gt_bboxes"], batch["gt_labels"], batch["gt_valid"],
+            batch["img_shape"], batch["pad_shape"], dict(runner.model.train_cfg),
+            None, None)
+    check(tuple(x.shape) == (bsz, h, w, a * c) and not x.is_contiguous(),
+          f"P3 logits of the step: {tuple(x.shape)}, strides {x.stride()}")
+    labels, lw = targets.labels[:, :nl], targets.label_weights[:, :nl]
+    del targets
+    one = torch.ones((), device="cuda")
+    small = (labels.numel() + lw.numel()) * 4
+    classes = torch.arange(1, c + 1, device="cuda", dtype=torch.int32)
+    onehot = (labels.reshape(bsz, h, w, a, 1) == classes).float()
+    lw5 = lw.reshape(bsz, h, w, a, 1)
+    x5 = x.reshape(bsz, h, w, a, c)   # a copy, made once
+
+    def library_backward():
+        leaf = x5.detach().requires_grad_(True)
+        library_focal(leaf, onehot, lw5).backward()
+
+    lib_fwd = cuda_ms(lambda: library_focal(x5, onehot, lw5), 5)
+    lib_both = cuda_ms(library_backward, 5)
+    times["focal_sum_kernel"] = (
+        cuda_ms(lambda: Fc.focal_level_sum(x, labels, lw, 2.0, 0.25, a), 20),
+        cuda_ms(lambda: Fc.focal_level_sum_plain(x, labels, lw, 2.0, 0.25, a), 5),
+        *bound(x.numel() * 4 + small + 4, x.numel() * FOCAL_FWD_FLOPS), lib_fwd)
+    times["focal_dx_kernel"] = (
+        cuda_ms(lambda: Fc.focal_level_dx(one, x, labels, lw, 2.0, 0.25, a), 20),
+        cuda_ms(lambda: Fc.focal_level_dx_plain(one, x, labels, lw, 2.0, 0.25, a), 5),
+        *bound(2 * x.numel() * 4 + small + 4, x.numel() * FOCAL_BWD_FLOPS),
+        lib_both - lib_fwd)
+    # the same pair on seeded random logits (sd 3), labels and weights
+    rnd, rnd_labels, rnd_lw = to_cuda(*focal_case(P3_SHAPE, seed=11))
+    rnd, rnd_labels, rnd_lw = rnd.permute(0, 2, 3, 1), rnd_labels[:, 5:5 + nl], rnd_lw[:, 5:5 + nl]
+    rnd_ms = (cuda_ms(lambda: Fc.focal_level_sum(rnd, rnd_labels, rnd_lw, 2.0, 0.25, a), 20),
+              cuda_ms(lambda: Fc.focal_level_dx(one, rnd, rnd_labels, rnd_lw, 2.0, 0.25, a), 20))
+    print(f"focal kernels at P3 on random logits and labels in place of the step's: "
+          f"sum {rnd_ms[0]:.4f} ms, dx {rnd_ms[1]:.4f} ms {tag}]", flush=True)
+    shapes = {"nms_mask_kernel": f"N=2000 batch {BATCH}",
+              "nms_reduce_kernel": f"N=2000 batch {BATCH}",
+              "assign_gtmax_kernel": f"A={na} G={ng} batch {TRAIN_BATCH}",
+              "assign_targets_kernel": f"A={na} G={ng} batch {TRAIN_BATCH}",
+              "focal_sum_kernel": f"P3 {P3_SHAPE} f32, the step's logits and targets",
+              "focal_dx_kernel": f"P3 {P3_SHAPE} f32, the step's logits and targets"}
+    for name, (ms, plain, bound_ms, by, lib) in times.items():
+        lib_s = "none" if lib is None else f"{lib:.4f} ms"
+        print(f"{name} {shapes[name]}: kernel {ms:.4f} ms, plain torch {plain:.4f} ms, "
+              f"bound {bound_ms:.4f} ms by {by}, library {lib_s} {tag}]", flush=True)
     return times
+
+
+KERNELS = {  # name: (source, the TPU kernel it replaces)
+    "nms_mask_kernel": ("nms_kernel.cu", "ioudet/ops/nms_pallas.py:26"),
+    "nms_reduce_kernel": ("nms_kernel.cu", "ioudet/ops/nms_pallas.py:81"),
+    "assign_gtmax_kernel": ("assign_kernel.cu", "ioudet/ops/assign_pallas.py:66"),
+    "assign_targets_kernel": ("assign_kernel.cu", "ioudet/ops/assign_pallas.py:100"),
+    "focal_sum_kernel": ("focal_kernel.cu", "ioudet/ops/focal_pallas.py:68"),
+    "focal_dx_kernel": ("focal_kernel.cu", "ioudet/ops/focal_pallas.py:94"),
+}
 
 
 def main() -> int:
@@ -287,38 +831,57 @@ def main() -> int:
         return 1
     sys.path.insert(0, ROOT)
     from ioudet_torch.apis.inference import init_detector
+    from ioudet_torch.ops import _build as B
+    from ioudet_torch.ops import assign_cuda as A
+    from ioudet_torch.ops import focal_cuda as Fc
     from ioudet_torch.ops import nms_cuda as K
 
     card = card_line()
     print(f"card: {card}; torch {torch.__version__}, CUDA {torch.version.cuda}", flush=True)
     t = time.perf_counter()
-    K.build()
-    print(f"phase 1: built {K.library_path().name} in "
-          f"{time.perf_counter() - t:.2f} s", flush=True)
+    libraries = (K.LIBRARY, A.LIBRARY, Fc.LIBRARY)
+    B.build_all(libraries)
+    print(f"phase 1: built {', '.join(lib.path().name for lib in libraries)} side by "
+          f"side in {time.perf_counter() - t:.2f} s", flush=True)
 
     set_tf32(False)
     print("phase 2: kernels against plain torch on the card", flush=True)
     err = phase_kernels(K)
+    err.update(phase_assign_kernels(A))
+    err.update(phase_focal_kernels(Fc))
+    torch.cuda.empty_cache()
+    if "--kernels-only" in sys.argv[1:]:
+        print(json.dumps({"max_abs_err": err}))
+        return 0
 
-    print("phase 3: flagship slice; TF32 off for cuDNN and matmul; "
+    print("phase 3: flagship serving slice; TF32 off for cuDNN and matmul; "
           "retina_cls.bias zeroed so that random-weight scores clear "
           "score_thr and NMS sees real work", flush=True)
-    handle = init_detector(flagship_cfg(), device="cuda", seed=0)
+    cfg = flagship_cfg()
+    handle = init_detector(cfg, device="cuda", seed=0)
+    bias = handle.model.bbox_head.retina_cls.bias.detach().clone()
     with torch.no_grad():
         handle.model.bbox_head.retina_cls.bias.zero_()
     rng = np.random.default_rng(0)
-    launches = phase_slice(K, handle, canvases(BATCH, rng))
+    launches = phase_slice(B, K, handle, canvases(BATCH, rng))
     phase_reference(handle)
+    torch.cuda.empty_cache()
 
-    print("phase 4: timings", flush=True)
-    times = phase_timing(K, handle, rng, card)
-    replaces = {"nms_mask_kernel": "ioudet/ops/nms_pallas.py:26",
-                "nms_reduce_kernel": "ioudet/ops/nms_pallas.py:81"}
-    kernels = [dict(name=name, route="cuda",
-                    source="ioudet_torch/csrc/nms_kernel.cu",
-                    replaces=replaces[name], launches=launches[name],
-                    max_abs_err=err[name], ms=times[name][0],
-                    plain_ms=times[name][1]) for name in replaces]
+    print(f"phase 4: flagship train path, batch {TRAIN_BATCH}, {TRAIN_STEPS} steps; "
+          "TF32 off; retina_cls.bias back at its focal prior", flush=True)
+    with torch.no_grad():
+        handle.model.bbox_head.retina_cls.bias.copy_(bias)
+    train_launches, runner, batch = phase_train(B, A, Fc, handle, cfg)
+    launches = {k: launches[k] + train_launches[k] for k in launches}
+
+    print("phase 5: timings", flush=True)
+    times = phase_timing(K, A, Fc, handle, runner, batch, rng, card)
+    kernels = [dict(name=name, route="cuda", source=f"ioudet_torch/csrc/{source}",
+                    replaces=replaces, launches=launches[name],
+                    max_abs_err=err[name], ms=times[name][0], plain_ms=times[name][1],
+                    bound_ms=times[name][2], bound_by=times[name][3],
+                    library_ms=times[name][4])
+               for name, (source, replaces) in KERNELS.items()]
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

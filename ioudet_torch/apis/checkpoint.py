@@ -1,18 +1,24 @@
-"""Weight bridge and checkpoint loading (counterpart of
+"""Weight bridge and checkpoint I/O (counterpart of
 ``ioudet/apis/checkpoint.py``).
 
 The port's modules use the mmdet state_dict key layout, so a reference
 ``.pth`` loads as it is.  ``state_dict_from_flax`` turns ``ioudet``'s
 parameter tree for the RetinaNet family (nested dicts of arrays, HWIO conv
 kernels) into that layout: it is the inverse of ``ioudet``'s
-``convert_torch_retinanet`` and its resnet / fpn / retina-head parts.
+``convert_torch_retinanet`` and its resnet / fpn / retina-head parts.  Any
+tree of that structure goes through it, so gradients and momentum buffers of
+``ioudet`` can be laid beside the port's as well.
+
+A training checkpoint is one ``<work_dir>/<name>.pth`` holding the mmdet
+payload {meta (epoch, step, ...), state_dict, optimizer}, and a ``latest``
+marker file beside it for auto-resume.
 """
 
 from __future__ import annotations
 
 import os
 import re
-from typing import Dict
+from typing import Dict, Optional
 
 import numpy as np
 import torch
@@ -106,11 +112,38 @@ def state_dict_from_flax(params: dict) -> Dict[str, torch.Tensor]:
     return sd
 
 
-def load_checkpoint(model: torch.nn.Module, filename: str,
-                    strict: bool = True) -> dict:
+def save_checkpoint(work_dir: str, name: str, model: torch.nn.Module,
+                    optimizer: Optional[torch.optim.Optimizer] = None,
+                    meta: Optional[dict] = None) -> str:
+    """Write ``<work_dir>/<name>.pth`` and point ``<work_dir>/latest`` at it.
+    Returns the path."""
+    os.makedirs(work_dir, exist_ok=True)
+    path = os.path.join(work_dir, name + ".pth")
+    ckpt = dict(meta=meta or {}, state_dict=model.state_dict())
+    if optimizer is not None:
+        ckpt["optimizer"] = optimizer.state_dict()
+    tmp = path + ".tmp"
+    torch.save(ckpt, tmp)
+    os.replace(tmp, path)
+    with open(os.path.join(work_dir, "latest"), "w") as f:
+        f.write(name + ".pth")
+    return path
+
+
+def latest_checkpoint(work_dir: str) -> Optional[str]:
+    marker = os.path.join(work_dir, "latest")
+    if not os.path.exists(marker):
+        return None
+    with open(marker) as f:
+        return os.path.join(work_dir, f.read().strip())
+
+
+def load_checkpoint(model: torch.nn.Module, filename: str, strict: bool = True,
+                    optimizer: Optional[torch.optim.Optimizer] = None) -> dict:
     """Load an mmdet-layout ``.pth`` (a state_dict, or a dict holding one
-    under ``state_dict``) into ``model``.  Returns the checkpoint's ``meta``.
-    ``ioudet``'s flax checkpoint directories are not read yet."""
+    under ``state_dict``) into ``model`` and, when ``optimizer`` is given and
+    the file holds its state, into the optimizer.  Returns the checkpoint's
+    ``meta``.  ``ioudet``'s flax checkpoint directories are not read yet."""
     if os.path.isdir(filename):
         raise NotImplementedError(
             "flax msgpack checkpoint directories are not supported yet; "
@@ -122,4 +155,6 @@ def load_checkpoint(model: torch.nn.Module, filename: str,
     sd = {(k[len("module."):] if k.startswith("module.") else k): v
           for k, v in sd.items() if not k.endswith("num_batches_tracked")}
     model.load_state_dict(sd, strict=strict)
+    if optimizer is not None and "optimizer" in ckpt:
+        optimizer.load_state_dict(ckpt["optimizer"])
     return ckpt.get("meta", {})

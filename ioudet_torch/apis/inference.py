@@ -18,6 +18,7 @@ import torch
 from ..core.bbox.transforms import bbox2result
 from ..models import build_detector
 from ..ops.preprocess import IMAGENET_MEAN, IMAGENET_STD, preprocess
+from ..utils.config import Config
 from .checkpoint import load_checkpoint
 
 DEFAULT_CANVAS = (832, 1344)
@@ -34,8 +35,6 @@ class DetectorHandle:
 
 def _as_dict(config) -> dict:
     if isinstance(config, str):
-        # the shared, jax-free config loader of the reference package
-        from ioudet.utils.config import Config
         config = Config.fromfile(config)
     return config.todict() if hasattr(config, "todict") else dict(config)
 

@@ -1,0 +1,276 @@
+"""Training API (counterpart of ``ioudet/apis/train.py``).
+
+  * ``make_lr_schedule``: mmcv's LR policy as a plain function of the step
+    (per-iteration warm-up, then 'step' or 'cosine' by epoch);
+  * ``make_trainable_mask``: the backbone's stem and frozen stages get
+    ``requires_grad=False`` (FrozenBN statistics are buffers and never train;
+    FrozenBN weights and biases of unfrozen stages do train, as in ``ioudet``);
+  * ``build_optimizer``: SGD with momentum; the weight decay is added to the
+    gradient before the momentum buffer and the LR applied after it;
+  * ``make_train_step``: one function per step: forward, backward, gradient
+    clipping, update.  It returns the log dict as device tensors and copies
+    nothing to the host;
+  * ``Runner`` and ``train_detector``: the epoch loop over any iterable of
+    batch dicts, with logging, checkpoints and resume.
+"""
+
+from __future__ import annotations
+
+import json
+import math
+import os
+import time
+from typing import Callable, Dict, Iterable, Optional
+
+import torch
+
+from .checkpoint import latest_checkpoint, load_checkpoint, save_checkpoint
+
+BATCH_KEYS = ("img", "gt_bboxes", "gt_labels", "gt_valid", "img_shape", "pad_shape",
+              "gt_bboxes_ignore", "gt_ignore_valid")
+
+
+# --------------------------------------------------------------------------
+# optimizer / schedule
+# --------------------------------------------------------------------------
+
+def make_lr_schedule(base_lr: float, lr_config: dict, iters_per_epoch: int,
+                     total_epochs: int) -> Callable[[int], float]:
+    """mmcv LrUpdaterHook semantics: per-iteration warm-up
+    (k = (1 - t/warmup_iters) * (1 - ratio); lr = base * (1 - k) for linear),
+    then the 'step' or 'cosine' policy by epoch.  ``sched(step) -> float``."""
+    policy = lr_config.get("policy", "step")
+    warmup = lr_config.get("warmup", None)
+    warmup_iters = lr_config.get("warmup_iters", 500)
+    warmup_ratio = lr_config.get("warmup_ratio", 1.0 / 3)
+    steps = lr_config.get("step", [])
+    gamma = lr_config.get("gamma", 0.1)
+
+    def sched(step: int) -> float:
+        epoch = step // max(iters_per_epoch, 1)
+        if policy == "step":
+            mult = gamma ** sum(1 for s in steps if epoch >= s)
+        elif policy == "cosine":
+            total = total_epochs * iters_per_epoch
+            mult = 0.5 * (1 + math.cos(math.pi * step / max(total, 1)))
+        else:
+            mult = 1.0
+        lr = base_lr * mult
+        if step < warmup_iters:
+            if warmup == "linear":
+                lr *= 1.0 - (1.0 - step / warmup_iters) * (1.0 - warmup_ratio)
+            elif warmup == "constant":
+                lr *= warmup_ratio
+            elif warmup == "exp":
+                lr *= warmup_ratio ** (1 - step / warmup_iters)
+        return lr
+
+    return sched
+
+
+def make_trainable_mask(model: torch.nn.Module,
+                        frozen_stages: Optional[int] = None) -> Dict[str, bool]:
+    """Set ``requires_grad`` of every parameter: False for the backbone's
+    stem (``frozen_stages >= 0``) and ``layer1..layer{frozen_stages}``, True
+    for everything else.  ``frozen_stages`` defaults to the backbone's own.
+    Returns name -> trainable."""
+    if frozen_stages is None:
+        frozen_stages = getattr(getattr(model, "backbone", None), "frozen_stages", -1)
+    frozen = ["backbone.conv1.", "backbone.bn1."] if frozen_stages >= 0 else []
+    frozen += [f"backbone.layer{s}." for s in range(1, frozen_stages + 1)]
+    mask = {}
+    for name, p in model.named_parameters():
+        mask[name] = not any(name.startswith(f) for f in frozen)
+        p.requires_grad_(mask[name])
+    return mask
+
+
+def build_optimizer(model: torch.nn.Module, optimizer_cfg: dict) -> torch.optim.Optimizer:
+    """SGD over the model's trainable parameters (call ``make_trainable_mask``
+    first).  ``torch.optim.SGD`` adds ``weight_decay * p`` to the gradient,
+    folds the result into the momentum buffer and applies the LR last, the
+    order ``ioudet``'s optax chain has.  The LR is set per step by the train
+    step."""
+    cfg = dict(optimizer_cfg)
+    opt_type = cfg.pop("type", "SGD")
+    if opt_type != "SGD":
+        raise NotImplementedError(f"optimizer {opt_type!r} is not ported yet; only SGD is")
+    params = [p for p in model.parameters() if p.requires_grad]
+    return torch.optim.SGD(params, lr=cfg.get("lr", 0.01),
+                           momentum=cfg.get("momentum", 0.9),
+                           weight_decay=cfg.get("weight_decay", 0.0),
+                           nesterov=cfg.get("nesterov", False))
+
+
+def clip_grad_norm(params: Iterable[torch.nn.Parameter], max_norm: float) -> torch.Tensor:
+    """Scale the gradients so that their global L2 norm is at most
+    ``max_norm``; returns the norm before clipping.  On the device: no host
+    copy decides whether to clip."""
+    grads = [p.grad for p in params if p.grad is not None]
+    norm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads)))
+    scale = torch.where(norm < max_norm, 1.0, max_norm / norm)
+    torch._foreach_mul_(grads, scale)
+    return norm
+
+
+def parse_losses(losses: Dict[str, torch.Tensor]):
+    """total = the sum of every entry whose key contains 'loss'; the log dict
+    is the entries plus ``loss`` = total."""
+    total = sum(v for k, v in losses.items() if "loss" in k)
+    log_vars = dict(losses)
+    log_vars["loss"] = total
+    return total, log_vars
+
+
+# --------------------------------------------------------------------------
+# train step
+# --------------------------------------------------------------------------
+
+def make_train_step(model: torch.nn.Module, optimizer: torch.optim.Optimizer,
+                    lr_schedule: Callable[[int], float],
+                    grad_clip: Optional[dict] = None) -> Callable:
+    """``train_step(batch, step) -> log dict`` of detached device tensors.
+
+    batch keys: img, gt_bboxes, gt_labels, gt_valid, img_shape, pad_shape
+    (+ gt_bboxes_ignore, gt_ignore_valid), tensors on the model's device;
+    ``step`` is the number of steps taken so far and picks the LR."""
+    params = [p for group in optimizer.param_groups for p in group["params"]]
+
+    def train_step(batch: dict, step: int) -> Dict[str, torch.Tensor]:
+        lr = lr_schedule(step)
+        for group in optimizer.param_groups:
+            group["lr"] = lr
+        kw = {}
+        if "gt_bboxes_ignore" in batch:
+            kw = dict(gt_bboxes_ignore=batch["gt_bboxes_ignore"],
+                      gt_ignore_valid=batch["gt_ignore_valid"])
+        losses = model.forward_train(
+            batch["img"], batch["gt_bboxes"], batch["gt_labels"], batch["gt_valid"],
+            batch["img_shape"], batch["pad_shape"], **kw)
+        total, log_vars = parse_losses(losses)
+        optimizer.zero_grad(set_to_none=True)
+        total.backward()
+        if grad_clip:
+            clip_grad_norm(params, grad_clip.get("max_norm", 35))
+        optimizer.step()
+        return {k: v.detach() for k, v in log_vars.items()}
+
+    return train_step
+
+
+# --------------------------------------------------------------------------
+# runner
+# --------------------------------------------------------------------------
+
+class Runner:
+    """Epoch runner: a log record every ``log_interval`` iterations (the only
+    place that copies losses to the host), a checkpoint every
+    ``checkpoint_interval`` epochs, ``step_hook(step, log_vars)`` after every
+    step."""
+
+    def __init__(self, model: torch.nn.Module, optimizer: torch.optim.Optimizer,
+                 train_step: Callable, work_dir: str, log_interval: int = 50,
+                 checkpoint_interval: int = 1,
+                 lr_schedule: Optional[Callable[[int], float]] = None,
+                 meta: Optional[dict] = None,
+                 step_hook: Optional[Callable] = None):
+        self.model = model
+        self.optimizer = optimizer
+        self.train_step = train_step
+        self.work_dir = work_dir
+        self.log_interval = log_interval
+        self.checkpoint_interval = checkpoint_interval
+        self.lr_schedule = lr_schedule
+        self.meta = meta or {}
+        self.step_hook = step_hook
+        self.step = 0
+        self.epoch = 0
+        self.device = next(model.parameters()).device
+        os.makedirs(work_dir, exist_ok=True)
+        self.log_file = os.path.join(work_dir, "log.json")
+
+    def resume(self, path: Optional[str] = None) -> bool:
+        path = path or latest_checkpoint(self.work_dir)
+        if not path or not os.path.isfile(path):
+            return False
+        meta = load_checkpoint(self.model, path, optimizer=self.optimizer)
+        self.epoch = int(meta.get("epoch", 0))
+        self.step = int(meta.get("step", 0))
+        return True
+
+    def save(self, name: str) -> str:
+        meta = dict(self.meta, epoch=self.epoch + 1, step=self.step)
+        return save_checkpoint(self.work_dir, name, self.model, self.optimizer, meta)
+
+    def _log(self, record: dict) -> None:
+        with open(self.log_file, "a") as f:
+            f.write(json.dumps(record, default=float) + "\n")
+
+    def _to_device(self, batch: dict) -> dict:
+        return {k: torch.as_tensor(batch[k]).to(self.device, non_blocking=True)
+                for k in BATCH_KEYS if k in batch}
+
+    def run(self, loader: Iterable[dict], total_epochs: int) -> "Runner":
+        self.model.train()
+        for epoch in range(self.epoch, total_epochs):
+            self.epoch = epoch
+            if hasattr(loader, "set_epoch"):
+                loader.set_epoch(epoch)
+            t_data = time.time()
+            for i, batch in enumerate(loader):
+                batch = self._to_device(batch)
+                data_time = time.time() - t_data
+                log_vars = self.train_step(batch, self.step)
+                self.step += 1
+                if self.step_hook is not None:
+                    self.step_hook(self.step, log_vars)
+                if (i + 1) % self.log_interval == 0:
+                    rec = dict(mode="train", epoch=epoch + 1, iter=i + 1,
+                               step=self.step, data_time=round(data_time, 4))
+                    rec.update({k: float(v) for k, v in log_vars.items()})
+                    rec["time"] = round(time.time() - t_data, 4)
+                    if self.lr_schedule is not None:
+                        rec["lr"] = self.lr_schedule(self.step)
+                    self._log(rec)
+                t_data = time.time()
+            if (epoch + 1) % self.checkpoint_interval == 0:
+                self.save(f"epoch_{epoch + 1}")
+        return self
+
+
+# --------------------------------------------------------------------------
+# top-level entry
+# --------------------------------------------------------------------------
+
+def train_detector(model, loader: Iterable[dict], cfg, work_dir: str,
+                   resume_from: Optional[str] = None, auto_resume: bool = True,
+                   device="cuda", step_hook: Optional[Callable] = None) -> Runner:
+    """Train ``model`` (a detector or a ``DetectorHandle``) over ``loader``,
+    any sized iterable of batch dicts with the keys of ``BATCH_KEYS``, under
+    the config's ``optimizer``, ``optimizer_config``, ``lr_config``,
+    ``total_epochs``, ``log_config`` and ``checkpoint_config``.  Runs on
+    ``device``; a CUDA device that is not there raises.  Returns the Runner
+    (``.model``, ``.optimizer``, ``.step``)."""
+    model = getattr(model, "model", model)
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(f"device {device} requested but CUDA is not available")
+    model.to(device)
+    total_epochs = cfg.get("total_epochs", 12)
+    sched = make_lr_schedule(cfg["optimizer"]["lr"], dict(cfg.get("lr_config", {})),
+                             len(loader), total_epochs)
+    make_trainable_mask(model)
+    optimizer = build_optimizer(model, dict(cfg["optimizer"]))
+    grad_clip = dict(cfg.get("optimizer_config") or {}).get("grad_clip")
+    step_fn = make_train_step(model, optimizer, sched, grad_clip)
+    runner = Runner(model, optimizer, step_fn, work_dir,
+                    log_interval=dict(cfg.get("log_config", {})).get("interval", 50),
+                    checkpoint_interval=dict(cfg.get("checkpoint_config", {})).get("interval", 1),
+                    lr_schedule=sched,
+                    meta=dict(config=getattr(cfg, "text", "")),
+                    step_hook=step_hook)
+    if resume_from:
+        runner.resume(resume_from)
+    elif auto_resume:
+        runner.resume()
+    return runner.run(loader, total_epochs)

@@ -14,6 +14,7 @@ from .detectors.single_stage import (IoUAwareRetinaNet, RetinaNet,
                                      SingleStageDetector)
 from .heads.iou_aware_retina_head import IoUAwareRetinaHead
 from .heads.retina_head import RetinaHead
+from .losses import CrossEntropyLoss, FocalLoss, L1Loss, SmoothL1Loss
 from .necks.fpn import FPN
 
 BACKBONES = {"ResNet": ResNet}
@@ -21,6 +22,8 @@ NECKS = {"FPN": FPN}
 HEADS = {"RetinaHead": RetinaHead, "IoUAwareRetinaHead": IoUAwareRetinaHead}
 DETECTORS = {"SingleStageDetector": SingleStageDetector,
              "RetinaNet": RetinaNet, "IoUAwareRetinaNet": IoUAwareRetinaNet}
+LOSSES = {"FocalLoss": FocalLoss, "SmoothL1Loss": SmoothL1Loss, "L1Loss": L1Loss,
+          "CrossEntropyLoss": CrossEntropyLoss}
 
 
 def _build(cfg: dict, table: dict, kind: str):
@@ -30,6 +33,10 @@ def _build(cfg: dict, table: dict, kind: str):
     if name not in table:
         raise KeyError(f"{kind} {name!r} is not ported; available: {sorted(table)}")
     return table[name](**args)
+
+
+def build_loss(cfg: dict):
+    return _build(cfg, LOSSES, "loss")
 
 
 def build_detector(cfg: dict, train_cfg: Optional[dict] = None,

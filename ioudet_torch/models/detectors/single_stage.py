@@ -3,6 +3,7 @@
 
 Public inputs are NHWC images, as in ``ioudet``; the convolutions run NCHW.
   * ``forward(img)``      -> raw head outputs, NHWC per level;
+  * ``forward_train(...)``-> the loss dict of ``bbox_head.loss``;
   * ``simple_test(...)``  -> (dets (B, max_per_img, 5), labels), fixed shape.
 """
 
@@ -37,6 +38,23 @@ class SingleStageDetector(nn.Module):
 
     def forward(self, img: torch.Tensor):
         return self.bbox_head(self.extract_feat(img))
+
+    def forward_train(self, img: torch.Tensor, gt_bboxes: torch.Tensor,
+                      gt_labels: torch.Tensor, gt_valid: torch.Tensor,
+                      img_shapes: torch.Tensor, pad_shapes: torch.Tensor,
+                      gt_bboxes_ignore: Optional[torch.Tensor] = None,
+                      gt_ignore_valid: Optional[torch.Tensor] = None):
+        """img (B, H, W, 3) f32 canvas; gt_bboxes (B, G, 4), gt_labels (B, G)
+        1-based, gt_valid (B, G) bool; img_shapes / pad_shapes (B, 2) int;
+        optional ignore regions (B, I, 4) / (B, I).  Returns the loss dict."""
+        outs = self(img)
+        kw = {}
+        if gt_bboxes_ignore is not None:
+            kw = dict(gt_bboxes_ignore=gt_bboxes_ignore,
+                      gt_ignore_valid=gt_ignore_valid)
+        return self.bbox_head.loss(*outs, gt_bboxes, gt_labels, gt_valid,
+                                   img_shapes, pad_shapes,
+                                   dict(self.train_cfg or {}), **kw)
 
     def simple_test(self, img: torch.Tensor, img_shapes: torch.Tensor,
                     scale_factors: torch.Tensor, pad_shapes: torch.Tensor,

@@ -1,5 +1,6 @@
 """Anchor-based head base (counterpart of ``ioudet/models/heads/anchor_head.py``):
-configuration, anchors, box clipping and the batched multiclass NMS tail.
+configuration, anchors, the training loss, box clipping and the batched
+multiclass NMS tail.
 
 Head outputs are NHWC per level at the public functions, with the
 anchor-major channel layout ``a*C + c``, so that flattening a level gives the
@@ -13,8 +14,14 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import torch
 from torch import nn
 
-from ...core.anchor import AnchorGenerator
+from ...core.anchor import AnchorGenerator, anchor_target
+from ...core.bbox import MaxIoUAssigner
 from ...core.post_processing import multiclass_nms
+from ..losses import fused_level_focal_sum
+
+DEFAULT_LOSS_CLS = dict(type="FocalLoss", use_sigmoid=True, gamma=2.0, alpha=0.25,
+                        loss_weight=1.0)
+DEFAULT_LOSS_BBOX = dict(type="SmoothL1Loss", beta=1.0 / 9.0, loss_weight=1.0)
 
 
 class AnchorHead(nn.Module):
@@ -45,9 +52,11 @@ class AnchorHead(nn.Module):
         self.target_means = tuple(float(m) for m in target_means)
         self.target_stds = tuple(float(s) for s in target_stds)
         self.use_sigmoid_cls = use_sigmoid_cls
-        # training-only settings, kept so a config round-trips; the losses
-        # come with the train slice
-        self.loss_cls, self.loss_bbox = loss_cls, loss_bbox
+        from ..builder import build_loss  # models/builder.py imports the heads
+        self.loss_cls = dict(loss_cls or DEFAULT_LOSS_CLS)
+        self.loss_bbox = dict(loss_bbox or DEFAULT_LOSS_BBOX)
+        self.loss_cls_fn = build_loss(self.loss_cls)
+        self.loss_bbox_fn = build_loss(self.loss_bbox)
         self._anchor_cache: Dict[tuple, List[torch.Tensor]] = {}
 
     @property
@@ -86,6 +95,84 @@ class AnchorHead(nn.Module):
             vw = torch.ceil(pad_shapes[:, 1] / s).long().clamp(max=fs[1])
             flags.append(g.valid_flags(fs, (vh, vw)))
         return anchors, torch.cat(flags, dim=1)
+
+    # ------------------------------------------------------------ training
+
+    def _flatten_levels(self, preds: Sequence[torch.Tensor], ch: int) -> torch.Tensor:
+        """(B, H, W, A*ch) per level -> (B, A_tot, ch), in anchor order."""
+        return torch.cat([p.reshape(p.shape[0], -1, ch) for p in preds], dim=1)
+
+    def _cls_loss_from_levels(self, cls_scores, labels, label_weights, avg_factor):
+        """Classification loss that consumes the per-level conv outputs where
+        they are.
+
+        Flattening and concatenating the levels would copy every logit once
+        (the heads' NHWC outputs are permuted views) only to reorder anchors;
+        the anchor sum of an elementwise loss does not depend on the order,
+        so each level's (B, H, W, A*C) tensor goes to
+        ``fused_level_focal_sum`` as it is.  Only for the sigmoid FocalLoss
+        with 'mean' reduction (the retina family's loss); any other loss
+        takes the flat layout.
+        """
+        cfg = self.loss_cls
+        C = self.cls_out_channels
+        if not (cfg.get("type") == "FocalLoss" and cfg.get("use_sigmoid", True)
+                and cfg.get("reduction", "mean") == "mean"):
+            return self.loss_cls_fn(
+                self._flatten_levels(cls_scores, C).reshape(-1, C),
+                labels.reshape(-1), weight=label_weights.reshape(-1),
+                avg_factor=avg_factor)
+        gamma, alpha = cfg.get("gamma", 2.0), cfg.get("alpha", 0.25)
+        total, start = 0.0, 0
+        for p in cls_scores:
+            n = p.shape[1] * p.shape[2] * self.num_anchors
+            total = total + fused_level_focal_sum(
+                p, labels[:, start:start + n],
+                label_weights[:, start:start + n].float(), gamma, alpha,
+                self.num_anchors)
+            start += n
+        return cfg.get("loss_weight", 1.0) * total / avg_factor.clamp(min=1e-12)
+
+    @property
+    def sampling(self) -> bool:
+        """Anchor subsampling is on unless the classification loss handles
+        the imbalance itself (the reference's rule)."""
+        return self.loss_cls.get("type") not in ("FocalLoss", "GHMC")
+
+    def _targets(self, featmap_sizes, gt_bboxes, gt_labels, gt_valid, img_shapes,
+                 pad_shapes, train_cfg, gt_bboxes_ignore, gt_ignore_valid):
+        """(flat anchors, AnchorTargets, num_pos as an f32 device scalar >= 1)."""
+        if self.sampling:
+            raise NotImplementedError("anchor subsampling (non-focal classification "
+                                      "losses) is not ported yet")
+        anchors, valid = self.get_anchors(featmap_sizes, pad_shapes)
+        assigner = MaxIoUAssigner(**{k: v for k, v in train_cfg["assigner"].items()
+                                     if k != "type"})
+        targets = anchor_target(
+            anchors, valid, gt_bboxes, gt_valid, gt_labels, img_shapes, assigner,
+            self.target_means, self.target_stds,
+            allowed_border=train_cfg.get("allowed_border", -1),
+            pos_weight=train_cfg.get("pos_weight", -1),
+            gt_bboxes_ignore=gt_bboxes_ignore, gt_ignore_valid=gt_ignore_valid)
+        return anchors, targets, targets.num_total_pos.clamp(min=1).float()
+
+    def loss(self, cls_scores, bbox_preds, gt_bboxes, gt_labels, gt_valid,
+             img_shapes, pad_shapes, train_cfg, gt_bboxes_ignore=None,
+             gt_ignore_valid=None) -> Dict[str, torch.Tensor]:
+        """gt_bboxes (B, G, 4), gt_labels (B, G) 1-based, gt_valid (B, G)
+        bool, img_shapes / pad_shapes (B, 2).  Every term is divided by the
+        number of positives, which stays on the device."""
+        featmap_sizes = [tuple(p.shape[1:3]) for p in cls_scores]
+        _, targets, num_pos = self._targets(
+            featmap_sizes, gt_bboxes, gt_labels, gt_valid, img_shapes, pad_shapes,
+            train_cfg, gt_bboxes_ignore, gt_ignore_valid)
+        loss_cls = self._cls_loss_from_levels(
+            cls_scores, targets.labels, targets.label_weights, avg_factor=num_pos)
+        loss_bbox = self.loss_bbox_fn(
+            self._flatten_levels(bbox_preds, 4).reshape(-1, 4),
+            targets.bbox_targets.reshape(-1, 4),
+            weight=targets.bbox_weights.reshape(-1, 4), avg_factor=num_pos)
+        return dict(loss_cls=loss_cls, loss_bbox=loss_bbox)
 
 
 def batched_nms(boxes: torch.Tensor, scores: torch.Tensor,

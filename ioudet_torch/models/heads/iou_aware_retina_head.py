@@ -7,7 +7,14 @@ Inference, batched over images: per level, top ``nms_pre`` anchors by the max
 class logit (the ranking of max_c sigmoid), rescoring of the survivors with
 S = p^alpha * IoU^(1 - alpha) (paper eq. 4), ``delta2bbox`` and clipping, then
 the class-offset multiclass NMS.  ``rescore_before_topk=True`` ranks by the
-rescored proxy instead.  The loss comes with the train slice.
+rescored proxy instead.
+
+Training: focal(cls) + smooth-L1(reg) + ``loss_iou_weight`` * BCE(iou logit,
+IoU(decoded regression, assigned gt)) on the positives, every term divided by
+the number of positives.  The IoU target is recomputed every step from the
+current regression output and detached: the IoU branch learns to predict the
+regressor's quality, and no gradient reaches the regressor through its own
+target.
 """
 
 from __future__ import annotations
@@ -16,8 +23,9 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ...core.bbox import delta2bbox
+from ...core.bbox import bbox_overlaps, delta2bbox
 from ...core.post_processing.bbox_nms import topk_stable
+from ..losses import binary_cross_entropy_with_logits
 from .anchor_head import batched_nms, clip_boxes
 from .retina_head import RetinaHead, nhwc
 
@@ -44,6 +52,32 @@ class IoUAwareRetinaHead(RetinaHead):
             bbox_preds.append(nhwc(reg))
             iou_preds.append(nhwc(self.retina_iou(reg_feat)))
         return cls_scores, bbox_preds, iou_preds
+
+    def loss(self, cls_scores, bbox_preds, iou_preds, gt_bboxes, gt_labels,
+             gt_valid, img_shapes, pad_shapes, train_cfg, gt_bboxes_ignore=None,
+             gt_ignore_valid=None):
+        featmap_sizes = [tuple(p.shape[1:3]) for p in cls_scores]
+        anchors, targets, num_pos = self._targets(
+            featmap_sizes, gt_bboxes, gt_labels, gt_valid, img_shapes, pad_shapes,
+            train_cfg, gt_bboxes_ignore, gt_ignore_valid)
+        box_flat = self._flatten_levels(bbox_preds, 4)
+        iou_flat = self._flatten_levels(iou_preds, 1)[..., 0]  # (B, A_tot)
+
+        loss_cls = self._cls_loss_from_levels(
+            cls_scores, targets.labels, targets.label_weights, avg_factor=num_pos)
+        loss_bbox = self.loss_bbox_fn(
+            box_flat.reshape(-1, 4), targets.bbox_targets.reshape(-1, 4),
+            weight=targets.bbox_weights.reshape(-1, 4), avg_factor=num_pos)
+
+        pos_mask = targets.bbox_weights[..., 0]  # (B, A_tot), 1.0 on positives
+        with torch.no_grad():
+            decoded = delta2bbox(anchors, box_flat, self.target_means,
+                                 self.target_stds)
+            iou_target = bbox_overlaps(decoded, targets.pos_gt_boxes,
+                                       is_aligned=True)
+        loss_iou = binary_cross_entropy_with_logits(iou_flat, iou_target)
+        loss_iou = self.loss_iou_weight * (loss_iou * pos_mask).sum() / num_pos
+        return dict(loss_cls=loss_cls, loss_bbox=loss_bbox, loss_iou=loss_iou)
 
     def decode_candidates(self, cls_scores, bbox_preds, iou_preds,
                           img_shapes: torch.Tensor, test_cfg: dict,

@@ -11,95 +11,29 @@ the TPU kernels of ``ioudet/ops/nms_pallas.py``:
 
 Each wrapper launches its kernel for CUDA tensors and runs its plain torch
 version (``*_plain``) only for CPU tensors; any other device raises.  The
-kernels are compiled with nvcc from the repository's source at first use,
-into ``ioudet_torch/_build/`` under a hash of the source and flags.
-``launches`` counts the launches of each kernel.
+kernels are compiled with nvcc from the repository's source at first use
+(``ioudet_torch/ops/_build.py``); ``launches`` there counts the launches of
+each kernel.
 """
 
 from __future__ import annotations
-
-import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
-from pathlib import Path
 
 import torch
 import torch.nn.functional as F
 
 from ..core.bbox.geometry import bbox_overlaps
+from . import _build
+from ._build import F32, I32, PTR, launches  # noqa: F401  (tests read nms_cuda.launches)
 
-_PKG = Path(__file__).resolve().parents[1]
-SOURCE = _PKG / "csrc" / "nms_kernel.cu"
-BUILD_DIR = _PKG / "_build"
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3", "-std=c++17",
-              "--fmad=false", "-shared", "-Xcompiler", "-fPIC")
+# --fmad=false: the IoU must round as bbox_overlaps does (see the source)
+LIBRARY = _build.KernelLibrary(
+    "nms_kernel.cu", ("--fmad=false",),
+    {"ioudet_nms_mask": [PTR, PTR, I32, I32, F32],
+     "ioudet_nms_reduce": [PTR, PTR, PTR, I32, I32]},
+    kernels=("nms_mask_kernel", "nms_reduce_kernel"))
 # the reduce keeps ceil(N/64) + 64 words in the 48 KB of static-size shared
 # memory a launch gets without opting in
 MAX_N = 64 * (48 * 1024 // 8 - 64)
-
-launches = {"nms_mask_kernel": 0, "nms_reduce_kernel": 0}
-_lib = None
-
-
-def reset_launches() -> None:
-    for name in launches:
-        launches[name] = 0
-
-
-def _nvcc() -> str:
-    cuda_home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
-    for cand in (os.path.join(cuda_home, "bin", "nvcc"), shutil.which("nvcc")):
-        if cand and os.path.exists(cand):
-            return cand
-    raise RuntimeError("nvcc not found (set CUDA_HOME); the NMS kernels are "
-                       "built from source at first use")
-
-
-def library_path() -> Path:
-    digest = hashlib.sha256(SOURCE.read_bytes() +
-                            " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    return BUILD_DIR / f"nms_kernel_{digest}.so"
-
-
-def build() -> ctypes.CDLL:
-    """Compile (once per source hash) and load the kernels' library."""
-    global _lib
-    if _lib is not None:
-        return _lib
-    out = library_path()
-    if not out.exists():
-        BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        tmp = out.with_name(f"{out.stem}.{os.getpid()}.tmp.so")
-        proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(SOURCE)],
-                              capture_output=True, text=True)
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed on {SOURCE}:\n{proc.stderr}")
-        os.replace(tmp, out)
-    lib = ctypes.CDLL(str(out))
-    ptr, i32 = ctypes.c_void_p, ctypes.c_int
-    lib.ioudet_nms_mask.argtypes = [ptr, ptr, i32, i32, ctypes.c_float, ptr]
-    lib.ioudet_nms_reduce.argtypes = [ptr, ptr, ptr, i32, i32, ptr]
-    lib.ioudet_nms_mask.restype = i32
-    lib.ioudet_nms_reduce.restype = i32
-    _lib = lib
-    return lib
-
-
-def _check(t: torch.Tensor, name: str, dtype: torch.dtype, ndim: int) -> None:
-    if t.dtype != dtype or t.dim() != ndim:
-        raise ValueError(f"{name}: expected {ndim}-d {dtype}, got "
-                         f"{t.dim()}-d {t.dtype}")
-    if t.device.type not in ("cuda", "cpu"):
-        raise ValueError(f"{name}: unsupported device {t.device}")
-
-
-def _launch(fn, name: str, *args) -> None:
-    err = fn(*args, ctypes.c_void_p(torch.cuda.current_stream().cuda_stream))
-    if err != 0:
-        raise RuntimeError(f"{name} launch failed: cudaError {err}")
-    launches[name] += 1
 
 
 def num_words(n: int) -> int:
@@ -143,7 +77,7 @@ def nms_reduce_plain(mask: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
 
 def nms_mask(boxes: torch.Tensor, iou_thr: float) -> torch.Tensor:
     """boxes (B, N, 4) f32 in score order -> (B, N, ceil(N/64)) int64 words."""
-    _check(boxes, "boxes", torch.float32, 3)
+    _build.check_tensor(boxes, "boxes", torch.float32, 3)
     if boxes.shape[-1] != 4:
         raise ValueError(f"boxes: expected (B, N, 4), got {tuple(boxes.shape)}")
     if boxes.device.type == "cpu":
@@ -156,15 +90,15 @@ def nms_mask(boxes: torch.Tensor, iou_thr: float) -> torch.Tensor:
     mask = torch.empty(bsz, n, num_words(n), dtype=torch.int64,
                        device=boxes.device)
     if bsz and n:
-        _launch(build().ioudet_nms_mask, "nms_mask_kernel", boxes.data_ptr(),
-                mask.data_ptr(), bsz, n, ctypes.c_float(iou_thr))
+        _build.launch(LIBRARY.build().ioudet_nms_mask, "nms_mask_kernel",
+                      boxes.data_ptr(), mask.data_ptr(), bsz, n, iou_thr)
     return mask
 
 
 def nms_reduce(mask: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
     """mask (B, N, W) from ``nms_mask``, valid (B, N) bool -> keep (B, N)."""
-    _check(mask, "mask", torch.int64, 3)
-    _check(valid, "valid", torch.bool, 2)
+    _build.check_tensor(mask, "mask", torch.int64, 3)
+    _build.check_tensor(valid, "valid", torch.bool, 2)
     bsz, n, w = mask.shape
     if tuple(valid.shape) != (bsz, n) or w != num_words(n):
         raise ValueError(f"shape mismatch: mask {tuple(mask.shape)}, "
@@ -177,8 +111,8 @@ def nms_reduce(mask: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
         raise ValueError("mask and valid must be contiguous")
     keep = torch.empty(bsz, n, dtype=torch.bool, device=mask.device)
     if bsz and n:
-        _launch(build().ioudet_nms_reduce, "nms_reduce_kernel", mask.data_ptr(),
-                valid.data_ptr(), keep.data_ptr(), bsz, n)
+        _build.launch(LIBRARY.build().ioudet_nms_reduce, "nms_reduce_kernel",
+                      mask.data_ptr(), valid.data_ptr(), keep.data_ptr(), bsz, n)
     return keep
 
 

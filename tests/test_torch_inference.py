@@ -118,3 +118,25 @@ def test_port_runs_without_jax():
                           capture_output=True, text=True, timeout=300,
                           env=dict(os.environ, PYTHONPATH=ROOT))
     assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+def test_config_path_loads_without_the_jax_package():
+    """init_detector on a config *path* reads the file with the port's own
+    loader: afterwards sys.modules holds no ioudet / jax module, and the dict
+    is the one ioudet's loader gives."""
+    path = os.path.join(ROOT, "configs", "iou_aware_retinanet_r50_fpn_1x.py")
+    code = (
+        "import sys\n"
+        "from ioudet_torch.apis.inference import init_detector\n"
+        "from ioudet_torch.utils.config import Config\n"
+        f"h = init_detector({path!r}, device='cpu')\n"
+        "assert h.model.bbox_head.cls_out_channels == 80\n"
+        "bad = [m for m in sys.modules if m.split('.')[0] in ('ioudet', 'jax', 'flax')]\n"
+        f"print(repr(Config.fromfile({path!r}).todict()))\n"
+        "sys.exit(1 if bad else 0)\n")
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                          capture_output=True, text=True, timeout=300,
+                          env=dict(os.environ, PYTHONPATH=ROOT))
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    from ioudet.utils.config import Config
+    assert proc.stdout.strip() == repr(Config.fromfile(path).todict())

@@ -23,7 +23,9 @@ def test_kernels_match_plain_on_card(n):
         words = nms_cuda.nms_mask(tb, 0.5)
         keep = nms_cuda.nms_reduce(words, tv)
         torch.cuda.synchronize()
-        assert {k: nms_cuda.launches[k] - before[k] for k in before} == \
+        # the count is shared by every kernel library that is loaded
+        assert {k: nms_cuda.launches[k] - before[k]
+                for k in ("nms_mask_kernel", "nms_reduce_kernel")} == \
             {"nms_mask_kernel": 1, "nms_reduce_kernel": 1}
         plain = nms_cuda.nms_mask_plain(tb, 0.5)
         assert torch.equal(words, plain), name
