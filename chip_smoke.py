@@ -1,12 +1,12 @@
-"""Drive the PyTorch port's serving and training paths once on one NVIDIA GPU
-and check them.
+"""Drive the PyTorch port's serving, low-precision serving and training paths
+once on one NVIDIA GPU and check them.
 
     python3 chip_smoke.py                  # everything, as below
     python3 chip_smoke.py --kernels-only   # phases 1-2: a short first run
                                            # after a change to a kernel
 
 Phases (any failure exits non-zero):
-  1. build the three CUDA sources of ioudet_torch/csrc with nvcc, side by side;
+  1. build the four CUDA sources of ioudet_torch/csrc with nvcc, side by side;
   2. each kernel against its plain torch version on the card: the NMS pair
      bit for bit on adversarial cases (N in 1, 63, 64, 65, 1000, 2000 at
      batch 16); the anchor-assignment pair bit for bit (dw/dh to 1e-6) on
@@ -14,7 +14,9 @@ Phases (any failure exits non-zero):
      209,538 and G up to 128; the focal pair to rtol 1e-6 (sum) and 1e-5 (dx)
      on the flagship's five level shapes, f32 and bf16, contiguous and as the
      permuted NCHW view, and the autograd function against autograd through
-     the plain version;
+     the plain version; the three tensor-core products (chain, accumulate,
+     tiled) in int8 bit for bit and in bf16 within stated limits, on ragged
+     shapes, convolution shapes and the probes' own;
   3. the flagship IoU-aware RetinaNet R-50-FPN (configs/
      iou_aware_retinanet_r50_fpn_1x.py with class_topk=4, the model of
      __graft_entry__.FLAGSHIP/TEST_CFG) at full width with seeded random
@@ -22,14 +24,21 @@ Phases (any failure exits non-zero):
      syncs made errors, then three ``inference_detector`` requests, with
      launch counts, output checks, a plain-NMS replay and a GPU-vs-CPU
      forward on a small canvas;
+  3b. its low-precision twins: ``predict`` in bf16, in bf16 with calibrated
+     static int8 convolutions and with dynamic ones, each with host syncs
+     made errors, the tiled int8 kernel's launch count against the module
+     tree, a replay with the plain product that must give the same bits, and
+     the head outputs' drift from f32; then the probe tool's own run;
   4. the same model, training: ``train_detector`` for 6 SGD steps on a batch
      of 8 canvases with seeded gts, steps 2-6 with host syncs made errors;
      launch counts, finite and falling losses, frozen parameters unchanged,
      step 1 replayed with the plain versions in the kernels' place, and a
      save / resume round trip;
-  5. timings: ``predict`` at batch 1 and 16, the train step, its parts and
-     a torch.profiler summary of it, each kernel against its plain version
-     and its bound at the shape the main path gives it.
+  5. timings: ``predict`` at batch 1 and 16 in f32 (TF32 off and on), bf16
+     and bf16 + int8 with peak memory, the int8 call's split, the train step,
+     its parts and a torch.profiler summary of it, each kernel against its
+     plain version, its bound and, where there is one, a library call at the
+     shape the main path gives it.
 The last two lines are the card's name and power limit, then
 ``{"ok": true, "device": {...}}``; the line before them lists the kernels.
 """
@@ -65,8 +74,17 @@ FOCAL_SHAPES = ((2, 6, 9, 3, 7), (3, 5, 7, 9, 80), (2, 104, 168, 9, 80),
                 (2, 52, 84, 9, 80), (2, 26, 42, 9, 80), (2, 13, 21, 9, 80),
                 (2, 7, 11, 9, 80))
 P3_SHAPE = (TRAIN_BATCH, 104, 168, 9, 80)
+# (M, N, K) of the tiled product's cases: ragged ones, convolution-shaped ones
+# (K = 147 the stem, 576 and 2304 the 3x3 convs of layer1 and the towers) and
+# the probe's 4096^3
+MMA_SHAPES = ((1, 1, 1), (7, 31, 33), (33, 7, 147), (147, 33, 31), (31, 147, 7),
+              (576, 64, 147), (2304, 33, 576), (129, 65, 2304), (1000, 256, 576),
+              (3000, 256, 2304), (4096, 4096, 4096))
+PROBE_MKN = (512, 2048, 2048)   # the chain and accumulate probes' own shape
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM data sheet
 F32_FLOPS_PER_S = 67e12     # f32 outside the tensor cores, same sheet
+INT8_OPS_PER_S = 1979e12    # dense int8 tensor-core rate, same sheet
+BF16_FLOPS_PER_S = 989e12   # dense bf16 tensor-core rate, same sheet
 
 
 # ------------------------------------------------------------ NMS test cases
@@ -353,6 +371,97 @@ def phase_focal_kernels(Fc) -> dict:
     return err
 
 
+def mma_operands(m: int, n: int, k: int, dtype, seed: int = 0, amp: float = 40.0) -> tuple:
+    """Seeded operands as the probes make them: a (m, k) from N(0, 1) (int8:
+    times ``amp``, rounded and clipped; 1.0 is the probes' own), b_t (n, k)
+    from N(0, 1) scaled to +-127 (int8) or times 0.02 (bf16)."""
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal((m, k)).astype(np.float32)
+    w = rng.standard_normal((n, k)).astype(np.float32)
+    if dtype == torch.int8:
+        a = np.clip(np.round(x * amp), -127, 127).astype(np.int8)
+        b = np.clip(np.round(w / np.abs(w).max() * 127), -127, 127).astype(np.int8)
+        return to_cuda(a, b)
+    a, b = to_cuda(x, w * 0.02)
+    return a.bfloat16(), b.bfloat16()
+
+
+def abs_product(a: torch.Tensor, b_t: torch.Tensor) -> float:
+    """The largest sum over k of |a| |b|: the scale of a product's rounding
+    error."""
+    return float(torch.matmul(a.float().abs(), b_t.float().abs().t()).max())
+
+
+def phase_mma_kernels(Mm) -> dict:
+    """P1-P3 against their plain versions on the card.  int8: bit-equal
+    everywhere.  bf16: the products of two bf16 values are exact in f32, so
+    kernel and plain version differ only in the order and rounding of the f32
+    sum; the limit is 1e-5 of the largest sum of |a| |b| for the tiled product
+    (seen 8e-7) and 5e-5 for the accumulated one, whose plain version rounds
+    the running f32 sum once per product (seen 9e-6), and for the chain (which rounds y to bf16 after
+    every step, so a sum on a rounding boundary moves y by one bf16 step)
+    2^-7 relative plus 1e-3 of the largest |y|."""
+    names = [f"{k}_{t}" for k in ("tiled_matmul", "chain_matmul", "accum_matmul")
+             for t in ("s8", "bf16")]
+    err = {n: 0.0 for n in names}
+    for m, n, k in MMA_SHAPES:
+        a, b_t = mma_operands(m, n, k, torch.int8, seed=m + n + k)
+        out, want = Mm.tiled_matmul(a, b_t), Mm.tiled_matmul_plain(a, b_t)
+        torch.cuda.synchronize()
+        err["tiled_matmul_s8"] = max(err["tiled_matmul_s8"], max_abs(out, want))
+        check(out.dtype == torch.int32 and torch.equal(out, want),
+              f"tiled_matmul int8 ({m}, {k}) x ({k}, {n}): int32, bit-equal to plain")
+        a, b_t = mma_operands(m, n, k, torch.bfloat16, seed=m + n + k)
+        out, want = Mm.tiled_matmul(a, b_t), Mm.tiled_matmul_plain(a, b_t)
+        torch.cuda.synchronize()
+        diff, scale = max_abs(out, want), abs_product(a, b_t)
+        err["tiled_matmul_bf16"] = max(err["tiled_matmul_bf16"], diff)
+        check(out.dtype == torch.float32 and diff <= 1e-5 * scale,
+              f"tiled_matmul bf16 ({m}, {k}) x ({k}, {n}): f32, max abs diff {diff:.3e} "
+              f"= {diff / scale:.2e} of the largest sum of |a||b| (limit 1e-5)")
+    pm, pk, pn = PROBE_MKN
+    for m, kn in ((5, 64), (37, 128), (pm, pk)):
+        a, b_t = mma_operands(m, kn, kn, torch.int8, seed=m, amp=1.0)
+        for loop in (0, 1, 2, 3, 64):
+            out, want = Mm.chain_matmul(a, b_t, loop), Mm.chain_matmul_plain(a, b_t, loop)
+            torch.cuda.synchronize()
+            err["chain_matmul_s8"] = max(err["chain_matmul_s8"], max_abs(out, want))
+            check(out.dtype == torch.int8 and torch.equal(out, want),
+                  f"chain_matmul int8 ({m}, {kn}) loop {loop}: bit-equal to plain "
+                  f"({int((out != 0).sum())} non-zero, {int((out.abs() == 127).sum())} clipped)")
+        a, b_t = mma_operands(m, kn, kn, torch.bfloat16, seed=m)
+        for loop in (1, 2, 3):
+            out = Mm.chain_matmul(a, b_t, loop, 0.01)
+            want = Mm.chain_matmul_plain(a, b_t, loop, 0.01)
+            torch.cuda.synchronize()
+            top = float(want.float().abs().max())
+            diff = max_abs(out, want)
+            err["chain_matmul_bf16"] = max(err["chain_matmul_bf16"], diff)
+            torch.testing.assert_close(out.float(), want.float(), rtol=2 ** -7, atol=1e-3 * top)
+            check(out.dtype == torch.bfloat16 and top > 0.0,
+                  f"chain_matmul bf16 ({m}, {kn}) loop {loop}: within 2^-7 relative + 1e-3 "
+                  f"of max |y| = {top:.3e} of plain (max abs diff {diff:.3e}, "
+                  f"{int((out != want).sum())} of {out.numel()} differ)")
+    for m, n, k in ((7, 33, 147), (200, 100, 96), (pm, pn, pk)):
+        for loop in (1, 3, 64):
+            a, b_t = mma_operands(m, n, k, torch.int8, seed=loop)
+            out, want = Mm.accum_matmul(a, b_t, loop), Mm.accum_matmul_plain(a, b_t, loop)
+            torch.cuda.synchronize()
+            err["accum_matmul_s8"] = max(err["accum_matmul_s8"], max_abs(out, want))
+            check(out.dtype == torch.int32 and torch.equal(out, want),
+                  f"accum_matmul int8 ({m}, {k}) x ({k}, {n}) loop {loop}: bit-equal to plain")
+            a, b_t = mma_operands(m, n, k, torch.bfloat16, seed=loop)
+            out, want = Mm.accum_matmul(a, b_t, loop), Mm.accum_matmul_plain(a, b_t, loop)
+            torch.cuda.synchronize()
+            scale = sum(abs_product(Mm._perturbed(a, i), b_t) for i in range(loop))
+            diff = max_abs(out, want)
+            err["accum_matmul_bf16"] = max(err["accum_matmul_bf16"], diff)
+            check(out.dtype == torch.float32 and diff <= 5e-5 * scale,
+                  f"accum_matmul bf16 ({m}, {k}) x ({k}, {n}) loop {loop}: max abs diff "
+                  f"{diff:.3e} = {diff / scale:.2e} of the summed |a||b| (limit 5e-5)")
+    return err
+
+
 def flagship_cfg() -> dict:
     cfg = runpy.run_path(CONFIG)
     test_cfg = dict(cfg["test_cfg"], class_topk=4)  # __graft_entry__.TEST_CFG
@@ -554,6 +663,137 @@ def phase_train(B, A, Fc, handle, cfg) -> tuple:
         check(worst == 0.0, "save, resume, one more step: parameters bit-equal to the "
               "step taken without the round trip")
     return counts, runner, batch
+
+
+def set_sync_errors(fn):
+    """fn() with host syncs made errors."""
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        return fn()
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+
+
+def head_drift(model, img, ref_outs) -> float:
+    """The largest |head output - f32 head output| over the three branches
+    and five levels, as a share of that branch's largest |f32 output|."""
+    with torch.inference_mode():
+        outs = model(img)
+    worst = 0.0
+    for branch, ref_branch in zip(outs, ref_outs):
+        top = max(float(r.abs().max()) for r in ref_branch)
+        for o, r in zip(branch, ref_branch):
+            worst = max(worst, float((o.float() - r).abs().max()) / top)
+    return worst
+
+
+def check_predict_outputs(dets, labels, bsz: int, nc: int, what: str) -> None:
+    ok = (tuple(dets.shape) == (bsz, 100, 5) and tuple(labels.shape) == (bsz, 100)
+          and dets.dtype == torch.float32 and bool(torch.isfinite(dets).all())
+          and bool(((labels >= -1) & (labels < nc)).all()))
+    check(ok and int((labels >= 0).sum()) > 0,
+          f"{what}: dets {tuple(dets.shape)} finite, labels in [-1, {nc - 1}], "
+          f"{int((labels >= 0).sum())} valid detections, no host sync")
+
+
+def phase_low_precision(B, Mm, Q, f32_handle, cfg, inputs) -> tuple:
+    """The flagship's low-precision serving paths through ``predict``: bf16,
+    bf16 with calibrated static int8 convolutions, bf16 with dynamic int8.
+    Returns (the int8 run's launch counts, the bf16 handle, the scales).
+
+    Drift limits, as shares of a branch's largest f32 output, on seeded random
+    weights (which amplify differences more than trained ones): bf16 0.05
+    (a 2^-8 rounding an op through ~60 layers); dynamic int8 0.25; static
+    int8 1.0, because the calibration keeps the shared towers' last call
+    (P7), as ioudet does, and so clips the larger levels."""
+    from ioudet_torch.apis.inference import init_detector, predict
+
+    handle = init_detector(dict(cfg, model=dict(cfg["model"], dtype="bfloat16")),
+                           device="cuda", seed=0)
+    model = handle.model
+    with torch.no_grad():
+        model.bbox_head.retina_cls.bias.zero_()
+    sd, ref_sd = model.state_dict(), f32_handle.model.state_dict()
+    check(all(v.dtype == torch.float32 and torch.equal(v, ref_sd[k]) for k, v in sd.items()),
+          "bf16 model: f32 parameters, bit-equal to the f32 model's (same seed)")
+    nc, bsz = model.bbox_head.cls_out_channels, inputs[0].shape[0]
+    with torch.inference_mode():
+        ref_outs = f32_handle.model(inputs[0][:2])
+
+    predict(handle, *inputs)   # warm-up
+    torch.cuda.synchronize()
+    dets, labels = set_sync_errors(lambda: predict(handle, *inputs))
+    check_predict_outputs(dets, labels, bsz, nc, "bf16 predict")
+    drift = head_drift(model, inputs[0][:2], ref_outs)
+    check(drift <= 0.05, f"bf16 head outputs within {drift:.4f} of the f32 model's "
+          "largest (limit 0.05)")
+
+    # calibration: one seeded (1, 416, 672, 3) normal canvas through the model
+    small = torch.from_numpy(np.random.default_rng(0).standard_normal(
+        (1, 416, 672, 3)).astype(np.float32)).cuda()
+    with torch.inference_mode():
+        scales = Q.calibrate(model, model, [small])
+    convs = dict(Q.eligible_convs(model))
+    levels = len(model.bbox_head.anchor_strides)
+    towers = sum(1 for p in convs if p.startswith("bbox_head."))
+    calls = len(convs) - towers + towers * levels   # the towers run once a level
+    check(set(scales) == set(convs) and towers == 8 and
+          not any("retina_" in p for p in convs),
+          f"calibrated {len(scales)} convs ({towers} of them tower convs shared by "
+          f"{levels} levels): {calls} quantized conv calls a predict")
+
+    counts = None
+    for mode, act_scale, limit in (("static", scales, 1.0), ("dynamic", None, 0.25)):
+        before = {k: v.clone() for k, v in model.state_dict().items()}
+        with Q.quantize_calls(model, act_scale=act_scale):
+            predict(handle, *inputs)   # warm-up
+            torch.cuda.synchronize()
+            B.reset_launches()
+            dets, labels = set_sync_errors(lambda: predict(handle, *inputs))
+            torch.cuda.synchronize()
+            seen = dict(B.launches)
+            check_predict_outputs(dets, labels, bsz, nc, f"bf16 + {mode} int8 predict")
+            check(seen["tiled_matmul_s8"] == calls and seen["nms_mask_kernel"] == 1
+                  and seen["nms_reduce_kernel"] == 1,
+                  f"{mode} int8 predict launched the tiled int8 product {calls} times and "
+                  "each NMS kernel once")
+            # the whole call again with the plain product in the kernel's place
+            kernel = Mm.tiled_matmul
+            Mm.tiled_matmul = Mm.tiled_matmul_plain
+            try:
+                plain_dets, plain_labels = predict(handle, *inputs)
+            finally:
+                Mm.tiled_matmul = kernel
+            check(B.launches["tiled_matmul_s8"] == calls and
+                  torch.equal(dets, plain_dets) and torch.equal(labels, plain_labels),
+                  f"{mode} int8 predict replayed with the plain product: dets and labels "
+                  "bit-equal")
+            drift = head_drift(model, inputs[0][:2], ref_outs)
+            check(drift <= limit, f"bf16 + {mode} int8 head outputs within {drift:.4f} of "
+                  f"the f32 model's largest (limit {limit})")
+        after = model.state_dict()
+        check(all(torch.equal(after[k], before[k]) for k in before) and
+              not any("forward" in m.__dict__ for m in model.modules()),
+              f"after the {mode} int8 block: state_dict bit-unchanged, forwards restored")
+        counts = counts or seen
+    return counts, handle, scales
+
+
+def phase_probe(B) -> dict:
+    """The probe tool's own run (chain, accumulate and tiled products in both
+    types at its shapes); returns the launch counts of that run."""
+    from ioudet_torch.tools import probe_tensor_cores
+    B.reset_launches()
+    check(probe_tensor_cores.main() == 0, "probe_tensor_cores ran")
+    torch.cuda.synchronize()
+    counts = dict(B.launches)
+    reps = 5   # a warm-up and four timed programs
+    want = {"chain_matmul": reps * probe_tensor_cores.KERNEL_REPEAT,
+            "accum_matmul": reps * probe_tensor_cores.KERNEL_REPEAT,
+            "tiled_matmul": reps * probe_tensor_cores.TILED_REPEAT}
+    check(all(counts[f"{k}_{t}"] == n for k, n in want.items() for t in ("s8", "bf16")),
+          f"the probe launched every product in both types: {counts}")
+    return counts
 
 
 def phase_reference(handle) -> None:
@@ -814,6 +1054,161 @@ def phase_timing(K, A, Fc, handle, runner, batch, rng, card: str) -> dict:
     return times
 
 
+def tensor_bound(nbytes: float, ops: float, int8: bool) -> tuple:
+    """(bound_ms, bound_by) of a tensor-core product: bytes over the card's
+    memory rate against operations over its dense int8 or bf16 rate."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / (INT8_OPS_PER_S if int8 else BF16_FLOPS_PER_S) * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def int8_predict_split(Mm, Q, handle, inputs, act_scale) -> tuple:
+    """One int8 ``predict`` cut by CUDA events inside every quantized conv:
+    quantize + window gather, the int8 product, dequantization, and the rest
+    of the call.  Returns (the four times in ms, per conv path (M, K, N) and
+    the product's ms summed over its calls)."""
+    from ioudet_torch.apis.inference import predict
+    marks, per_conv = [], {}
+    paths = {mod: path for path, mod in Q.eligible_convs(handle.model)}
+    call, product = Q.quant_conv_call, Mm.tiled_matmul
+
+    def event():
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        return ev
+
+    def timed_product(a, b_t):
+        rec = marks[-1]
+        rec["shape"] = (a.shape[0], a.shape[1], b_t.shape[0])
+        rec["m0"] = event()
+        out = product(a, b_t)
+        rec["m1"] = event()
+        return out
+
+    def timed_call(mod, x, *args):
+        rec = dict(path=paths[mod], t0=event())
+        marks.append(rec)
+        out = call(mod, x, *args)
+        rec["t1"] = event()
+        return out
+
+    Q.quant_conv_call, Mm.tiled_matmul = timed_call, timed_product
+    try:
+        with Q.quantize_calls(handle.model, act_scale=act_scale):
+            predict(handle, *inputs)
+            torch.cuda.synchronize()
+            marks.clear()
+            start = event()
+            predict(handle, *inputs)
+            end = event()
+            torch.cuda.synchronize()
+    finally:
+        Q.quant_conv_call, Mm.tiled_matmul = call, product
+    parts = [0.0, 0.0, 0.0]
+    for rec in marks:
+        product_ms = rec["m0"].elapsed_time(rec["m1"])
+        parts[0] += rec["t0"].elapsed_time(rec["m0"])
+        parts[1] += product_ms
+        parts[2] += rec["m1"].elapsed_time(rec["t1"])
+        key = (rec["path"], rec["shape"])
+        per_conv[key] = per_conv.get(key, 0.0) + product_ms
+    total = start.elapsed_time(end)
+    return (*parts, total - sum(parts)), per_conv
+
+
+def phase_low_precision_timing(Mm, Q, handle, scales, rng, card: str) -> dict:
+    """``predict`` in bf16, bf16 + static int8 and bf16 + dynamic int8 at batch
+    1 and 16 with peak memory, the int8 predict's split, and the tensor-core
+    kernels against their plain versions, bounds and library calls.  Returns
+    per kernel (ms, plain_ms, bound_ms, bound_by, library_ms)."""
+    import contextlib
+    from ioudet_torch.apis.inference import predict
+
+    modes = (("bf16", None), ("bf16 + static int8", lambda: Q.quantize_calls(
+        handle.model, act_scale=scales)), ("bf16 + dynamic int8", lambda: Q.quantize_calls(
+            handle.model)))
+    for name, ctx in modes:
+        for bsz in (1, BATCH):
+            inputs = canvases(bsz, rng)
+            with (ctx() if ctx else contextlib.nullcontext()):
+                predict(handle, *inputs)
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                ms = host_ms(lambda: predict(handle, *inputs), reps=10, warmup=0)
+            peak = torch.cuda.max_memory_allocated() / 2 ** 30
+            print(f"predict batch {bsz}: median of 10 {ms:.3f} ms, {bsz * 1e3 / ms:.2f} img/s, "
+                  f"peak memory {peak:.2f} GiB [{card}; {name}]", flush=True)
+            del inputs
+        torch.cuda.empty_cache()
+
+    inputs = canvases(BATCH, rng)
+    top = []
+    for name, act_scale in (("static", scales), ("dynamic", None)):
+        parts, per_conv = int8_predict_split(Mm, Q, handle, inputs, act_scale)
+        print(f"int8 predict split, batch {BATCH}, {name} scales (CUDA events, one call), ms: "
+              f"quantize + window gather {parts[0]:.3f}, int8 product {parts[1]:.3f}, "
+              f"dequantize {parts[2]:.3f}, unquantized rest {parts[3]:.3f} "
+              f"[{card}; bf16 + {name} int8]", flush=True)
+        top = top or sorted(per_conv.items(), key=lambda kv: -kv[1])[:3]
+    del inputs
+    torch.cuda.empty_cache()
+
+    times = {}
+    for rank, ((path, (m, k, n)), conv_ms) in enumerate(top):
+        gen = torch.Generator(device="cuda").manual_seed(rank)   # too large for numpy's pace
+        a = torch.randint(-127, 128, (m, k), dtype=torch.int8, device="cuda", generator=gen)
+        b_t = torch.randint(-127, 128, (n, k), dtype=torch.int8, device="cuda", generator=gen)
+        out = Mm.tiled_matmul(a, b_t)
+        row = (cuda_ms(lambda: Mm.tiled_matmul(a, b_t), 10),
+               cuda_ms(lambda: Mm.tiled_matmul_plain(a, b_t), 2, 1),
+               *tensor_bound(a.numel() + b_t.numel() + out.numel() * 4, 2.0 * m * n * k, True),
+               cuda_ms(lambda: torch._int_mm(a, b_t.t()), 10))
+        if rank == 0:
+            times["tiled_matmul_s8"] = row
+        print(f"tiled_matmul int8 at {path} ({m}, {k}) x ({k}, {n}), {conv_ms:.3f} ms of the "
+              f"predict: kernel {row[0]:.4f} ms, plain torch {row[1]:.4f} ms, bound {row[2]:.4f} "
+              f"ms by {row[3]}, library (torch._int_mm) {row[4]:.4f} ms [{card}; int8]", flush=True)
+        del a, b_t, out
+    for int8 in (True, False):
+        dtype, tag = (torch.int8, "int8") if int8 else (torch.bfloat16, "bf16")
+        n4 = MMA_SHAPES[-1][0]
+        a, b_t = mma_operands(n4, n4, n4, dtype, seed=4)
+        lib = (lambda: torch._int_mm(a, b_t.t())) if int8 else (lambda: torch.matmul(a, b_t.t()))
+        row = (cuda_ms(lambda: Mm.tiled_matmul(a, b_t), 10),
+               cuda_ms(lambda: Mm.tiled_matmul_plain(a, b_t), 2, 1),
+               *tensor_bound(2 * a.numel() * a.element_size() + n4 * n4 * 4, 2.0 * n4 ** 3, int8),
+               cuda_ms(lib, 10))
+        if not int8:
+            times["tiled_matmul_bf16"] = row
+        print(f"tiled_matmul {tag} at the probe's {n4}^3: kernel {row[0]:.4f} ms "
+              f"({2.0 * n4 ** 3 / row[0] / 1e9:.1f} T(FL)OP/s), plain torch {row[1]:.4f} ms, "
+              f"bound {row[2]:.4f} ms by {row[3]}, library "
+              f"({'torch._int_mm' if int8 else 'torch.matmul, bf16 output'}) {row[4]:.4f} ms "
+              f"[{card}; {tag}]", flush=True)
+        del a, b_t
+        pm, pk, pn = PROBE_MKN
+        loop = 64
+        a, b_t = mma_operands(pm, pn, pk, dtype, seed=5)
+        nbytes = (pm * pk + pn * pk) * a.element_size()
+        ops = 2.0 * pm * pn * pk * loop
+        for kind, fn, plain, out_bytes in (
+                ("chain", lambda: Mm.chain_matmul(a, b_t, loop), 
+                 lambda: Mm.chain_matmul_plain(a, b_t, loop), pm * pn * a.element_size()),
+                ("accum", lambda: Mm.accum_matmul(a, b_t, loop),
+                 lambda: Mm.accum_matmul_plain(a, b_t, loop), pm * pn * 4)):
+            row = (cuda_ms(fn, 5), cuda_ms(plain, 2, 1),
+                   *tensor_bound(nbytes + out_bytes, ops, int8), None)
+            times[f"{kind}_matmul_{'s8' if int8 else 'bf16'}"] = row
+            blocks = Mm.chain_blocks(pm) if kind == "chain" else \
+                -(-pm // Mm.TILE_M) * -(-pn // Mm.tile_width(pm, pn))
+            print(f"{kind}_matmul {tag} ({pm}, {pk}) x ({pk}, {pn}) loop {loop}: kernel "
+                  f"{row[0]:.4f} ms ({ops / row[0] / 1e9:.1f} T(FL)OP/s, {blocks} blocks for "
+                  f"{Mm.NUM_SMS} SMs), plain torch {row[1]:.4f} ms, bound {row[2]:.4f} ms by "
+                  f"{row[3]}, library none [{card}; {tag}]", flush=True)
+        del a, b_t
+    return times
+
+
 KERNELS = {  # name: (source, the TPU kernel it replaces)
     "nms_mask_kernel": ("nms_kernel.cu", "ioudet/ops/nms_pallas.py:26"),
     "nms_reduce_kernel": ("nms_kernel.cu", "ioudet/ops/nms_pallas.py:81"),
@@ -821,6 +1216,13 @@ KERNELS = {  # name: (source, the TPU kernel it replaces)
     "assign_targets_kernel": ("assign_kernel.cu", "ioudet/ops/assign_pallas.py:100"),
     "focal_sum_kernel": ("focal_kernel.cu", "ioudet/ops/focal_pallas.py:68"),
     "focal_dx_kernel": ("focal_kernel.cu", "ioudet/ops/focal_pallas.py:94"),
+    # the tensor-core products, one entry for each operand type
+    "chain_matmul_s8": ("mma_kernel.cu", "tools/probe_mxu_rate.py:39"),
+    "chain_matmul_bf16": ("mma_kernel.cu", "tools/probe_mxu_rate.py:47"),
+    "accum_matmul_s8": ("mma_kernel.cu", "tools/probe_mxu_rate2.py:32"),
+    "accum_matmul_bf16": ("mma_kernel.cu", "tools/probe_mxu_rate2.py:46"),
+    "tiled_matmul_s8": ("mma_kernel.cu", "tools/probe_pallas_int8_matmul.py:53"),
+    "tiled_matmul_bf16": ("mma_kernel.cu", "tools/probe_pallas_int8_matmul.py:53"),
 }
 
 
@@ -834,12 +1236,14 @@ def main() -> int:
     from ioudet_torch.ops import _build as B
     from ioudet_torch.ops import assign_cuda as A
     from ioudet_torch.ops import focal_cuda as Fc
+    from ioudet_torch.ops import mma_cuda as Mm
     from ioudet_torch.ops import nms_cuda as K
+    from ioudet_torch.ops import quant as Q
 
     card = card_line()
     print(f"card: {card}; torch {torch.__version__}, CUDA {torch.version.cuda}", flush=True)
     t = time.perf_counter()
-    libraries = (K.LIBRARY, A.LIBRARY, Fc.LIBRARY)
+    libraries = (K.LIBRARY, A.LIBRARY, Fc.LIBRARY, Mm.LIBRARY)
     B.build_all(libraries)
     print(f"phase 1: built {', '.join(lib.path().name for lib in libraries)} side by "
           f"side in {time.perf_counter() - t:.2f} s", flush=True)
@@ -849,6 +1253,7 @@ def main() -> int:
     err = phase_kernels(K)
     err.update(phase_assign_kernels(A))
     err.update(phase_focal_kernels(Fc))
+    err.update(phase_mma_kernels(Mm))
     torch.cuda.empty_cache()
     if "--kernels-only" in sys.argv[1:]:
         print(json.dumps({"max_abs_err": err}))
@@ -863,8 +1268,18 @@ def main() -> int:
     with torch.no_grad():
         handle.model.bbox_head.retina_cls.bias.zero_()
     rng = np.random.default_rng(0)
-    launches = phase_slice(B, K, handle, canvases(BATCH, rng))
+    inputs = canvases(BATCH, rng)
+    launches = phase_slice(B, K, handle, inputs)
     phase_reference(handle)
+    torch.cuda.empty_cache()
+
+    print("phase 3b: flagship low-precision serving: bf16, bf16 + static int8, "
+          "bf16 + dynamic int8; then the tensor-core probe tool", flush=True)
+    lp_launches, lp_handle, scales = phase_low_precision(B, Mm, Q, handle, cfg, inputs)
+    del inputs
+    torch.cuda.empty_cache()
+    probe_launches = phase_probe(B)
+    launches = {k: launches[k] + lp_launches[k] + probe_launches[k] for k in launches}
     torch.cuda.empty_cache()
 
     print(f"phase 4: flagship train path, batch {TRAIN_BATCH}, {TRAIN_STEPS} steps; "
@@ -876,6 +1291,12 @@ def main() -> int:
 
     print("phase 5: timings", flush=True)
     times = phase_timing(K, A, Fc, handle, runner, batch, rng, card)
+    del runner, batch
+    torch.cuda.empty_cache()
+    times.update(phase_low_precision_timing(Mm, Q, lp_handle, scales, rng, card))
+    check(all(launches[name] > 0 for name in KERNELS),
+          "every kernel was launched on a main path: " +
+          ", ".join(f"{name} {launches[name]}" for name in KERNELS))
     kernels = [dict(name=name, route="cuda", source=f"ioudet_torch/csrc/{source}",
                     replaces=replaces, launches=launches[name],
                     max_abs_err=err[name], ms=times[name][0], plain_ms=times[name][1],

@@ -112,6 +112,77 @@ def state_dict_from_flax(params: dict) -> Dict[str, torch.Tensor]:
     return sd
 
 
+_BLOCK = re.compile(r"backbone\.layer(\d+)\.(\d+)\.(conv\d|downsample\.0)$")
+_FLAX_BLOCK = re.compile(r"backbone/layer(\d+)_(\d+)/(conv\d|downsample_conv)$")
+
+
+def conv_path_to_flax(path: str, num_laterals: int) -> str:
+    """The port's module path of a convolution -> ``ioudet``'s
+    ("/".join(mod.path)), by the name map of ``state_dict_from_flax``."""
+    m = _BLOCK.match(path)
+    if m:
+        leaf = "downsample_conv" if m.group(3).startswith("down") else m.group(3)
+        return f"backbone/layer{m.group(1)}_{m.group(2)}/{leaf}"
+    if path == "backbone.conv1":
+        return "backbone/conv1"
+    m = re.fullmatch(r"neck\.(lateral|fpn)_convs\.(\d+)\.conv", path)
+    if m:
+        group, idx = m.group(1), int(m.group(2))
+        if group == "fpn" and idx >= num_laterals:
+            group, idx = "extra", idx - num_laterals
+        return f"neck/{group}_{idx}/conv"
+    m = re.fullmatch(r"bbox_head\.(cls|reg)_convs\.(\d+)\.conv", path)
+    if m:
+        return f"bbox_head/{m.group(1)}_conv{m.group(2)}"
+    m = re.fullmatch(r"bbox_head\.(retina_(?:cls|reg|iou))", path)
+    if m:
+        return f"bbox_head/{m.group(1)}"
+    raise KeyError(f"unknown convolution path {path}")
+
+
+def conv_path_from_flax(path: str, num_laterals: int) -> str:
+    """The inverse of ``conv_path_to_flax``."""
+    m = _FLAX_BLOCK.match(path)
+    if m:
+        leaf = "downsample.0" if m.group(3) == "downsample_conv" else m.group(3)
+        return f"backbone.layer{m.group(1)}.{m.group(2)}.{leaf}"
+    if path == "backbone/conv1":
+        return "backbone.conv1"
+    m = re.fullmatch(r"neck/(lateral|fpn|extra)_(\d+)/conv", path)
+    if m:
+        group, idx = m.group(1), int(m.group(2))
+        if group == "extra":
+            group, idx = "fpn", idx + num_laterals
+        return f"neck.{group}_convs.{idx}.conv"
+    m = re.fullmatch(r"bbox_head/(cls|reg)_conv(\d+)", path)
+    if m:
+        return f"bbox_head.{m.group(1)}_convs.{m.group(2)}.conv"
+    m = re.fullmatch(r"bbox_head/(retina_(?:cls|reg|iou))", path)
+    if m:
+        return f"bbox_head.{m.group(1)}"
+    raise KeyError(f"unknown convolution path {path}")
+
+
+def act_scales_from_flax(scales: Dict[str, float],
+                         num_laterals: Optional[int] = None) -> Dict[str, float]:
+    """A ``calibrate`` dict of ``ioudet.ops.quant`` (keys "/".join(mod.path))
+    -> one for ``ioudet_torch.ops.quant.quantize_calls`` (keys the port's
+    module paths).  ``num_laterals`` defaults to the number of lateral convs
+    the dict names."""
+    if num_laterals is None:
+        num_laterals = sum(1 for k in scales if k.startswith("neck/lateral_"))
+    return {conv_path_from_flax(k, num_laterals): float(v) for k, v in scales.items()}
+
+
+def act_scales_to_flax(scales: Dict[str, float],
+                       num_laterals: Optional[int] = None) -> Dict[str, float]:
+    """The inverse of ``act_scales_from_flax``: the port's ``calibrate`` dict
+    -> one for ``ioudet.ops.quant.quantize_calls``."""
+    if num_laterals is None:
+        num_laterals = sum(1 for k in scales if k.startswith("neck.lateral_convs."))
+    return {conv_path_to_flax(k, num_laterals): float(v) for k, v in scales.items()}
+
+
 def save_checkpoint(work_dir: str, name: str, model: torch.nn.Module,
                     optimizer: Optional[torch.optim.Optimizer] = None,
                     meta: Optional[dict] = None) -> str:

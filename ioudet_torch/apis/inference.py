@@ -43,8 +43,12 @@ def init_detector(config, checkpoint: Optional[str] = None,
                   device: Union[str, torch.device] = "cuda",
                   seed: int = 0) -> DetectorHandle:
     """config: a path, an ``ioudet`` Config or a dict with ``model`` (and
-    optionally ``test_cfg``, ``data``).  Without a checkpoint the weights are
-    drawn from ``torch.Generator().manual_seed(seed)``."""
+    optionally ``test_cfg``, ``data``).  ``model['dtype']`` ("float32" or
+    "bfloat16") is the compute dtype; the parameters are f32 either way.
+    Without a checkpoint the weights are drawn from
+    ``torch.Generator().manual_seed(seed)``.  For int8 serving run
+    ``predict`` / ``inference_detector`` inside
+    ``ioudet_torch.ops.quant.quantize_calls(handle.model, ...)``."""
     cfg = _as_dict(config)
     device = torch.device(device)
     if device.type == "cuda" and not torch.cuda.is_available():

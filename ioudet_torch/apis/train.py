@@ -133,7 +133,14 @@ def make_train_step(model: torch.nn.Module, optimizer: torch.optim.Optimizer,
 
     batch keys: img, gt_bboxes, gt_labels, gt_valid, img_shape, pad_shape
     (+ gt_bboxes_ignore, gt_ignore_valid), tensors on the model's device;
-    ``step`` is the number of steps taken so far and picks the LR."""
+    ``step`` is the number of steps taken so far and picks the LR.  Only a
+    float32 model trains: a bfloat16 one raises (its training is not held
+    against ``ioudet`` yet)."""
+    low = {m.compute_dtype for m in model.modules()
+           if getattr(m, "compute_dtype", torch.float32) != torch.float32}
+    if low:
+        raise NotImplementedError(f"training a model that computes in {sorted(map(str, low))} "
+                                  "is not ported; build it with dtype='float32'")
     params = [p for group in optimizer.param_groups for p in group["params"]]
 
     def train_step(batch: dict, step: int) -> Dict[str, torch.Tensor]:

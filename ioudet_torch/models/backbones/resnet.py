@@ -10,32 +10,33 @@ mmdet module names (``conv1``, ``bn1``, ``layer{i}.{j}.conv{k}``,
 from __future__ import annotations
 
 import math
-from typing import Optional, Sequence
+from typing import Optional, Sequence, Union
 
 import torch
 from torch import nn
 
-from ..utils.layers import FrozenBatchNorm, check_norm_cfg
+from ..utils.layers import Conv2d, FrozenBatchNorm, check_norm_cfg, compute_dtype
 
 
-def _conv(cin, cout, k, stride=1):
-    return nn.Conv2d(cin, cout, k, stride, (k - 1) // 2, bias=False)
+def _conv(cin, cout, k, stride=1, dtype=torch.float32):
+    return Conv2d(cin, cout, k, stride, (k - 1) // 2, bias=False, compute_dtype=dtype)
 
 
 class BasicBlock(nn.Module):
     expansion = 1
 
     def __init__(self, inplanes: int, planes: int, stride: int = 1,
-                 downsample: bool = False, style: str = "pytorch"):
+                 downsample: bool = False, style: str = "pytorch",
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
-        self.conv1 = _conv(inplanes, planes, 3, stride)
-        self.bn1 = FrozenBatchNorm(planes)
-        self.conv2 = _conv(planes, planes, 3)
-        self.bn2 = FrozenBatchNorm(planes)
+        self.conv1 = _conv(inplanes, planes, 3, stride, dtype)
+        self.bn1 = FrozenBatchNorm(planes, dtype=dtype)
+        self.conv2 = _conv(planes, planes, 3, dtype=dtype)
+        self.bn2 = FrozenBatchNorm(planes, dtype=dtype)
         self.relu = nn.ReLU(inplace=True)
         self.downsample = nn.Sequential(
-            _conv(inplanes, planes, 1, stride), FrozenBatchNorm(planes)) \
-            if downsample else None
+            _conv(inplanes, planes, 1, stride, dtype),
+            FrozenBatchNorm(planes, dtype=dtype)) if downsample else None
 
     def forward(self, x):
         identity = x if self.downsample is None else self.downsample(x)
@@ -48,22 +49,23 @@ class Bottleneck(nn.Module):
     expansion = 4
 
     def __init__(self, inplanes: int, planes: int, stride: int = 1,
-                 downsample: bool = False, style: str = "pytorch"):
+                 downsample: bool = False, style: str = "pytorch",
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         if style not in ("pytorch", "caffe"):
             raise ValueError(f"style must be 'pytorch' or 'caffe', got {style!r}")
         c1_stride, c2_stride = (stride, 1) if style == "caffe" else (1, stride)
         out = planes * self.expansion
-        self.conv1 = _conv(inplanes, planes, 1, c1_stride)
-        self.bn1 = FrozenBatchNorm(planes)
-        self.conv2 = _conv(planes, planes, 3, c2_stride)
-        self.bn2 = FrozenBatchNorm(planes)
-        self.conv3 = _conv(planes, out, 1)
-        self.bn3 = FrozenBatchNorm(out)
+        self.conv1 = _conv(inplanes, planes, 1, c1_stride, dtype)
+        self.bn1 = FrozenBatchNorm(planes, dtype=dtype)
+        self.conv2 = _conv(planes, planes, 3, c2_stride, dtype)
+        self.bn2 = FrozenBatchNorm(planes, dtype=dtype)
+        self.conv3 = _conv(planes, out, 1, dtype=dtype)
+        self.bn3 = FrozenBatchNorm(out, dtype=dtype)
         self.relu = nn.ReLU(inplace=True)
         self.downsample = nn.Sequential(
-            _conv(inplanes, out, 1, stride), FrozenBatchNorm(out)) \
-            if downsample else None
+            _conv(inplanes, out, 1, stride, dtype),
+            FrozenBatchNorm(out, dtype=dtype)) if downsample else None
 
     def forward(self, x):
         identity = x if self.downsample is None else self.downsample(x)
@@ -93,7 +95,8 @@ class ResNet(nn.Module):
                  stage_with_dcn: Sequence[bool] = (False,) * 4,
                  dcn_modulated: bool = False,
                  stage_with_gcb: Sequence[bool] = (False,) * 4,
-                 stem_space_to_depth: bool = False):
+                 stem_space_to_depth: bool = False,
+                 dtype: Union[None, str, torch.dtype] = None):
         super().__init__()
         if depth not in ARCH_SETTINGS:
             raise KeyError(f"invalid depth {depth} for resnet")
@@ -109,8 +112,9 @@ class ResNet(nn.Module):
         self.frozen_stages = frozen_stages
         self.zero_init_residual = zero_init_residual
         block, stage_blocks = ARCH_SETTINGS[depth]
-        self.conv1 = nn.Conv2d(3, 64, 7, 2, 3, bias=False)
-        self.bn1 = FrozenBatchNorm(64)
+        dtype = compute_dtype(dtype)
+        self.conv1 = Conv2d(3, 64, 7, 2, 3, bias=False, compute_dtype=dtype)
+        self.bn1 = FrozenBatchNorm(64, dtype=dtype)
         self.relu = nn.ReLU(inplace=True)
         self.maxpool = nn.MaxPool2d(3, 2, 1)
         inplanes = 64
@@ -122,7 +126,8 @@ class ResNet(nn.Module):
                 stride = strides[i] if j == 0 else 1
                 downsample = j == 0 and (stride != 1 or
                                          inplanes != planes * block.expansion)
-                blocks.append(block(inplanes, planes, stride, downsample, style))
+                blocks.append(block(inplanes, planes, stride, downsample, style,
+                                    dtype))
                 inplanes = planes * block.expansion
             setattr(self, f"layer{i + 1}", nn.Sequential(*blocks))
         self._freeze_stages()

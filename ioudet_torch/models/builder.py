@@ -16,6 +16,7 @@ from .heads.iou_aware_retina_head import IoUAwareRetinaHead
 from .heads.retina_head import RetinaHead
 from .losses import CrossEntropyLoss, FocalLoss, L1Loss, SmoothL1Loss
 from .necks.fpn import FPN
+from .utils.layers import compute_dtype
 
 BACKBONES = {"ResNet": ResNet}
 NECKS = {"FPN": FPN}
@@ -42,19 +43,27 @@ def build_loss(cfg: dict):
 def build_detector(cfg: dict, train_cfg: Optional[dict] = None,
                    test_cfg: Optional[dict] = None):
     """Build a detector from a model config (``FLAGSHIP`` or the ``model``
-    entry of a config file)."""
+    entry of a config file).  ``dtype`` ("float32", the default, or
+    "bfloat16") is the compute dtype of every convolution and FrozenBN; the
+    parameters are f32 either way."""
     cfg = {k: v for k, v in dict(cfg).items() if v is not None}
     cfg.pop("pretrained", None)  # weights load through apis.checkpoint
-    if cfg.pop("dtype", None) not in (None, "float32"):
-        raise NotImplementedError("only float32 is ported; bf16 and int8 come later")
+    dtype = compute_dtype(cfg.pop("dtype", None))
+
+    def with_dtype(part: dict) -> dict:
+        # the detector's compute dtype reaches every part that names none
+        part = dict(part)
+        part.setdefault("dtype", dtype)
+        return part
+
     det_type = cfg.pop("type")
     if det_type not in DETECTORS:
         raise KeyError(f"detector {det_type!r} is not ported; "
                        f"available: {sorted(DETECTORS)}")
-    parts = dict(backbone=_build(cfg.pop("backbone"), BACKBONES, "backbone"),
-                 bbox_head=_build(cfg.pop("bbox_head"), HEADS, "head"))
+    parts = dict(backbone=_build(with_dtype(cfg.pop("backbone")), BACKBONES, "backbone"),
+                 bbox_head=_build(with_dtype(cfg.pop("bbox_head")), HEADS, "head"))
     if "neck" in cfg:
-        parts["neck"] = _build(cfg.pop("neck"), NECKS, "neck")
+        parts["neck"] = _build(with_dtype(cfg.pop("neck")), NECKS, "neck")
     if cfg:
         raise KeyError(f"unsupported detector keys: {sorted(cfg)}")
     return DETECTORS[det_type](train_cfg=train_cfg, test_cfg=test_cfg, **parts)

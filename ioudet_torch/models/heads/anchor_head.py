@@ -9,7 +9,7 @@ anchor-major channel layout ``a*C + c``, so that flattening a level gives the
 
 from __future__ import annotations
 
-from typing import Dict, List, Optional, Sequence, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple, Union
 
 import torch
 from torch import nn
@@ -18,6 +18,7 @@ from ...core.anchor import AnchorGenerator, anchor_target
 from ...core.bbox import MaxIoUAssigner
 from ...core.post_processing import multiclass_nms
 from ..losses import fused_level_focal_sum
+from ..utils.layers import compute_dtype
 
 DEFAULT_LOSS_CLS = dict(type="FocalLoss", use_sigmoid=True, gamma=2.0, alpha=0.25,
                         loss_weight=1.0)
@@ -38,8 +39,10 @@ class AnchorHead(nn.Module):
                  target_stds: Sequence[float] = (1.0, 1.0, 1.0, 1.0),
                  use_sigmoid_cls: bool = True,
                  loss_cls: Optional[dict] = None,
-                 loss_bbox: Optional[dict] = None):
+                 loss_bbox: Optional[dict] = None,
+                 dtype: Union[None, str, torch.dtype] = None):
         super().__init__()
+        self.dtype = compute_dtype(dtype)
         if not use_sigmoid_cls:
             raise NotImplementedError("softmax classification is not ported yet")
         self.num_classes = num_classes

@@ -26,6 +26,7 @@ from torch import nn
 from ...core.bbox import bbox_overlaps, delta2bbox
 from ...core.post_processing.bbox_nms import topk_stable
 from ..losses import binary_cross_entropy_with_logits
+from ..utils.layers import Conv2d
 from .anchor_head import batched_nms, clip_boxes
 from .retina_head import RetinaHead, nhwc
 
@@ -36,12 +37,23 @@ def _take(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
                         .expand(idx.shape + x.shape[2:]))
 
 
+def _sigmoid(x: torch.Tensor) -> torch.Tensor:
+    """Sigmoid in x's dtype.  Below f32 it is written out as XLA expands it
+    in ``ioudet``, 1 / (1 + exp(-x)) with every step rounded to the dtype:
+    bf16 scores tie often, ties decide the selection, and so the scores have
+    to be ``ioudet``'s bit for bit (``torch.sigmoid`` rounds once and differs
+    in the last bit for about 2% of the bf16 values)."""
+    if x.dtype == torch.float32:
+        return torch.sigmoid(x)
+    return 1.0 / (1.0 + torch.exp(-x))
+
+
 class IoUAwareRetinaHead(RetinaHead):
     def __init__(self, loss_iou_weight: float = 1.0, **kwargs):
         super().__init__(**kwargs)
         self.loss_iou_weight = loss_iou_weight
-        self.retina_iou = nn.Conv2d(self.feat_channels, self.num_anchors, 3,
-                                    padding=1)
+        self.retina_iou = Conv2d(self.feat_channels, self.num_anchors, 3,
+                                 padding=1, compute_dtype=self.dtype)
 
     def forward(self, feats):
         """NCHW levels -> (cls_scores, bbox_preds, iou_preds), NHWC per level."""
@@ -100,8 +112,8 @@ class IoUAwareRetinaHead(RetinaHead):
                 proxy = alpha * F.logsigmoid(proxy) + \
                     (1.0 - alpha) * F.logsigmoid(iou_logit.float())
             _, idx = topk_stable(proxy, min(nms_pre, n))
-            cls_p = torch.sigmoid(_take(logits, idx))
-            iou_p = torch.sigmoid(_take(iou_logit, idx))
+            cls_p = _sigmoid(_take(logits, idx))
+            iou_p = _sigmoid(_take(iou_logit, idx))
             rescored = cls_p.clamp(min=eps).pow(alpha) * \
                 iou_p.clamp(min=eps).pow(1.0 - alpha)[..., None]
             boxes = delta2bbox(anchors[lvl][idx], _take(bp.reshape(bsz, n, 4), idx),

@@ -14,7 +14,7 @@ from typing import Optional, Sequence
 import torch
 from torch import nn
 
-from ..utils.layers import ConvModule, bias_init_with_prob
+from ..utils.layers import Conv2d, ConvModule, bias_init_with_prob
 from .anchor_head import AnchorHead, normal_init
 
 
@@ -32,16 +32,16 @@ class RetinaHead(AnchorHead):
         self.stacked_convs = stacked_convs
         chans = [self.in_channels] + [self.feat_channels] * stacked_convs
         self.cls_convs = nn.ModuleList(
-            [ConvModule(chans[i], self.feat_channels, 3, padding=1)
+            [ConvModule(chans[i], self.feat_channels, 3, padding=1, dtype=self.dtype)
              for i in range(stacked_convs)])
         self.reg_convs = nn.ModuleList(
-            [ConvModule(chans[i], self.feat_channels, 3, padding=1)
+            [ConvModule(chans[i], self.feat_channels, 3, padding=1, dtype=self.dtype)
              for i in range(stacked_convs)])
-        self.retina_cls = nn.Conv2d(self.feat_channels,
-                                    self.num_anchors * self.cls_out_channels,
-                                    3, padding=1)
-        self.retina_reg = nn.Conv2d(self.feat_channels, self.num_anchors * 4,
-                                    3, padding=1)
+        self.retina_cls = Conv2d(self.feat_channels,
+                                 self.num_anchors * self.cls_out_channels,
+                                 3, padding=1, compute_dtype=self.dtype)
+        self.retina_reg = Conv2d(self.feat_channels, self.num_anchors * 4,
+                                 3, padding=1, compute_dtype=self.dtype)
 
     def init_weights(self, generator: torch.Generator) -> None:
         for m in self.modules():

@@ -9,7 +9,7 @@ are ``fpn_convs[num_laterals + j]``.  NCHW in and out.
 
 from __future__ import annotations
 
-from typing import Optional, Sequence
+from typing import Optional, Sequence, Union
 
 import torch
 import torch.nn.functional as F
@@ -27,7 +27,8 @@ class FPN(nn.Module):
                  relu_before_extra_convs: bool = False,
                  conv_cfg: Optional[dict] = None,
                  norm_cfg: Optional[dict] = None,
-                 act: Optional[str] = None):
+                 act: Optional[str] = None,
+                 dtype: Union[None, str, torch.dtype] = None):
         super().__init__()
         self.in_channels = tuple(in_channels)
         self.num_outs = num_outs
@@ -37,7 +38,7 @@ class FPN(nn.Module):
         self.extra_convs_on_inputs = extra_convs_on_inputs
         self.relu_before_extra_convs = relu_before_extra_convs
         used = self.in_channels[start_level:self.end_level]
-        kw = dict(conv_cfg=conv_cfg, norm_cfg=norm_cfg)
+        kw = dict(conv_cfg=conv_cfg, norm_cfg=norm_cfg, dtype=dtype)
         self.lateral_convs = nn.ModuleList(
             [ConvModule(c, out_channels, 1, act=act, **kw) for c in used])
         self.fpn_convs = nn.ModuleList(

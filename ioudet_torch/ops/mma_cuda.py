@@ -1,0 +1,191 @@
+"""Tensor-core matrix products: wrappers, plain versions and launch counts.
+
+The CUDA kernels of ``ioudet_torch/csrc/mma_kernel.cu`` take the place of the
+three TPU tensor-core probes of ``ioudet``'s ``tools/``:
+
+  * ``tiled_matmul`` (P3, ``probe_pallas_int8_matmul.pallas_matmul``): one
+    product (M, K) x (K, N), int8 -> int32 or bf16 -> f32, any M, N, K.  Its
+    int8 form is the product of every quantized convolution
+    (``ioudet_torch/ops/quant.py``);
+  * ``chain_matmul`` (P1, ``probe_mxu_rate._call``): ``loop`` dependent
+    products with the requant between them, ``y <- clip((y @ b) >> 9, -127,
+    127)`` in int8 or ``y <- bf16((y @ b) * scale)`` in bf16;
+  * ``accum_matmul`` (P2, ``probe_mxu_rate2._call``): ``loop`` independent
+    products summed, ``acc += (a XOR int8(i)) @ b`` or
+    ``acc += bf16(a + bf16(i)) @ b``.
+
+Every function takes the second operand as ``b_t`` of shape (N, K), K
+contiguous, which is what the tensor-core mma wants and what a
+convolution weight reshaped to (O, kh*kw*I) is; a (K, N) operand is
+transposed once by the caller (``b.t().contiguous()``).
+
+Each wrapper launches its kernel for CUDA tensors and runs its plain torch
+version (``*_plain``) only for CPU tensors; any other device raises.  The
+plain int8 versions are exact on both devices: int32 ``matmul`` on the CPU and,
+on the card, where integer ``matmul`` does not exist, float64 (K * 127^2 <
+2^53) cast back.  The plain bf16 versions upcast the operands to f32 and
+multiply with TF32 off, rounding where the kernels round.  Launches are
+counted per kernel and operand type in ``_build.launches``
+(``tiled_matmul_s8``, ``tiled_matmul_bf16``, ...).
+"""
+
+from __future__ import annotations
+
+import torch
+
+from . import _build
+from ._build import F32, I32, PTR
+
+LIBRARY = _build.KernelLibrary(
+    "mma_kernel.cu", (),
+    {"ioudet_tiled_matmul": [PTR, PTR, PTR] + [I32] * 7,
+     "ioudet_chain_matmul": [PTR, PTR, PTR] + [I32] * 4 + [F32]},
+    kernels=("tiled_matmul_s8", "tiled_matmul_bf16", "chain_matmul_s8",
+             "chain_matmul_bf16", "accum_matmul_s8", "accum_matmul_bf16"))
+
+NUM_SMS = 132                 # of an H100: narrow tiles below that many blocks
+TILE_M = 128                  # kBM in the source
+CHAIN_BAND = 16               # kBand: rows of y one chain block owns
+CHAIN_MAX_SMEM = 227 * 1024   # dynamic shared memory a block can opt into
+PLAIN_ROWS = 1 << 18          # rows per float64 product of the plain int8 form
+
+
+def _suffix(dtype: torch.dtype) -> str:
+    return "s8" if dtype == torch.int8 else "bf16"
+
+
+def _acc_dtype(dtype: torch.dtype) -> torch.dtype:
+    return torch.int32 if dtype == torch.int8 else torch.float32
+
+
+# ---------------------------------------------------------------- plain forms
+
+def tiled_matmul_plain(a: torch.Tensor, b_t: torch.Tensor) -> torch.Tensor:
+    """a (M, K) x b_t (N, K)^T -> (M, N): int8 -> int32 exactly, bf16 -> f32
+    (f32 operands, TF32 off)."""
+    if a.dtype == torch.int8:
+        if a.device.type == "cpu":
+            return torch.matmul(a.int(), b_t.int().t())
+        b64 = b_t.double().t()
+        out = torch.empty(a.shape[0], b_t.shape[0], dtype=torch.int32, device=a.device)
+        for r in range(0, a.shape[0], PLAIN_ROWS):   # bounds the float64 copies
+            out[r:r + PLAIN_ROWS] = torch.matmul(a[r:r + PLAIN_ROWS].double(), b64)
+        return out
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        return torch.matmul(a.float(), b_t.float().t())
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+
+
+def chain_matmul_plain(a: torch.Tensor, b_t: torch.Tensor, loop: int,
+                       scale: float = 0.01) -> torch.Tensor:
+    y = a
+    for _ in range(loop):
+        acc = tiled_matmul_plain(y, b_t)
+        if a.dtype == torch.int8:
+            y = torch.bitwise_right_shift(acc, 9).clamp(-127, 127).to(torch.int8)
+        else:
+            y = (acc * scale).to(torch.bfloat16)
+    return y.clone() if loop == 0 else y
+
+
+def _perturbed(a: torch.Tensor, i: int) -> torch.Tensor:
+    """The probe's change to ``a`` before product ``i``."""
+    if a.dtype == torch.int8:
+        return torch.bitwise_xor(a, (i + 128) % 256 - 128)   # int8(i), wrapped
+    step = torch.full((), float(i), dtype=torch.bfloat16, device=a.device)
+    return a + step   # the f32 sum rounded to bf16
+
+
+def accum_matmul_plain(a: torch.Tensor, b_t: torch.Tensor, loop: int) -> torch.Tensor:
+    acc = torch.zeros(a.shape[0], b_t.shape[0], dtype=_acc_dtype(a.dtype), device=a.device)
+    for i in range(loop):
+        acc += tiled_matmul_plain(_perturbed(a, i), b_t)
+    return acc
+
+
+# ------------------------------------------------------------------- wrappers
+
+def _check_operands(a: torch.Tensor, b_t: torch.Tensor) -> None:
+    _build.check_tensor(a, "a", (torch.int8, torch.bfloat16), 2)
+    _build.check_tensor(b_t, "b_t", a.dtype, 2)
+    if a.shape[1] != b_t.shape[1]:
+        raise ValueError(f"a {tuple(a.shape)} and b_t {tuple(b_t.shape)} must share K "
+                         "(b_t is the second operand as (N, K))")
+    if a.device != b_t.device:
+        raise ValueError(f"a on {a.device}, b_t on {b_t.device}")
+    if 0 in a.shape or 0 in b_t.shape:
+        raise ValueError(f"empty operand: a {tuple(a.shape)}, b_t {tuple(b_t.shape)}")
+    if a.device.type == "cuda" and not (a.is_contiguous() and b_t.is_contiguous()):
+        raise ValueError("a and b_t must be contiguous")
+
+
+def tile_width(m: int, n: int) -> int:
+    """128-wide output tiles, 64-wide where N is narrow or the wide tiles
+    would be fewer than the card's SMs."""
+    wide = -(-m // TILE_M) * -(-n // 128)
+    return 64 if n <= 64 or wide < NUM_SMS else 128
+
+
+def _launch_tiled(name: str, a, b_t, loop: int, accum: int) -> torch.Tensor:
+    m, k = a.shape
+    n = b_t.shape[0]
+    out = torch.empty(m, n, dtype=_acc_dtype(a.dtype), device=a.device)
+    _build.launch(LIBRARY.build().ioudet_tiled_matmul, f"{name}_{_suffix(a.dtype)}",
+                  a.data_ptr(), b_t.data_ptr(), out.data_ptr(),
+                  int(a.dtype == torch.int8), m, n, k, tile_width(m, n), loop, accum)
+    return out
+
+
+def tiled_matmul(a: torch.Tensor, b_t: torch.Tensor) -> torch.Tensor:
+    """a (M, K) x b_t (N, K)^T -> (M, N); int8 operands give int32, bf16
+    operands f32."""
+    _check_operands(a, b_t)
+    if a.device.type == "cpu":
+        return tiled_matmul_plain(a, b_t)
+    return _launch_tiled("tiled_matmul", a, b_t, 1, 0)
+
+
+def accum_matmul(a: torch.Tensor, b_t: torch.Tensor, loop: int) -> torch.Tensor:
+    """sum over i < loop of perturbed_i(a) (M, K) x b_t (N, K)^T -> (M, N)
+    int32 / f32, every product computed."""
+    _check_operands(a, b_t)
+    if loop < 1:
+        raise ValueError(f"loop must be at least 1, got {loop}")
+    if a.device.type == "cpu":
+        return accum_matmul_plain(a, b_t, loop)
+    return _launch_tiled("accum_matmul", a, b_t, loop, 1)
+
+
+def chain_blocks(m: int) -> int:
+    """Blocks (and so SMs at most) a chain launch uses."""
+    return -(-m // CHAIN_BAND)
+
+
+def chain_matmul(a: torch.Tensor, b_t: torch.Tensor, loop: int,
+                 scale: float = 0.01) -> torch.Tensor:
+    """y after ``loop`` steps of y <- requant(y (M, K) x b_t (K, K)^T), y = a
+    at the start, in a's type.  ``scale`` is the bf16 form's factor; the int8
+    form shifts by 9 and clips to +-127."""
+    _check_operands(a, b_t)
+    k = a.shape[1]
+    if b_t.shape[0] != k:
+        raise ValueError(f"b_t must be square to chain, got {tuple(b_t.shape)}")
+    if loop < 0:
+        raise ValueError(f"loop must not be negative, got {loop}")
+    if a.device.type == "cpu":
+        return chain_matmul_plain(a, b_t, loop, scale)
+    row_bytes = k * a.element_size()
+    pitch = row_bytes + (64 - row_bytes % 128) % 128   # chain_pitch in the source
+    smem = 2 * CHAIN_BAND * pitch
+    if row_bytes % 64 or smem > CHAIN_MAX_SMEM:
+        raise ValueError(f"K={k} {a.dtype}: the kernel needs K a multiple of "
+                         f"{64 // a.element_size()} and {smem} B of shared memory "
+                         f"(limit {CHAIN_MAX_SMEM})")
+    out = torch.empty_like(a)
+    _build.launch(LIBRARY.build().ioudet_chain_matmul, f"chain_matmul_{_suffix(a.dtype)}",
+                  a.data_ptr(), b_t.data_ptr(), out.data_ptr(),
+                  int(a.dtype == torch.int8), a.shape[0], k, loop, float(scale))
+    return out
