@@ -6,7 +6,8 @@ once on one NVIDIA GPU and check them.
                                            # after a change to a kernel
 
 Phases (any failure exits non-zero):
-  1. build the four CUDA sources of ioudet_torch/csrc with nvcc, side by side;
+  1. build the five CUDA sources of ioudet_torch/csrc with nvcc, side by side
+     (--kernels-only adds -Xptxas -v and prints what nvcc said on stderr);
   2. each kernel against its plain torch version on the card: the NMS pair
      bit for bit on adversarial cases (N in 1, 63, 64, 65, 1000, 2000 at
      batch 16); the anchor-assignment pair bit for bit (dw/dh to 1e-6) on
@@ -16,7 +17,10 @@ Phases (any failure exits non-zero):
      permuted NCHW view, and the autograd function against autograd through
      the plain version; the three tensor-core products (chain, accumulate,
      tiled) in int8 bit for bit and in bf16 within stated limits, on ragged
-     shapes, convolution shapes and the probes' own;
+     shapes, convolution shapes and the probes' own, the tiled one through
+     both of its kernels (wgmma + TMA for 16-byte aligned operands, mma.sync
+     for the rest) on shapes that cross the wgmma kernel's tile, slab and ring
+     edges, and its dequantize epilogue bit for bit;
   3. the flagship IoU-aware RetinaNet R-50-FPN (configs/
      iou_aware_retinanet_r50_fpn_1x.py with class_topk=4, the model of
      __graft_entry__.FLAGSHIP/TEST_CFG) at full width with seeded random
@@ -26,8 +30,9 @@ Phases (any failure exits non-zero):
      forward on a small canvas;
   3b. its low-precision twins: ``predict`` in bf16, in bf16 with calibrated
      static int8 convolutions and with dynamic ones, each with host syncs
-     made errors, the tiled int8 kernel's launch count against the module
-     tree, a replay with the plain product that must give the same bits, and
+     made errors, the wgmma kernel's dequantize launches against the module
+     tree (and none of the mma.sync kernel), a replay with the plain product
+     that must give the same bits, and
      the head outputs' drift from f32; then the probe tool's own run;
   4. the same model, training: ``train_detector`` for 6 SGD steps on a batch
      of 8 canvases with seeded gts, steps 2-6 with host syncs made errors;
@@ -81,6 +86,18 @@ MMA_SHAPES = ((1, 1, 1), (7, 31, 33), (33, 7, 147), (147, 33, 31), (31, 147, 7),
               (576, 64, 147), (2304, 33, 576), (129, 65, 2304), (1000, 256, 576),
               (3000, 256, 2304), (4096, 4096, 4096))
 PROBE_MKN = (512, 2048, 2048)   # the chain and accumulate probes' own shape
+# (M values, N values, bytes of K) of the wgmma kernel's edge cases: a 128-row
+# tile and every tile width one under, at and one over; K of less than a 32-byte
+# step, just under, at and over a 128-byte slab; one slab fewer than, as many
+# as and one more than the ring has stages (8 at width 64, 4 at width 256);
+# few rows (fewer tiles than SMs, width 64) and 16,897 (133 row tiles: more
+# tiles than SMs, widths 128 and 256)
+WGMMA_EDGES = (((127, 128, 129), (63, 64, 65), (16, 112, 128, 144)),
+               ((1, 300), (7, 200), (896, 1024, 1152)),
+               ((16897,), (127, 128, 255, 256, 257), (16, 384, 512, 640)))
+# (M, N, K) of the dequantize epilogue's cases: ragged, narrow and wide tiles
+DEQUANT_SHAPES = ((129, 65, 144), (1000, 7, 1024), (2304, 64, 160), (3000, 256, 2304),
+                  (16897, 255, 384), (16897, 128, 640), (17000, 512, 64))
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM data sheet
 F32_FLOPS_PER_S = 67e12     # f32 outside the tensor cores, same sheet
 INT8_OPS_PER_S = 1979e12    # dense int8 tensor-core rate, same sheet
@@ -392,33 +409,105 @@ def abs_product(a: torch.Tensor, b_t: torch.Tensor) -> float:
     return float(torch.matmul(a.float().abs(), b_t.float().abs().t()).max())
 
 
+def tiled_case(Mm, fn, m: int, n: int, k: int, dtype) -> tuple:
+    """One tiled product through ``fn`` against the plain version on seeded
+    operands: (max abs diff, the largest sum of |a||b|, the output)."""
+    a, b_t = mma_operands(m, n, k, dtype, seed=m + n + k)
+    out, want = fn(a, b_t), Mm.tiled_matmul_plain(a, b_t)
+    torch.cuda.synchronize()
+    return max_abs(out, want), abs_product(a, b_t), out
+
+
+def dequant_case(Mm, m: int, n: int, k: int, seed: int) -> float:
+    """The dequantize epilogue against its plain version, bf16 and f32
+    outputs, with and without bias, scales over eight and biases over six
+    orders of magnitude; returns the largest difference (0: bit-equal)."""
+    a, b_t = mma_operands(m, n, k, torch.int8, seed=seed)
+    rng = np.random.default_rng(seed)
+    scale, bias = to_cuda(
+        (10.0 ** rng.uniform(-6, 2, n)).astype(np.float32),
+        (rng.standard_normal(n) * 10.0 ** rng.uniform(-3, 3, n)).astype(np.float32))
+    worst = 0.0
+    for out_dtype in (torch.bfloat16, torch.float32):
+        for b in (bias, None):
+            out = Mm.tiled_matmul_dequant(a, b_t, scale, b, out_dtype)
+            want = Mm.tiled_matmul_dequant_plain(a, b_t, scale, b, out_dtype)
+            torch.cuda.synchronize()
+            if out.dtype != out_dtype or not torch.equal(out, want):
+                raise AssertionError(f"tiled_matmul_dequant ({m}, {k}) x ({k}, {n}) -> "
+                                     f"{out_dtype}, bias {b is not None}: differs from plain "
+                                     f"by {max_abs(out, want):.3e}")
+            worst = max(worst, max_abs(out, want))
+    return worst
+
+
 def phase_mma_kernels(Mm) -> dict:
     """P1-P3 against their plain versions on the card.  int8: bit-equal
     everywhere.  bf16: the products of two bf16 values are exact in f32, so
     kernel and plain version differ only in the order and rounding of the f32
     sum; the limit is 1e-5 of the largest sum of |a| |b| for the tiled product
-    (seen 8e-7) and 5e-5 for the accumulated one, whose plain version rounds
-    the running f32 sum once per product (seen 9e-6), and for the chain (which rounds y to bf16 after
+    through either kernel (seen 8e-7 with mma.sync) and 5e-5 for the
+    accumulated one, whose plain version rounds the running f32 sum once per
+    product (seen 9e-6), and for the chain (which rounds y to bf16 after
     every step, so a sum on a rounding boundary moves y by one bf16 step)
-    2^-7 relative plus 1e-3 of the largest |y|."""
-    names = [f"{k}_{t}" for k in ("tiled_matmul", "chain_matmul", "accum_matmul")
-             for t in ("s8", "bf16")]
-    err = {n: 0.0 for n in names}
+    2^-7 relative plus 1e-3 of the largest |y|.  The dequantize epilogue is
+    bit-equal to its plain version (multiply and add rounded separately)."""
+    names = [f"{k}_{t}" for k in ("tiled_matmul", "chain_matmul", "accum_matmul",
+                                  "wgmma_matmul") for t in ("s8", "bf16")]
+    err = {n: 0.0 for n in names + ["wgmma_dequant_s8"]}
     for m, n, k in MMA_SHAPES:
-        a, b_t = mma_operands(m, n, k, torch.int8, seed=m + n + k)
-        out, want = Mm.tiled_matmul(a, b_t), Mm.tiled_matmul_plain(a, b_t)
-        torch.cuda.synchronize()
-        err["tiled_matmul_s8"] = max(err["tiled_matmul_s8"], max_abs(out, want))
-        check(out.dtype == torch.int32 and torch.equal(out, want),
-              f"tiled_matmul int8 ({m}, {k}) x ({k}, {n}): int32, bit-equal to plain")
-        a, b_t = mma_operands(m, n, k, torch.bfloat16, seed=m + n + k)
-        out, want = Mm.tiled_matmul(a, b_t), Mm.tiled_matmul_plain(a, b_t)
-        torch.cuda.synchronize()
-        diff, scale = max_abs(out, want), abs_product(a, b_t)
-        err["tiled_matmul_bf16"] = max(err["tiled_matmul_bf16"], diff)
-        check(out.dtype == torch.float32 and diff <= 1e-5 * scale,
-              f"tiled_matmul bf16 ({m}, {k}) x ({k}, {n}): f32, max abs diff {diff:.3e} "
-              f"= {diff / scale:.2e} of the largest sum of |a||b| (limit 1e-5)")
+        for dtype, tag in ((torch.int8, "s8"), (torch.bfloat16, "bf16")):
+            size = 1 if dtype == torch.int8 else 2
+            route = Mm.tiled_route(k * size)
+            check(route == ("wgmma" if k * size % 16 == 0 else "mma_sync"),
+                  f"tiled_matmul {tag} K={k}: a row pitch of {k * size} bytes takes the "
+                  f"{route} kernel")
+            # the mma.sync kernel at every shape, then whichever the wrapper chooses
+            for fn, name in ((Mm.tiled_matmul_mma_sync, "tiled_matmul"),
+                             (Mm.tiled_matmul, "wgmma_matmul" if route == "wgmma"
+                              else "tiled_matmul")):
+                before = Mm._build.launches[f"{name}_{tag}"]
+                diff, scale, out = tiled_case(Mm, fn, m, n, k, dtype)
+                err[f"{name}_{tag}"] = max(err[f"{name}_{tag}"], diff)
+                counted = Mm._build.launches[f"{name}_{tag}"] == before + 1
+                if dtype == torch.int8:
+                    check(counted and out.dtype == torch.int32 and diff == 0.0,
+                          f"{name} int8 ({m}, {k}) x ({k}, {n}): int32, bit-equal to plain")
+                else:
+                    check(counted and out.dtype == torch.float32 and diff <= 1e-5 * scale,
+                          f"{name} bf16 ({m}, {k}) x ({k}, {n}): f32, max abs diff "
+                          f"{diff:.3e} = {diff / scale:.2e} of the largest sum of |a||b| "
+                          "(limit 1e-5)")
+    sms = Mm.num_sms(torch.device("cuda"))
+    for ms, ns, kbytes in WGMMA_EDGES:
+        widths, worst, cases = set(), 0.0, 0
+        before = dict(Mm._build.launches)
+        for m in ms:
+            for n in ns:
+                widths.add(Mm.tile_width(m, n, sms))
+                for kb in kbytes:
+                    diff, _, _ = tiled_case(Mm, Mm.tiled_matmul, m, n, kb, torch.int8)
+                    if diff != 0.0:
+                        raise AssertionError(f"wgmma_matmul int8 ({m}, {kb}) x ({kb}, {n}): "
+                                             f"differs from plain by {diff}")
+                    diff, scale, _ = tiled_case(Mm, Mm.tiled_matmul, m, n, kb // 2,
+                                                torch.bfloat16)
+                    if diff > 1e-5 * scale:
+                        raise AssertionError(f"wgmma_matmul bf16 ({m}, {kb // 2}) x ({kb // 2}, "
+                                             f"{n}): {diff:.3e} = {diff / scale:.2e} of the "
+                                             "largest sum of |a||b| (limit 1e-5)")
+                    err["wgmma_matmul_bf16"] = max(err["wgmma_matmul_bf16"], diff)
+                    worst, cases = max(worst, diff / scale), cases + 1
+        check(all(Mm._build.launches[f"wgmma_matmul_{t}"] == before[f"wgmma_matmul_{t}"] + cases
+                  for t in ("s8", "bf16")),
+              f"wgmma_matmul M in {ms}, N in {ns}, K of {kbytes} bytes (tile widths "
+              f"{sorted(widths)}, {sms} SMs): {cases} int8 cases bit-equal to plain, {cases} "
+              f"bf16 cases within {worst:.2e} of the largest sum of |a||b| (limit 1e-5)")
+    for i, (m, n, k) in enumerate(DEQUANT_SHAPES):
+        err["wgmma_dequant_s8"] = max(err["wgmma_dequant_s8"], dequant_case(Mm, m, n, k, i))
+        check(True, f"tiled_matmul_dequant ({m}, {k}) x ({k}, {n}), tile width "
+              f"{Mm.tile_width(m, n, sms)}: bf16 and f32 outputs, with and without bias, "
+              "bit-equal to plain")
     pm, pk, pn = PROBE_MKN
     for m, kn in ((5, 64), (37, 128), (pm, pk)):
         a, b_t = mma_operands(m, kn, kn, torch.int8, seed=m, amp=1.0)
@@ -753,18 +842,19 @@ def phase_low_precision(B, Mm, Q, f32_handle, cfg, inputs) -> tuple:
             torch.cuda.synchronize()
             seen = dict(B.launches)
             check_predict_outputs(dets, labels, bsz, nc, f"bf16 + {mode} int8 predict")
-            check(seen["tiled_matmul_s8"] == calls and seen["nms_mask_kernel"] == 1
+            check(seen["wgmma_dequant_s8"] == calls and seen["tiled_matmul_s8"] == 0
+                  and seen["wgmma_matmul_s8"] == 0 and seen["nms_mask_kernel"] == 1
                   and seen["nms_reduce_kernel"] == 1,
-                  f"{mode} int8 predict launched the tiled int8 product {calls} times and "
-                  "each NMS kernel once")
+                  f"{mode} int8 predict launched the wgmma kernel's dequantize entry {calls} "
+                  "times, the mma.sync tiled kernel 0 times and each NMS kernel once")
             # the whole call again with the plain product in the kernel's place
-            kernel = Mm.tiled_matmul
-            Mm.tiled_matmul = Mm.tiled_matmul_plain
+            kernel = Mm.tiled_matmul_dequant
+            Mm.tiled_matmul_dequant = Mm.tiled_matmul_dequant_plain
             try:
                 plain_dets, plain_labels = predict(handle, *inputs)
             finally:
-                Mm.tiled_matmul = kernel
-            check(B.launches["tiled_matmul_s8"] == calls and
+                Mm.tiled_matmul_dequant = kernel
+            check(B.launches["wgmma_dequant_s8"] == calls and
                   torch.equal(dets, plain_dets) and torch.equal(labels, plain_labels),
                   f"{mode} int8 predict replayed with the plain product: dets and labels "
                   "bit-equal")
@@ -781,7 +871,8 @@ def phase_low_precision(B, Mm, Q, f32_handle, cfg, inputs) -> tuple:
 
 def phase_probe(B) -> dict:
     """The probe tool's own run (chain, accumulate and tiled products in both
-    types at its shapes); returns the launch counts of that run."""
+    types at its shapes, the tiled one through both of its kernels); returns
+    the launch counts of that run."""
     from ioudet_torch.tools import probe_tensor_cores
     B.reset_launches()
     check(probe_tensor_cores.main() == 0, "probe_tensor_cores ran")
@@ -790,7 +881,8 @@ def phase_probe(B) -> dict:
     reps = 5   # a warm-up and four timed programs
     want = {"chain_matmul": reps * probe_tensor_cores.KERNEL_REPEAT,
             "accum_matmul": reps * probe_tensor_cores.KERNEL_REPEAT,
-            "tiled_matmul": reps * probe_tensor_cores.TILED_REPEAT}
+            "wgmma_matmul": reps * probe_tensor_cores.TILED_REPEAT,       # 4096^3
+            "tiled_matmul": reps * probe_tensor_cores.UNALIGNED_REPEAT}   # K = 1023
     check(all(counts[f"{k}_{t}"] == n for k, n in want.items() for t in ("s8", "bf16")),
           f"the probe launched every product in both types: {counts}")
     return counts
@@ -1064,24 +1156,26 @@ def tensor_bound(nbytes: float, ops: float, int8: bool) -> tuple:
 
 def int8_predict_split(Mm, Q, handle, inputs, act_scale) -> tuple:
     """One int8 ``predict`` cut by CUDA events inside every quantized conv:
-    quantize + window gather, the int8 product, dequantization, and the rest
-    of the call.  Returns (the four times in ms, per conv path (M, K, N) and
-    the product's ms summed over its calls)."""
+    quantize + window gather, the int8 product with its dequantize epilogue,
+    what is left after it (the dequantization passes until the kernel took
+    them in: a view now), and the rest of the call.  Returns (the four times
+    in ms, per conv path (M, K, N) and the product's ms summed over its
+    calls)."""
     from ioudet_torch.apis.inference import predict
     marks, per_conv = [], {}
     paths = {mod: path for path, mod in Q.eligible_convs(handle.model)}
-    call, product = Q.quant_conv_call, Mm.tiled_matmul
+    call, product = Q.quant_conv_call, Mm.tiled_matmul_dequant
 
     def event():
         ev = torch.cuda.Event(enable_timing=True)
         ev.record()
         return ev
 
-    def timed_product(a, b_t):
+    def timed_product(a, b_t, *args):
         rec = marks[-1]
         rec["shape"] = (a.shape[0], a.shape[1], b_t.shape[0])
         rec["m0"] = event()
-        out = product(a, b_t)
+        out = product(a, b_t, *args)
         rec["m1"] = event()
         return out
 
@@ -1092,7 +1186,7 @@ def int8_predict_split(Mm, Q, handle, inputs, act_scale) -> tuple:
         rec["t1"] = event()
         return out
 
-    Q.quant_conv_call, Mm.tiled_matmul = timed_call, timed_product
+    Q.quant_conv_call, Mm.tiled_matmul_dequant = timed_call, timed_product
     try:
         with Q.quantize_calls(handle.model, act_scale=act_scale):
             predict(handle, *inputs)
@@ -1103,7 +1197,7 @@ def int8_predict_split(Mm, Q, handle, inputs, act_scale) -> tuple:
             end = event()
             torch.cuda.synchronize()
     finally:
-        Q.quant_conv_call, Mm.tiled_matmul = call, product
+        Q.quant_conv_call, Mm.tiled_matmul_dequant = call, product
     parts = [0.0, 0.0, 0.0]
     for rec in marks:
         product_ms = rec["m0"].elapsed_time(rec["m1"])
@@ -1114,6 +1208,17 @@ def int8_predict_split(Mm, Q, handle, inputs, act_scale) -> tuple:
         per_conv[key] = per_conv.get(key, 0.0) + product_ms
     total = start.elapsed_time(end)
     return (*parts, total - sum(parts)), per_conv
+
+
+def old_new_ms(Mm, a, b_t, reps: int = 10) -> tuple:
+    """The raw tiled product through the mma.sync kernel and the wgmma kernel
+    on the same operands, timed in turns (old, new, new, old): the two means."""
+    old = lambda: Mm.tiled_matmul_mma_sync(a, b_t)   # noqa: E731
+    new = lambda: Mm.tiled_matmul(a, b_t)            # noqa: E731
+    check(Mm.tiled_route(a.shape[1] * a.element_size(), a.data_ptr(), b_t.data_ptr()) == "wgmma",
+          f"tiled_matmul {tuple(a.shape)} x {tuple(b_t.shape)}^T {a.dtype} takes the wgmma kernel")
+    t = [cuda_ms(old, reps), cuda_ms(new, reps), cuda_ms(new, reps), cuda_ms(old, reps)]
+    return (t[0] + t[3]) / 2, (t[1] + t[2]) / 2
 
 
 def phase_low_precision_timing(Mm, Q, handle, scales, rng, card: str) -> dict:
@@ -1146,10 +1251,19 @@ def phase_low_precision_timing(Mm, Q, handle, scales, rng, card: str) -> dict:
     for name, act_scale in (("static", scales), ("dynamic", None)):
         parts, per_conv = int8_predict_split(Mm, Q, handle, inputs, act_scale)
         print(f"int8 predict split, batch {BATCH}, {name} scales (CUDA events, one call), ms: "
-              f"quantize + window gather {parts[0]:.3f}, int8 product {parts[1]:.3f}, "
-              f"dequantize {parts[2]:.3f}, unquantized rest {parts[3]:.3f} "
+              f"quantize + window gather {parts[0]:.3f}, int8 product with its dequantize "
+              f"epilogue {parts[1]:.3f}, dequantize after it {parts[2]:.3f}, unquantized rest "
+              f"{parts[3]:.3f} "
               f"[{card}; bf16 + {name} int8]", flush=True)
-        top = top or sorted(per_conv.items(), key=lambda kv: -kv[1])[:3]
+        if not top:
+            # the three shapes with most product time (a shape's first conv
+            # stands for it), then layer1's 1x1 conv to 256 channels, whose
+            # output is eight times its input
+            for key, conv_ms in sorted(per_conv.items(), key=lambda kv: -kv[1]):
+                if len(top) < 3 and key[1] not in [k[1] for k, _ in top]:
+                    top.append((key, conv_ms))
+            top += [kv for kv in per_conv.items()
+                    if kv[0][0] == "backbone.layer1.0.conv3" and kv not in top]
     del inputs
     torch.cuda.empty_cache()
 
@@ -1158,33 +1272,64 @@ def phase_low_precision_timing(Mm, Q, handle, scales, rng, card: str) -> dict:
         gen = torch.Generator(device="cuda").manual_seed(rank)   # too large for numpy's pace
         a = torch.randint(-127, 128, (m, k), dtype=torch.int8, device="cuda", generator=gen)
         b_t = torch.randint(-127, 128, (n, k), dtype=torch.int8, device="cuda", generator=gen)
-        out = Mm.tiled_matmul(a, b_t)
-        row = (cuda_ms(lambda: Mm.tiled_matmul(a, b_t), 10),
-               cuda_ms(lambda: Mm.tiled_matmul_plain(a, b_t), 2, 1),
-               *tensor_bound(a.numel() + b_t.numel() + out.numel() * 4, 2.0 * m * n * k, True),
-               cuda_ms(lambda: torch._int_mm(a, b_t.t()), 10))
+        scale = torch.rand(n, device="cuda", generator=gen) * 1e-3
+        bias = torch.randn(n, device="cuda", generator=gen)
+        deq = lambda: Mm.tiled_matmul_dequant(a, b_t, scale, bias, torch.bfloat16)  # noqa: E731
+        in_bytes, ops = a.numel() + b_t.numel(), 2.0 * m * n * k
+        row = (cuda_ms(deq, 10),
+               cuda_ms(lambda: Mm.tiled_matmul_dequant_plain(a, b_t, scale, bias,
+                                                             torch.bfloat16), 2, 1),
+               *tensor_bound(in_bytes + m * n * 2 + 8 * n, ops, True), None)
+        old, raw = old_new_ms(Mm, a, b_t)
+        lib = cuda_ms(lambda: torch._int_mm(a, b_t.t()), 10)
+        lib3 = cuda_ms(lambda: (torch._int_mm(a, b_t.t()) * scale).add_(bias).bfloat16(), 10)
+        raw_bound = tensor_bound(in_bytes + m * n * 4, ops, True)
         if rank == 0:
-            times["tiled_matmul_s8"] = row
-        print(f"tiled_matmul int8 at {path} ({m}, {k}) x ({k}, {n}), {conv_ms:.3f} ms of the "
-              f"predict: kernel {row[0]:.4f} ms, plain torch {row[1]:.4f} ms, bound {row[2]:.4f} "
-              f"ms by {row[3]}, library (torch._int_mm) {row[4]:.4f} ms [{card}; int8]", flush=True)
-        del a, b_t, out
+            times["wgmma_dequant_s8"] = row
+        print(f"tiled_matmul_dequant int8 -> bf16 at {path} ({m}, {k}) x ({k}, {n}), "
+              f"{conv_ms:.3f} ms of the predict: kernel {row[0]:.4f} ms, plain torch "
+              f"{row[1]:.4f} ms, bound {row[2]:.4f} ms by {row[3]} (bf16 output), library none "
+              f"(torch._int_mm and three passes: {lib3:.4f} ms); the int32 product there, "
+              f"wgmma kernel {raw:.4f} ms against the mma.sync kernel {old:.4f} ms (old, new, "
+              f"new, old), bound {raw_bound[0]:.4f} ms by {raw_bound[1]}, library "
+              f"(torch._int_mm) {lib:.4f} ms [{card}; int8]", flush=True)
+        del a, b_t
     for int8 in (True, False):
         dtype, tag = (torch.int8, "int8") if int8 else (torch.bfloat16, "bf16")
+        suffix = "s8" if int8 else "bf16"
         n4 = MMA_SHAPES[-1][0]
         a, b_t = mma_operands(n4, n4, n4, dtype, seed=4)
         lib = (lambda: torch._int_mm(a, b_t.t())) if int8 else (lambda: torch.matmul(a, b_t.t()))
-        row = (cuda_ms(lambda: Mm.tiled_matmul(a, b_t), 10),
-               cuda_ms(lambda: Mm.tiled_matmul_plain(a, b_t), 2, 1),
+        old, new = old_new_ms(Mm, a, b_t)
+        row = (new, cuda_ms(lambda: Mm.tiled_matmul_plain(a, b_t), 2, 1),
                *tensor_bound(2 * a.numel() * a.element_size() + n4 * n4 * 4, 2.0 * n4 ** 3, int8),
                cuda_ms(lib, 10))
-        if not int8:
-            times["tiled_matmul_bf16"] = row
-        print(f"tiled_matmul {tag} at the probe's {n4}^3: kernel {row[0]:.4f} ms "
-              f"({2.0 * n4 ** 3 / row[0] / 1e9:.1f} T(FL)OP/s), plain torch {row[1]:.4f} ms, "
+        times[f"wgmma_matmul_{suffix}"] = row
+        print(f"tiled_matmul {tag} at the probe's {n4}^3: wgmma kernel {row[0]:.4f} ms "
+              f"({2.0 * n4 ** 3 / row[0] / 1e9:.1f} T(FL)OP/s) against the mma.sync kernel "
+              f"{old:.4f} ms (old, new, new, old), plain torch {row[1]:.4f} ms, "
               f"bound {row[2]:.4f} ms by {row[3]}, library "
               f"({'torch._int_mm' if int8 else 'torch.matmul, bf16 output'}) {row[4]:.4f} ms "
               f"[{card}; {tag}]", flush=True)
+        del a, b_t
+        # the mma.sync kernel where the main path still uses it: the probe
+        # tool's product on a row pitch that is no multiple of 16 bytes
+        from ioudet_torch.tools.probe_tensor_cores import UNALIGNED_MKN
+        um, uk, un = UNALIGNED_MKN
+        a, b_t = mma_operands(um, un, uk, dtype, seed=6)
+        check(Mm.tiled_route(uk * a.element_size()) == "mma_sync",
+              f"the probe's ({um}, {uk}) x ({uk}, {un}) {tag} product takes the mma.sync kernel")
+        row = (cuda_ms(lambda: Mm.tiled_matmul(a, b_t), 10),
+               cuda_ms(lambda: Mm.tiled_matmul_plain(a, b_t), 2, 1),
+               *tensor_bound((um + un) * uk * a.element_size() + um * un * 4,
+                             2.0 * um * un * uk, int8),
+               None if int8 else cuda_ms(lambda: torch.matmul(a, b_t.t()), 10))
+        times[f"tiled_matmul_{suffix}"] = row
+        print(f"tiled_matmul {tag} ({um}, {uk}) x ({uk}, {un}), mma.sync kernel: {row[0]:.4f} "
+              f"ms, plain torch {row[1]:.4f} ms, bound {row[2]:.4f} ms by {row[3]}, library "
+              + ("none (torch._int_mm refuses this K)" if int8 else
+                 f"(torch.matmul, bf16 output) {row[4]:.4f} ms") + f" [{card}; {tag}]",
+              flush=True)
         del a, b_t
         pm, pk, pn = PROBE_MKN
         loop = 64
@@ -1199,11 +1344,12 @@ def phase_low_precision_timing(Mm, Q, handle, scales, rng, card: str) -> dict:
             row = (cuda_ms(fn, 5), cuda_ms(plain, 2, 1),
                    *tensor_bound(nbytes + out_bytes, ops, int8), None)
             times[f"{kind}_matmul_{'s8' if int8 else 'bf16'}"] = row
+            sms = Mm.num_sms(a.device)
             blocks = Mm.chain_blocks(pm) if kind == "chain" else \
-                -(-pm // Mm.TILE_M) * -(-pn // Mm.tile_width(pm, pn))
+                -(-pm // Mm.TILE_M) * -(-pn // Mm.mma_sync_tile_width(pm, pn, sms))
             print(f"{kind}_matmul {tag} ({pm}, {pk}) x ({pk}, {pn}) loop {loop}: kernel "
                   f"{row[0]:.4f} ms ({ops / row[0] / 1e9:.1f} T(FL)OP/s, {blocks} blocks for "
-                  f"{Mm.NUM_SMS} SMs), plain torch {row[1]:.4f} ms, bound {row[2]:.4f} ms by "
+                  f"{sms} SMs), plain torch {row[1]:.4f} ms, bound {row[2]:.4f} ms by "
                   f"{row[3]}, library none [{card}; {tag}]", flush=True)
         del a, b_t
     return times
@@ -1223,6 +1369,10 @@ KERNELS = {  # name: (source, the TPU kernel it replaces)
     "accum_matmul_bf16": ("mma_kernel.cu", "tools/probe_mxu_rate2.py:46"),
     "tiled_matmul_s8": ("mma_kernel.cu", "tools/probe_pallas_int8_matmul.py:53"),
     "tiled_matmul_bf16": ("mma_kernel.cu", "tools/probe_pallas_int8_matmul.py:53"),
+    # the same product on wgmma + TMA, raw and with the dequantize epilogue
+    "wgmma_matmul_s8": ("wgmma_kernel.cu", "tools/probe_pallas_int8_matmul.py:53"),
+    "wgmma_matmul_bf16": ("wgmma_kernel.cu", "tools/probe_pallas_int8_matmul.py:53"),
+    "wgmma_dequant_s8": ("wgmma_kernel.cu", "tools/probe_pallas_int8_matmul.py:53"),
 }
 
 
@@ -1243,7 +1393,9 @@ def main() -> int:
     card = card_line()
     print(f"card: {card}; torch {torch.__version__}, CUDA {torch.version.cuda}", flush=True)
     t = time.perf_counter()
-    libraries = (K.LIBRARY, A.LIBRARY, Fc.LIBRARY, Mm.LIBRARY)
+    kernels_only = "--kernels-only" in sys.argv[1:]
+    B.ptxas_verbose = kernels_only   # registers, spills and shared memory, on stderr
+    libraries = (K.LIBRARY, A.LIBRARY, Fc.LIBRARY, Mm.LIBRARY, Mm.WGMMA_LIBRARY)
     B.build_all(libraries)
     print(f"phase 1: built {', '.join(lib.path().name for lib in libraries)} side by "
           f"side in {time.perf_counter() - t:.2f} s", flush=True)
@@ -1255,7 +1407,7 @@ def main() -> int:
     err.update(phase_focal_kernels(Fc))
     err.update(phase_mma_kernels(Mm))
     torch.cuda.empty_cache()
-    if "--kernels-only" in sys.argv[1:]:
+    if kernels_only:
         print(json.dumps({"max_abs_err": err}))
         return 0
 

@@ -33,11 +33,12 @@
 //   L2.  Ragged M and N are masked, K is
 //   zero-filled to the slab; a row pitch that is not a multiple of 16 bytes
 //   takes a slow byte-wise staging path.
-//   A wgmma/TMA version would keep B in shared memory for a whole warpgroup
-//   (64 x 256 tiles, the only way to the card's full tensor-core rate), let
-//   TMA do the staging and the zero fill (no address arithmetic in the
-//   threads, any pitch), run a deeper ring under a producer warp, and overlap
-//   one tile's epilogue with the next tile's loads in a persistent block.
+//   wgmma_kernel.cu holds the wgmma/TMA version of this product (B in shared
+//   memory for a whole warpgroup, 64 x 256 tiles, TMA doing the staging and
+//   the zero fill, a deeper ring under a producer warp, persistent blocks).
+//   TMA needs a row pitch and base addresses that are multiples of 16 bytes,
+//   so this kernel keeps the operands that are not: ioudet_torch/ops/
+//   mma_cuda.py chooses between the two before it launches.
 //
 // tiled_kernel<.., ACCUM=true>  replaces _call / _int8_kernel, _bf16_kernel of
 //   tools/probe_mxu_rate2.py (P2): `loop` independent products summed,

@@ -1,0 +1,697 @@
+// The tiled tensor-core product for Hopper (sm_90a) on warpgroup mma: TMA
+// loads into a ring of shared-memory stages, wgmma.mma_async from shared
+// memory, persistent blocks, and an epilogue that either hands back the raw
+// accumulators or dequantizes them.  Behind a plain C interface loaded with
+// ctypes by ioudet_torch/ops/mma_cuda.py.  Built there with
+//   nvcc -gencode arch=compute_90a,code=sm_90a -O3 -std=c++17 -shared
+//        -Xcompiler -fPIC -ldl
+//
+// wgmma_kernel  replaces pallas_matmul / _mm_kernel of
+//   tools/probe_pallas_int8_matmul.py (P3), as tiled_kernel<.., ACCUM=false> of
+//   mma_kernel.cu did before it: C (M, N) = A (M, K) x Bt (N, K)^T, int8 ->
+//   int32 or bf16 -> f32, for any M and N and any K whose row pitch is a
+//   multiple of 16 bytes with 16-byte aligned bases (what TMA asks of a
+//   tensor; other operands stay with the mma.sync kernel).  Its int8 form with
+//   the dequantize epilogue carries every quantized convolution of the serving
+//   path (ioudet_torch/ops/quant.py):
+//     out[m, n] = cast(float(acc[m, n]) * scale[n] + bias[n])
+//   in two rounded steps (no fused multiply-add), bit for bit what the three
+//   torch passes it replaces gave.
+//   Bound: operations for the probe's 4096^3 (137 GOP over 50 MB of operands);
+//   bytes for most convolution shapes, where N is 64..256, K is 64..2304 and A
+//   has up to 4.5 million rows.  There the int32 output was 60% of the bytes;
+//   written as bf16 by this kernel it is half of them, and the passes that
+//   read the int32 tensor again are gone.
+//   Design: a block is three warpgroups.  One lane of the third (the
+//   producer, its registers cut to 40 by setmaxnreg) issues TMA loads of a 128
+//   x 128-byte box of A and half of a BN x 128-byte box of Bt per slab of K
+//   into a ring of 4 (BN 256), 6 (BN 128) or 8 (BN 64) stages of 192 KB in
+//   all, with the 128-byte swizzle; TMA fills what lies past M, N or K with
+//   zeros, so no thread masks a load or computes an address (a box that lies
+//   wholly past M or N is not loaded at all: what it would feed is never
+//   stored).  Each of the two
+//   consumer warpgroups (232 registers) owns 64 rows of the tile and runs four
+//   m64nBNk32.s8 (or k16.bf16) steps per slab straight from the swizzled
+//   stage through shared-memory descriptors, keeping one slab's group in
+//   flight while the next is issued; full and empty mbarriers, whose stage
+//   and parity run on across tiles, pass the stages back and forth.  Blocks
+//   are persistent, one per SM at most, and run as clusters of two on
+//   neighbouring row tiles of one column tile: each block loads its own box of
+//   A and half of the box of Bt, which TMA multicasts into both blocks, so a
+//   slab costs a block 32 KB from the L2 and not 48 (at 48 the loads, not the
+//   products, bounded the kernel at 4096^3); a stage goes back to the
+//   producers when the consumers of both blocks have arrived on its empty
+//   barrier (a plain arrive through mapa: with .release.cluster on it the
+//   kernel ran 1.5 times as long).  Clusters walk the tile pairs n fastest,
+//   so the blocks running together share rows of A through the L2 and the
+//   small Bt stays there; the producer runs ahead into the next tile's slabs
+//   while the consumers are in their epilogue.  The epilogue goes through
+//   shared memory in chunks of 16 rows x 128 bytes of output per warp.  Where
+//   the output's row pitch is a multiple of 16 bytes a warp writes the chunk,
+//   swizzled so that the fragment stores stay off each other's banks, into
+//   one of its two buffers, and lane 0 hands it to a TMA store, which drains
+//   it (and clips it at M and N) while the warp converts its next chunk or
+//   runs the next tile's products.  Any other N stages the chunk on a padded
+//   pitch, reads it back and writes it with masked element stores.  A wait
+//   that outlasts a watchdog of some seconds traps instead of hanging the
+//   card.
+
+#include <cuda.h>
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <dlfcn.h>
+#include <stdint.h>
+
+#include <type_traits>
+
+namespace {
+
+constexpr int kThreads = 384;          // two consumer warpgroups and the producer's
+constexpr int kBM = 128;               // rows of a tile: 64 per consumer warpgroup
+constexpr int kSlab = 128;             // bytes of K per stage: the swizzle's width
+constexpr int kABytes = kBM * kSlab;   // one stage of A
+constexpr int kRingBytes = 192 * 1024;
+constexpr int kChunkBytes = 16 * 128;              // a warp's chunk of output: 16 rows x 128 bytes
+constexpr int kWarpOutBytes = 2 * kChunkBytes;     // two buffers (or one on a padded pitch)
+constexpr int kStageOutBytes = 8 * kWarpOutBytes;  // 8 consumer warps
+constexpr long long kWatchdogCycles = 4000000000LL;
+
+constexpr int EPI_RAW = 0, EPI_BF16 = 1, EPI_F32 = 2;
+
+// Operand lists of the wgmma instructions: the accumulator registers of a
+// thread, 32 for a tile 64 wide, 64 for 128, 128 for 256.
+#define WGMMA_D32 \
+  "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, " \
+  "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+
+#define WGMMA_O32(C, d) \
+  C(d[0]), C(d[1]), C(d[2]), C(d[3]), C(d[4]), C(d[5]), \
+  C(d[6]), C(d[7]), C(d[8]), C(d[9]), C(d[10]), C(d[11]), \
+  C(d[12]), C(d[13]), C(d[14]), C(d[15]), C(d[16]), C(d[17]), \
+  C(d[18]), C(d[19]), C(d[20]), C(d[21]), C(d[22]), C(d[23]), \
+  C(d[24]), C(d[25]), C(d[26]), C(d[27]), C(d[28]), C(d[29]), \
+  C(d[30]), C(d[31])
+
+#define WGMMA_D64 \
+  "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, " \
+  "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, " \
+  "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, " \
+  "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+
+#define WGMMA_O64(C, d) \
+  C(d[0]), C(d[1]), C(d[2]), C(d[3]), C(d[4]), C(d[5]), \
+  C(d[6]), C(d[7]), C(d[8]), C(d[9]), C(d[10]), C(d[11]), \
+  C(d[12]), C(d[13]), C(d[14]), C(d[15]), C(d[16]), C(d[17]), \
+  C(d[18]), C(d[19]), C(d[20]), C(d[21]), C(d[22]), C(d[23]), \
+  C(d[24]), C(d[25]), C(d[26]), C(d[27]), C(d[28]), C(d[29]), \
+  C(d[30]), C(d[31]), C(d[32]), C(d[33]), C(d[34]), C(d[35]), \
+  C(d[36]), C(d[37]), C(d[38]), C(d[39]), C(d[40]), C(d[41]), \
+  C(d[42]), C(d[43]), C(d[44]), C(d[45]), C(d[46]), C(d[47]), \
+  C(d[48]), C(d[49]), C(d[50]), C(d[51]), C(d[52]), C(d[53]), \
+  C(d[54]), C(d[55]), C(d[56]), C(d[57]), C(d[58]), C(d[59]), \
+  C(d[60]), C(d[61]), C(d[62]), C(d[63])
+
+#define WGMMA_D128 \
+  "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, " \
+  "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, " \
+  "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, " \
+  "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, " \
+  "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, " \
+  "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, " \
+  "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111, " \
+  "%112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127"
+
+#define WGMMA_O128(C, d) \
+  C(d[0]), C(d[1]), C(d[2]), C(d[3]), C(d[4]), C(d[5]), \
+  C(d[6]), C(d[7]), C(d[8]), C(d[9]), C(d[10]), C(d[11]), \
+  C(d[12]), C(d[13]), C(d[14]), C(d[15]), C(d[16]), C(d[17]), \
+  C(d[18]), C(d[19]), C(d[20]), C(d[21]), C(d[22]), C(d[23]), \
+  C(d[24]), C(d[25]), C(d[26]), C(d[27]), C(d[28]), C(d[29]), \
+  C(d[30]), C(d[31]), C(d[32]), C(d[33]), C(d[34]), C(d[35]), \
+  C(d[36]), C(d[37]), C(d[38]), C(d[39]), C(d[40]), C(d[41]), \
+  C(d[42]), C(d[43]), C(d[44]), C(d[45]), C(d[46]), C(d[47]), \
+  C(d[48]), C(d[49]), C(d[50]), C(d[51]), C(d[52]), C(d[53]), \
+  C(d[54]), C(d[55]), C(d[56]), C(d[57]), C(d[58]), C(d[59]), \
+  C(d[60]), C(d[61]), C(d[62]), C(d[63]), C(d[64]), C(d[65]), \
+  C(d[66]), C(d[67]), C(d[68]), C(d[69]), C(d[70]), C(d[71]), \
+  C(d[72]), C(d[73]), C(d[74]), C(d[75]), C(d[76]), C(d[77]), \
+  C(d[78]), C(d[79]), C(d[80]), C(d[81]), C(d[82]), C(d[83]), \
+  C(d[84]), C(d[85]), C(d[86]), C(d[87]), C(d[88]), C(d[89]), \
+  C(d[90]), C(d[91]), C(d[92]), C(d[93]), C(d[94]), C(d[95]), \
+  C(d[96]), C(d[97]), C(d[98]), C(d[99]), C(d[100]), C(d[101]), \
+  C(d[102]), C(d[103]), C(d[104]), C(d[105]), C(d[106]), C(d[107]), \
+  C(d[108]), C(d[109]), C(d[110]), C(d[111]), C(d[112]), C(d[113]), \
+  C(d[114]), C(d[115]), C(d[116]), C(d[117]), C(d[118]), C(d[119]), \
+  C(d[120]), C(d[121]), C(d[122]), C(d[123]), C(d[124]), C(d[125]), \
+  C(d[126]), C(d[127])
+
+// One m64nNk32.s8 / m64nNk16.bf16 step: d += A (64 rows x 32 bytes of K) x B
+// (N rows x 32 bytes of K)^T, both K-major in shared memory behind
+// descriptors, into int (s32) or float accumulators.  The predicate is
+// scale-d: 1 keeps what d holds.
+#define WGMMA_STEP(INSTR, DLIST, DA, DB, P, TAIL, OLIST)                        \
+  asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, " P ", 0;\n" INSTR " {" DLIST \
+               "}, " DA ", " DB ", p" TAIL ";\n}\n"                              \
+               : OLIST                                                          \
+               : "l"(da), "l"(db), "r"(1))
+
+__device__ __forceinline__ void wgmma_step(int (&d)[32], uint64_t da, uint64_t db) {
+  WGMMA_STEP("wgmma.mma_async.sync.aligned.m64n64k32.s32.s8.s8", WGMMA_D32, "%32", "%33", "%34",
+             "", WGMMA_O32("+r", d));
+}
+
+__device__ __forceinline__ void wgmma_step(float (&d)[32], uint64_t da, uint64_t db) {
+  WGMMA_STEP("wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16", WGMMA_D32, "%32", "%33",
+             "%34", ", 1, 1, 0, 0", WGMMA_O32("+f", d));
+}
+
+__device__ __forceinline__ void wgmma_step(int (&d)[64], uint64_t da, uint64_t db) {
+  WGMMA_STEP("wgmma.mma_async.sync.aligned.m64n128k32.s32.s8.s8", WGMMA_D64, "%64", "%65",
+             "%66", "", WGMMA_O64("+r", d));
+}
+
+__device__ __forceinline__ void wgmma_step(float (&d)[64], uint64_t da, uint64_t db) {
+  WGMMA_STEP("wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16", WGMMA_D64, "%64", "%65",
+             "%66", ", 1, 1, 0, 0", WGMMA_O64("+f", d));
+}
+
+__device__ __forceinline__ void wgmma_step(int (&d)[128], uint64_t da, uint64_t db) {
+  WGMMA_STEP("wgmma.mma_async.sync.aligned.m64n256k32.s32.s8.s8", WGMMA_D128, "%128", "%129",
+             "%130", "", WGMMA_O128("+r", d));
+}
+
+__device__ __forceinline__ void wgmma_step(float (&d)[128], uint64_t da, uint64_t db) {
+  WGMMA_STEP("wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16", WGMMA_D128, "%128",
+             "%129", "%130", ", 1, 1, 0, 0", WGMMA_O128("+f", d));
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" :: "n"(N) : "memory");
+}
+
+// Pins the accumulators where they are: the compiler may neither move them
+// nor touch them across this point while a wgmma group is still in flight
+// (a copy in between would make ptxas serialize the group's instructions).
+__device__ __forceinline__ void pin(int& r) { asm volatile("" : "+r"(r)::"memory"); }
+__device__ __forceinline__ void pin(float& r) { asm volatile("" : "+f"(r)::"memory"); }
+
+template <typename AccT, int N>
+__device__ __forceinline__ void pin(AccT (&acc)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) pin(acc[i]);
+}
+
+// Shared-memory descriptor of a K-major operand whose rows are 128 bytes,
+// swizzled as TMA's SWIZZLE_128B leaves them: start address in 16-byte
+// units, leading offset 1 (unused by this layout), 1024 bytes from one group
+// of 8 rows to the next, layout type 1 (128-byte swizzle).  A step of 32 bytes
+// along K inside the slab adds 2 to the address field.
+__device__ __forceinline__ uint64_t smem_desc(uint32_t addr) {
+  return static_cast<uint64_t>((addr & 0x3ffffu) >> 4) | (1ull << 16) | (64ull << 32) |
+         (1ull << 62);
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" :: "r"(bar), "r"(count) : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" :: "r"(bar) : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, int bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
+               :: "r"(bar), "r"(bytes) : "memory");
+}
+
+__device__ __forceinline__ bool mbar_try_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done;
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+      "selp.u32 %0, 1, 0, p;\n}\n"
+      : "=r"(done) : "r"(bar), "r"(parity) : "memory");
+  return done != 0;
+}
+
+// Wait until the barrier has left the phase of this parity.
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  if (mbar_try_wait(bar, parity)) return;
+  const long long t0 = clock64();
+  while (!mbar_try_wait(bar, parity))
+    if (clock64() - t0 > kWatchdogCycles) __trap();
+}
+
+// One box of a 2-d tensor (c0 along K in bytes, c1 the row) into shared
+// memory; its bytes are counted on the barrier.
+__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map, int c0, int c1,
+                                         uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3, %4}], [%2];\n"
+      :: "r"(dst), "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1)
+      : "memory");
+}
+
+// The same into both blocks of the cluster, at this offset of each one's
+// shared memory; the bytes are counted on each block's own barrier there.
+__device__ __forceinline__ void tma_load_pair(uint32_t dst, const CUtensorMap* map, int c0,
+                                              int c1, uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      ".multicast::cluster [%0], [%1, {%3, %4}], [%2], %5;\n"
+      :: "r"(dst), "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1),
+         "h"(static_cast<uint16_t>(3))
+      : "memory");
+}
+
+// Arrive on the barrier at this offset of block `rank` of the cluster.
+__device__ __forceinline__ void mbar_arrive_at(uint32_t bar, uint32_t rank) {
+  asm volatile(
+      "{\n.reg .b32 remote;\n"
+      "mapa.shared::cluster.u32 remote, %0, %1;\n"
+      "mbarrier.arrive.shared::cluster.b64 _, [remote];\n}\n"
+      :: "r"(bar), "r"(rank) : "memory");
+}
+
+__device__ __forceinline__ uint32_t cluster_rank() {
+  uint32_t rank;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(rank));
+  return rank;
+}
+
+// All threads of both blocks of the cluster meet.
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
+  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+
+// One box of shared memory (dense rows of 128 bytes, swizzled) to the 2-d
+// tensor at (c0 bytes, c1 rows); what lies outside the tensor is not written.
+__device__ __forceinline__ void tma_store(const CUtensorMap* map, uint32_t src, int c0, int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.global.shared::cta.bulk_group [%0, {%2, %3}], [%1];\n"
+      :: "l"(reinterpret_cast<uint64_t>(map)), "r"(src), "r"(c0), "r"(c1)
+      : "memory");
+}
+
+// Close this thread's group of stores (it may be empty) ...
+__device__ __forceinline__ void tma_store_commit() {
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+
+// ... and wait until all but the N newest groups have read their shared
+// memory.
+template <int N>
+__device__ __forceinline__ void tma_store_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read %0;\n" :: "n"(N) : "memory");
+}
+
+template <int BN> struct Ring {
+  static constexpr int stage_bytes = kABytes + BN * kSlab;
+  static constexpr int stages = kRingBytes / stage_bytes;   // 8, 6, 4
+  static constexpr int smem_bytes = 1024 + kRingBytes + kStageOutBytes + 2 * stages * 8;
+};
+
+// One accumulator to the output's type: the raw bits, or
+// cast(float(acc) * scale + bias) in separately rounded steps.
+template <int EPI, typename AccT>
+__device__ __forceinline__ uint32_t finish(AccT v, float scale, float bias, bool has_bias) {
+  if constexpr (EPI == EPI_RAW) {
+    if constexpr (std::is_same<AccT, float>::value)
+      return __float_as_uint(v);
+    else
+      return static_cast<uint32_t>(v);
+  } else {
+    float f = __fmul_rn(__int2float_rn(static_cast<int>(v)), scale);
+    if (has_bias) f = __fadd_rn(f, bias);
+    if constexpr (EPI == EPI_F32)
+      return __float_as_uint(f);
+    else
+      return static_cast<uint32_t>(__bfloat16_as_ushort(__float2bfloat16_rn(f)));
+  }
+}
+
+// A warp's 16 rows x BN columns of accumulators to global memory, 128 bytes
+// of output per row at a time through the warp's own staging buffers.  Lane
+// (g, t) = (lane / 4, lane % 4) holds, for each group j of 8 columns,
+// acc[4j], acc[4j + 1] at row g and acc[4j + 2], acc[4j + 3] at row g + 8,
+// columns 8j + 2t and 8j + 2t + 1.  `stores` counts the warp's TMA stores:
+// its parity picks the buffer.
+template <int BN, int EPI, typename AccT>
+__device__ __forceinline__ void store_tile(const AccT (&acc)[BN / 2], uint8_t* stg,
+                                           const CUtensorMap* map_out,
+                                           uint8_t* __restrict__ out,
+                                           const float* __restrict__ scale,
+                                           const float* __restrict__ bias, long long row0,
+                                           int n0, int M, int N, bool tma_out,
+                                           uint32_t& stores) {
+  constexpr int OS = EPI == EPI_BF16 ? 2 : 4;      // bytes of an output element
+  constexpr int CH = 128 / OS;                      // columns of a chunk
+  constexpr int PITCH = OS == 4 ? 160 : 144;        // of the path without TMA
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  const bool has_bias = bias != nullptr;
+#pragma unroll
+  for (int c = 0; c < BN / CH; ++c) {
+    uint8_t* buf = stg + (tma_out ? (stores & 1u) * kChunkBytes : 0);
+    // the buffer is free: its TMA store of two chunks ago, or the read-out of
+    // the chunk before, is over
+    if (tma_out && lane == 0) tma_store_wait_read<1>();
+    __syncwarp();
+#pragma unroll
+    for (int jj = 0; jj < CH / 8; ++jj) {
+      const int j = c * (CH / 8) + jj;
+      const int col = jj * 8 + 2 * t;
+      float s0 = 0.f, s1 = 0.f, b0 = 0.f, b1 = 0.f;
+      if constexpr (EPI != EPI_RAW) {
+        const int gc = n0 + c * CH + col;
+        if (gc < N) s0 = __ldg(scale + gc);
+        if (gc + 1 < N) s1 = __ldg(scale + gc + 1);
+        if (has_bias && gc < N) b0 = __ldg(bias + gc);
+        if (has_bias && gc + 1 < N) b1 = __ldg(bias + gc + 1);
+      }
+      const uint32_t v0 = finish<EPI>(acc[4 * j], s0, b0, has_bias);
+      const uint32_t v1 = finish<EPI>(acc[4 * j + 1], s1, b1, has_bias);
+      const uint32_t v2 = finish<EPI>(acc[4 * j + 2], s0, b0, has_bias);
+      const uint32_t v3 = finish<EPI>(acc[4 * j + 3], s1, b1, has_bias);
+      // rows g and g + 8; for TMA dense rows of 128 bytes whose 16-byte piece
+      // p sits at p ^ (row % 8), else the padded pitch
+      const int byte = col * OS;
+      uint8_t* lo = buf + (tma_out ? g * 128 + ((((byte >> 4) ^ g) << 4) | (byte & 15))
+                                   : g * PITCH + byte);
+      uint8_t* hi = lo + 8 * (tma_out ? 128 : PITCH);
+      if constexpr (OS == 4) {
+        *reinterpret_cast<uint2*>(lo) = make_uint2(v0, v1);
+        *reinterpret_cast<uint2*>(hi) = make_uint2(v2, v3);
+      } else {
+        *reinterpret_cast<uint32_t*>(lo) = v0 | (v1 << 16);
+        *reinterpret_cast<uint32_t*>(hi) = v2 | (v3 << 16);
+      }
+    }
+    if (tma_out) {
+      // the warp's writes become visible to the TMA unit, then lane 0 issues
+      asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+      __syncwarp();
+      if (lane == 0) {
+        if (row0 < M && n0 + c * CH < N)   // else the whole box lies outside
+          tma_store(map_out, static_cast<uint32_t>(__cvta_generic_to_shared(buf)),
+                    (n0 + c * CH) * OS, static_cast<int>(row0));
+        tma_store_commit();   // one group a chunk, so that the waits count chunks
+      }
+      ++stores;
+      continue;
+    }
+    __syncwarp();
+#pragma unroll
+    for (int it = 0; it < 4; ++it) {   // 4 rows of 8 lanes x 16 bytes
+      const int r = it * 4 + (lane >> 3), q = lane & 7;
+      const uint4 val = *reinterpret_cast<const uint4*>(buf + r * PITCH + q * 16);
+      const long long grow = row0 + r;
+      const int gcol = n0 + c * CH + q * (16 / OS);
+      if (grow < M && gcol < N) {
+        uint8_t* dst = out + (grow * N + gcol) * OS;
+        const uint32_t w[4] = {val.x, val.y, val.z, val.w};
+#pragma unroll
+        for (int e = 0; e < 16 / OS; ++e) {
+          if (gcol + e < N) {
+            if constexpr (OS == 4)
+              reinterpret_cast<uint32_t*>(dst)[e] = w[e];
+            else
+              reinterpret_cast<uint16_t*>(dst)[e] =
+                  static_cast<uint16_t>(w[e >> 1] >> (16 * (e & 1)));
+          }
+        }
+      }
+    }
+  }
+}
+
+// out (M, N) = A (M, K) x Bt (N, K)^T through the maps of A and Bt (bytes,
+// boxes of 128 x 128 and BN / 2 x 128), kslabs slabs of 128 bytes of K;
+// map_out (boxes of 16 rows x 128 bytes) is read only if tma_out.  Blocks run
+// as clusters of two.  Cluster c takes the tile pairs c, c + gridDim.x / 2,
+// ...; pair p is the row tiles 2 (p / n_tiles) and 2 (p / n_tiles) + 1 of
+// column tile p % n_tiles, one for each block of the cluster (the second may
+// lie past M: its block then loads no A and stores nothing).  Dynamic shared
+// memory: Ring<BN>::smem_bytes.
+template <bool INT8, int BN, int EPI>
+__global__ void __launch_bounds__(kThreads, 1)
+wgmma_kernel(const __grid_constant__ CUtensorMap map_a,
+             const __grid_constant__ CUtensorMap map_b,
+             const __grid_constant__ CUtensorMap map_out, uint8_t* __restrict__ out,
+             const float* __restrict__ scale, const float* __restrict__ bias, int M, int N,
+             int kslabs, int n_tiles, int pairs, int tma_out) {
+  constexpr int STAGES = Ring<BN>::stages, STAGE_BYTES = Ring<BN>::stage_bytes;
+  constexpr int HALF_BYTES = BN / 2 * kSlab;   // half of a stage of Bt
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t raw = static_cast<uint32_t>(__cvta_generic_to_shared(smem_raw));
+  const uint32_t ring = (raw + 1023u) & ~1023u;   // the swizzle repeats every 1024 bytes
+  uint8_t* stage_out = smem_raw + (ring - raw) + kRingBytes;
+  const uint32_t full = ring + kRingBytes + kStageOutBytes;   // STAGES barriers, then
+  const uint32_t empty = full + STAGES * 8;                   // STAGES more
+  const uint32_t rank = cluster_rank();
+  const int cluster = blockIdx.x >> 1, clusters = gridDim.x >> 1;
+
+  if (threadIdx.x == 0) {
+#pragma unroll
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(full + s * 8, 1);     // the producer's arrive with the byte count
+      mbar_init(empty + s * 8, 16);   // lane 0 of each consumer warp of both blocks
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  cluster_sync();   // the other block's barriers are there before anything reaches them
+
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  if (warp >= 8) {
+    // ------------------------------------------------------------ producer
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n");
+    if (threadIdx.x == 256) {
+      int stage = 0;
+      uint32_t phase = 0;
+      for (int pair = cluster; pair < pairs; pair += clusters) {
+        const int m0 = (2 * (pair / n_tiles) + static_cast<int>(rank)) * kBM;
+        const int n0 = (pair % n_tiles) * BN;
+        // what arrives in this block's stage: its own box of A if the tile
+        // has rows, and each half of the B box that has rows (whole boxes,
+        // zero fill included), one half from each block
+        const int expect = (m0 < M ? kABytes : 0) + HALF_BYTES +
+                           (n0 + BN / 2 < N ? HALF_BYTES : 0);
+        const int nh = n0 + static_cast<int>(rank) * (BN / 2);
+        for (int k = 0; k < kslabs; ++k) {
+          // both blocks' consumers have read the stage (at once the first time round)
+          mbar_wait(empty + stage * 8, phase ^ 1u);
+          const uint32_t bar = full + stage * 8, dst = ring + stage * STAGE_BYTES;
+          mbar_expect_tx(bar, expect);
+          if (m0 < M) tma_load(dst, &map_a, k * kSlab, m0, bar);
+          if (nh < N)
+            tma_load_pair(dst + kABytes + rank * HALF_BYTES, &map_b, k * kSlab, nh, bar);
+          if (++stage == STAGES) {
+            stage = 0;
+            phase ^= 1u;
+          }
+        }
+      }
+      // stay until the other block's consumers have arrived here for the last time
+      for (int s = 0; s < STAGES; ++s) {
+        mbar_wait(empty + stage * 8, phase ^ 1u);
+        if (++stage == STAGES) {
+          stage = 0;
+          phase ^= 1u;
+        }
+      }
+    }
+  } else {
+    // ----------------------------------------------------------- consumers
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n");
+    const int wg = warp >> 2;
+    typename std::conditional<INT8, int, float>::type acc[BN / 2];
+    int stage = 0;
+    uint32_t phase = 0, stores = 0;
+    for (int pair = cluster; pair < pairs; pair += clusters) {
+      const int m0 = (2 * (pair / n_tiles) + static_cast<int>(rank)) * kBM;
+      const int n0 = (pair % n_tiles) * BN;
+#pragma unroll
+      for (int i = 0; i < BN / 2; ++i) acc[i] = 0;
+      pin(acc);
+      int prev = 0;
+      for (int k = 0; k < kslabs; ++k) {
+        mbar_wait(full + stage * 8, phase);
+        const uint32_t base = ring + stage * STAGE_BYTES;
+        const uint64_t da = smem_desc(base + wg * (64 * kSlab));
+        const uint64_t db = smem_desc(base + kABytes);
+        wgmma_fence();
+#pragma unroll
+        for (int ks = 0; ks < kSlab / 32; ++ks) wgmma_step(acc, da + 2 * ks, db + 2 * ks);
+        wgmma_commit();
+        if (k > 0) {   // the slab before has been read: hand its stage back to both blocks
+          wgmma_wait<1>();
+          pin(acc);
+          if (lane == 0) mbar_arrive(empty + prev * 8);
+          if (lane == 1) mbar_arrive_at(empty + prev * 8, rank ^ 1u);
+        }
+        prev = stage;
+        if (++stage == STAGES) {
+          stage = 0;
+          phase ^= 1u;
+        }
+      }
+      wgmma_wait<0>();
+      pin(acc);
+      if (lane == 0) mbar_arrive(empty + prev * 8);
+      if (lane == 1) mbar_arrive_at(empty + prev * 8, rank ^ 1u);
+      store_tile<BN, EPI>(acc, stage_out + warp * kWarpOutBytes, &map_out, out, scale, bias,
+                          static_cast<long long>(m0) + warp * 16, n0, M, N, tma_out != 0, stores);
+    }
+    // shared memory outlives the stores that still read it
+    if (tma_out && lane == 0) tma_store_wait_read<0>();
+  }
+}
+
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled lives in libcuda, which the process has loaded
+// already; it is looked up there by name, so nothing links against it.
+EncodeTiled encode_tiled() {
+  static EncodeTiled fn = [] {
+    void* lib = dlopen("libcuda.so.1", RTLD_NOW | RTLD_GLOBAL);
+    return lib ? reinterpret_cast<EncodeTiled>(dlsym(lib, "cuTensorMapEncodeTiled")) : nullptr;
+  }();
+  return fn;
+}
+
+constexpr int kNoEncoder = 20000;   // returned if the lookup fails
+constexpr int kEncodeFailed = 10000;    // plus the CUresult of the encoder
+
+// The map of a (rows, row_bytes) matrix of bytes in boxes of box_rows x 128
+// bytes with the 128-byte swizzle; what a box holds outside the matrix reads
+// as zeros.
+int encode_map(CUtensorMap* map, const void* base, long long rows, long long row_bytes,
+               int box_rows) {
+  EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return kNoEncoder;
+  const cuuint64_t dims[2] = {static_cast<cuuint64_t>(row_bytes),
+                              static_cast<cuuint64_t>(rows)};
+  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(row_bytes)};
+  const cuuint32_t box[2] = {static_cast<cuuint32_t>(kSlab), static_cast<cuuint32_t>(box_rows)};
+  const cuuint32_t elem[2] = {1, 1};
+  const CUresult res = encode(
+      map, CU_TENSOR_MAP_DATA_TYPE_UINT8, 2, const_cast<void*>(base), dims, strides, box, elem,
+      CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+      CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return res == CUDA_SUCCESS ? 0 : kEncodeFailed + static_cast<int>(res);
+}
+
+template <bool INT8, int BN, int EPI>
+int launch(const void* a, const void* bt, void* out, const float* scale, const float* bias,
+           int m, int n, long long row_bytes, int num_sms, cudaStream_t stream) {
+  const long long m_tiles = (m + kBM - 1) / kBM, n_tiles = (n + BN - 1) / BN;
+  const long long pairs = (m_tiles + 1) / 2 * n_tiles;
+  if (pairs > 0x3fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
+  // the output goes by TMA stores if its row pitch and base allow it
+  constexpr int out_size = EPI == EPI_BF16 ? 2 : 4;
+  const long long out_row_bytes = static_cast<long long>(n) * out_size;
+  const int tma_out = out_row_bytes % 16 == 0 && reinterpret_cast<uintptr_t>(out) % 16 == 0;
+  CUtensorMap map_a, map_b, map_out;
+  int err = encode_map(&map_a, a, m, row_bytes, kBM);
+  if (err == 0) err = encode_map(&map_b, bt, n, row_bytes, BN / 2);
+  if (err == 0 && tma_out) err = encode_map(&map_out, out, m, out_row_bytes, 16);
+  if (err != 0) return err;
+  if (!tma_out) map_out = map_a;   // never read
+  auto kernel = wgmma_kernel<INT8, BN, EPI>;
+  constexpr int smem = Ring<BN>::smem_bytes;
+  cudaError_t cerr =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (cerr != cudaSuccess) return static_cast<int>(cerr);
+  // clusters of two blocks, as many as run at once (at most one block an SM)
+  cudaLaunchAttribute attr;
+  attr.id = cudaLaunchAttributeClusterDimension;
+  attr.val.clusterDim.x = 2;
+  attr.val.clusterDim.y = 1;
+  attr.val.clusterDim.z = 1;
+  cudaLaunchConfig_t config = {};
+  config.gridDim = dim3(static_cast<unsigned>(num_sms / 2 * 2));
+  config.blockDim = dim3(kThreads);
+  config.dynamicSmemBytes = smem;
+  config.stream = stream;
+  config.attrs = &attr;
+  config.numAttrs = 1;
+  static int fit[64] = {};   // clusters of this kernel that a device runs at once
+  int device = 0;
+  cerr = cudaGetDevice(&device);
+  if (cerr != cudaSuccess) return static_cast<int>(cerr);
+  int clusters = device < 64 ? fit[device] : 0;
+  if (clusters == 0) {
+    cerr = cudaOccupancyMaxActiveClusters(&clusters, kernel, &config);
+    if (cerr != cudaSuccess) return static_cast<int>(cerr);
+    if (clusters <= 0) return static_cast<int>(cudaErrorLaunchOutOfResources);
+    if (device < 64) fit[device] = clusters;
+  }
+  if (clusters > num_sms / 2) clusters = num_sms / 2;
+  if (clusters > pairs) clusters = static_cast<int>(pairs);
+  config.gridDim = dim3(static_cast<unsigned>(2 * clusters));
+  cerr = cudaLaunchKernelEx(&config, kernel, map_a, map_b, map_out, static_cast<uint8_t*>(out),
+                            scale, bias, m, n,
+                            static_cast<int>((row_bytes + kSlab - 1) / kSlab),
+                            static_cast<int>(n_tiles), static_cast<int>(pairs), tma_out);
+  return static_cast<int>(cerr != cudaSuccess ? cerr : cudaGetLastError());
+}
+
+template <bool INT8, int EPI>
+int launch_bn(int bn, const void* a, const void* bt, void* out, const float* scale,
+              const float* bias, int m, int n, long long row_bytes, int num_sms,
+              cudaStream_t stream) {
+  switch (bn) {
+    case 64: return launch<INT8, 64, EPI>(a, bt, out, scale, bias, m, n, row_bytes, num_sms, stream);
+    case 128: return launch<INT8, 128, EPI>(a, bt, out, scale, bias, m, n, row_bytes, num_sms, stream);
+    case 256: return launch<INT8, 256, EPI>(a, bt, out, scale, bias, m, n, row_bytes, num_sms, stream);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+bool aligned16(const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; }
+
+}  // namespace
+
+// c (m, n) int32 / f32 = a (m, k) x bt (n, k)^T; int8 operands if is_int8 else
+// bf16; bn is the tile width, 64, 128 or 256; at most num_sms blocks.  Row
+// pitch and bases must be multiples of 16 bytes.
+extern "C" int ioudet_wgmma_matmul(const void* a, const void* bt, void* c, int is_int8, int m,
+                                   int n, int k, int bn, int num_sms, cudaStream_t stream) {
+  const long long row_bytes = static_cast<long long>(k) * (is_int8 ? 1 : 2);
+  if (m <= 0 || n <= 0 || k <= 0 || num_sms <= 0 || row_bytes % 16 != 0 || !aligned16(a) ||
+      !aligned16(bt))
+    return static_cast<int>(cudaErrorInvalidValue);
+  return is_int8 ? launch_bn<true, EPI_RAW>(bn, a, bt, c, nullptr, nullptr, m, n, row_bytes,
+                                            num_sms, stream)
+                 : launch_bn<false, EPI_RAW>(bn, a, bt, c, nullptr, nullptr, m, n, row_bytes,
+                                             num_sms, stream);
+}
+
+// out (m, n) bf16 (out_bf16) or f32 = cast(float(a x bt^T) * scale[n] + bias[n]), int8
+// operands, scale (n,) and bias (n,) f32, bias may be null.
+extern "C" int ioudet_wgmma_matmul_dequant(const void* a, const void* bt, void* out,
+                                           const void* scale, const void* bias, int out_bf16,
+                                           int m, int n, int k, int bn, int num_sms,
+                                           cudaStream_t stream) {
+  if (m <= 0 || n <= 0 || k <= 0 || num_sms <= 0 || k % 16 != 0 || !aligned16(a) ||
+      !aligned16(bt) || scale == nullptr)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const float* s = static_cast<const float*>(scale);
+  const float* b = static_cast<const float*>(bias);
+  return out_bf16 ? launch_bn<true, EPI_BF16>(bn, a, bt, out, s, b, m, n, k, num_sms, stream)
+                  : launch_bn<true, EPI_F32>(bn, a, bt, out, s, b, m, n, k, num_sms, stream);
+}

@@ -16,6 +16,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import sys
 from pathlib import Path
 from typing import Dict, Optional, Sequence
 
@@ -32,6 +33,10 @@ PTR, I32, I64, F32 = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
 
 # launches of every kernel by name, counted where a wrapper launches it
 launches: Dict[str, int] = {}
+
+# True: compile with ``-Xptxas -v`` and print what nvcc said (each kernel's
+# registers, spills and shared memory) on stderr after a build
+ptxas_verbose = False
 
 
 def reset_launches() -> None:
@@ -60,11 +65,15 @@ class KernelLibrary:
     def __init__(self, source: str, extra_flags: Sequence[str],
                  functions: Dict[str, list], kernels: Sequence[str]):
         self.source = CSRC / source
-        self.flags = BASE_FLAGS + tuple(extra_flags)
+        self.extra_flags = tuple(extra_flags)
         self.functions = functions
         self._lib: Optional[ctypes.CDLL] = None
         for name in kernels:
             launches.setdefault(name, 0)
+
+    @property
+    def flags(self) -> tuple:
+        return BASE_FLAGS + self.extra_flags + (("-Xptxas", "-v") if ptxas_verbose else ())
 
     def path(self) -> Path:
         digest = hashlib.sha256(self.source.read_bytes() +
@@ -90,6 +99,8 @@ class KernelLibrary:
         _, stderr = proc.communicate()
         if proc.returncode != 0:
             raise RuntimeError(f"nvcc failed on {self.source}:\n{stderr}")
+        if ptxas_verbose:
+            print(f"nvcc on {self.source.name}:\n{stderr}", file=sys.stderr, flush=True)
         os.replace(tmp, out)
 
     def build(self) -> ctypes.CDLL:

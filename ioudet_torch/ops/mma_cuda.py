@@ -1,12 +1,19 @@
 """Tensor-core matrix products: wrappers, plain versions and launch counts.
 
-The CUDA kernels of ``ioudet_torch/csrc/mma_kernel.cu`` take the place of the
-three TPU tensor-core probes of ``ioudet``'s ``tools/``:
+The CUDA kernels of ``ioudet_torch/csrc/wgmma_kernel.cu`` and
+``ioudet_torch/csrc/mma_kernel.cu`` take the place of the three TPU
+tensor-core probes of ``ioudet``'s ``tools/``:
 
   * ``tiled_matmul`` (P3, ``probe_pallas_int8_matmul.pallas_matmul``): one
-    product (M, K) x (K, N), int8 -> int32 or bf16 -> f32, any M, N, K.  Its
-    int8 form is the product of every quantized convolution
-    (``ioudet_torch/ops/quant.py``);
+    product (M, K) x (K, N), int8 -> int32 or bf16 -> f32, any M, N, K.
+    Operands whose row pitch and base addresses are multiples of 16 bytes go
+    to the ``wgmma`` + TMA kernel of ``wgmma_kernel.cu``, the others to the
+    ``mma.sync`` kernel of ``mma_kernel.cu`` (``tiled_route`` decides, from
+    the operands alone, before anything is launched);
+  * ``tiled_matmul_dequant``: the int8 product with the dequantization in the
+    kernel's epilogue, ``cast(float(acc) * scale[n] + bias[n])`` written as
+    bf16 or f32; no int32 tensor reaches device memory.  It is the product of
+    every quantized convolution (``ioudet_torch/ops/quant.py``);
   * ``chain_matmul`` (P1, ``probe_mxu_rate._call``): ``loop`` dependent
     products with the requant between them, ``y <- clip((y @ b) >> 9, -127,
     127)`` in int8 or ``y <- bf16((y @ b) * scale)`` in bf16;
@@ -25,11 +32,15 @@ plain int8 versions are exact on both devices: int32 ``matmul`` on the CPU and,
 on the card, where integer ``matmul`` does not exist, float64 (K * 127^2 <
 2^53) cast back.  The plain bf16 versions upcast the operands to f32 and
 multiply with TF32 off, rounding where the kernels round.  Launches are
-counted per kernel and operand type in ``_build.launches``
-(``tiled_matmul_s8``, ``tiled_matmul_bf16``, ...).
+counted per kernel, operand type and epilogue in ``_build.launches``:
+``wgmma_matmul_s8``, ``wgmma_matmul_bf16`` and ``wgmma_dequant_s8`` for the
+``wgmma`` kernel, ``tiled_matmul_s8``, ``tiled_matmul_bf16``, ... for the
+``mma.sync`` kernels.
 """
 
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 
@@ -43,8 +54,15 @@ LIBRARY = _build.KernelLibrary(
     kernels=("tiled_matmul_s8", "tiled_matmul_bf16", "chain_matmul_s8",
              "chain_matmul_bf16", "accum_matmul_s8", "accum_matmul_bf16"))
 
-NUM_SMS = 132                 # of an H100: narrow tiles below that many blocks
-TILE_M = 128                  # kBM in the source
+WGMMA_LIBRARY = _build.KernelLibrary(
+    "wgmma_kernel.cu", ("-ldl",),
+    {"ioudet_wgmma_matmul": [PTR, PTR, PTR] + [I32] * 6,
+     "ioudet_wgmma_matmul_dequant": [PTR] * 5 + [I32] * 6},
+    kernels=("wgmma_matmul_s8", "wgmma_matmul_bf16", "wgmma_dequant_s8"))
+
+H100_SMS = 132                # the default of the pure tile rules below
+TILE_M = 128                  # kBM in both sources
+TMA_ALIGN = 16                # bytes: TMA's unit for a row pitch and a base address
 CHAIN_BAND = 16               # kBand: rows of y one chain block owns
 CHAIN_MAX_SMEM = 227 * 1024   # dynamic shared memory a block can opt into
 PLAIN_ROWS = 1 << 18          # rows per float64 product of the plain int8 form
@@ -77,6 +95,20 @@ def tiled_matmul_plain(a: torch.Tensor, b_t: torch.Tensor) -> torch.Tensor:
         return torch.matmul(a.float(), b_t.float().t())
     finally:
         torch.backends.cuda.matmul.allow_tf32 = tf32
+
+
+def tiled_matmul_dequant_plain(a: torch.Tensor, b_t: torch.Tensor, scale: torch.Tensor,
+                               bias: Optional[torch.Tensor] = None,
+                               out_dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """int8 a (M, K) x b_t (N, K)^T, dequantized: the exact int32 product
+    times ``scale`` (N,) in f32, plus ``bias`` (N,) f32 if given, cast to
+    ``out_dtype``: three passes, each rounded on its own."""
+    acc = tiled_matmul_plain(a, b_t)
+    y = acc * scale                                   # f32: int32 -> f32, times scale
+    del acc
+    if bias is not None:
+        y += bias
+    return y.to(out_dtype)
 
 
 def chain_matmul_plain(a: torch.Tensor, b_t: torch.Tensor, loop: int,
@@ -122,11 +154,34 @@ def _check_operands(a: torch.Tensor, b_t: torch.Tensor) -> None:
         raise ValueError("a and b_t must be contiguous")
 
 
-def tile_width(m: int, n: int) -> int:
-    """128-wide output tiles, 64-wide where N is narrow or the wide tiles
-    would be fewer than the card's SMs."""
+def num_sms(device) -> int:
+    """Streaming multiprocessors of a CUDA device, from its properties."""
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+def tiled_route(row_bytes: int, a_ptr: int = 0, b_ptr: int = 0) -> str:
+    """Which kernel a tiled product of CUDA operands takes: "wgmma" if the
+    row pitch of a and b_t (K in bytes) and both base addresses are multiples
+    of 16 bytes, as TMA needs, else "mma_sync"."""
+    aligned = row_bytes % TMA_ALIGN == 0 and a_ptr % TMA_ALIGN == 0 and b_ptr % TMA_ALIGN == 0
+    return "wgmma" if aligned else "mma_sync"
+
+
+def tile_width(m: int, n: int, sms: int = H100_SMS) -> int:
+    """Width of the wgmma kernel's 128-row output tile: the widest of 256 and
+    128 that N fills more than half of and that still gives every SM a tile,
+    else 64."""
+    for bn in (256, 128):
+        if n > bn // 2 and -(-m // TILE_M) * -(-n // bn) >= sms:
+            return bn
+    return 64
+
+
+def mma_sync_tile_width(m: int, n: int, sms: int = H100_SMS) -> int:
+    """Width of the mma.sync kernels' 128-row tile: 128, or 64 where N is
+    narrow or the wide tiles would be fewer than the card's SMs."""
     wide = -(-m // TILE_M) * -(-n // 128)
-    return 64 if n <= 64 or wide < NUM_SMS else 128
+    return 64 if n <= 64 or wide < sms else 128
 
 
 def _launch_tiled(name: str, a, b_t, loop: int, accum: int) -> torch.Tensor:
@@ -135,8 +190,18 @@ def _launch_tiled(name: str, a, b_t, loop: int, accum: int) -> torch.Tensor:
     out = torch.empty(m, n, dtype=_acc_dtype(a.dtype), device=a.device)
     _build.launch(LIBRARY.build().ioudet_tiled_matmul, f"{name}_{_suffix(a.dtype)}",
                   a.data_ptr(), b_t.data_ptr(), out.data_ptr(),
-                  int(a.dtype == torch.int8), m, n, k, tile_width(m, n), loop, accum)
+                  int(a.dtype == torch.int8), m, n, k,
+                  mma_sync_tile_width(m, n, num_sms(a.device)), loop, accum)
     return out
+
+
+def tiled_matmul_mma_sync(a: torch.Tensor, b_t: torch.Tensor) -> torch.Tensor:
+    """``tiled_matmul`` through the mma.sync kernel whatever the alignment:
+    CUDA operands only."""
+    _check_operands(a, b_t)
+    if a.device.type != "cuda":
+        raise ValueError(f"the mma.sync kernel needs CUDA operands, got {a.device}")
+    return _launch_tiled("tiled_matmul", a, b_t, 1, 0)
 
 
 def tiled_matmul(a: torch.Tensor, b_t: torch.Tensor) -> torch.Tensor:
@@ -145,7 +210,53 @@ def tiled_matmul(a: torch.Tensor, b_t: torch.Tensor) -> torch.Tensor:
     _check_operands(a, b_t)
     if a.device.type == "cpu":
         return tiled_matmul_plain(a, b_t)
-    return _launch_tiled("tiled_matmul", a, b_t, 1, 0)
+    m, k = a.shape
+    n = b_t.shape[0]
+    if tiled_route(k * a.element_size(), a.data_ptr(), b_t.data_ptr()) == "mma_sync":
+        return _launch_tiled("tiled_matmul", a, b_t, 1, 0)
+    sms = num_sms(a.device)
+    out = torch.empty(m, n, dtype=_acc_dtype(a.dtype), device=a.device)
+    _build.launch(WGMMA_LIBRARY.build().ioudet_wgmma_matmul,
+                  f"wgmma_matmul_{_suffix(a.dtype)}", a.data_ptr(), b_t.data_ptr(),
+                  out.data_ptr(), int(a.dtype == torch.int8), m, n, k,
+                  tile_width(m, n, sms), sms)
+    return out
+
+
+def tiled_matmul_dequant(a: torch.Tensor, b_t: torch.Tensor, scale: torch.Tensor,
+                         bias: Optional[torch.Tensor] = None,
+                         out_dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """int8 a (M, K) x b_t (N, K)^T -> (M, N) in ``out_dtype`` (bf16 or f32):
+    ``cast(float(acc) * scale[n] + bias[n])`` with ``scale`` (N,) f32 and
+    ``bias`` (N,) f32 or None, multiply and add rounded separately.  CUDA
+    operands need a row pitch and bases that are multiples of 16 bytes (the
+    wgmma kernel has the only dequantize epilogue)."""
+    _check_operands(a, b_t)
+    n = b_t.shape[0]
+    if a.dtype != torch.int8:
+        raise ValueError(f"the dequantized product takes int8 operands, got {a.dtype}")
+    if out_dtype not in (torch.bfloat16, torch.float32):
+        raise ValueError(f"out_dtype must be bfloat16 or float32, got {out_dtype}")
+    for name, t in (("scale", scale),) + ((("bias", bias),) if bias is not None else ()):
+        _build.check_tensor(t, name, torch.float32, 1)
+        if t.shape[0] != n or t.device != a.device:
+            raise ValueError(f"{name}: expected ({n},) on {a.device}, got "
+                             f"{tuple(t.shape)} on {t.device}")
+    if a.device.type == "cpu":
+        return tiled_matmul_dequant_plain(a, b_t, scale, bias, out_dtype)
+    m, k = a.shape
+    if tiled_route(k, a.data_ptr(), b_t.data_ptr()) != "wgmma":
+        raise ValueError(f"K={k} int8 at {a.data_ptr():#x}, {b_t.data_ptr():#x}: the kernel "
+                         f"needs a row pitch and bases that are multiples of {TMA_ALIGN} bytes")
+    scale = scale.contiguous()
+    bias = None if bias is None else bias.contiguous()
+    sms = num_sms(a.device)
+    out = torch.empty(m, n, dtype=out_dtype, device=a.device)
+    _build.launch(WGMMA_LIBRARY.build().ioudet_wgmma_matmul_dequant, "wgmma_dequant_s8",
+                  a.data_ptr(), b_t.data_ptr(), out.data_ptr(), scale.data_ptr(),
+                  None if bias is None else bias.data_ptr(),
+                  int(out_dtype == torch.bfloat16), m, n, k, tile_width(m, n, sms), sms)
+    return out
 
 
 def accum_matmul(a: torch.Tensor, b_t: torch.Tensor, loop: int) -> torch.Tensor:

@@ -14,8 +14,11 @@ PyTorch has no int8 convolution on CUDA, so the product is built here: the
 quantized input is laid out NHWC, its windows are gathered into a
 (B*Ho*Wo, kh*kw*C) matrix (a strided view, copied once; a 1x1 stride-1 conv
 needs no copy), the weight is taken as (O, kh*kw*I), and
-``mma_cuda.tiled_matmul`` gives the exact int32 product: the hand-written
-tensor-core kernel on the card, its plain version on the CPU.
+``mma_cuda.tiled_matmul_dequant`` gives the dequantized product in the
+compute dtype: on the card the hand-written ``wgmma`` kernel, whose epilogue
+turns the exact int32 accumulators into ``cast(float(acc) * (sx * sw) + bias)``
+before anything is written (no int32 tensor reaches device memory), on the
+CPU its plain version, the same three steps as torch passes.
 
 ``quantize_calls(model, ...)`` is a context manager that swaps the ``forward``
 of every eligible ``nn.Conv2d`` of ``model`` for the quantized call for the
@@ -44,7 +47,7 @@ from . import mma_cuda
 
 DEFAULT_SKIP = ("retina_cls", "retina_reg", "retina_iou", "conv_logits",
                 "rpn_cls", "rpn_reg")
-K_ALIGN = 16   # bytes: rows of the gathered matrix start on the kernel's 16-byte chunks
+K_ALIGN = 16   # bytes: TMA wants the gathered matrix's row pitch a multiple of 16
 
 
 def _const(value: float, device) -> torch.Tensor:
@@ -131,13 +134,10 @@ def quant_conv_call(mod: nn.Conv2d, x: torch.Tensor,
     q = q.permute(0, 2, 3, 1)
     q = F.pad(q, (0, 0, pw, pw, ph, ph)) if ph or pw else q
     cols, ho, wo = gather_windows(q.contiguous(), mod.kernel_size, mod.stride, mod.dilation)
-    acc = mma_cuda.tiled_matmul(cols, wmat)           # (B*Ho*Wo, O) int32, exact
+    bias = None if mod.bias is None else mod.bias.detach().float()
+    y = mma_cuda.tiled_matmul_dequant(cols, wmat, sx * sw, bias,
+                                      getattr(mod, "compute_dtype", torch.float32))
     del cols
-    y = acc * (sx * sw)                               # f32: int32 -> f32, times sx*sw
-    del acc
-    if mod.bias is not None:
-        y += mod.bias.detach().float()
-    y = y.to(getattr(mod, "compute_dtype", torch.float32))
     return y.view(x.shape[0], ho, wo, -1).permute(0, 3, 1, 2)
 
 

@@ -4,8 +4,9 @@
 
     python -m ioudet_torch.tools.probe_tensor_cores
 
-Three questions, each asked in int8 (-> int32) and in bf16 (-> f32) of the
-hand-written kernels of ``ioudet_torch/csrc/mma_kernel.cu``:
+Four questions, each asked in int8 (-> int32) and in bf16 (-> f32) of the
+hand-written kernels of ``ioudet_torch/csrc/mma_kernel.cu`` (``mma.sync``) and
+``ioudet_torch/csrc/wgmma_kernel.cu`` (``wgmma`` + TMA):
 
   * ``chain``: 64 dependent products (512, 2048) x (2048, 2048) with the
     requant inside the kernel, 8 kernels chained: the rate of a latency
@@ -14,7 +15,11 @@ hand-written kernels of ``ioudet_torch/csrc/mma_kernel.cu``:
     8 kernels: the sustainable rate;
   * ``tiled``: one 4096^3 product, 16 chained through a requantization in
     plain torch (``// 512`` and clip for int8, ``* 0.01`` for bf16), which
-    is inside the timed region as it is in ``ioudet``'s program.
+    is inside the timed region as it is in ``ioudet``'s program.  Its row
+    pitch is a multiple of 16 bytes, so it runs on the ``wgmma`` kernel;
+  * ``unaligned``: the same program on (1024, 1023) x (1023, 1023), 4
+    chained: a row pitch that TMA does not take, so the product stays on the
+    ``mma.sync`` kernel: what an unaligned operand costs.
 
 Each is timed with CUDA events over 4 repeats after a warm-up, on fresh
 seeded inputs; the result is one JSON object of rates in T(FL)OP/s (2 M K N
@@ -38,6 +43,8 @@ LOOP = 64
 KERNEL_REPEAT = 8
 TILED = 4096
 TILED_REPEAT = 16
+UNALIGNED_MKN = (1024, 1023, 1023)
+UNALIGNED_REPEAT = 4
 
 
 def card_line() -> str:
@@ -95,9 +102,9 @@ def accum_program(w_t):
     return run
 
 
-def tiled_program(w_t):
+def tiled_program(w_t, repeat=TILED_REPEAT):
     def run(y):
-        for _ in range(TILED_REPEAT):
+        for _ in range(repeat):
             acc = mma_cuda.tiled_matmul(y, w_t)
             if y.dtype == torch.int8:
                 y = (acc // 512).clamp(-127, 127).to(torch.int8)
@@ -126,6 +133,13 @@ def main() -> int:
     for tag, xs, w_t in (("bf16", xb, wb), ("int8", xq, wq)):
         out[f"tiled_{tag}_tops"] = ops / event_ms(tiled_program(w_t), xs) / 1e9
     out["tiled_int8_speedup"] = out["tiled_int8_tops"] / out["tiled_bf16_tops"]
+    del xq, xb, wq, wb
+    um, uk, un = UNALIGNED_MKN
+    xq, xb, wq, wb = operands(um, uk, un, dev, seed=2)
+    ops = 2 * um * uk * un * UNALIGNED_REPEAT
+    for tag, xs, w_t in (("bf16", xb, wb), ("int8", xq, wq)):
+        out[f"unaligned_{tag}_tops"] = \
+            ops / event_ms(tiled_program(w_t, UNALIGNED_REPEAT), xs) / 1e9
     print(json.dumps(out, indent=1))
     return 0
 

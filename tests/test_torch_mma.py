@@ -169,13 +169,14 @@ def test_cpu_calls_count_no_launch():
     _build.reset_launches()
     a = torch.ones(4, 32, dtype=torch.int8)
     mma_cuda.tiled_matmul(a, a)
+    mma_cuda.tiled_matmul_dequant(a, a, torch.ones(4), None, torch.bfloat16)
     mma_cuda.accum_matmul(a, a, 2)
     mma_cuda.chain_matmul(torch.ones(4, 4, dtype=torch.int8), torch.ones(4, 4, dtype=torch.int8), 1)
     assert all(_build.launches[k] == 0 for k in LAUNCH_KEYS)
 
 
-LAUNCH_KEYS = [f"{k}_{t}" for k in ("tiled_matmul", "chain_matmul", "accum_matmul")
-               for t in ("s8", "bf16")]
+LAUNCH_KEYS = [f"{k}_{t}" for k in ("tiled_matmul", "chain_matmul", "accum_matmul",
+                                    "wgmma_matmul") for t in ("s8", "bf16")] + ["wgmma_dequant_s8"]
 
 
 @pytest.mark.parametrize("call", [
@@ -192,6 +193,20 @@ LAUNCH_KEYS = [f"{k}_{t}" for k in ("tiled_matmul", "chain_matmul", "accum_matmu
                                   torch.ones(4, 8, dtype=torch.int8), 0),              # loop 0
     lambda: mma_cuda.tiled_matmul(torch.ones(2, 4, 8, dtype=torch.int8),
                                   torch.ones(4, 8, dtype=torch.int8)),                 # 3-d
+    lambda: mma_cuda.tiled_matmul_dequant(torch.ones(4, 16, dtype=torch.bfloat16),
+                                          torch.ones(4, 16, dtype=torch.bfloat16),
+                                          torch.ones(4)),                              # not int8
+    lambda: mma_cuda.tiled_matmul_dequant(torch.ones(4, 16, dtype=torch.int8),
+                                          torch.ones(4, 16, dtype=torch.int8),
+                                          torch.ones(5)),                              # scale (N,)
+    lambda: mma_cuda.tiled_matmul_dequant(torch.ones(4, 16, dtype=torch.int8),
+                                          torch.ones(4, 16, dtype=torch.int8),
+                                          torch.ones(4), torch.ones(4, 1)),            # bias 2-d
+    lambda: mma_cuda.tiled_matmul_dequant(torch.ones(4, 16, dtype=torch.int8),
+                                          torch.ones(4, 16, dtype=torch.int8),
+                                          torch.ones(4), None, torch.float16),         # out type
+    lambda: mma_cuda.tiled_matmul_mma_sync(torch.ones(4, 16, dtype=torch.int8),
+                                           torch.ones(4, 16, dtype=torch.int8)),       # CPU
 ])
 def test_wrappers_refuse_bad_operands(call):
     with pytest.raises(ValueError):
@@ -199,8 +214,94 @@ def test_wrappers_refuse_bad_operands(call):
 
 
 def test_tile_width_and_chain_blocks():
+    # the wgmma kernel: the widest of 256 and 128 that N fills and that gives 132 SMs a tile
     assert mma_cuda.tile_width(4_472_832, 64) == 64        # the stem: narrow N
-    assert mma_cuda.tile_width(279_552, 256) == 128        # a tower conv at P3
+    assert mma_cuda.tile_width(279_552, 256) == 256        # a tower conv at P3
+    assert mma_cuda.tile_width(4_368, 256) == 64           # ... at P6: 35 row tiles
+    assert mma_cuda.tile_width(17_472, 128) == 128         # 137 row tiles of 128 columns
+    assert mma_cuda.tile_width(4096, 4096) == 256
+    assert mma_cuda.tile_width(4096, 4096, sms=1024) == 128   # a card with more SMs
     assert mma_cuda.tile_width(512, 2048) == 64            # the probe: 64 wide tiles < 132 SMs
-    assert mma_cuda.tile_width(4096, 4096) == 128
+    # the mma.sync kernels keep their rule
+    assert mma_cuda.mma_sync_tile_width(4_472_832, 64) == 64
+    assert mma_cuda.mma_sync_tile_width(279_552, 256) == 128
+    assert mma_cuda.mma_sync_tile_width(512, 2048) == 64
+    assert mma_cuda.mma_sync_tile_width(4096, 4096) == 128
     assert mma_cuda.chain_blocks(512) == 32 and mma_cuda.chain_blocks(17) == 2
+
+
+# K of every quantized conv of the flagship (window size x input channels,
+# padded to 16): the stem's 147 -> 160, the 1x1 and 3x3 convs of layer1-4, the
+# FPN's laterals and 3x3 convs, the towers
+FLAGSHIP_K = [160, 64, 576, 256, 1152, 128, 512, 2304, 1024, 4608, 2048]
+
+
+@pytest.mark.parametrize("k", FLAGSHIP_K)
+def test_route_of_the_flagships_convs_is_wgmma(k):
+    assert mma_cuda.tiled_route(k) == "wgmma"                       # int8: K bytes a row
+    assert mma_cuda.tiled_route(k, 0x7f0000000200, 0x7f0000100000) == "wgmma"
+
+
+@pytest.mark.parametrize("row_bytes,a_ptr,b_ptr", [
+    (147, 0, 0), (33, 0, 0), (7, 0, 0), (1, 0, 0),      # ragged K in int8
+    (2 * 1023, 0, 0), (2 * 31, 0, 0), (8, 0, 0),        # ... in bf16; half a unit
+    (160, 8, 0), (160, 0, 0x7f0000000204)])             # a view off the 16-byte grid
+def test_route_of_unaligned_operands_is_mma_sync(row_bytes, a_ptr, b_ptr):
+    assert mma_cuda.tiled_route(row_bytes, a_ptr, b_ptr) == "mma_sync"
+
+
+@pytest.mark.parametrize("bias", [True, False])
+@pytest.mark.parametrize("out", ["float32", "bfloat16"])
+@pytest.mark.parametrize("shape", [(16, 64, 24), (37, 160, 7)])
+def test_dequant_plain_matches_ioudet_arithmetic(shape, out, bias):
+    """``tiled_matmul_dequant_plain`` against the dequantization of
+    ioudet/ops/quant.py (``acc.astype(f32) * (sx * sw)``, ``+ bias``,
+    ``.astype(dtype)``) on the same int8 operands, scales over eight orders of
+    magnitude.  Without a bias the two are bit-equal.  With one, XLA may
+    contract the multiply-add on the CPU: one f32 step (2^-23 relative to the
+    larger of |y| and |bias|) for an f32 output, one bf16 step (2^-8) for a
+    bf16 one."""
+    m, k, n = shape
+    rng = np.random.default_rng(m + n)
+    a = rng.integers(-127, 128, (m, k)).astype(np.int8)
+    b_t = rng.integers(-127, 128, (n, k)).astype(np.int8)
+    sx = np.float32(10.0 ** rng.uniform(-4, 0))
+    sw = (10.0 ** rng.uniform(-4, 0, n)).astype(np.float32)
+    bvec = (rng.standard_normal(n) * 10.0 ** rng.uniform(-2, 2, n)).astype(np.float32)
+    acc = jnp.asarray(a.astype(np.int32) @ b_t.astype(np.int32).T)
+    want = acc.astype(jnp.float32) * (jnp.float32(sx) * jnp.asarray(sw))
+    if bias:
+        want = want + jnp.asarray(bvec).astype(jnp.float32)
+    want = as_f32(want.astype(jnp.float32 if out == "float32" else jnp.bfloat16))
+    got = mma_cuda.tiled_matmul_dequant(
+        torch.from_numpy(a), torch.from_numpy(b_t), torch.tensor(sx) * torch.from_numpy(sw),
+        torch.from_numpy(bvec) if bias else None, getattr(torch, out))
+    assert got.dtype == getattr(torch, out) and tuple(got.shape) == (m, n)
+    if not bias:
+        np.testing.assert_array_equal(got.float().numpy(), want)
+    else:
+        step = 2.0 ** -23 if out == "float32" else 2.0 ** -8
+        top = np.maximum(np.abs(want), np.abs(bvec)[None, :])
+        assert (np.abs(got.float().numpy() - want) <= step * top).all()
+
+
+@pytest.mark.parametrize("name", ["no_store", "no_mma", "loads_only"])
+def test_parts_probe_finds_its_lines_in_the_kernel_source(name):
+    """The probe of the wgmma kernel's parts cuts whole lines out of the
+    kernel's source: each must be there exactly once."""
+    from ioudet_torch.tools import probe_wgmma_parts
+    source = mma_cuda.WGMMA_LIBRARY.source.read_text()
+    assert probe_wgmma_parts.CUTS[name]
+    for cut in probe_wgmma_parts.CUTS[name]:
+        assert source.count(cut) == 1
+    assert probe_wgmma_parts.main() == 1   # no card here
+
+
+@pytest.mark.parametrize("needle", [
+    "wgmma.mma_async.sync.aligned.m64n256k32.s32.s8.s8",
+    "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16",
+    "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes",
+    "mbarrier.try_wait.parity", "setmaxnreg.dec", "CU_TENSOR_MAP_SWIZZLE_128B",
+    "__fmul_rn(__int2float_rn("])
+def test_wgmma_source_is_built_from_the_hopper_parts(needle):
+    assert needle in mma_cuda.WGMMA_LIBRARY.source.read_text()

@@ -1,7 +1,7 @@
 """ioudet_torch/ops/quant.py against ioudet/ops/quant.py on the CPU: the two
-quantizers, the quantized convolution (its product is the plain version of
-the tensor-core kernel here), the skip list, calibration and the window
-gather, on the same numpy-seeded inputs and bridged weights.
+quantizers, the quantized convolution (its dequantized product is the plain
+version of the tensor-core kernel here), the skip list, calibration and the
+window gather, on the same numpy-seeded inputs and bridged weights.
 
 Tolerances.  The quantizers are exact (both round half to even).  The int32
 accumulators of the convolution are exact on both sides; the dequantization
@@ -21,7 +21,7 @@ from torch import nn
 
 from ioudet.ops import quant as jquant
 from ioudet_torch.models.utils.layers import Conv2d, ConvModule
-from ioudet_torch.ops import _build, quant
+from ioudet_torch.ops import _build, mma_cuda, quant
 
 
 def oihw(kernel):
@@ -159,6 +159,45 @@ def test_quant_conv_returns_the_compute_dtype():
         f32 = quant.quant_conv_call(Conv2d(8, 16, 3, padding=1), x)
     assert y.dtype == torch.bfloat16 and f32.dtype == torch.float32
     assert tuple(y.shape) == (1, 16, 6, 6)
+
+
+def three_pass_conv_call(mod, x, act_scale=None):
+    """``quant_conv_call`` as it was before the dequantization moved into the
+    product's epilogue: the int32 product, then three torch passes."""
+    wmat, sw = quant.weight_matrix(mod)
+    q, sx = quant._quantize_tensor(x, act_scale)
+    ph, pw = quant._padding(mod)
+    q = q.permute(0, 2, 3, 1)
+    q = F.pad(q, (0, 0, pw, pw, ph, ph)) if ph or pw else q
+    cols, ho, wo = quant.gather_windows(q.contiguous(), mod.kernel_size, mod.stride,
+                                        mod.dilation)
+    acc = mma_cuda.tiled_matmul(cols, wmat)
+    y = acc * (sx * sw)
+    if mod.bias is not None:
+        y += mod.bias.detach().float()
+    y = y.to(getattr(mod, "compute_dtype", torch.float32))
+    return y.view(x.shape[0], ho, wo, -1).permute(0, 3, 1, 2)
+
+
+@pytest.mark.parametrize("static", [True, False])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("kernel,stride,padding,cin,bias", [
+    (3, 1, 1, 8, True), (1, 1, 0, 16, False), (1, 2, 0, 16, True), (7, 2, 3, 3, False)])
+def test_quant_conv_through_the_dequant_entry_is_bit_equal(kernel, stride, padding, cin,
+                                                           bias, dtype, static):
+    """The conv through ``tiled_matmul_dequant`` against the three passes it
+    replaced, on the CPU: the same bits, f32 and bf16, with and without bias,
+    static and dynamic scale."""
+    torch.manual_seed(kernel * 10 + cin)
+    mod = Conv2d(cin, 12, kernel, stride, padding, bias=bias, compute_dtype=dtype)
+    x = torch.from_numpy(np.random.default_rng(cin).normal(0, 1, (2, cin, 13, 11))
+                         .astype(np.float32)).to(dtype)
+    scale = torch.tensor(0.03) if static else None
+    with torch.no_grad():
+        got = quant.quant_conv_call(mod, x, scale)
+        want = three_pass_conv_call(mod, x, scale)
+    assert got.dtype == dtype and got.shape == want.shape
+    assert torch.equal(got, want) and float(got.float().abs().max()) > 0
 
 
 @pytest.mark.parametrize("kernel,stride,dilation,channels", [
@@ -319,4 +358,5 @@ def test_quantize_calls_leaves_the_module_untouched(two_conv):
     assert all(torch.equal(a, b) for a, b in zip(ref, after))
     sd = t.state_dict()
     assert list(sd) == list(before) and all(torch.equal(sd[k], before[k]) for k in sd)
-    assert _build.launches["tiled_matmul_s8"] == 0   # CPU tensors: the plain product
+    assert _build.launches["wgmma_dequant_s8"] == 0   # CPU tensors: the plain product
+    assert _build.launches["tiled_matmul_s8"] == 0
