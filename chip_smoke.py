@@ -17,10 +17,13 @@ Phases (any failure exits non-zero):
      permuted NCHW view, and the autograd function against autograd through
      the plain version; the three tensor-core products (chain, accumulate,
      tiled) in int8 bit for bit and in bf16 within stated limits, on ragged
-     shapes, convolution shapes and the probes' own, the tiled one through
-     both of its kernels (wgmma + TMA for 16-byte aligned operands, mma.sync
-     for the rest) on shapes that cross the wgmma kernel's tile, slab and ring
-     edges, and its dequantize epilogue bit for bit;
+     shapes, convolution shapes and the probes' own: the tiled one through
+     the wgmma kernel (TMA-fed for 16-byte aligned operands, fed through
+     registers for the rest, each on its tile, slab, ring and alignment
+     edges) and through the older mma.sync kernel, its dequantize epilogue bit
+     for bit, the chain through the wgmma cluster kernel (M off the 64-row
+     band, clusters of 1 to 16 blocks, loop 0 to 64) and the mma.sync one,
+     each also on a bf16 chain kept alive for 64 steps, checked step by step;
   3. the flagship IoU-aware RetinaNet R-50-FPN (configs/
      iou_aware_retinanet_r50_fpn_1x.py with class_topk=4, the model of
      __graft_entry__.FLAGSHIP/TEST_CFG) at full width with seeded random
@@ -33,7 +36,9 @@ Phases (any failure exits non-zero):
      made errors, the wgmma kernel's dequantize launches against the module
      tree (and none of the mma.sync kernel), a replay with the plain product
      that must give the same bits, and
-     the head outputs' drift from f32; then the probe tool's own run;
+     the head outputs' drift from f32; then the probe tool's own run, whose
+     chain and unaligned questions must launch the wgmma kernels and not the
+     mma.sync ones they replaced;
   4. the same model, training: ``train_detector`` for 6 SGD steps on a batch
      of 8 canvases with seeded gts, steps 2-6 with host syncs made errors;
      launch counts, finite and falling losses, frozen parameters unchanged,
@@ -43,7 +48,8 @@ Phases (any failure exits non-zero):
      and bf16 + int8 with peak memory, the int8 call's split, the train step,
      its parts and a torch.profiler summary of it, each kernel against its
      plain version, its bound and, where there is one, a library call at the
-     shape the main path gives it.
+     shape the main path gives it; each wgmma kernel beside the mma.sync
+     kernel it replaced, timed in turns (old, new, new, old).
 The last two lines are the card's name and power limit, then
 ``{"ok": true, "device": {...}}``; the line before them lists the kernels.
 """
@@ -95,6 +101,20 @@ PROBE_MKN = (512, 2048, 2048)   # the chain and accumulate probes' own shape
 WGMMA_EDGES = (((127, 128, 129), (63, 64, 65), (16, 112, 128, 144)),
                ((1, 300), (7, 200), (896, 1024, 1152)),
                ((16897,), (127, 128, 255, 256, 257), (16, 384, 512, 640)))
+# (M values, N values, bytes of K) of the unaligned wgmma kernel's edge cases: a
+# 128-row tile one under and over, tile widths 64 and 128 one under and over,
+# K from one byte to several slabs off every 16-byte phase; then byte offsets
+# of a's base (its row pitch stays K)
+UNALIGNED_EDGES = ((1, 127, 129, 300), (1, 63, 65, 129, 200),
+                   (1, 15, 18, 126, 129, 1022, 2046))
+UNALIGNED_OFFSETS = (1, 2, 8, 14, 15)
+# (M, K) of the wgmma chain kernel's cases: M off the 64-row band, K split
+# into clusters of 1 (128), 2, 3, 9 (a size above the portable 8), 16 blocks
+# of 128 columns and 16 of 256 (4096); the probe's own last
+CHAIN_SHAPES = ((5, 128), (65, 256), (130, 384), (65, 1152), (200, 4096), (512, 2048))
+CHAIN_LOOPS = (0, 1, 2, 64)
+LIVE_LOOP = 64   # steps of the bf16 chains kept alive at the probe's shape
+HOLD_CYCLES = 5_000_000   # ~2.5 ms at 2 GHz, the card's spin before a timed loop
 # (M, N, K) of the dequantize epilogue's cases: ragged, narrow and wide tiles
 DEQUANT_SHAPES = ((129, 65, 144), (1000, 7, 1024), (2304, 64, 160), (3000, 256, 2304),
                   (16897, 255, 384), (16897, 128, 640), (17000, 512, 64))
@@ -222,10 +242,15 @@ def card_line() -> str:
 
 
 def cuda_ms(fn, reps: int, warmup: int = 2) -> float:
+    """Mean device time of fn() over ``reps`` calls, by CUDA events.  The card
+    first spins for HOLD_CYCLES, so that the host has queued the calls before
+    the first one starts: a kernel shorter than its launch path is timed, not
+    the host."""
     for _ in range(warmup):
         fn()
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     torch.cuda.synchronize()
+    torch.cuda._sleep(HOLD_CYCLES)
     start.record()
     for _ in range(reps):
         fn()
@@ -441,6 +466,127 @@ def dequant_case(Mm, m: int, n: int, k: int, seed: int) -> float:
     return worst
 
 
+def offset_copy(t: torch.Tensor, offset: int) -> torch.Tensor:
+    """A contiguous copy of t whose base lies ``offset`` bytes into a buffer
+    that is 16-byte aligned."""
+    nbytes = t.numel() * t.element_size()
+    buf = torch.empty(nbytes + offset, dtype=torch.int8, device=t.device)
+    view = buf[offset:]
+    view.copy_(t.reshape(-1).view(torch.int8))
+    return view.view(t.dtype).view(t.shape)
+
+
+def unaligned_cases(Mm) -> dict:
+    """The unaligned wgmma kernel (loads through registers) on its edges:
+    every (M, N, K bytes) of UNALIGNED_EDGES in int8 and, K even, in bf16,
+    then aligned pitches with a base off the 16-byte grid; int8 bit-equal,
+    bf16 within 1e-5 of the largest sum of |a||b|."""
+    err = {"wgmma_unaligned_s8": 0.0, "wgmma_unaligned_bf16": 0.0}
+    before = dict(Mm._build.launches)
+    cases, worst = {"s8": 0, "bf16": 0}, 0.0
+    ms, ns, kbytes = UNALIGNED_EDGES
+    shapes = [(m, n, kb, 0) for m in ms for n in ns for kb in kbytes]
+    shapes += [(129, 65, kb, off) for kb in (160, 1023, 2048) for off in UNALIGNED_OFFSETS]
+    for m, n, kb, off in shapes:
+        for dtype, tag in ((torch.int8, "s8"), (torch.bfloat16, "bf16")):
+            size = 1 if dtype == torch.int8 else 2
+            if kb % size or off % size:
+                continue
+            a, b_t = mma_operands(m, n, kb // size, dtype, seed=m + n + kb + off)
+            if off:
+                a = offset_copy(a, off)
+                b_t = offset_copy(b_t, 16 - off)
+            if Mm.tiled_route(kb, a.data_ptr(), b_t.data_ptr()) != "wgmma_unaligned":
+                raise AssertionError(f"({m}, {kb} B) x ({kb} B, {n}) offset {off}: not routed "
+                                     "to the unaligned kernel")
+            out, want = Mm.tiled_matmul(a, b_t), Mm.tiled_matmul_plain(a, b_t)
+            torch.cuda.synchronize()
+            diff = max_abs(out, want)
+            scale = abs_product(a, b_t)
+            if (diff != 0.0) if size == 1 else (diff > 1e-5 * scale):
+                raise AssertionError(f"wgmma_unaligned {tag} ({m}, {kb} B) x ({kb} B, {n}), "
+                                     f"base offset {off}: differs from plain by {diff:.3e}")
+            err[f"wgmma_unaligned_{tag}"] = max(err[f"wgmma_unaligned_{tag}"], diff)
+            if size == 2:
+                worst = max(worst, diff / max(scale, 1e-30))
+            cases[tag] += 1
+    check(all(Mm._build.launches[f"wgmma_unaligned_{t}"] == before[f"wgmma_unaligned_{t}"] + n
+              for t, n in cases.items()),
+          f"wgmma_unaligned M in {ms}, N in {ns}, K of {kbytes} bytes, bases off by "
+          f"{UNALIGNED_OFFSETS} bytes: {cases['s8']} int8 cases bit-equal to plain, "
+          f"{cases['bf16']} bf16 cases within {worst:.2e} of the largest sum of |a||b| "
+          "(limit 1e-5)")
+    return err
+
+
+def chain_cases(Mm, fn, name: str, m: int, kn: int, loops, err: dict) -> dict:
+    """A chain kernel through ``fn`` against the plain chain at (m, kn), loop
+    counts ``loops``: int8 bit-equal, bf16 within 2^-7 relative + 1e-3 of the
+    largest |y| (zero where the chain has died out)."""
+    out_err = {f"{name}_s8": err[f"{name}_s8"], f"{name}_bf16": err[f"{name}_bf16"]}
+    sms = Mm.num_sms(torch.device("cuda"))
+    plan = ""
+    if name == "wgmma_chain":
+        cs, ns = Mm.chain_plan(m, kn, Mm.chain_fits(torch.device("cuda"), torch.int8, kn))
+        plan = f", clusters of {cs} x {ns} columns ({sms} SMs)"
+    a, b_t = mma_operands(m, kn, kn, torch.int8, seed=m, amp=1.0)
+    for loop in loops:
+        before = Mm._build.launches[f"{name}_s8"]
+        out, want = fn(a, b_t, loop), Mm.chain_matmul_plain(a, b_t, loop)
+        torch.cuda.synchronize()
+        out_err[f"{name}_s8"] = max(out_err[f"{name}_s8"], max_abs(out, want))
+        check(Mm._build.launches[f"{name}_s8"] == before + 1 and out.dtype == torch.int8
+              and torch.equal(out, want),
+              f"{name} int8 ({m}, {kn}) loop {loop}{plan}: bit-equal to plain "
+              f"({int((out != 0).sum())} non-zero, {int((out.abs() == 127).sum())} clipped)")
+    a, b_t = mma_operands(m, kn, kn, torch.bfloat16, seed=m)
+    for loop in loops:
+        out = fn(a, b_t, loop, 0.01)
+        want = Mm.chain_matmul_plain(a, b_t, loop, 0.01)
+        torch.cuda.synchronize()
+        top = float(want.float().abs().max())
+        diff = max_abs(out, want)
+        out_err[f"{name}_bf16"] = max(out_err[f"{name}_bf16"], diff)
+        torch.testing.assert_close(out.float(), want.float(), rtol=2 ** -7, atol=1e-3 * top)
+        check(out.dtype == torch.bfloat16 and (top > 0.0 or loop > 3),
+              f"{name} bf16 ({m}, {kn}) loop {loop}{plan}: within 2^-7 relative + 1e-3 "
+              f"of max |y| = {top:.3e} of plain (max abs diff {diff:.3e}, "
+              f"{int((out != want).sum())} of {out.numel()} differ)")
+    return out_err
+
+
+def live_chain_walk(Mm, fn, name: str, m: int, kn: int, loop: int, err: dict) -> dict:
+    """A bf16 chain that stays alive for ``loop`` steps, checked one step at a
+    time.  At the probe's scale 0.01, |y| falls ~100x a step and is zero long
+    before step 64; at 1 / (sqrt(K) std(b)) the product keeps |y| about
+    constant.  Such a chain is chaotic: a sum rounded the other way at one
+    step moves later steps by more than the limit (two orders of the plain
+    f32 sum already do), so
+    the kernel's y after L steps is held against one plain step from its own
+    y after L - 1 steps (the kernels sum in a fixed order, so the first L - 1
+    steps of both launches agree), for every L, and must be non-zero."""
+    a, b_t = mma_operands(m, kn, kn, torch.bfloat16, seed=m)
+    scale = 1.0 / (kn ** 0.5 * float(b_t.float().std()))
+    prev, worst, tops = a, 0.0, []
+    for steps in range(1, loop + 1):
+        out = fn(a, b_t, steps, scale)
+        want = Mm.chain_matmul_plain(prev, b_t, 1, scale)
+        torch.cuda.synchronize()
+        top = float(want.float().abs().max())
+        diff = max_abs(out, want)
+        torch.testing.assert_close(out.float(), want.float(), rtol=2 ** -7, atol=1e-3 * top)
+        if not top > 0.0:
+            raise AssertionError(f"{name} bf16 ({m}, {kn}) scale {scale:.4f}: y died out at "
+                                 f"step {steps}")
+        worst, prev = max(worst, diff), out
+        tops.append(top)
+    check(True, f"{name} bf16 ({m}, {kn}) at scale {scale:.4f}, steps 1 to {loop}, each "
+          f"within 2^-7 relative + 1e-3 of max |y| of one plain step from the kernel's y "
+          f"one step shorter (max |y| from {min(tops):.3e} to {max(tops):.3e}, max abs "
+          f"diff {worst:.3e})")
+    return {f"{name}_bf16": max(err[f"{name}_bf16"], worst)}
+
+
 def phase_mma_kernels(Mm) -> dict:
     """P1-P3 against their plain versions on the card.  int8: bit-equal
     everywhere.  bf16: the products of two bf16 values are exact in f32, so
@@ -453,19 +599,20 @@ def phase_mma_kernels(Mm) -> dict:
     2^-7 relative plus 1e-3 of the largest |y|.  The dequantize epilogue is
     bit-equal to its plain version (multiply and add rounded separately)."""
     names = [f"{k}_{t}" for k in ("tiled_matmul", "chain_matmul", "accum_matmul",
-                                  "wgmma_matmul") for t in ("s8", "bf16")]
+                                  "wgmma_matmul", "wgmma_unaligned", "wgmma_chain")
+             for t in ("s8", "bf16")]
     err = {n: 0.0 for n in names + ["wgmma_dequant_s8"]}
     for m, n, k in MMA_SHAPES:
         for dtype, tag in ((torch.int8, "s8"), (torch.bfloat16, "bf16")):
             size = 1 if dtype == torch.int8 else 2
             route = Mm.tiled_route(k * size)
-            check(route == ("wgmma" if k * size % 16 == 0 else "mma_sync"),
+            check(route == ("wgmma" if k * size % 16 == 0 else "wgmma_unaligned"),
                   f"tiled_matmul {tag} K={k}: a row pitch of {k * size} bytes takes the "
                   f"{route} kernel")
             # the mma.sync kernel at every shape, then whichever the wrapper chooses
             for fn, name in ((Mm.tiled_matmul_mma_sync, "tiled_matmul"),
                              (Mm.tiled_matmul, "wgmma_matmul" if route == "wgmma"
-                              else "tiled_matmul")):
+                              else "wgmma_unaligned")):
                 before = Mm._build.launches[f"{name}_{tag}"]
                 diff, scale, out = tiled_case(Mm, fn, m, n, k, dtype)
                 err[f"{name}_{tag}"] = max(err[f"{name}_{tag}"], diff)
@@ -508,29 +655,17 @@ def phase_mma_kernels(Mm) -> dict:
         check(True, f"tiled_matmul_dequant ({m}, {k}) x ({k}, {n}), tile width "
               f"{Mm.tile_width(m, n, sms)}: bf16 and f32 outputs, with and without bias, "
               "bit-equal to plain")
+    err.update(unaligned_cases(Mm))
     pm, pk, pn = PROBE_MKN
-    for m, kn in ((5, 64), (37, 128), (pm, pk)):
-        a, b_t = mma_operands(m, kn, kn, torch.int8, seed=m, amp=1.0)
-        for loop in (0, 1, 2, 3, 64):
-            out, want = Mm.chain_matmul(a, b_t, loop), Mm.chain_matmul_plain(a, b_t, loop)
-            torch.cuda.synchronize()
-            err["chain_matmul_s8"] = max(err["chain_matmul_s8"], max_abs(out, want))
-            check(out.dtype == torch.int8 and torch.equal(out, want),
-                  f"chain_matmul int8 ({m}, {kn}) loop {loop}: bit-equal to plain "
-                  f"({int((out != 0).sum())} non-zero, {int((out.abs() == 127).sum())} clipped)")
-        a, b_t = mma_operands(m, kn, kn, torch.bfloat16, seed=m)
-        for loop in (1, 2, 3):
-            out = Mm.chain_matmul(a, b_t, loop, 0.01)
-            want = Mm.chain_matmul_plain(a, b_t, loop, 0.01)
-            torch.cuda.synchronize()
-            top = float(want.float().abs().max())
-            diff = max_abs(out, want)
-            err["chain_matmul_bf16"] = max(err["chain_matmul_bf16"], diff)
-            torch.testing.assert_close(out.float(), want.float(), rtol=2 ** -7, atol=1e-3 * top)
-            check(out.dtype == torch.bfloat16 and top > 0.0,
-                  f"chain_matmul bf16 ({m}, {kn}) loop {loop}: within 2^-7 relative + 1e-3 "
-                  f"of max |y| = {top:.3e} of plain (max abs diff {diff:.3e}, "
-                  f"{int((out != want).sum())} of {out.numel()} differ)")
+    # the mma.sync chain kernel through its own entry, then the wgmma one
+    for m, kn, loops in ((5, 64, (0, 1, 2, 3, 64)), (37, 128, (1, 2, 3)),
+                         (pm, pk, (1, 2, 3, 64))):
+        err.update(chain_cases(Mm, Mm.chain_matmul_mma_sync, "chain_matmul", m, kn, loops, err))
+    err.update(live_chain_walk(Mm, Mm.chain_matmul_mma_sync, "chain_matmul", pm, pk, LIVE_LOOP,
+                               err))
+    for m, kn in CHAIN_SHAPES:
+        err.update(chain_cases(Mm, Mm.chain_matmul, "wgmma_chain", m, kn, CHAIN_LOOPS, err))
+    err.update(live_chain_walk(Mm, Mm.chain_matmul, "wgmma_chain", pm, pk, LIVE_LOOP, err))
     for m, n, k in ((7, 33, 147), (200, 100, 96), (pm, pn, pk)):
         for loop in (1, 3, 64):
             a, b_t = mma_operands(m, n, k, torch.int8, seed=loop)
@@ -879,12 +1014,14 @@ def phase_probe(B) -> dict:
     torch.cuda.synchronize()
     counts = dict(B.launches)
     reps = 5   # a warm-up and four timed programs
-    want = {"chain_matmul": reps * probe_tensor_cores.KERNEL_REPEAT,
+    want = {"wgmma_chain": reps * probe_tensor_cores.KERNEL_REPEAT,
             "accum_matmul": reps * probe_tensor_cores.KERNEL_REPEAT,
-            "wgmma_matmul": reps * probe_tensor_cores.TILED_REPEAT,       # 4096^3
-            "tiled_matmul": reps * probe_tensor_cores.UNALIGNED_REPEAT}   # K = 1023
+            "wgmma_matmul": reps * probe_tensor_cores.TILED_REPEAT,            # 4096^3
+            "wgmma_unaligned": reps * probe_tensor_cores.UNALIGNED_REPEAT,     # K = 1023
+            "chain_matmul": 0, "tiled_matmul": 0}   # the mma.sync kernels they replace
     check(all(counts[f"{k}_{t}"] == n for k, n in want.items() for t in ("s8", "bf16")),
-          f"the probe launched every product in both types: {counts}")
+          f"the probe launched every product in both types, through the wgmma kernels: "
+          f"{counts}")
     return counts
 
 
@@ -1210,15 +1347,21 @@ def int8_predict_split(Mm, Q, handle, inputs, act_scale) -> tuple:
     return (*parts, total - sum(parts)), per_conv
 
 
-def old_new_ms(Mm, a, b_t, reps: int = 10) -> tuple:
-    """The raw tiled product through the mma.sync kernel and the wgmma kernel
-    on the same operands, timed in turns (old, new, new, old): the two means."""
-    old = lambda: Mm.tiled_matmul_mma_sync(a, b_t)   # noqa: E731
-    new = lambda: Mm.tiled_matmul(a, b_t)            # noqa: E731
-    check(Mm.tiled_route(a.shape[1] * a.element_size(), a.data_ptr(), b_t.data_ptr()) == "wgmma",
-          f"tiled_matmul {tuple(a.shape)} x {tuple(b_t.shape)}^T {a.dtype} takes the wgmma kernel")
+def in_turns(old, new, reps: int) -> tuple:
+    """Two versions of one function timed in turns (old, new, new, old): the
+    two means."""
     t = [cuda_ms(old, reps), cuda_ms(new, reps), cuda_ms(new, reps), cuda_ms(old, reps)]
     return (t[0] + t[3]) / 2, (t[1] + t[2]) / 2
+
+
+def old_new_ms(Mm, a, b_t, reps: int = 10, route: str = "wgmma") -> tuple:
+    """The raw tiled product through the mma.sync kernel and the wgmma kernel
+    of ``route`` on the same operands, timed in turns: the two means."""
+    check(Mm.tiled_route(a.shape[1] * a.element_size(), a.data_ptr(), b_t.data_ptr()) == route,
+          f"tiled_matmul {tuple(a.shape)} x {tuple(b_t.shape)}^T {a.dtype} takes the {route} "
+          "kernel")
+    return in_turns(lambda: Mm.tiled_matmul_mma_sync(a, b_t), lambda: Mm.tiled_matmul(a, b_t),
+                    reps)
 
 
 def phase_low_precision_timing(Mm, Q, handle, scales, rng, card: str) -> dict:
@@ -1312,45 +1455,54 @@ def phase_low_precision_timing(Mm, Q, handle, scales, rng, card: str) -> dict:
               f"({'torch._int_mm' if int8 else 'torch.matmul, bf16 output'}) {row[4]:.4f} ms "
               f"[{card}; {tag}]", flush=True)
         del a, b_t
-        # the mma.sync kernel where the main path still uses it: the probe
-        # tool's product on a row pitch that is no multiple of 16 bytes
+        # the probe tool's product on a row pitch that is no multiple of 16
+        # bytes: the unaligned wgmma kernel, the mma.sync kernel it replaced
         from ioudet_torch.tools.probe_tensor_cores import UNALIGNED_MKN
         um, uk, un = UNALIGNED_MKN
         a, b_t = mma_operands(um, un, uk, dtype, seed=6)
-        check(Mm.tiled_route(uk * a.element_size()) == "mma_sync",
-              f"the probe's ({um}, {uk}) x ({uk}, {un}) {tag} product takes the mma.sync kernel")
-        row = (cuda_ms(lambda: Mm.tiled_matmul(a, b_t), 10),
-               cuda_ms(lambda: Mm.tiled_matmul_plain(a, b_t), 2, 1),
-               *tensor_bound((um + un) * uk * a.element_size() + um * un * 4,
-                             2.0 * um * un * uk, int8),
-               None if int8 else cuda_ms(lambda: torch.matmul(a, b_t.t()), 10))
-        times[f"tiled_matmul_{suffix}"] = row
-        print(f"tiled_matmul {tag} ({um}, {uk}) x ({uk}, {un}), mma.sync kernel: {row[0]:.4f} "
-              f"ms, plain torch {row[1]:.4f} ms, bound {row[2]:.4f} ms by {row[3]}, library "
+        old, new = old_new_ms(Mm, a, b_t, 20, "wgmma_unaligned")
+        ubound = tensor_bound((um + un) * uk * a.element_size() + um * un * 4,
+                              2.0 * um * un * uk, int8)
+        plain = cuda_ms(lambda: Mm.tiled_matmul_plain(a, b_t), 2, 1)
+        lib = None if int8 else cuda_ms(lambda: torch.matmul(a, b_t.t()), 20)
+        times[f"wgmma_unaligned_{suffix}"] = (new, plain, *ubound, lib)
+        times[f"tiled_matmul_{suffix}"] = (old, plain, *ubound, lib)
+        print(f"tiled_matmul {tag} ({um}, {uk}) x ({uk}, {un}): unaligned wgmma kernel "
+              f"{new:.4f} ms against the mma.sync kernel {old:.4f} ms (old, new, new, old), "
+              f"plain torch {plain:.4f} ms, bound {ubound[0]:.4f} ms by {ubound[1]}, library "
               + ("none (torch._int_mm refuses this K)" if int8 else
-                 f"(torch.matmul, bf16 output) {row[4]:.4f} ms") + f" [{card}; {tag}]",
-              flush=True)
+                 f"(torch.matmul, bf16 output) {lib:.4f} ms") + f" [{card}; {tag}]", flush=True)
         del a, b_t
         pm, pk, pn = PROBE_MKN
         loop = 64
         a, b_t = mma_operands(pm, pn, pk, dtype, seed=5)
         nbytes = (pm * pk + pn * pk) * a.element_size()
         ops = 2.0 * pm * pn * pk * loop
-        for kind, fn, plain, out_bytes in (
-                ("chain", lambda: Mm.chain_matmul(a, b_t, loop), 
-                 lambda: Mm.chain_matmul_plain(a, b_t, loop), pm * pn * a.element_size()),
-                ("accum", lambda: Mm.accum_matmul(a, b_t, loop),
-                 lambda: Mm.accum_matmul_plain(a, b_t, loop), pm * pn * 4)):
-            row = (cuda_ms(fn, 5), cuda_ms(plain, 2, 1),
-                   *tensor_bound(nbytes + out_bytes, ops, int8), None)
-            times[f"{kind}_matmul_{'s8' if int8 else 'bf16'}"] = row
-            sms = Mm.num_sms(a.device)
-            blocks = Mm.chain_blocks(pm) if kind == "chain" else \
-                -(-pm // Mm.TILE_M) * -(-pn // Mm.mma_sync_tile_width(pm, pn, sms))
-            print(f"{kind}_matmul {tag} ({pm}, {pk}) x ({pk}, {pn}) loop {loop}: kernel "
-                  f"{row[0]:.4f} ms ({ops / row[0] / 1e9:.1f} T(FL)OP/s, {blocks} blocks for "
-                  f"{sms} SMs), plain torch {row[1]:.4f} ms, bound {row[2]:.4f} ms by "
-                  f"{row[3]}, library none [{card}; {tag}]", flush=True)
+        sms = Mm.num_sms(a.device)
+        # the chain: the wgmma cluster kernel against the mma.sync one, in turns
+        cs, ns = Mm.chain_plan(pm, pk, Mm.chain_fits(a.device, dtype, pk))
+        old, new = in_turns(lambda: Mm.chain_matmul_mma_sync(a, b_t, loop),
+                            lambda: Mm.chain_matmul(a, b_t, loop), 5)
+        plain = cuda_ms(lambda: Mm.chain_matmul_plain(a, b_t, loop), 2, 1)
+        cbound = tensor_bound(nbytes + pm * pn * a.element_size(), ops, int8)
+        times[f"wgmma_chain_{suffix}"] = (new, plain, *cbound, None)
+        times[f"chain_matmul_{suffix}"] = (old, plain, *cbound, None)
+        bands = -(-pm // Mm.WGMMA_BAND)
+        print(f"chain_matmul {tag} ({pm}, {pk}) x ({pk}, {pn}) loop {loop}: wgmma cluster kernel "
+              f"{new:.4f} ms ({ops / new / 1e9:.1f} T(FL)OP/s, {100 * cbound[0] / new:.1f}% of "
+              f"the bound; {bands} clusters of {cs} blocks x {ns} columns = {bands * cs} of "
+              f"{sms} SMs) against the mma.sync kernel {old:.4f} ms ({Mm.chain_blocks(pm)} "
+              f"blocks; old, new, new, old), plain torch {plain:.4f} ms, bound "
+              f"{cbound[0]:.4f} ms by {cbound[1]}, library none [{card}; {tag}]", flush=True)
+        row = (cuda_ms(lambda: Mm.accum_matmul(a, b_t, loop), 5),
+               cuda_ms(lambda: Mm.accum_matmul_plain(a, b_t, loop), 2, 1),
+               *tensor_bound(nbytes + pm * pn * 4, ops, int8), None)
+        times[f"accum_matmul_{suffix}"] = row
+        blocks = -(-pm // Mm.TILE_M) * -(-pn // Mm.mma_sync_tile_width(pm, pn, sms))
+        print(f"accum_matmul {tag} ({pm}, {pk}) x ({pk}, {pn}) loop {loop}: kernel "
+              f"{row[0]:.4f} ms ({ops / row[0] / 1e9:.1f} T(FL)OP/s, {blocks} blocks for "
+              f"{sms} SMs), plain torch {row[1]:.4f} ms, bound {row[2]:.4f} ms by "
+              f"{row[3]}, library none [{card}; {tag}]", flush=True)
         del a, b_t
     return times
 
@@ -1373,7 +1525,15 @@ KERNELS = {  # name: (source, the TPU kernel it replaces)
     "wgmma_matmul_s8": ("wgmma_kernel.cu", "tools/probe_pallas_int8_matmul.py:53"),
     "wgmma_matmul_bf16": ("wgmma_kernel.cu", "tools/probe_pallas_int8_matmul.py:53"),
     "wgmma_dequant_s8": ("wgmma_kernel.cu", "tools/probe_pallas_int8_matmul.py:53"),
+    # P3 on operands off TMA's 16-byte grid, and P1, on wgmma
+    "wgmma_unaligned_s8": ("wgmma_kernel.cu", "tools/probe_pallas_int8_matmul.py:53"),
+    "wgmma_unaligned_bf16": ("wgmma_kernel.cu", "tools/probe_pallas_int8_matmul.py:53"),
+    "wgmma_chain_s8": ("wgmma_kernel.cu", "tools/probe_mxu_rate.py:39"),
+    "wgmma_chain_bf16": ("wgmma_kernel.cu", "tools/probe_mxu_rate.py:47"),
 }
+# the mma.sync kernels that the wgmma ones replaced on every main path; still
+# checked (phase 2) and timed (phase 5) through their _mma_sync entries
+REPLACED = ("tiled_matmul_s8", "tiled_matmul_bf16", "chain_matmul_s8", "chain_matmul_bf16")
 
 
 def main() -> int:
@@ -1446,9 +1606,10 @@ def main() -> int:
     del runner, batch
     torch.cuda.empty_cache()
     times.update(phase_low_precision_timing(Mm, Q, lp_handle, scales, rng, card))
-    check(all(launches[name] > 0 for name in KERNELS),
-          "every kernel was launched on a main path: " +
-          ", ".join(f"{name} {launches[name]}" for name in KERNELS))
+    check(all(launches[name] > 0 for name in KERNELS if name not in REPLACED) and
+          all(launches[name] == 0 for name in REPLACED),
+          "every kernel was launched on a main path, and none of those the wgmma kernels "
+          "replaced: " + ", ".join(f"{name} {launches[name]}" for name in KERNELS))
     kernels = [dict(name=name, route="cuda", source=f"ioudet_torch/csrc/{source}",
                     replaces=replaces, launches=launches[name],
                     max_abs_err=err[name], ms=times[name][0], plain_ms=times[name][1],

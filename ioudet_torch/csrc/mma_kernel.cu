@@ -33,12 +33,12 @@
 //   L2.  Ragged M and N are masked, K is
 //   zero-filled to the slab; a row pitch that is not a multiple of 16 bytes
 //   takes a slow byte-wise staging path.
-//   wgmma_kernel.cu holds the wgmma/TMA version of this product (B in shared
-//   memory for a whole warpgroup, 64 x 256 tiles, TMA doing the staging and
-//   the zero fill, a deeper ring under a producer warp, persistent blocks).
-//   TMA needs a row pitch and base addresses that are multiples of 16 bytes,
-//   so this kernel keeps the operands that are not: ioudet_torch/ops/
-//   mma_cuda.py chooses between the two before it launches.
+//   wgmma_kernel.cu holds the wgmma version of this product, which now takes
+//   every operand of the main paths: TMA-fed where the row pitch and bases
+//   are multiples of 16 bytes, fed through the producer warpgroup's
+//   registers (aligned words shifted into place) where they are not.  This
+//   kernel stays reachable through mma_cuda.tiled_matmul_mma_sync, checked
+//   and timed beside the wgmma one.
 //
 // tiled_kernel<.., ACCUM=true>  replaces _call / _int8_kernel, _bf16_kernel of
 //   tools/probe_mxu_rate2.py (P2): `loop` independent products summed,
@@ -65,9 +65,13 @@
 //   reliance on L1): with one 16-row tile a block uses each element of b once
 //   a step, so staging it in shared memory would gain nothing.  Nothing goes
 //   to device memory inside the loop, which is the point of the TPU kernel.
-//   The requant runs on the accumulators between steps.  A launch has ceil(M / 16) blocks: 32 of the 132 SMs at the probe's
-//   512 rows.  A wgmma version would take 64-row bands over a cluster that
-//   shares b through distributed shared memory and multicast TMA.
+//   The requant runs on the accumulators between steps.  A launch has
+//   ceil(M / 16) blocks: 32 of the 132 SMs at the probe's 512 rows, each
+//   reading all of b from the L2 at every step.  chain_wgmma_kernel of
+//   wgmma_kernel.cu replaced it on the main paths (64-row bands on clusters
+//   whose blocks own slices of b's rows and pass y through distributed
+//   shared memory); this kernel stays reachable through
+//   mma_cuda.chain_matmul_mma_sync, checked and timed beside it.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>

@@ -1,7 +1,9 @@
 // The tiled tensor-core product for Hopper (sm_90a) on warpgroup mma: TMA
 // loads into a ring of shared-memory stages, wgmma.mma_async from shared
 // memory, persistent blocks, and an epilogue that either hands back the raw
-// accumulators or dequantizes them.  Behind a plain C interface loaded with
+// accumulators or dequantizes them; the same product for operands off TMA's
+// 16-byte grid; and the chain of dependent products on clusters that pass
+// their rows through distributed shared memory.  Behind a plain C interface loaded with
 // ctypes by ioudet_torch/ops/mma_cuda.py.  Built there with
 //   nvcc -gencode arch=compute_90a,code=sm_90a -O3 -std=c++17 -shared
 //        -Xcompiler -fPIC -ldl
@@ -11,7 +13,7 @@
 //   mma_kernel.cu did before it: C (M, N) = A (M, K) x Bt (N, K)^T, int8 ->
 //   int32 or bf16 -> f32, for any M and N and any K whose row pitch is a
 //   multiple of 16 bytes with 16-byte aligned bases (what TMA asks of a
-//   tensor; other operands stay with the mma.sync kernel).  Its int8 form with
+//   tensor; other operands go to its unaligned form, below).  Its int8 form with
 //   the dequantize epilogue carries every quantized convolution of the serving
 //   path (ioudet_torch/ops/quant.py):
 //     out[m, n] = cast(float(acc[m, n]) * scale[n] + bias[n])
@@ -55,6 +57,41 @@
 //   pitch, reads it back and writes it with masked element stores.  A wait
 //   that outlasts a watchdog of some seconds traps instead of hanging the
 //   card.
+//
+// wgmma_kernel<.., TMA=false>  replaces the same P3 for operands whose row
+//   pitch or base is off the 16-byte grid (tiled_kernel<.., ACCUM=false> of
+//   mma_kernel.cu took them before, its 16 one-byte loads a chunk issued by
+//   the threads that ran the products).  Bound: bytes by the count (2 us at
+//   the probe's (1024, 1023) x (1023, 1023)); what holds it is the path that
+//   feeds the stages, since TMA cannot.  Design: the consumers, the ring, the
+//   barriers, persistence and the epilogue are the aligned kernel's; the
+//   producer is a whole warpgroup that reads each stage through registers
+//   (aligned 16-byte words shifted into place, see "loads off the 16-byte
+//   grid"), fences its writes for the async proxy and arrives, 128 threads,
+//   on the stage's full barrier.  Clusters are of one block (multicast needs
+//   TMA) and tiles at most 128 wide, so no thread's registers move.
+//
+// chain_wgmma_kernel  replaces _call / _int8_kernel, _bf16_kernel of
+//   tools/probe_mxu_rate.py (P1), as chain_kernel of mma_kernel.cu did before
+//   it: `loop` dependent products y <- requant(y @ b) inside one kernel,
+//   clip((acc >> 9), -127, 127) or bf16(acc * scale), N == K, nothing to
+//   device memory inside the loop.  Bound: operations by the count, but each
+//   step depends on the last, and b (4-8 MB) does not fit in one SM: every
+//   step streams it again.  The mma.sync kernel gave each 16-row band a block,
+//   so 32 blocks read all of b from the L2 at every step.  Design: a cluster
+//   owns a band of 64 rows (one wgmma M) and each of its cs blocks a slice of
+//   N columns (128 or 256; cs up to 16, asked of the card by occupancy), so
+//   the L2 traffic a step falls to one b per cluster, spread over cs SMs:
+//   the block's TMA thread streams its slice of b through a ring.  A block
+//   keeps only its own slice of y, twice (this step's and the next); after a
+//   step its consumers requantize their accumulators into the other buffer,
+//   and its pusher sends each of its slabs of y (64 rows x 128 bytes) to
+//   every block of the cluster with cp.async.bulk through distributed shared
+//   memory, into a ring of y stages of their own, counted on the receiving
+//   block's barrier.  A stage of that ring is handed to the block that owns
+//   its next slab once this block's consumers are done with it (a remote
+//   arrive per slab), so the pushes of the next step's first slabs start as
+//   soon as their owner has written them and run ahead of the products.
 
 #include <cuda.h>
 #include <cuda_bf16.h>
@@ -316,6 +353,88 @@ __device__ __forceinline__ void tma_store_wait_read() {
   asm volatile("cp.async.bulk.wait_group.read %0;\n" :: "n"(N) : "memory");
 }
 
+// ---------------------------------------------- loads off the 16-byte grid
+//
+// An operand whose row pitch or base is not a multiple of 16 bytes cannot
+// go through TMA.  The producer warpgroup of the unaligned kernel reads it
+// instead, half a row of a slab (64 bytes) at a time: the aligned 16-byte
+// words that cover those bytes (at most five), shifted into place by the
+// span's byte offset mod 16 with funnel shifts, the bytes past the row's end
+// zeroed, and written as four 16-byte words into the 128-byte swizzled stage
+// row that the wgmma descriptors read.  Over-reads are avoided, not argued:
+// a word is loaded whole only if it lies wholly inside the tensor; the first
+// word of its first row and the last word of its last row, which may not,
+// are read byte by byte, and only the bytes of the span.
+
+struct Span {
+  uint4 w[5];     // the aligned words that cover the span, zeros past them
+  uint32_t sh;    // the span's byte offset in its first word
+  int n;          // bytes of the span inside the row: 0..64
+};
+
+// The 16 bytes at p, byte by byte where they reach outside [lo, hi); only
+// the bytes of [want_lo, want_hi) are read (the others are zero).
+__device__ __forceinline__ uint4 load_word(uintptr_t p, uintptr_t lo, uintptr_t hi,
+                                           uintptr_t want_lo, uintptr_t want_hi) {
+  if (p >= lo && p + 16 <= hi) return __ldg(reinterpret_cast<const uint4*>(p));
+  uint32_t w[4] = {0u, 0u, 0u, 0u};
+#pragma unroll
+  for (int j = 0; j < 16; ++j)
+    if (p + j >= want_lo && p + j < want_hi)
+      w[j >> 2] |= static_cast<uint32_t>(*reinterpret_cast<const uint8_t*>(p + j)) << (8 * (j & 3));
+  return make_uint4(w[0], w[1], w[2], w[3]);
+}
+
+// Bytes k .. k + 63 of row `row` of the (rows, row_bytes) matrix at base.
+__device__ __forceinline__ void span_load(Span& s, const uint8_t* __restrict__ base,
+                                          long long row, int rows, long long k,
+                                          long long row_bytes) {
+  s.n = 0;
+  s.sh = 0;
+#pragma unroll
+  for (int i = 0; i < 5; ++i) s.w[i] = make_uint4(0u, 0u, 0u, 0u);
+  if (row >= rows || k >= row_bytes) return;
+  const long long left = row_bytes - k;
+  s.n = left < 64 ? static_cast<int>(left) : 64;
+  const uintptr_t lo = reinterpret_cast<uintptr_t>(base);
+  const uintptr_t hi = lo + static_cast<uintptr_t>(rows) * row_bytes;
+  const uintptr_t p = lo + row * row_bytes + k;
+  s.sh = static_cast<uint32_t>(p & 15u);
+  const uintptr_t first = p - s.sh;
+  const int words = static_cast<int>((s.sh + s.n + 15) >> 4);   // 1..5, each holding a byte of the span
+#pragma unroll
+  for (int i = 0; i < 5; ++i)
+    if (i < words) s.w[i] = load_word(first + 16 * i, lo, hi, p, p + s.n);
+}
+
+// The span into chunks 4h .. 4h + 3 of a 128-byte swizzled stage row r.
+__device__ __forceinline__ void span_store(const Span& s, uint8_t* stage_row, int r, int h) {
+  const uint32_t u[20] = {s.w[0].x, s.w[0].y, s.w[0].z, s.w[0].w, s.w[1].x, s.w[1].y, s.w[1].z,
+                          s.w[1].w, s.w[2].x, s.w[2].y, s.w[2].z, s.w[2].w, s.w[3].x, s.w[3].y,
+                          s.w[3].z, s.w[3].w, s.w[4].x, s.w[4].y, s.w[4].z, s.w[4].w};
+  const uint32_t d = s.sh >> 2, shift = 8 * (s.sh & 3u);
+  uint32_t v[17];   // u from the span's first 4-byte word on, chosen without indexing
+#pragma unroll
+  for (int i = 0; i < 17; ++i) {
+    const uint32_t u1 = i + 1 < 20 ? u[i + 1] : 0u, u2 = i + 2 < 20 ? u[i + 2] : 0u,
+                   u3 = i + 3 < 20 ? u[i + 3] : 0u;
+    v[i] = d == 0 ? u[i] : d == 1 ? u1 : d == 2 ? u2 : u3;
+  }
+  uint32_t o[16];
+#pragma unroll
+  for (int j = 0; j < 16; ++j) {
+    o[j] = __funnelshift_r(v[j], v[j + 1], shift);
+    const int keep = s.n - 4 * j;   // bytes of this word inside the row
+    if (keep < 4) o[j] &= keep <= 0 ? 0u : (1u << (8 * keep)) - 1u;
+  }
+#pragma unroll
+  for (int c = 0; c < 4; ++c) {
+    const int q = 4 * h + c;
+    *reinterpret_cast<uint4*>(stage_row + ((q ^ (r & 7)) << 4)) =
+        make_uint4(o[4 * c], o[4 * c + 1], o[4 * c + 2], o[4 * c + 3]);
+  }
+}
+
 template <int BN> struct Ring {
   static constexpr int stage_bytes = kABytes + BN * kSlab;
   static constexpr int stages = kRingBytes / stage_bytes;   // 8, 6, 4
@@ -443,15 +562,25 @@ __device__ __forceinline__ void store_tile(const AccT (&acc)[BN / 2], uint8_t* s
 // column tile p % n_tiles, one for each block of the cluster (the second may
 // lie past M: its block then loads no A and stores nothing).  Dynamic shared
 // memory: Ring<BN>::smem_bytes.
-template <bool INT8, int BN, int EPI>
+//
+// TMA false is the unaligned kernel: a_raw and bt_raw with row pitch
+// row_bytes are read by the producer warpgroup as above (the maps of A and
+// Bt are not read), clusters are of one block, and unit p is row tile
+// p / n_tiles of column tile p % n_tiles.  BN is 64 or 128 there, so that
+// every thread keeps the kernel's 168 registers and none is moved.
+template <bool INT8, int BN, int EPI, bool TMA>
 __global__ void __launch_bounds__(kThreads, 1)
 wgmma_kernel(const __grid_constant__ CUtensorMap map_a,
              const __grid_constant__ CUtensorMap map_b,
              const __grid_constant__ CUtensorMap map_out, uint8_t* __restrict__ out,
              const float* __restrict__ scale, const float* __restrict__ bias, int M, int N,
-             int kslabs, int n_tiles, int pairs, int tma_out) {
+             int kslabs, int n_tiles, int pairs, int tma_out,
+             const uint8_t* __restrict__ a_raw, const uint8_t* __restrict__ bt_raw,
+             long long row_bytes) {
   constexpr int STAGES = Ring<BN>::stages, STAGE_BYTES = Ring<BN>::stage_bytes;
   constexpr int HALF_BYTES = BN / 2 * kSlab;   // half of a stage of Bt
+  constexpr int CL = TMA ? 2 : 1;              // blocks of a cluster
+  static_assert(TMA || BN <= 128, "the unaligned kernel keeps its registers unmoved");
   extern __shared__ uint8_t smem_raw[];
   const uint32_t raw = static_cast<uint32_t>(__cvta_generic_to_shared(smem_raw));
   const uint32_t ring = (raw + 1023u) & ~1023u;   // the swizzle repeats every 1024 bytes
@@ -459,13 +588,14 @@ wgmma_kernel(const __grid_constant__ CUtensorMap map_a,
   const uint32_t full = ring + kRingBytes + kStageOutBytes;   // STAGES barriers, then
   const uint32_t empty = full + STAGES * 8;                   // STAGES more
   const uint32_t rank = cluster_rank();
-  const int cluster = blockIdx.x >> 1, clusters = gridDim.x >> 1;
+  const int cluster = blockIdx.x / CL, clusters = gridDim.x / CL;
 
   if (threadIdx.x == 0) {
 #pragma unroll
     for (int s = 0; s < STAGES; ++s) {
-      mbar_init(full + s * 8, 1);     // the producer's arrive with the byte count
-      mbar_init(empty + s * 8, 16);   // lane 0 of each consumer warp of both blocks
+      // the producer's arrive with the byte count, or every producer thread's
+      mbar_init(full + s * 8, TMA ? 1 : 128);
+      mbar_init(empty + s * 8, 8 * CL);   // lane 0 of each consumer warp of the cluster
     }
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
@@ -473,9 +603,45 @@ wgmma_kernel(const __grid_constant__ CUtensorMap map_a,
   cluster_sync();   // the other block's barriers are there before anything reaches them
 
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  if (warp >= 8) {
+  if (!TMA && warp >= 8) {
+    // ------------------------------------------- producer through registers
+    const int p = threadIdx.x - 256;
+    constexpr int UNITS = 2 * (kBM + BN);   // half rows of a stage: A's box, then Bt's
+    int stage = 0;
+    uint32_t phase = 0;
+    for (int unit = cluster; unit < pairs; unit += clusters) {
+      const long long m0 = static_cast<long long>(unit / n_tiles) * kBM;
+      const long long n0 = static_cast<long long>(unit % n_tiles) * BN;
+      for (int k = 0; k < kslabs; ++k) {
+        mbar_wait(empty + stage * 8, phase ^ 1u);   // the consumers have read the stage
+        uint8_t* dst = smem_raw + (ring - raw) + stage * STAGE_BYTES;
+        const long long kb = static_cast<long long>(k) * kSlab;
+        // two half rows in flight a thread: ten 16-byte loads
+        for (int u0 = p; u0 < UNITS; u0 += 256) {
+          Span s0, s1;
+          const int u1 = u0 + 128;
+          const int r0 = u0 >> 1, r1 = u1 >> 1;
+          if (r0 < kBM) span_load(s0, a_raw, m0 + r0, M, kb + 64 * (u0 & 1), row_bytes);
+          else span_load(s0, bt_raw, n0 + r0 - kBM, N, kb + 64 * (u0 & 1), row_bytes);
+          if (u1 < UNITS) {
+            if (r1 < kBM) span_load(s1, a_raw, m0 + r1, M, kb + 64 * (u1 & 1), row_bytes);
+            else span_load(s1, bt_raw, n0 + r1 - kBM, N, kb + 64 * (u1 & 1), row_bytes);
+          }
+          span_store(s0, dst + r0 * kSlab, r0, u0 & 1);
+          if (u1 < UNITS) span_store(s1, dst + r1 * kSlab, r1, u1 & 1);
+        }
+        // the generic-proxy writes become visible to wgmma, then the arrive
+        asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+        mbar_arrive(full + stage * 8);
+        if (++stage == STAGES) {
+          stage = 0;
+          phase ^= 1u;
+        }
+      }
+    }
+  } else if (warp >= 8) {
     // ------------------------------------------------------------ producer
-    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n");
+    if constexpr (TMA) asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n");
     if (threadIdx.x == 256) {
       int stage = 0;
       uint32_t phase = 0;
@@ -513,13 +679,13 @@ wgmma_kernel(const __grid_constant__ CUtensorMap map_a,
     }
   } else {
     // ----------------------------------------------------------- consumers
-    asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n");
+    if constexpr (TMA) asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n");
     const int wg = warp >> 2;
     typename std::conditional<INT8, int, float>::type acc[BN / 2];
     int stage = 0;
     uint32_t phase = 0, stores = 0;
     for (int pair = cluster; pair < pairs; pair += clusters) {
-      const int m0 = (2 * (pair / n_tiles) + static_cast<int>(rank)) * kBM;
+      const int m0 = (CL * (pair / n_tiles) + static_cast<int>(rank)) * kBM;
       const int n0 = (pair % n_tiles) * BN;
 #pragma unroll
       for (int i = 0; i < BN / 2; ++i) acc[i] = 0;
@@ -538,7 +704,7 @@ wgmma_kernel(const __grid_constant__ CUtensorMap map_a,
           wgmma_wait<1>();
           pin(acc);
           if (lane == 0) mbar_arrive(empty + prev * 8);
-          if (lane == 1) mbar_arrive_at(empty + prev * 8, rank ^ 1u);
+          if (CL == 2 && lane == 1) mbar_arrive_at(empty + prev * 8, rank ^ 1u);
         }
         prev = stage;
         if (++stage == STAGES) {
@@ -549,13 +715,282 @@ wgmma_kernel(const __grid_constant__ CUtensorMap map_a,
       wgmma_wait<0>();
       pin(acc);
       if (lane == 0) mbar_arrive(empty + prev * 8);
-      if (lane == 1) mbar_arrive_at(empty + prev * 8, rank ^ 1u);
+      if (CL == 2 && lane == 1) mbar_arrive_at(empty + prev * 8, rank ^ 1u);
       store_tile<BN, EPI>(acc, stage_out + warp * kWarpOutBytes, &map_out, out, scale, bias,
                           static_cast<long long>(m0) + warp * 16, n0, M, N, tma_out != 0, stores);
     }
     // shared memory outlives the stores that still read it
     if (tma_out && lane == 0) tma_store_wait_read<0>();
   }
+}
+
+// ------------------------------------------------------------------- chain
+
+constexpr int kBand = 64;                 // rows of y a cluster owns: one wgmma M
+constexpr int kYSlab = kBand * kSlab;     // 8 KB: a slab of K of the band
+constexpr int kChainB = 96 * 1024;       // the ring of Bt's slabs
+constexpr int kSmemMax = 227 * 1024;
+
+template <bool INT8, int NS> struct Chain {
+  static constexpr int size = INT8 ? 1 : 2;
+  static constexpr int slice = NS * size;               // bytes of a row of a block's slice
+  static constexpr int owned = slice / kSlab;           // slabs of the band a block owns
+  static constexpr int chunk = kSlab / size;            // columns of y in a slab: 128, 64
+  static constexpr int slice_bytes = kBand * slice;
+  static constexpr int b_bytes = NS * kSlab;            // Bt's slice of a slab
+  static constexpr int b_stages = kChainB / b_bytes;    // 6 (NS 128), 3 (NS 256)
+  // y's slabs take the rest: 14, 12 (int8) or 12, 8 (bf16) stages of 8 KB
+  static constexpr int y_stages = (kSmemMax - 1024 - kChainB - 2 * slice_bytes - 512) / kYSlab;
+  static constexpr int barriers = 3 * y_stages + 2 * b_stages + 1;
+  static constexpr int smem_bytes =
+      1024 + kChainB + y_stages * kYSlab + 2 * slice_bytes + barriers * 8;
+  static_assert(y_stages >= 8 && barriers * 8 <= 512, "the shared memory plan");
+};
+
+__device__ __forceinline__ uint32_t cluster_size() {
+  uint32_t n;
+  asm volatile("mov.u32 %0, %%cluster_nctarank;\n" : "=r"(n));
+  return n;
+}
+
+// Bytes that the barrier's current phase waits for besides those of its own
+// arrive.expect_tx: an arrival-free expect_tx.
+__device__ __forceinline__ void mbar_add_tx(uint32_t bar, int bytes) {
+  asm volatile("mbarrier.expect_tx.relaxed.cta.shared::cta.b64 [%0], %1;\n"
+               :: "r"(bar), "r"(bytes) : "memory");
+}
+
+// `bytes` of this block's shared memory at src to the same offset dst of
+// block `rank`'s, counted there on the barrier at offset bar.
+__device__ __forceinline__ void bulk_push(uint32_t dst, uint32_t src, int bytes, uint32_t bar,
+                                          uint32_t rank) {
+  asm volatile(
+      "{\n.reg .b32 rdst, rbar;\n"
+      "mapa.shared::cluster.u32 rdst, %0, %3;\n"
+      "mapa.shared::cluster.u32 rbar, %2, %3;\n"
+      "cp.async.bulk.shared::cluster.shared::cta.mbarrier::complete_tx::bytes "
+      "[rdst], [%1], %4, [rbar];\n}\n"
+      :: "r"(dst), "r"(src), "r"(bar), "r"(rank), "r"(bytes) : "memory");
+}
+
+// Offset, in a block's slice of y, of byte `b` of row r of the slice: the
+// slice is `owned` slabs of 64 rows x 128 bytes, swizzled as the ring's
+// stages are, so that a slab goes to a stage as one 8 KB copy.
+__device__ __forceinline__ int slice_offset(int r, int b) {
+  return (b >> 7) * kYSlab + r * kSlab + ((((b & 127) >> 4) ^ (r & 7)) << 4) + (b & 15);
+}
+
+// The requant of two neighbouring columns: int8 clip(v >> 9, -127, 127) ...
+__device__ __forceinline__ void requant_pair(uint8_t* p, int v0, int v1, float) {
+  v0 = max(-127, min(127, v0 >> 9));
+  v1 = max(-127, min(127, v1 >> 9));
+  *reinterpret_cast<uint16_t*>(p) = static_cast<uint16_t>(
+      (static_cast<uint32_t>(v0) & 0xffu) | ((static_cast<uint32_t>(v1) & 0xffu) << 8));
+}
+
+// ... or bf16(v * scale), rounded to nearest even
+__device__ __forceinline__ void requant_pair(uint8_t* p, float v0, float v1, float scale) {
+  const uint32_t lo = __bfloat16_as_ushort(__float2bfloat16_rn(__fmul_rn(v0, scale)));
+  const uint32_t hi = __bfloat16_as_ushort(__float2bfloat16_rn(__fmul_rn(v1, scale)));
+  *reinterpret_cast<uint32_t*>(p) = lo | (hi << 16);
+}
+
+// Out (M, K) = y after `loop` steps of y <- requant(y (M, K) x Bt (K, K)^T),
+// y = A at the start; row_bytes is K in bytes, a multiple of 128.  Blocks run
+// as clusters of cs = K / NS, cluster c on rows 64 c .. 64 c + 63 (the band),
+// block `rank` of it on NS of the columns (its slice): those of slabs rank,
+// rank + cs, ... of K, so that consecutive slabs come from different blocks
+// and the blocks push side by side.  Slab i of the run (step i / kslabs,
+// slab k = i % kslabs of K) needs Bt's rows for the slice, which the block's
+// TMA thread loads into stage i % b_stages of the Bt ring, and y's slab (64
+// rows x 128 bytes), which the block that owns those columns (k % cs) pushes,
+// once its consumers have written them, into stage i % y_stages of the y
+// ring of every block of the cluster.  Warp 10 hands
+// the block's y stages back to their next owners as the consumers free them,
+// so the pushes run up to y_stages slabs ahead of the products, on a ring of
+// their own.  map_b: Bt in boxes of `chunk` rows x 128 bytes.  Dynamic shared
+// memory: Chain<INT8, NS>::smem_bytes.
+template <bool INT8, int NS>
+__global__ void __launch_bounds__(kThreads, 1)
+chain_wgmma_kernel(const __grid_constant__ CUtensorMap map_b, const uint8_t* __restrict__ A,
+                   uint8_t* __restrict__ Out, int M, int row_bytes, int loop, float scale) {
+  using C = Chain<INT8, NS>;
+  constexpr int W = NS / 2;   // columns of a consumer warpgroup
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t raw = static_cast<uint32_t>(__cvta_generic_to_shared(smem_raw));
+  const uint32_t bring = (raw + 1023u) & ~1023u;   // the Bt ring, then the y ring
+  const uint32_t yring = bring + kChainB;
+  const uint32_t ys = yring + C::y_stages * kYSlab;   // two buffers of the block's slice of y
+  uint8_t* ys_ptr = smem_raw + (ys - raw);
+  const uint32_t bfull = ys + 2 * C::slice_bytes;    // b_stages barriers each of bfull
+  const uint32_t bempty = bfull + C::b_stages * 8;   // and bempty, y_stages each of
+  const uint32_t yfull = bempty + C::b_stages * 8;   // yfull, yempty and yvacant
+  const uint32_t yempty = yfull + C::y_stages * 8;
+  const uint32_t yvacant = yempty + C::y_stages * 8;
+  const uint32_t written = yvacant + C::y_stages * 8;   // the consumers wrote the next y
+  const uint32_t rank = cluster_rank(), cs = cluster_size();
+  const long long row0 = static_cast<long long>(blockIdx.x / cs) * kBand;
+  const int kslabs = row_bytes / kSlab;
+  // byte b of a row of the block's slice is byte gcol(b) of the row of y:
+  // its slabs are slabs rank, rank + cs, rank + 2 cs, ... of y
+  auto gcol = [&](int b) { return ((b >> 7) * static_cast<int>(cs) + static_cast<int>(rank)) * kSlab + (b & 127); };
+  const int slabs = loop * kslabs;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < C::b_stages; ++s) {
+      mbar_init(bfull + s * 8, 1);    // the TMA thread's arrive with the byte count
+      mbar_init(bempty + s * 8, 8);   // lane 0 of each consumer warp
+    }
+    for (int s = 0; s < C::y_stages; ++s) {
+      mbar_init(yfull + s * 8, 1);    // warp 10's arrive; the owner's push brings the bytes
+      mbar_init(yempty + s * 8, 8);   // lane 0 of each consumer warp
+      // warp 10 of every block of the cluster: its stage is free for a slab
+      // that this block owns
+      mbar_init(yvacant + s * 8, static_cast<int>(cs));
+    }
+    mbar_init(written, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  // the block's slice of y at the start (zeros past M) into buffer 0
+  for (int c = threadIdx.x; c < kBand * (C::slice / 16); c += kThreads) {
+    const int r = c / (C::slice / 16), b = (c % (C::slice / 16)) * 16;
+    uint4 v = make_uint4(0u, 0u, 0u, 0u);
+    if (row0 + r < M) v = __ldg(reinterpret_cast<const uint4*>(A + (row0 + r) * row_bytes + gcol(b)));
+    *reinterpret_cast<uint4*>(ys_ptr + slice_offset(r, b)) = v;
+  }
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");   // for the bulk copies
+  __syncthreads();
+  cluster_sync();   // every block's barriers are there before anything reaches them
+
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  if (warp == 8) {
+    // ------------------------------------- TMA thread: Bt's slice of each slab
+    if (lane == 0) {
+      int stage = 0;
+      uint32_t phase = 0;
+      for (int i = 0; i < slabs; ++i) {
+        mbar_wait(bempty + stage * 8, phase ^ 1u);   // this block's consumers are done with it
+        const uint32_t bar = bfull + stage * 8;
+        mbar_expect_tx(bar, C::b_bytes);
+        for (int kk = 0; kk < C::owned; ++kk)   // Bt's rows for the slice's columns
+          tma_load(bring + stage * C::b_bytes + kk * C::chunk * kSlab, &map_b, (i % kslabs) * kSlab,
+                   (kk * static_cast<int>(cs) + static_cast<int>(rank)) * C::chunk, bar);
+        if (++stage == C::b_stages) {
+          stage = 0;
+          phase ^= 1u;
+        }
+      }
+    }
+    __syncwarp();
+  } else if (warp == 9) {
+    // ------------- pusher: the slabs of y this block owns, to every block
+    if (lane == 0) {
+      uint32_t vacant_phase = 0;   // bit x: parity of the next wait on yvacant[x]
+      for (int s = 0; s < loop; ++s) {
+        if (s > 0) mbar_wait(written, (s - 1) & 1);   // y of step s is in this block's slice
+        for (int kk = 0; kk < C::owned; ++kk) {
+          const int k = kk * static_cast<int>(cs) + static_cast<int>(rank);
+          const int x = (s * kslabs + k) % C::y_stages;
+          mbar_wait(yvacant + x * 8, (vacant_phase >> x) & 1u);   // every block's stage x is free
+          vacant_phase ^= 1u << x;
+          const uint32_t src = ys + (s & 1) * C::slice_bytes + kk * kYSlab;
+          for (uint32_t p = 0; p < cs; ++p) {
+            bulk_push(yring + x * kYSlab, src, kYSlab, yfull + x * 8, p);
+          }
+        }
+      }
+    }
+    __syncwarp();
+  } else if (warp == 10) {
+    // ------- the block's y stages, handed to the owners of their next slabs
+    if (lane == 0) {
+      int stage = 0;
+      uint32_t phase = 0;
+      for (int i = 0; i < slabs; ++i) {
+        mbar_wait(yempty + stage * 8, phase ^ 1u);   // this block's consumers are done with it
+        const uint32_t bar = yfull + stage * 8;
+        mbar_add_tx(bar, kYSlab);   // y's slab, which its owner pushes
+        mbar_arrive(bar);
+        mbar_arrive_at(yvacant + stage * 8, static_cast<uint32_t>((i % kslabs) % cs));
+        if (++stage == C::y_stages) {
+          stage = 0;
+          phase ^= 1u;
+        }
+      }
+    }
+    __syncwarp();
+  } else if (warp < 8) {
+    // ----------------------------------------------------------- consumers
+    const int wg = warp >> 2, g = lane >> 2, t = lane & 3;
+    typename std::conditional<INT8, int, float>::type acc[W / 2];
+    int bstage = 0, ystage = 0;
+    uint32_t bphase = 0, yphase = 0;
+    for (int s = 0; s < loop; ++s) {
+#pragma unroll
+      for (int i = 0; i < W / 2; ++i) acc[i] = 0;
+      pin(acc);
+      int bprev = 0, yprev = 0;
+      for (int k = 0; k < kslabs; ++k) {
+        mbar_wait(yfull + ystage * 8, yphase);
+        mbar_wait(bfull + bstage * 8, bphase);
+        const uint64_t da = smem_desc(yring + ystage * kYSlab);
+        const uint64_t db = smem_desc(bring + bstage * C::b_bytes + wg * (W * kSlab));
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < kSlab / 32; ++kk) wgmma_step(acc, da + 2 * kk, db + 2 * kk);
+        wgmma_commit();
+        if (k > 0) {   // the slab before has been read: hand its stages back
+          wgmma_wait<1>();
+          pin(acc);
+          if (lane == 0) {
+            mbar_arrive(bempty + bprev * 8);
+            mbar_arrive(yempty + yprev * 8);
+          }
+        }
+        bprev = bstage;
+        yprev = ystage;
+        if (++bstage == C::b_stages) {
+          bstage = 0;
+          bphase ^= 1u;
+        }
+        if (++ystage == C::y_stages) {
+          ystage = 0;
+          yphase ^= 1u;
+        }
+      }
+      wgmma_wait<0>();
+      pin(acc);
+      if (lane == 0) {
+        mbar_arrive(bempty + bprev * 8);
+        mbar_arrive(yempty + yprev * 8);
+      }
+      // the requant into the other buffer of the block's slice (the pushes
+      // of two steps ago that read it have all landed: every block has
+      // consumed them, or this block's step would not be done)
+      uint8_t* next = ys_ptr + ((s + 1) & 1) * C::slice_bytes;
+      const int r = (warp & 3) * 16 + g;
+#pragma unroll
+      for (int j = 0; j < W / 8; ++j) {
+        const int b = (wg * W + 8 * j + 2 * t) * C::size;
+        requant_pair(next + slice_offset(r, b), acc[4 * j], acc[4 * j + 1], scale);
+        requant_pair(next + slice_offset(r + 8, b), acc[4 * j + 2], acc[4 * j + 3], scale);
+      }
+      asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");   // for the pushes
+      asm volatile("bar.sync 1, 256;\n" ::: "memory");   // all consumers have written
+      if (threadIdx.x == 0 && s + 1 < loop) mbar_arrive(written);
+    }
+    // the last y, the block's slice of it, to device memory
+    const uint8_t* last = ys_ptr + (loop & 1) * C::slice_bytes;
+    for (int c = threadIdx.x; c < kBand * (C::slice / 16); c += 256) {
+      const int r = c / (C::slice / 16), b = (c % (C::slice / 16)) * 16;
+      if (row0 + r < M)
+        *reinterpret_cast<uint4*>(Out + (row0 + r) * row_bytes + gcol(b)) =
+            *reinterpret_cast<const uint4*>(last + slice_offset(r, b));
+    }
+  } else {
+    __syncwarp();
+  }
+  cluster_sync();   // no block leaves while a peer may still push into it
 }
 
 typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
@@ -595,35 +1030,36 @@ int encode_map(CUtensorMap* map, const void* base, long long rows, long long row
   return res == CUDA_SUCCESS ? 0 : kEncodeFailed + static_cast<int>(res);
 }
 
-template <bool INT8, int BN, int EPI>
+template <bool INT8, int BN, int EPI, bool TMA>
 int launch(const void* a, const void* bt, void* out, const float* scale, const float* bias,
            int m, int n, long long row_bytes, int num_sms, cudaStream_t stream) {
+  constexpr int CL = TMA ? 2 : 1;
   const long long m_tiles = (m + kBM - 1) / kBM, n_tiles = (n + BN - 1) / BN;
-  const long long pairs = (m_tiles + 1) / 2 * n_tiles;
-  if (pairs > 0x3fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
+  const long long units = (m_tiles + CL - 1) / CL * n_tiles;
+  if (units > 0x3fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
   // the output goes by TMA stores if its row pitch and base allow it
   constexpr int out_size = EPI == EPI_BF16 ? 2 : 4;
   const long long out_row_bytes = static_cast<long long>(n) * out_size;
   const int tma_out = out_row_bytes % 16 == 0 && reinterpret_cast<uintptr_t>(out) % 16 == 0;
-  CUtensorMap map_a, map_b, map_out;
-  int err = encode_map(&map_a, a, m, row_bytes, kBM);
-  if (err == 0) err = encode_map(&map_b, bt, n, row_bytes, BN / 2);
+  CUtensorMap map_a = {}, map_b = {}, map_out = {};   // the unaligned kernel reads no input map
+  int err = 0;
+  if (TMA) err = encode_map(&map_a, a, m, row_bytes, kBM);
+  if (TMA && err == 0) err = encode_map(&map_b, bt, n, row_bytes, BN / 2);
   if (err == 0 && tma_out) err = encode_map(&map_out, out, m, out_row_bytes, 16);
   if (err != 0) return err;
-  if (!tma_out) map_out = map_a;   // never read
-  auto kernel = wgmma_kernel<INT8, BN, EPI>;
+  auto kernel = wgmma_kernel<INT8, BN, EPI, TMA>;
   constexpr int smem = Ring<BN>::smem_bytes;
   cudaError_t cerr =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (cerr != cudaSuccess) return static_cast<int>(cerr);
-  // clusters of two blocks, as many as run at once (at most one block an SM)
+  // clusters of CL blocks, as many as run at once (at most one block an SM)
   cudaLaunchAttribute attr;
   attr.id = cudaLaunchAttributeClusterDimension;
-  attr.val.clusterDim.x = 2;
+  attr.val.clusterDim.x = CL;
   attr.val.clusterDim.y = 1;
   attr.val.clusterDim.z = 1;
   cudaLaunchConfig_t config = {};
-  config.gridDim = dim3(static_cast<unsigned>(num_sms / 2 * 2));
+  config.gridDim = dim3(static_cast<unsigned>(num_sms / CL * CL));
   config.blockDim = dim3(kThreads);
   config.dynamicSmemBytes = smem;
   config.stream = stream;
@@ -640,26 +1076,84 @@ int launch(const void* a, const void* bt, void* out, const float* scale, const f
     if (clusters <= 0) return static_cast<int>(cudaErrorLaunchOutOfResources);
     if (device < 64) fit[device] = clusters;
   }
-  if (clusters > num_sms / 2) clusters = num_sms / 2;
-  if (clusters > pairs) clusters = static_cast<int>(pairs);
-  config.gridDim = dim3(static_cast<unsigned>(2 * clusters));
+  if (clusters > num_sms / CL) clusters = num_sms / CL;
+  if (clusters > units) clusters = static_cast<int>(units);
+  config.gridDim = dim3(static_cast<unsigned>(CL * clusters));
   cerr = cudaLaunchKernelEx(&config, kernel, map_a, map_b, map_out, static_cast<uint8_t*>(out),
                             scale, bias, m, n,
                             static_cast<int>((row_bytes + kSlab - 1) / kSlab),
-                            static_cast<int>(n_tiles), static_cast<int>(pairs), tma_out);
+                            static_cast<int>(n_tiles), static_cast<int>(units), tma_out,
+                            static_cast<const uint8_t*>(a), static_cast<const uint8_t*>(bt),
+                            row_bytes);
   return static_cast<int>(cerr != cudaSuccess ? cerr : cudaGetLastError());
 }
 
-template <bool INT8, int EPI>
+template <bool INT8, int EPI, bool TMA = true>
 int launch_bn(int bn, const void* a, const void* bt, void* out, const float* scale,
               const float* bias, int m, int n, long long row_bytes, int num_sms,
               cudaStream_t stream) {
   switch (bn) {
-    case 64: return launch<INT8, 64, EPI>(a, bt, out, scale, bias, m, n, row_bytes, num_sms, stream);
-    case 128: return launch<INT8, 128, EPI>(a, bt, out, scale, bias, m, n, row_bytes, num_sms, stream);
-    case 256: return launch<INT8, 256, EPI>(a, bt, out, scale, bias, m, n, row_bytes, num_sms, stream);
+    case 64: return launch<INT8, 64, EPI, TMA>(a, bt, out, scale, bias, m, n, row_bytes, num_sms, stream);
+    case 128: return launch<INT8, 128, EPI, TMA>(a, bt, out, scale, bias, m, n, row_bytes, num_sms, stream);
+    case 256:
+      if constexpr (TMA)
+        return launch<INT8, 256, EPI, TMA>(a, bt, out, scale, bias, m, n, row_bytes, num_sms, stream);
+      return static_cast<int>(cudaErrorInvalidValue);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
+}
+
+// chain_wgmma_kernel<INT8, NS> on clusters of cs blocks, one cluster a band
+// of 64 rows.  With fit non-null nothing is launched: *fit gets the number
+// of such clusters the device runs at once.
+template <bool INT8, int NS>
+int launch_chain(const void* a, const void* bt, void* out, int m, int cs, int loop,
+                 float scale, int* fit, cudaStream_t stream) {
+  using C = Chain<INT8, NS>;
+  auto kernel = chain_wgmma_kernel<INT8, NS>;
+  cudaError_t cerr = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                          C::smem_bytes);
+  if (cerr == cudaSuccess)   // clusters of more than 8 blocks
+    cerr = cudaFuncSetAttribute(kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+  if (cerr != cudaSuccess) return static_cast<int>(cerr);
+  const long long bands = (m + kBand - 1) / kBand;
+  if (bands * cs > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
+  cudaLaunchAttribute attr;
+  attr.id = cudaLaunchAttributeClusterDimension;
+  attr.val.clusterDim.x = cs;
+  attr.val.clusterDim.y = 1;
+  attr.val.clusterDim.z = 1;
+  cudaLaunchConfig_t config = {};
+  config.gridDim = dim3(static_cast<unsigned>(fit ? cs : bands * cs));
+  config.blockDim = dim3(kThreads);
+  config.dynamicSmemBytes = C::smem_bytes;
+  config.stream = stream;
+  config.attrs = &attr;
+  config.numAttrs = 1;
+  if (fit) {
+    *fit = 0;
+    cerr = cudaOccupancyMaxActiveClusters(fit, kernel, &config);
+    if (cerr != cudaSuccess) cudaGetLastError();   // a refused size leaves no error behind
+    return static_cast<int>(cerr);
+  }
+  const int row_bytes = cs * C::slice;
+  CUtensorMap map_b;
+  const int err = encode_map(&map_b, bt, static_cast<long long>(cs) * NS, row_bytes, C::chunk);
+  if (err != 0) return err;
+  cerr = cudaLaunchKernelEx(&config, kernel, map_b, static_cast<const uint8_t*>(a),
+                            static_cast<uint8_t*>(out), m, row_bytes, loop, scale);
+  return static_cast<int>(cerr != cudaSuccess ? cerr : cudaGetLastError());
+}
+
+int chain_dispatch(const void* a, const void* bt, void* out, int is_int8, int m, int ns, int cs,
+                   int loop, float scale, int* fit, cudaStream_t stream) {
+  if (cs < 1 || cs > 16 || (ns != 128 && ns != 256) || m <= 0 || loop < 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (is_int8)
+    return ns == 128 ? launch_chain<true, 128>(a, bt, out, m, cs, loop, scale, fit, stream)
+                     : launch_chain<true, 256>(a, bt, out, m, cs, loop, scale, fit, stream);
+  return ns == 128 ? launch_chain<false, 128>(a, bt, out, m, cs, loop, scale, fit, stream)
+                   : launch_chain<false, 256>(a, bt, out, m, cs, loop, scale, fit, stream);
 }
 
 bool aligned16(const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; }
@@ -694,4 +1188,39 @@ extern "C" int ioudet_wgmma_matmul_dequant(const void* a, const void* bt, void* 
   const float* b = static_cast<const float*>(bias);
   return out_bf16 ? launch_bn<true, EPI_BF16>(bn, a, bt, out, s, b, m, n, k, num_sms, stream)
                   : launch_bn<true, EPI_F32>(bn, a, bt, out, s, b, m, n, k, num_sms, stream);
+}
+
+// c (m, n) int32 / f32 = a (m, k) x bt (n, k)^T as ioudet_wgmma_matmul, for
+// any row pitch and any bases (the producer loads through registers); bn is
+// 64 or 128.
+extern "C" int ioudet_wgmma_matmul_unaligned(const void* a, const void* bt, void* c,
+                                             int is_int8, int m, int n, int k, int bn,
+                                             int num_sms, cudaStream_t stream) {
+  const long long row_bytes = static_cast<long long>(k) * (is_int8 ? 1 : 2);
+  if (m <= 0 || n <= 0 || k <= 0 || num_sms <= 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  return is_int8 ? launch_bn<true, EPI_RAW, false>(bn, a, bt, c, nullptr, nullptr, m, n,
+                                                   row_bytes, num_sms, stream)
+                 : launch_bn<false, EPI_RAW, false>(bn, a, bt, c, nullptr, nullptr, m, n,
+                                                    row_bytes, num_sms, stream);
+}
+
+// *clusters = how many clusters of cs blocks of the chain kernel (int8 if
+// is_int8 else bf16, slices of ns = 128 or 256 columns) the current device
+// runs at once; nothing is launched.
+extern "C" int ioudet_chain_fit(int is_int8, int ns, int cs, void* clusters,
+                                cudaStream_t stream) {
+  if (clusters == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+  return chain_dispatch(nullptr, nullptr, nullptr, is_int8, 1, ns, cs, 0, 0.f,
+                        static_cast<int*>(clusters), stream);
+}
+
+// out (m, k) = y after `loop` steps of y <- requant(y x bt (k, k)^T), y = a
+// (m, k) at the start, k = ns * cs; int8 (scale ignored) if is_int8 else
+// bf16; clusters of cs blocks, each on ns columns of a band of 64 rows.
+extern "C" int ioudet_wgmma_chain(const void* a, const void* bt, void* out, int is_int8, int m,
+                                  int ns, int cs, int loop, float scale, cudaStream_t stream) {
+  if (a == nullptr || !aligned16(a) || !aligned16(bt) || !aligned16(out))
+    return static_cast<int>(cudaErrorInvalidValue);
+  return chain_dispatch(a, bt, out, is_int8, m, ns, cs, loop, scale, nullptr, stream);
 }

@@ -5,18 +5,22 @@ The CUDA kernels of ``ioudet_torch/csrc/wgmma_kernel.cu`` and
 tensor-core probes of ``ioudet``'s ``tools/``:
 
   * ``tiled_matmul`` (P3, ``probe_pallas_int8_matmul.pallas_matmul``): one
-    product (M, K) x (K, N), int8 -> int32 or bf16 -> f32, any M, N, K.
-    Operands whose row pitch and base addresses are multiples of 16 bytes go
-    to the ``wgmma`` + TMA kernel of ``wgmma_kernel.cu``, the others to the
-    ``mma.sync`` kernel of ``mma_kernel.cu`` (``tiled_route`` decides, from
-    the operands alone, before anything is launched);
+    product (M, K) x (K, N), int8 -> int32 or bf16 -> f32, any M, N, K, on
+    the ``wgmma`` kernel of ``wgmma_kernel.cu``: TMA-fed where the row pitch
+    and base addresses are multiples of 16 bytes, fed through the producer's
+    registers where they are not (``tiled_route`` decides, from the operands
+    alone, before anything is launched).  ``tiled_matmul_mma_sync`` runs the
+    ``mma.sync`` kernel of ``mma_kernel.cu`` on any operands;
   * ``tiled_matmul_dequant``: the int8 product with the dequantization in the
     kernel's epilogue, ``cast(float(acc) * scale[n] + bias[n])`` written as
     bf16 or f32; no int32 tensor reaches device memory.  It is the product of
     every quantized convolution (``ioudet_torch/ops/quant.py``);
   * ``chain_matmul`` (P1, ``probe_mxu_rate._call``): ``loop`` dependent
     products with the requant between them, ``y <- clip((y @ b) >> 9, -127,
-    127)`` in int8 or ``y <- bf16((y @ b) * scale)`` in bf16;
+    127)`` in int8 or ``y <- bf16((y @ b) * scale)`` in bf16, on the
+    ``wgmma`` cluster kernel of ``wgmma_kernel.cu`` (``chain_plan`` picks the
+    cluster size and slice width from M, K and what the card fits);
+    ``chain_matmul_mma_sync`` runs the ``mma.sync`` kernel;
   * ``accum_matmul`` (P2, ``probe_mxu_rate2._call``): ``loop`` independent
     products summed, ``acc += (a XOR int8(i)) @ b`` or
     ``acc += bf16(a + bf16(i)) @ b``.
@@ -33,13 +37,15 @@ on the card, where integer ``matmul`` does not exist, float64 (K * 127^2 <
 2^53) cast back.  The plain bf16 versions upcast the operands to f32 and
 multiply with TF32 off, rounding where the kernels round.  Launches are
 counted per kernel, operand type and epilogue in ``_build.launches``:
-``wgmma_matmul_s8``, ``wgmma_matmul_bf16`` and ``wgmma_dequant_s8`` for the
-``wgmma`` kernel, ``tiled_matmul_s8``, ``tiled_matmul_bf16``, ... for the
-``mma.sync`` kernels.
+``wgmma_matmul_*`` and ``wgmma_dequant_s8`` for the TMA-fed ``wgmma``
+kernel, ``wgmma_unaligned_*`` for its form fed through registers,
+``wgmma_chain_*`` for the cluster chain, and ``tiled_matmul_*``,
+``chain_matmul_*``, ``accum_matmul_*`` for the ``mma.sync`` kernels.
 """
 
 from __future__ import annotations
 
+import ctypes
 from typing import Optional
 
 import torch
@@ -57,14 +63,23 @@ LIBRARY = _build.KernelLibrary(
 WGMMA_LIBRARY = _build.KernelLibrary(
     "wgmma_kernel.cu", ("-ldl",),
     {"ioudet_wgmma_matmul": [PTR, PTR, PTR] + [I32] * 6,
-     "ioudet_wgmma_matmul_dequant": [PTR] * 5 + [I32] * 6},
-    kernels=("wgmma_matmul_s8", "wgmma_matmul_bf16", "wgmma_dequant_s8"))
+     "ioudet_wgmma_matmul_dequant": [PTR] * 5 + [I32] * 6,
+     "ioudet_wgmma_matmul_unaligned": [PTR, PTR, PTR] + [I32] * 6,
+     "ioudet_chain_fit": [I32] * 3 + [PTR],
+     "ioudet_wgmma_chain": [PTR, PTR, PTR] + [I32] * 5 + [F32]},
+    kernels=("wgmma_matmul_s8", "wgmma_matmul_bf16", "wgmma_dequant_s8",
+             "wgmma_unaligned_s8", "wgmma_unaligned_bf16", "wgmma_chain_s8",
+             "wgmma_chain_bf16"))
 
 H100_SMS = 132                # the default of the pure tile rules below
 TILE_M = 128                  # kBM in both sources
 TMA_ALIGN = 16                # bytes: TMA's unit for a row pitch and a base address
-CHAIN_BAND = 16               # kBand: rows of y one chain block owns
+UNALIGNED_MAX_TILE = 128      # the unaligned wgmma kernel's widest tile
+CHAIN_BAND = 16               # kBand of mma_kernel.cu: rows of y one mma.sync chain block owns
 CHAIN_MAX_SMEM = 227 * 1024   # dynamic shared memory a block can opt into
+WGMMA_BAND = 64               # kBand of wgmma_kernel.cu: rows of y one cluster owns
+WGMMA_SLICES = (128, 256)     # columns of y a block of the cluster owns
+MAX_CLUSTER = 16              # blocks of a cluster, with the non-portable size allowed
 PLAIN_ROWS = 1 << 18          # rows per float64 product of the plain int8 form
 
 
@@ -160,11 +175,12 @@ def num_sms(device) -> int:
 
 
 def tiled_route(row_bytes: int, a_ptr: int = 0, b_ptr: int = 0) -> str:
-    """Which kernel a tiled product of CUDA operands takes: "wgmma" if the
-    row pitch of a and b_t (K in bytes) and both base addresses are multiples
-    of 16 bytes, as TMA needs, else "mma_sync"."""
+    """Which kernel a tiled product of CUDA operands takes: "wgmma" (TMA
+    loads) if the row pitch of a and b_t (K in bytes) and both base addresses
+    are multiples of 16 bytes, as TMA needs, else "wgmma_unaligned" (the
+    same kernel with a producer that loads through registers)."""
     aligned = row_bytes % TMA_ALIGN == 0 and a_ptr % TMA_ALIGN == 0 and b_ptr % TMA_ALIGN == 0
-    return "wgmma" if aligned else "mma_sync"
+    return "wgmma" if aligned else "wgmma_unaligned"
 
 
 def tile_width(m: int, n: int, sms: int = H100_SMS) -> int:
@@ -212,14 +228,16 @@ def tiled_matmul(a: torch.Tensor, b_t: torch.Tensor) -> torch.Tensor:
         return tiled_matmul_plain(a, b_t)
     m, k = a.shape
     n = b_t.shape[0]
-    if tiled_route(k * a.element_size(), a.data_ptr(), b_t.data_ptr()) == "mma_sync":
-        return _launch_tiled("tiled_matmul", a, b_t, 1, 0)
     sms = num_sms(a.device)
     out = torch.empty(m, n, dtype=_acc_dtype(a.dtype), device=a.device)
-    _build.launch(WGMMA_LIBRARY.build().ioudet_wgmma_matmul,
-                  f"wgmma_matmul_{_suffix(a.dtype)}", a.data_ptr(), b_t.data_ptr(),
-                  out.data_ptr(), int(a.dtype == torch.int8), m, n, k,
-                  tile_width(m, n, sms), sms)
+    lib = WGMMA_LIBRARY.build()
+    if tiled_route(k * a.element_size(), a.data_ptr(), b_t.data_ptr()) == "wgmma":
+        fn, name, bn = lib.ioudet_wgmma_matmul, "wgmma_matmul", tile_width(m, n, sms)
+    else:
+        fn, name = lib.ioudet_wgmma_matmul_unaligned, "wgmma_unaligned"
+        bn = min(tile_width(m, n, sms), UNALIGNED_MAX_TILE)
+    _build.launch(fn, f"{name}_{_suffix(a.dtype)}", a.data_ptr(), b_t.data_ptr(),
+                  out.data_ptr(), int(a.dtype == torch.int8), m, n, k, bn, sms)
     return out
 
 
@@ -271,23 +289,96 @@ def accum_matmul(a: torch.Tensor, b_t: torch.Tensor, loop: int) -> torch.Tensor:
 
 
 def chain_blocks(m: int) -> int:
-    """Blocks (and so SMs at most) a chain launch uses."""
+    """Blocks (and so SMs at most) a launch of the mma.sync chain kernel uses."""
     return -(-m // CHAIN_BAND)
+
+
+def chain_options(k: int) -> list:
+    """(cluster size, slice width) pairs the wgmma chain kernel can split K
+    (== N) into: slices of 128 or 256 columns, at most 16 blocks, largest
+    cluster first."""
+    return [(cs, k // cs) for cs in range(MAX_CLUSTER, 0, -1)
+            if k % cs == 0 and k // cs in WGMMA_SLICES]
+
+
+def chain_plan(m: int, k: int, fits: dict) -> tuple:
+    """(cluster size, slice width) of the wgmma chain kernel for y (m, k).
+
+    ``fits`` maps a cluster size to how many such clusters the card runs at
+    once.  The bands of 64 rows (one cluster each) then run in
+    ceil(bands / fits) waves, and a block streams its slice of b once a step,
+    so the time goes as waves x slice width: the plan takes the least, then
+    the fewest waves, then the largest cluster.  Raises ValueError if K has
+    no split or no cluster of a split fits."""
+    bands = -(-m // WGMMA_BAND)
+    options = [(cs, ns) for cs, ns in chain_options(k) if fits.get(cs, 0) > 0]
+    if not options:
+        raise ValueError(f"K={k}: the wgmma chain kernel needs K = cs x 128 or cs x 256 "
+                         f"with cs <= {MAX_CLUSTER} clusters that fit the card "
+                         f"(splits {chain_options(k)}, fits {fits})")
+
+    def cost(option):
+        waves = -(-bands // fits[option[0]])
+        return waves * option[1], waves, -option[0]
+    return min(options, key=cost)
+
+
+_CHAIN_FITS: dict = {}
+
+
+def chain_fits(device, dtype: torch.dtype, k: int) -> dict:
+    """Cluster size -> clusters of the chain kernel the device runs at once,
+    for every split of K, asked of the card once per (device, type, split)."""
+    lib = WGMMA_LIBRARY.build()
+    fits = {}
+    for cs, ns in chain_options(k):
+        key = (torch.device(device).index, dtype, cs, ns)
+        if key not in _CHAIN_FITS:
+            count = ctypes.c_int(0)
+            err = lib.ioudet_chain_fit(int(dtype == torch.int8), ns, cs,
+                                       ctypes.addressof(count), None)
+            # a cluster size the card refuses outright is one that does not fit
+            _CHAIN_FITS[key] = count.value if err == 0 else 0
+        fits[cs] = _CHAIN_FITS[key]
+    return fits
+
+
+def _check_chain(a: torch.Tensor, b_t: torch.Tensor, loop: int) -> None:
+    _check_operands(a, b_t)
+    if b_t.shape[0] != a.shape[1]:
+        raise ValueError(f"b_t must be square to chain, got {tuple(b_t.shape)}")
+    if loop < 0:
+        raise ValueError(f"loop must not be negative, got {loop}")
 
 
 def chain_matmul(a: torch.Tensor, b_t: torch.Tensor, loop: int,
                  scale: float = 0.01) -> torch.Tensor:
     """y after ``loop`` steps of y <- requant(y (M, K) x b_t (K, K)^T), y = a
     at the start, in a's type.  ``scale`` is the bf16 form's factor; the int8
-    form shifts by 9 and clips to +-127."""
-    _check_operands(a, b_t)
-    k = a.shape[1]
-    if b_t.shape[0] != k:
-        raise ValueError(f"b_t must be square to chain, got {tuple(b_t.shape)}")
-    if loop < 0:
-        raise ValueError(f"loop must not be negative, got {loop}")
+    form shifts by 9 and clips to +-127.  CUDA operands go to the wgmma
+    cluster kernel, which takes K = cs x 128 or cs x 256 (cs <= 16) and raises
+    on any other K."""
+    _check_chain(a, b_t, loop)
     if a.device.type == "cpu":
         return chain_matmul_plain(a, b_t, loop, scale)
+    m, k = a.shape
+    cs, ns = chain_plan(m, k, chain_fits(a.device, a.dtype, k))
+    out = torch.empty_like(a)
+    _build.launch(WGMMA_LIBRARY.build().ioudet_wgmma_chain, f"wgmma_chain_{_suffix(a.dtype)}",
+                  a.data_ptr(), b_t.data_ptr(), out.data_ptr(), int(a.dtype == torch.int8),
+                  m, ns, cs, loop, float(scale))
+    return out
+
+
+def chain_matmul_mma_sync(a: torch.Tensor, b_t: torch.Tensor, loop: int,
+                          scale: float = 0.01) -> torch.Tensor:
+    """``chain_matmul`` through the mma.sync kernel of mma_kernel.cu (bands of
+    16 rows, b read from L2 by every block): CUDA operands only, K a multiple
+    of 64 bytes."""
+    _check_chain(a, b_t, loop)
+    if a.device.type != "cuda":
+        raise ValueError(f"the mma.sync kernel needs CUDA operands, got {a.device}")
+    k = a.shape[1]
     row_bytes = k * a.element_size()
     pitch = row_bytes + (64 - row_bytes % 128) % 128   # chain_pitch in the source
     smem = 2 * CHAIN_BAND * pitch

@@ -5,12 +5,14 @@
     python -m ioudet_torch.tools.probe_tensor_cores
 
 Four questions, each asked in int8 (-> int32) and in bf16 (-> f32) of the
-hand-written kernels of ``ioudet_torch/csrc/mma_kernel.cu`` (``mma.sync``) and
-``ioudet_torch/csrc/wgmma_kernel.cu`` (``wgmma`` + TMA):
+hand-written kernels of ``ioudet_torch/csrc/wgmma_kernel.cu`` (``wgmma``) and
+``ioudet_torch/csrc/mma_kernel.cu`` (``mma.sync``, the accumulate question):
 
   * ``chain``: 64 dependent products (512, 2048) x (2048, 2048) with the
     requant inside the kernel, 8 kernels chained: the rate of a latency
-    chain that never leaves fast memory;
+    chain that never leaves fast memory.  It runs on the ``wgmma`` cluster
+    kernel: a cluster a band of 64 rows, its blocks on slices of the columns,
+    y passed between them through distributed shared memory;
   * ``accum``: 64 independent products of that shape summed in the kernel,
     8 kernels: the sustainable rate;
   * ``tiled``: one 4096^3 product, 16 chained through a requantization in
@@ -18,8 +20,9 @@ hand-written kernels of ``ioudet_torch/csrc/mma_kernel.cu`` (``mma.sync``) and
     is inside the timed region as it is in ``ioudet``'s program.  Its row
     pitch is a multiple of 16 bytes, so it runs on the ``wgmma`` kernel;
   * ``unaligned``: the same program on (1024, 1023) x (1023, 1023), 4
-    chained: a row pitch that TMA does not take, so the product stays on the
-    ``mma.sync`` kernel: what an unaligned operand costs.
+    chained: a row pitch that TMA does not take, so the product runs on the
+    ``wgmma`` kernel whose producer loads through registers: what an
+    unaligned operand costs.
 
 Each is timed with CUDA events over 4 repeats after a warm-up, on fresh
 seeded inputs; the result is one JSON object of rates in T(FL)OP/s (2 M K N
@@ -119,9 +122,12 @@ def main() -> int:
         print("probe_tensor_cores: needs an NVIDIA GPU", file=sys.stderr)
         return 1
     dev = torch.device("cuda")
-    out = {"card": card_line(), "device": torch.cuda.get_device_name(0),
-           "chain_blocks": mma_cuda.chain_blocks(PROBE_M)}
     xq, xb, wq, wb = operands(PROBE_M, PROBE_K, PROBE_N, dev)
+    cs, ns = mma_cuda.chain_plan(PROBE_M, PROBE_K,
+                                 mma_cuda.chain_fits(dev, torch.int8, PROBE_K))
+    out = {"card": card_line(), "device": torch.cuda.get_device_name(0),
+           "chain_clusters": -(-PROBE_M // mma_cuda.WGMMA_BAND), "chain_cluster_size": cs,
+           "chain_slice": ns}
     ops = 2 * PROBE_M * PROBE_K * PROBE_N * LOOP * KERNEL_REPEAT
     for name, program in (("chain", chain_program), ("accum", accum_program)):
         for tag, xs, w_t in (("bf16", xb, wb), ("int8", xq, wq)):

@@ -1,18 +1,30 @@
-"""Where the time of the ``wgmma`` tiled product goes, on one NVIDIA GPU.
+"""Where the time of the ``wgmma`` kernels goes, on one NVIDIA GPU.
 
     python -m ioudet_torch.tools.probe_wgmma_parts [--baseline other_version.cu ...]
 
-The kernel of ``ioudet_torch/csrc/wgmma_kernel.cu`` has three parts that run
-side by side in a block: the producer's TMA loads, the consumers' ``wgmma``
-steps and their epilogue.  This probe builds copies of the source with the
+The tiled kernel of ``ioudet_torch/csrc/wgmma_kernel.cu`` has three parts
+that run side by side in a block: the producer's loads (TMA, or through
+registers for operands off the 16-byte grid), the consumers' ``wgmma`` steps
+and their epilogue.  This probe builds copies of the source with the
 epilogue's store, the ``wgmma`` steps or both cut out (by replacing the one
 line that calls them; their results are wrong and are not read), and times
 every copy beside the whole kernel on the same operands, in turns: the
-probe's 4096^3 in int8 and bf16, and the dequantized int8 product of the
-flagship's stem, of layer1's 1x1 convs and of a tower conv at P3.  What a
-copy without a part still takes is the floor the other parts set: "loads
-only" is what the ring, the barriers and the path from L2 or device memory to
-shared memory allow.  ``--baseline`` names other versions of the source with
+probe's 4096^3 in int8 and bf16, its unaligned (1024, 1023) x (1023, 1023),
+and the dequantized int8 product of the flagship's stem, of layer1's 1x1
+convs and of a tower conv at P3.  What a copy without a part still takes is
+the floor the other parts set: "loads only" is what the ring, the barriers
+and the path from L2 or device memory to shared memory allow.  The
+unaligned shapes are also timed the other way they could be served: both
+operands copied into rows zero-padded to a 16-byte pitch, then the TMA-fed
+kernel ("pad_then_tma"; "pad_only" is the copies alone).
+
+The chain kernel (P1, 64 dependent steps at (512, 2048)) gets its own cuts:
+without its ``wgmma`` steps, without the pushes of y's slabs to the peers
+through distributed shared memory (and the bytes the stages wait for, and the
+pusher's wait for free stages), without
+the pusher's wait for its own consumers' next y at each step, and with all
+three cut ("b only": the TMA stream of the block's slice of b and the
+handshake that frees the stages).  ``--baseline`` names other versions of the source with
 the same C interface (an earlier commit's, say), which are built and timed in
 the same turns under their file names.  The result is one JSON object of times in ms
 with the card's name and power limit.
@@ -36,15 +48,30 @@ STORE_CALL = ("      store_tile<BN, EPI>(acc, stage_out + warp * kWarpOutBytes, 
               "tma_out != 0, stores);\n")
 MMA_LINE = ("        for (int ks = 0; ks < kSlab / 32; ++ks) "
             "wgmma_step(acc, da + 2 * ks, db + 2 * ks);\n")
+CHAIN_MMA = ("        for (int kk = 0; kk < kSlab / 32; ++kk) "
+             "wgmma_step(acc, da + 2 * kk, db + 2 * kk);\n")
+# the pushes, the bytes the stages wait for and the pusher's wait for free
+# stages (which, without the pushes to pace the blocks, could miss a phase)
+CHAIN_PUSH = ("        mbar_add_tx(bar, kYSlab);   // y's slab, which its owner pushes\n",
+              "            bulk_push(yring + x * kYSlab, src, kYSlab, yfull + x * 8, p);\n",
+              "          mbar_wait(yvacant + x * 8, (vacant_phase >> x) & 1u);   "
+              "// every block's stage x is free\n")
+CHAIN_WAIT = ("        if (s > 0) mbar_wait(written, (s - 1) & 1);   "
+              "// y of step s is in this block's slice\n")
 CUTS = {"whole": (), "no_store": (STORE_CALL,), "no_mma": (MMA_LINE,),
         "loads_only": (STORE_CALL, MMA_LINE)}
+CHAIN_CUTS = {"chain_no_mma": (CHAIN_MMA,), "chain_no_push": CHAIN_PUSH,
+              "chain_no_wait": (CHAIN_WAIT,), "chain_b_only": (CHAIN_MMA, *CHAIN_PUSH, CHAIN_WAIT)}
 # (name, M, K, N, operand type, dequantize to bf16)
 SHAPES = (("4096^3 int8", 4096, 4096, 4096, torch.int8, False),
           ("4096^3 bf16", 4096, 4096, 4096, torch.bfloat16, False),
+          ("unaligned int8", 1024, 1023, 1023, torch.int8, False),
+          ("unaligned bf16", 1024, 1023, 1023, torch.bfloat16, False),
           ("stem, dequantized", 4472832, 160, 64, torch.int8, True),
           ("layer1 1x1, dequantized", 1118208, 64, 256, torch.int8, True),
           ("tower conv at P3, dequantized", 279552, 2304, 256, torch.int8, True))
 REPS = 10
+HOLD_CYCLES = 5_000_000   # ~2.5 ms at 2 GHz
 
 
 def variants(baselines: Sequence[str] = ()) -> dict:
@@ -52,7 +79,7 @@ def variants(baselines: Sequence[str] = ()) -> dict:
     of each of the ``baselines`` as it is."""
     source = mma_cuda.WGMMA_LIBRARY.source.read_text()
     texts = {}
-    for name, cuts in CUTS.items():
+    for name, cuts in {**CUTS, **CHAIN_CUTS}.items():
         text = source
         for cut in cuts:
             if text.count(cut) != 1:
@@ -73,9 +100,12 @@ def variants(baselines: Sequence[str] = ()) -> dict:
 
 
 def event_ms(fn, reps: int = REPS) -> float:
+    """Mean device time of fn() over ``reps`` calls; the card spins first, so
+    that the host has queued the calls before the first one starts."""
     fn()
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     torch.cuda.synchronize()
+    torch.cuda._sleep(HOLD_CYCLES)
     start.record()
     for _ in range(reps):
         fn()
@@ -108,9 +138,16 @@ def main(argv=()) -> int:
         res = torch.empty(m, n, device=dev, dtype=torch.bfloat16 if dequant else
                           (torch.int32 if int8 else torch.float32))
         bn = mma_cuda.tile_width(m, n, sms)
+        aligned = k * a.element_size() % 16 == 0
+        if not aligned:
+            bn = min(bn, mma_cuda.UNALIGNED_MAX_TILE)
 
         def call(lib):
-            if dequant:
+            if not aligned:
+                err = lib.ioudet_wgmma_matmul_unaligned(a.data_ptr(), b_t.data_ptr(),
+                                                        res.data_ptr(), int(int8), m, n, k, bn,
+                                                        sms, stream)
+            elif dequant:
                 err = lib.ioudet_wgmma_matmul_dequant(
                     a.data_ptr(), b_t.data_ptr(), res.data_ptr(), scale.data_ptr(),
                     bias.data_ptr(), 1, m, n, k, bn, sms, stream)
@@ -120,15 +157,101 @@ def main(argv=()) -> int:
             if err != 0:
                 raise RuntimeError(f"{name}: launch failed: {err}")
 
-        order = list(libs) + list(libs)[::-1]   # in turns: forwards, then backwards
-        times = {v: [] for v in libs}
-        for v in order:
-            lib = libs[v].build()
-            times[v].append(event_ms(lambda: call(lib)))
-        out[name] = dict({v: sum(t) / len(t) for v, t in times.items()}, tile_width=bn)
+        tiled = [v for v in libs if v not in CHAIN_CUTS]
+        out[name] = dict(in_turns(libs, tiled, lambda lib: call(lib)), tile_width=bn)
+        if not aligned:
+            out[name].update(padded_parts(libs["whole"].build(), a, b_t, res, sms, stream))
         del a, b_t, res
+    out.update(chain_parts(libs, sms, stream, gen, [Path(b).stem for b in baselines]))
     print(json.dumps(out, indent=1))
     return 0
+
+
+def padded_parts(lib, a: torch.Tensor, b_t: torch.Tensor, res: torch.Tensor, sms: int,
+                 stream) -> dict:
+    """The other way to serve operands off the 16-byte grid: copy both into
+    buffers whose rows are zero-padded to a 16-byte pitch, then run the
+    TMA-fed kernel on them (the zero columns add nothing to the product).
+    Times the copies alone and copies plus kernel, timed in turns with the
+    register-fed kernel's result ``res`` held equal (int8) or within 1e-5 of
+    the largest sum of |a||b| (bf16)."""
+    m, k = a.shape
+    n = b_t.shape[0]
+    step = 16 // a.element_size()
+    kp = -(-k // step) * step
+    int8 = a.dtype == torch.int8
+    out = torch.empty_like(res)
+    bn = mma_cuda.tile_width(m, n, sms)
+
+    def pad():
+        return (torch.nn.functional.pad(a, (0, kp - k)),
+                torch.nn.functional.pad(b_t, (0, kp - k)))
+
+    def pad_then_tma():
+        ap, bp = pad()
+        err = lib.ioudet_wgmma_matmul(ap.data_ptr(), bp.data_ptr(), out.data_ptr(), int(int8),
+                                      m, n, kp, bn, sms, stream)
+        if err != 0:
+            raise RuntimeError(f"pad then TMA: launch failed: {err}")
+
+    pad_then_tma()
+    torch.cuda.synchronize()
+    diff = float((out.double() - res.double()).abs().max())
+    limit = 0.0 if int8 else 1e-5 * float(torch.matmul(a.float().abs(), b_t.float().abs().t()).max())
+    if diff > limit:
+        raise RuntimeError(f"pad then TMA differs from the register-fed kernel by {diff}")
+    times = {"pad_only": [], "pad_then_tma": []}
+    for v in ("pad_only", "pad_then_tma", "pad_then_tma", "pad_only"):
+        times[v].append(event_ms(pad if v == "pad_only" else pad_then_tma))
+    return dict({v: sum(t) / len(t) for v, t in times.items()}, padded_tile_width=bn)
+
+
+def in_turns(libs: dict, names, fn) -> dict:
+    """fn(library) timed for each of ``names``, forwards then backwards: the
+    mean of the two turns of each."""
+    times = {v: [] for v in names}
+    for v in list(names) + list(names)[::-1]:
+        lib = libs[v].build()
+        times[v].append(event_ms(lambda: fn(lib)))
+    return {v: sum(t) / len(t) for v, t in times.items()}
+
+
+def chain_parts(libs: dict, sms: int, stream, gen, baselines: Sequence[str] = ()) -> dict:
+    """The chain kernel at the probe's (512, 2048), loop 64, whole, with each
+    of CHAIN_CUTS and as each of the baselines, in int8 and bf16, at the plan
+    the wrapper takes."""
+    from .probe_tensor_cores import LOOP, PROBE_K, PROBE_M
+    dev = torch.device("cuda")
+    out = {}
+    names = ["whole"] + list(CHAIN_CUTS) + list(baselines)
+    for dtype in (torch.int8, torch.bfloat16):
+        int8 = dtype == torch.int8
+        if int8:
+            a = torch.randint(-127, 128, (PROBE_M, PROBE_K), dtype=dtype, device=dev, generator=gen)
+            b_t = torch.randint(-127, 128, (PROBE_K, PROBE_K), dtype=dtype, device=dev,
+                                generator=gen)
+        else:
+            a = torch.randn(PROBE_M, PROBE_K, device=dev, generator=gen).to(dtype)
+            b_t = (torch.randn(PROBE_K, PROBE_K, device=dev, generator=gen) * 0.02).to(dtype)
+        res = torch.empty_like(a)
+        fits = mma_cuda.chain_fits(dev, dtype, PROBE_K)
+        cs, ns = mma_cuda.chain_plan(PROBE_M, PROBE_K, fits)
+
+        def call(lib, cs=cs, ns=ns):
+            err = lib.ioudet_wgmma_chain(a.data_ptr(), b_t.data_ptr(), res.data_ptr(), int(int8),
+                                         PROBE_M, ns, cs, LOOP, 0.01, stream)
+            if err != 0:
+                raise RuntimeError(f"chain: launch failed: {err}")
+
+        key = f"chain {'int8' if int8 else 'bf16'} ({PROBE_M}, {PROBE_K}) loop {LOOP}"
+        whole = libs["whole"].build()
+        # every split the card runs, whole, beside the plan's
+        plans = {f"{c} x {n}": event_ms(lambda c=c, n=n: call(whole, c, n))
+                 for c, n in mma_cuda.chain_options(PROBE_K) if fits.get(c, 0) > 0}
+        out[key] = dict(in_turns(libs, names, call), cluster=cs, slice=ns, plans=plans,
+                        fits={str(c): f for c, f in fits.items()}, sms=sms)
+        del a, b_t, res
+    return out
 
 
 if __name__ == "__main__":

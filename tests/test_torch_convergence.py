@@ -2,14 +2,17 @@
 RetinaNet on planted boxes through ``train_detector``, then ``predict`` and
 hold the top detection of every image against its planted box.  The recipe
 is that of tests/test_convergence_map.py (16 images of 64x96 with one bright
-28x24 box on dark noise, batch 8, flips, SGD lr 0.005 with warm-up and a
-step at epoch 70, 90 epochs); the images are made with numpy and fed as
-ready batches, since the port has no dataset pipeline yet, and the measure is
-the IoU of the top detection, since it has no COCOeval yet.  Measured when
-the test was written: 16 of 16 hits at IoU 0.75, mean IoU 0.95-0.98, for six
-weight seeds and 1-3 threads."""
+28x24 box on dark noise, batch 8, flips, SGD lr 0.005 with warm-up), cut
+from its 90 epochs (step at 70) to 24 (step at 19) to keep the test short;
+the images are made with numpy and fed as ready batches, since the port has
+no dataset pipeline yet, and the measure is the IoU of the top detection,
+since it has no COCOeval yet.  Measured at 24 epochs with 1, 3 and 8
+threads: 16 of 16 hits at IoU 0.69 or more, mean IoU 0.76-0.85, lowest top
+score 0.41-0.66 (at 90 epochs, when the test was written: IoU 0.75 or more,
+mean 0.95-0.98)."""
 
 import numpy as np
+import pytest
 import torch
 
 from ioudet_torch.apis.inference import init_detector, predict
@@ -39,9 +42,9 @@ CFG = dict(
     optimizer=dict(type="SGD", lr=0.005, momentum=0.9, weight_decay=0.0001),
     optimizer_config=dict(grad_clip=dict(max_norm=35)),
     lr_config=dict(policy="step", warmup="linear", warmup_iters=20,
-                   warmup_ratio=0.1, step=[70]),
+                   warmup_ratio=0.1, step=[19]),
     checkpoint_config=dict(interval=1000), log_config=dict(interval=20),
-    total_epochs=90)
+    total_epochs=24)
 
 
 def planted(seed=42):
@@ -87,12 +90,23 @@ class PlantedLoader:
                        img_shape=shapes, pad_shape=shapes.copy())
 
 
-def test_train_then_predict_finds_the_planted_boxes(tmp_path):
+@pytest.fixture
+def two_threads():
+    """Two intra-op threads: the test runs beside other test processes, and a
+    pool as wide as the machine then spends most of its time waiting (16 of
+    16 hits were also measured at 1, 3 and 8 threads)."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(threads)
+
+
+def test_train_then_predict_finds_the_planted_boxes(tmp_path, two_threads):
     imgs, boxes = planted()
     handle = init_detector(CFG, device="cpu", seed=0)
     runner = train_detector(handle, PlantedLoader(imgs, boxes), CFG, str(tmp_path),
                             device="cpu")
-    assert runner.step == 90 * (N // BATCH)
+    assert runner.step == CFG["total_epochs"] * (N // BATCH)
 
     handle.model.eval()
     shapes = torch.tensor([[H, W]] * N, dtype=torch.int32)

@@ -1,7 +1,9 @@
 """The low-precision serving slice of ioudet_torch against ioudet on the CPU:
 the bfloat16 compute policy and the calibrated w8a8 path, on the tiny
 IoU-aware R-18 of tests/test_quant.py at 64x96 with bridged weights and the
-same numpy-seeded inputs.
+same numpy-seeded inputs.  This file holds the policy and the per-module
+tests and the shared fixture; the whole detector's bf16 tests are in
+tests/test_torch_dtype_bf16.py, its int8 tests in tests/test_torch_dtype_int8.py.
 
 Tolerances.
   * f32 + static int8, scales carried across: every int32 accumulator is
@@ -40,9 +42,8 @@ from ioudet.models import build_detector as jax_build_detector
 from ioudet.models.backbones.resnet import Bottleneck as JaxBottleneck
 from ioudet.models.necks.fpn import FPN as JaxFPN
 from ioudet.models.utils.layers import ConvModule as JaxConvModule
-from ioudet.ops import quant as jquant
 from ioudet_torch.apis import checkpoint as ckpt
-from ioudet_torch.apis.inference import DetectorHandle, init_detector, predict
+from ioudet_torch.apis.inference import init_detector, predict
 from ioudet_torch.apis.train import build_optimizer, make_train_step, make_trainable_mask
 from ioudet_torch.models import build_detector
 from ioudet_torch.models.backbones.resnet import Bottleneck
@@ -237,77 +238,7 @@ def test_fpn_bf16_matches_ioudet():
         close_bf16(g.permute(0, 2, 3, 1), w, f"FPN level {lvl}", steps=4)
 
 
-# --------------------------------------------------- bf16, the whole detector
-
-def test_detector_bf16_logit_drift(pair):
-    model, twin, params, det, det_bf16 = pair
-    x = images(seed=1)
-    with torch.no_grad():
-        f32 = model(torch.from_numpy(x))
-        got = twin(torch.from_numpy(x))
-    want = det_bf16.apply({"params": params}, jnp.asarray(x))
-    worst = [0.0, 0.0]
-    for bg, bw, bf in zip(got, want, f32):
-        for g, w, f in zip(bg, bw, bf):
-            assert g.dtype == torch.bfloat16 and w.dtype == jnp.bfloat16
-            worst[0] = max(worst[0], float(np.abs(as_np(g) - as_np(w)).max()))
-            worst[1] = max(worst[1], float(np.abs(as_np(g) - as_np(f)).max()))
-    assert worst[0] <= 0.02, f"against ioudet's bf16 logits: {worst[0]}"
-    assert 0.0 < worst[1] <= 0.03, f"against f32: {worst[1]}"
-
-
-@pytest.mark.parametrize("rescore_before_topk", [False, True])
-@pytest.mark.parametrize("seed", [0, 1])
-def test_eval_tail_on_the_same_bf16_head_outputs(pair, seed, rescore_before_topk):
-    """The tail alone: ioudet's bf16 head outputs go through both tails.  bf16
-    scores tie often, so the selection rests on the stable sort and on the
-    scores being bit-equal; labels are exact."""
-    model, twin, params, _, det_bf16 = pair
-    cfg = dict(TEST_CFG, rescore_before_topk=rescore_before_topk)
-    outs = det_bf16.apply({"params": params}, jnp.asarray(images(seed)))
-    meta = [jnp.asarray(m) for m in META]
-    jd, jl = jax.jit(lambda o: det_bf16.apply(
-        {"params": params}, *o, *meta, cfg, rescale=True,
-        method=lambda m, *a, **k: m.bbox_head.get_bboxes(*a, **k)))(outs)
-    touts = [[torch.from_numpy(np.array(as_np(o))).bfloat16() for o in branch]
-             for branch in outs]
-    with torch.no_grad():
-        boxes, scores = twin.bbox_head.decode_candidates(
-            *touts, torch.from_numpy(META[0]), cfg)
-        dets, labels = twin.bbox_head.get_bboxes(
-            *touts, *(torch.from_numpy(m) for m in META), cfg, rescale=True)
-    jb, js = det_bf16.apply({"params": params}, *outs, meta[0], cfg,
-                            method=lambda m, *a: m.bbox_head.decode_candidates(*a))
-    assert scores.dtype == torch.bfloat16 and js.dtype == jnp.bfloat16
-    np.testing.assert_array_equal(as_np(scores), as_np(js))
-    top = as_np(scores).max(-1)
-    assert (np.diff(np.sort(top.ravel())) == 0).mean() > 0.5   # ties are the rule
-    np.testing.assert_array_equal(labels.numpy(), np.asarray(jl))
-    assert int((labels >= 0).sum()) == labels.numel()
-    np.testing.assert_allclose(dets.numpy(), np.asarray(jd), rtol=1e-4, atol=1e-4)
-
-
-# ------------------------------------------------- int8, the whole detector
-
-def heads_flax(det, params, x):
-    return det.apply({"params": params}, jnp.asarray(x))
-
-
-def test_scale_keys_cross_the_bridge(pair):
-    model, _, params, det, _ = pair
-    x = images(seed=2, batch=1)
-    want = jquant.calibrate(lambda b: heads_flax(det, params, b), [x])
-    with torch.no_grad():
-        got = quant.calibrate(model, model, [torch.from_numpy(x)])
-    assert len(got) == 30 and not any("retina_" in k for k in got)
-    crossed = ckpt.act_scales_to_flax(got)
-    assert sorted(crossed) == sorted(want)
-    for k in want:
-        assert crossed[k] == pytest.approx(want[k], rel=1e-5), k
-    back = ckpt.act_scales_from_flax(want)
-    assert sorted(back) == sorted(got)
-    assert ckpt.act_scales_from_flax(crossed) == got
-
+# ------------------------------------------------- int8 scales across the bridge
 
 def test_scale_bridge_round_trip_on_the_flagship_names():
     from __graft_entry__ import FLAGSHIP
@@ -321,96 +252,6 @@ def test_scale_bridge_round_trip_on_the_flagship_names():
     assert "backbone/layer3_5/conv3" in flax_side and "bbox_head/reg_conv3" in flax_side
     with pytest.raises(KeyError):
         ckpt.act_scales_from_flax({"roi_head/fc": 1.0})
-
-
-def test_detector_int8_static_matches_ioudet(pair):
-    """f32 compute, static scales calibrated by ioudet and carried across."""
-    model, _, params, det, _ = pair
-    x = images(seed=3, batch=1)
-    jscales = jquant.calibrate(lambda b: heads_flax(det, params, b), [images(seed=4, batch=1)])
-    with jquant.quantize_calls(act_scale=jscales):
-        want = heads_flax(det, params, x)
-    with torch.no_grad():
-        f32 = model(torch.from_numpy(x))
-        with quant.quantize_calls(model, act_scale=ckpt.act_scales_from_flax(jscales)):
-            got = model(torch.from_numpy(x))
-    worst = max(float(np.abs(as_np(g) - as_np(w)).max())
-                for bg, bw in zip(got, want) for g, w in zip(bg, bw))
-    drift = max(float((g - f).abs().max()) for bg, bf in zip(got, f32) for g, f in zip(bg, bf))
-    assert worst <= 5e-3, worst
-    assert drift > 0.0   # the quantized path was taken
-
-
-def test_detector_int8_dynamic_matches_ioudet(pair):
-    model, _, params, det, _ = pair
-    x = images(seed=5, batch=1)
-    with jquant.quantize_calls():
-        want = heads_flax(det, params, x)
-    with torch.no_grad():
-        f32 = model(torch.from_numpy(x))
-        with quant.quantize_calls(model):
-            got = model(torch.from_numpy(x))
-    worst = max(float(np.abs(as_np(g) - as_np(w)).max())
-                for bg, bw in zip(got, want) for g, w in zip(bg, bw))
-    drift = max(float((g - f).abs().max()) for bg, bf in zip(got, f32) for g, f in zip(bg, bf))
-    assert worst <= 0.05, worst
-    assert 0.0 < drift < 0.35, drift   # test_quant.py's bound on the same detector
-
-
-def test_detector_bf16_int8_drift(pair):
-    """The serving configuration: bf16 compute with static int8 convs."""
-    model, twin, params, _, det_bf16 = pair
-    x = images(seed=6, batch=1)
-    with torch.no_grad():
-        scales = quant.calibrate(twin, twin, [torch.from_numpy(images(seed=7, batch=1))])
-        f32 = model(torch.from_numpy(x))
-        with quant.quantize_calls(twin, act_scale=scales):
-            got = twin(torch.from_numpy(x))
-    with jquant.quantize_calls(act_scale=ckpt.act_scales_to_flax(scales)):
-        want = det_bf16.apply({"params": params}, jnp.asarray(x))
-    for bg, bw, bf in zip(got, want, f32):
-        for g, w, f in zip(bg, bw, bf):
-            assert g.dtype == torch.bfloat16 and bool(torch.isfinite(g).all())
-            assert float(np.abs(as_np(g) - as_np(f)).max()) > 0.0
-            assert float(np.abs(as_np(g) - as_np(w)).max()) < 0.05
-
-
-def test_predict_inside_quantize_calls(pair):
-    """predict under quantize_calls equals predict with the forwards swapped
-    by hand, and the state_dict is bit-unchanged afterwards, also after an
-    exception inside the block."""
-    twin = pair[1]
-    handle = DetectorHandle(twin, dict(model=MODEL, test_cfg=TEST_CFG), torch.device("cpu"))
-    args = (torch.from_numpy(images(seed=8)), *(torch.from_numpy(m) for m in META))
-    before = {k: v.clone() for k, v in twin.state_dict().items()}
-    scales = quant.calibrate(twin, lambda b: predict(handle, *b), [args])
-    plain = predict(handle, *args)
-    with quant.quantize_calls(twin, act_scale=scales):
-        dets, labels = predict(handle, *args)
-
-    convs = dict(quant.eligible_convs(twin))
-    assert len(convs) == 30 and set(convs) == set(scales)
-    try:
-        for path, mod in convs.items():
-            mod.forward = (lambda m, s: lambda x: quant.quant_conv_call(
-                m, x, torch.tensor(s, dtype=torch.float32)))(mod, scales[path])
-        by_hand = predict(handle, *args)
-    finally:
-        for mod in convs.values():
-            del mod.forward
-    assert torch.equal(dets, by_hand[0]) and torch.equal(labels, by_hand[1])
-    assert tuple(dets.shape) == (2, 10, 5) and bool(torch.isfinite(dets).all())
-    assert not torch.equal(dets, plain[0])   # the quantized path was taken
-
-    with pytest.raises(ZeroDivisionError):
-        with quant.quantize_calls(twin, act_scale=scales):
-            predict(handle, *args)
-            1 / 0
-    after = twin.state_dict()
-    assert list(after) == list(before)
-    assert all(torch.equal(after[k], before[k]) for k in before)
-    again = predict(handle, *args)
-    assert torch.equal(again[0], plain[0]) and torch.equal(again[1], plain[1])
 
 
 # ------------------------------------------------------------ no jax anywhere

@@ -146,6 +146,29 @@ def test_accum_matmul_matches_pallas_body(monkeypatch, kind, shape, loop):
         np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=0, atol=1e-5 * scale)
 
 
+@pytest.mark.parametrize("loop", [0, 1])
+@pytest.mark.parametrize("kind", ["int8", "bfloat16"])
+@pytest.mark.parametrize("m", [65, 130])
+def test_chain_matmul_plain_matches_pallas_body_off_the_band(monkeypatch, m, kind, loop):
+    """The wgmma chain kernel works on bands of 64 rows and masks the last
+    one: its plain version against P1's body at M one and two past a band,
+    K = 128 (the narrowest split the kernel takes), loop 0 (a copy) and 1."""
+    k = 128
+    a, b = operands(m, k, k, kind, seed=m + loop)
+    monkeypatch.setattr(p1, "LOOP", loop)
+    body, dt = (p1._int8_kernel, jnp.int8) if kind == "int8" else (p1._bf16_kernel, jnp.bfloat16)
+    want = pl.pallas_call(body, out_shape=jax.ShapeDtypeStruct((m, k), dt),
+                          interpret=True)(to_jax(a, kind), to_jax(b, kind))
+    got = mma_cuda.chain_matmul_plain(to_torch(a, kind), to_torch(b.T, kind), loop, 0.01)
+    assert got.dtype == (torch.int8 if kind == "int8" else torch.bfloat16)
+    assert tuple(got.shape) == (m, k)
+    if kind == "int8" or loop == 0:
+        np.testing.assert_array_equal(as_f32(got), as_f32(want))
+    else:
+        w = as_f32(want)
+        np.testing.assert_allclose(as_f32(got), w, rtol=2 ** -7, atol=1e-3 * np.abs(w).max())
+
+
 def test_int8_plain_product_is_exact_against_numpy_int64():
     rng = np.random.default_rng(3)
     a = rng.integers(-128, 128, (50, 4608)).astype(np.int8)
@@ -176,7 +199,8 @@ def test_cpu_calls_count_no_launch():
 
 
 LAUNCH_KEYS = [f"{k}_{t}" for k in ("tiled_matmul", "chain_matmul", "accum_matmul",
-                                    "wgmma_matmul") for t in ("s8", "bf16")] + ["wgmma_dequant_s8"]
+                                    "wgmma_matmul", "wgmma_unaligned", "wgmma_chain")
+               for t in ("s8", "bf16")] + ["wgmma_dequant_s8"]
 
 
 @pytest.mark.parametrize("call", [
@@ -207,6 +231,10 @@ LAUNCH_KEYS = [f"{k}_{t}" for k in ("tiled_matmul", "chain_matmul", "accum_matmu
                                           torch.ones(4), None, torch.float16),         # out type
     lambda: mma_cuda.tiled_matmul_mma_sync(torch.ones(4, 16, dtype=torch.int8),
                                            torch.ones(4, 16, dtype=torch.int8)),       # CPU
+    lambda: mma_cuda.chain_matmul_mma_sync(torch.ones(4, 64, dtype=torch.int8),
+                                           torch.ones(64, 64, dtype=torch.int8), 1),   # CPU
+    lambda: mma_cuda.chain_matmul(torch.ones(4, 128, dtype=torch.int8),
+                                  torch.ones(128, 128, dtype=torch.int8), -1),         # loop < 0
 ])
 def test_wrappers_refuse_bad_operands(call):
     with pytest.raises(ValueError):
@@ -230,6 +258,39 @@ def test_tile_width_and_chain_blocks():
     assert mma_cuda.chain_blocks(512) == 32 and mma_cuda.chain_blocks(17) == 2
 
 
+@pytest.mark.parametrize("k,options", [
+    (128, [(1, 128)]), (256, [(2, 128), (1, 256)]), (384, [(3, 128)]),
+    (1152, [(9, 128)]), (2048, [(16, 128), (8, 256)]), (4096, [(16, 256)]),
+    (64, []), (200, []), (4224, []), (8192, [])])
+def test_chain_splits_of_k(k, options):
+    """K splits into clusters of at most 16 blocks with slices of 128 or 256
+    columns, largest cluster first; any other K has none."""
+    assert mma_cuda.chain_options(k) == options
+
+
+@pytest.mark.parametrize("m,k,fits,plan", [
+    (512, 2048, {16: 8, 8: 16}, (16, 128)),   # 8 bands of 16 blocks fit at once: 128 SMs
+    (512, 2048, {16: 7, 8: 15}, (8, 256)),    # the H100: 7 of 16 -> two waves; 8 x 256 in one
+    (512, 2048, {16: 0, 8: 15}, (8, 256)),    # no cluster of 16 at all
+    (512, 2048, {16: 4, 8: 4}, (16, 128)),    # two waves either way: the narrower slice
+    (65, 2048, {16: 7, 8: 15}, (16, 128)),    # two bands: both fit as clusters of 16
+    (1, 256, {2: 66, 1: 132}, (2, 128)),
+    (5, 128, {1: 132}, (1, 128)),
+    (4096, 4096, {16: 7}, (16, 256))])
+def test_chain_plan(m, k, fits, plan):
+    assert mma_cuda.chain_plan(m, k, fits) == plan
+
+
+@pytest.mark.parametrize("m,k,fits", [
+    (512, 64, {}),                        # K off the 128-column grid
+    (512, 200, {}),
+    (512, 2048, {16: 0, 8: 0}),           # no cluster of either size fits the card
+    (512, 8192, {16: 7})])                # slices wider than 256
+def test_chain_plan_refuses(m, k, fits):
+    with pytest.raises(ValueError):
+        mma_cuda.chain_plan(m, k, fits)
+
+
 # K of every quantized conv of the flagship (window size x input channels,
 # padded to 16): the stem's 147 -> 160, the 1x1 and 3x3 convs of layer1-4, the
 # FPN's laterals and 3x3 convs, the towers
@@ -247,7 +308,10 @@ def test_route_of_the_flagships_convs_is_wgmma(k):
     (2 * 1023, 0, 0), (2 * 31, 0, 0), (8, 0, 0),        # ... in bf16; half a unit
     (160, 8, 0), (160, 0, 0x7f0000000204)])             # a view off the 16-byte grid
 def test_route_of_unaligned_operands_is_mma_sync(row_bytes, a_ptr, b_ptr):
-    assert mma_cuda.tiled_route(row_bytes, a_ptr, b_ptr) == "mma_sync"
+    """Operands off TMA's 16-byte grid (named for the mma.sync kernel that
+    took them before) go to the wgmma kernel whose producer loads through
+    registers."""
+    assert mma_cuda.tiled_route(row_bytes, a_ptr, b_ptr) == "wgmma_unaligned"
 
 
 @pytest.mark.parametrize("bias", [True, False])
@@ -285,14 +349,16 @@ def test_dequant_plain_matches_ioudet_arithmetic(shape, out, bias):
         assert (np.abs(got.float().numpy() - want) <= step * top).all()
 
 
-@pytest.mark.parametrize("name", ["no_store", "no_mma", "loads_only"])
+@pytest.mark.parametrize("name", ["no_store", "no_mma", "loads_only", "chain_no_mma",
+                                  "chain_no_push", "chain_no_wait", "chain_b_only"])
 def test_parts_probe_finds_its_lines_in_the_kernel_source(name):
-    """The probe of the wgmma kernel's parts cuts whole lines out of the
-    kernel's source: each must be there exactly once."""
+    """The probe of the wgmma kernels' parts cuts whole lines out of the
+    kernels' source: each must be there exactly once."""
     from ioudet_torch.tools import probe_wgmma_parts
     source = mma_cuda.WGMMA_LIBRARY.source.read_text()
-    assert probe_wgmma_parts.CUTS[name]
-    for cut in probe_wgmma_parts.CUTS[name]:
+    cuts = {**probe_wgmma_parts.CUTS, **probe_wgmma_parts.CHAIN_CUTS}[name]
+    assert cuts
+    for cut in cuts:
         assert source.count(cut) == 1
     assert probe_wgmma_parts.main() == 1   # no card here
 
@@ -302,6 +368,12 @@ def test_parts_probe_finds_its_lines_in_the_kernel_source(name):
     "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16",
     "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes",
     "mbarrier.try_wait.parity", "setmaxnreg.dec", "CU_TENSOR_MAP_SWIZZLE_128B",
-    "__fmul_rn(__int2float_rn("])
+    "__fmul_rn(__int2float_rn(",
+    # the unaligned producer: aligned words shifted into place for the async proxy
+    "__funnelshift_r", "fence.proxy.async.shared::cta",
+    # the chain: y's slabs pushed to the cluster's blocks, clusters of up to 16
+    "cp.async.bulk.shared::cluster.shared::cta.mbarrier::complete_tx::bytes",
+    "mbarrier.expect_tx.relaxed", "cudaFuncAttributeNonPortableClusterSizeAllowed",
+    "%cluster_nctarank"])
 def test_wgmma_source_is_built_from_the_hopper_parts(needle):
     assert needle in mma_cuda.WGMMA_LIBRARY.source.read_text()

@@ -1,9 +1,11 @@
 """The CUDA tensor-core kernels (chain, accumulate and tiled products, int8
-and bf16, the tiled one through its wgmma and its mma.sync kernel) against
-their plain torch versions on the card, on the cases chip_smoke.py checks
-(int8 bit-equal; bf16 within the limits stated there; the wgmma kernel's edge
-shapes and its dequantize epilogue), and the quantized convolution through
-that epilogue.  Skips without a GPU.  This file imports no JAX, so a GPU host without it runs it as
+and bf16; the tiled one through its wgmma kernel, TMA-fed or, for operands
+off the 16-byte grid, fed through registers, and through the mma.sync kernel;
+the chain through the wgmma cluster kernel and the mma.sync one) against their
+plain torch versions on the card, on the cases chip_smoke.py checks (int8
+bit-equal; bf16 within the limits stated there; the wgmma kernels' edge
+shapes and the dequantize epilogue), the quantized convolution through that
+epilogue and the probe tool's launches.  Skips without a GPU.  This file imports no JAX, so a GPU host without it runs it as
 
     python -m pytest --noconftest -m cuda tests/test_torch_mma_cuda.py
 """
@@ -25,18 +27,31 @@ def test_kernels_match_plain_on_card():
     err = chip_smoke.phase_mma_kernels(mma_cuda)   # raises on a mismatch
     assert err["tiled_matmul_s8"] == err["chain_matmul_s8"] == err["accum_matmul_s8"] == 0.0
     assert err["wgmma_matmul_s8"] == err["wgmma_dequant_s8"] == 0.0
+    assert err["wgmma_unaligned_s8"] == err["wgmma_chain_s8"] == 0.0
     n = len(chip_smoke.MMA_SHAPES)
-    # the mma.sync kernel at every shape and again where the wrapper chooses it
+    # the mma.sync kernel at every shape, then the wgmma kernel the wrapper chooses
     odd_s8 = sum(k % 16 != 0 for _, _, k in chip_smoke.MMA_SHAPES)
     odd_bf16 = sum(2 * k % 16 != 0 for _, _, k in chip_smoke.MMA_SHAPES)
     edges = sum(len(ms) * len(ns) * len(ks) for ms, ns, ks in chip_smoke.WGMMA_EDGES)
-    assert _build.launches["tiled_matmul_s8"] == n + odd_s8
-    assert _build.launches["tiled_matmul_bf16"] == n + odd_bf16
+    ms, ns, kbytes = chip_smoke.UNALIGNED_EDGES
+    offsets = chip_smoke.UNALIGNED_OFFSETS
+    unaligned_s8 = len(ms) * len(ns) * len(kbytes) + 3 * len(offsets)
+    unaligned_bf16 = (len(ms) * len(ns) * sum(kb % 2 == 0 for kb in kbytes) +
+                      2 * sum(off % 2 == 0 for off in offsets))   # K 160 and 2048 bytes
+    assert _build.launches["tiled_matmul_s8"] == n
+    assert _build.launches["tiled_matmul_bf16"] == n
     assert _build.launches["wgmma_matmul_s8"] == n - odd_s8 + edges
     assert _build.launches["wgmma_matmul_bf16"] == n - odd_bf16 + edges
+    assert _build.launches["wgmma_unaligned_s8"] == odd_s8 + unaligned_s8
+    assert _build.launches["wgmma_unaligned_bf16"] == odd_bf16 + unaligned_bf16
     assert _build.launches["wgmma_dequant_s8"] == 4 * len(chip_smoke.DEQUANT_SHAPES)
-    assert _build.launches["chain_matmul_s8"] == 3 * 5     # three shapes x five loop counts
-    assert _build.launches["chain_matmul_bf16"] == 3 * 3
+    chains = len(chip_smoke.CHAIN_SHAPES) * len(chip_smoke.CHAIN_LOOPS)
+    live = chip_smoke.LIVE_LOOP   # the live bf16 chain, one launch a step count
+    assert _build.launches["wgmma_chain_s8"] == chains
+    assert _build.launches["wgmma_chain_bf16"] == chains + live
+    # the mma.sync chain: loops (0, 1, 2, 3, 64), (1, 2, 3) and (1, 2, 3, 64) at three shapes
+    assert _build.launches["chain_matmul_s8"] == 12
+    assert _build.launches["chain_matmul_bf16"] == 12 + live
     assert _build.launches["accum_matmul_s8"] == 3 * 3
     assert _build.launches["accum_matmul_bf16"] == 3 * 3
 
@@ -51,8 +66,12 @@ def test_wrappers_refuse_what_the_kernels_do_not_take():
     with pytest.raises(ValueError):
         mma_cuda.tiled_matmul(a, a.cpu())                         # two devices
     odd = torch.ones(8, 40, dtype=torch.int8, device="cuda")
-    with pytest.raises(ValueError):
-        mma_cuda.chain_matmul(odd, torch.ones(40, 40, dtype=torch.int8, device="cuda"), 1)
+    with pytest.raises(ValueError):   # the mma.sync chain: K a multiple of 64 bytes
+        mma_cuda.chain_matmul_mma_sync(odd, torch.ones(40, 40, dtype=torch.int8, device="cuda"), 1)
+    for k in (40, 64, 200, 8192):      # the wgmma chain: K = cs x 128 or cs x 256, cs <= 16
+        with pytest.raises(ValueError):
+            mma_cuda.chain_matmul(torch.ones(8, k, dtype=torch.int8, device="cuda"),
+                                  torch.ones(k, k, dtype=torch.int8, device="cuda"), 1)
     with pytest.raises(ValueError):   # the dequantize epilogue needs TMA's alignment
         mma_cuda.tiled_matmul_dequant(odd, odd, torch.ones(8, device="cuda"))
     with pytest.raises(ValueError):
@@ -62,8 +81,9 @@ def test_wrappers_refuse_what_the_kernels_do_not_take():
 @pytest.mark.cuda
 @pytest.mark.parametrize("view", ["whole", "offset rows", "offset bytes"])
 def test_the_route_follows_the_operands(view):
-    """16-byte aligned operands take the wgmma kernel; a view that starts off
-    the 16-byte grid takes the mma.sync kernel; both give the plain product."""
+    """16-byte aligned operands take the TMA-fed wgmma kernel; a view that
+    starts off the 16-byte grid takes the one fed through registers; both give
+    the plain product, and the mma.sync kernel is not launched."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU")
     a, b_t = chip_smoke.mma_operands(301, 70, 160, torch.int8, seed=1)
@@ -77,8 +97,9 @@ def test_the_route_follows_the_operands(view):
     out = mma_cuda.tiled_matmul(a, b_t)
     torch.cuda.synchronize()
     assert torch.equal(out, mma_cuda.tiled_matmul_plain(a, b_t))
-    new, old = _build.launches["wgmma_matmul_s8"], _build.launches["tiled_matmul_s8"]
-    assert (new, old) == ((0, 1) if view == "offset bytes" else (1, 0))
+    tma, regs = _build.launches["wgmma_matmul_s8"], _build.launches["wgmma_unaligned_s8"]
+    assert (tma, regs) == ((0, 1) if view == "offset bytes" else (1, 0))
+    assert _build.launches["tiled_matmul_s8"] == 0
 
 
 @pytest.mark.cuda
@@ -103,3 +124,15 @@ def test_quantized_conv_goes_through_the_kernel(kernel, stride, padding, cin):
     assert _build.launches["wgmma_dequant_s8"] == 1
     assert _build.launches["tiled_matmul_s8"] == 0
     assert torch.equal(got.cpu(), want)
+
+
+@pytest.mark.cuda
+def test_probe_launches_the_wgmma_kernels():
+    """The probe tool's chain and unaligned questions run on the wgmma
+    kernels, and the mma.sync kernels they replaced are not launched
+    (chip_smoke's phase asserts the counts)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    counts = chip_smoke.phase_probe(_build)
+    assert counts["wgmma_chain_s8"] > 0 and counts["wgmma_unaligned_bf16"] > 0
+    assert counts["chain_matmul_s8"] == counts["tiled_matmul_bf16"] == 0

@@ -3,7 +3,8 @@ bridged between the two packages (convert_torch_retinanet /
 state_dict_from_flax), forward_train's losses, the gradient of every trained
 parameter and three optimizer steps of ioudet_torch against ioudet's
 forward_train, jax.grad and make_train_step; then the LR schedule, the
-trainable mask, gradient clipping, checkpoints and the runner.
+trainable mask and gradient clipping.  Checkpoints and the runner are in
+tests/test_torch_train_runner.py.
 
 Tolerances.  Losses: 1e-4 relative (f32 sums over some 30 layers in another
 order).  Gradients: per tensor, max |diff| <= 2e-3 of the tensor's largest
@@ -11,9 +12,6 @@ order).  Gradients: per tensor, max |diff| <= 2e-3 of the tensor's largest
 backward pass sums the same terms in another order in the two libraries.
 Parameters after each step: rtol 1e-4, atol 2e-6 (LR 3e-3 times that gradient
 difference)."""
-
-import json
-import os
 
 import jax
 import jax.numpy as jnp
@@ -26,8 +24,7 @@ from ioudet.apis import train as jtrain
 from ioudet.apis.checkpoint import convert_torch_retinanet
 from ioudet.models import build_detector as jax_build_detector
 from ioudet_torch.apis import train as ttrain
-from ioudet_torch.apis.checkpoint import (latest_checkpoint, load_checkpoint,
-                                          save_checkpoint, state_dict_from_flax)
+from ioudet_torch.apis.checkpoint import state_dict_from_flax
 from ioudet_torch.models import build_detector
 from tests.test_torch_detector import randomize
 
@@ -228,62 +225,3 @@ def test_parse_losses():
     assert float(log_vars["acc"]) == 99.0
 
 
-def test_save_and_resume_continue_bit_exact(tmp_path):
-    batch = tbatch(make_batch(seed=1))
-    sched = ttrain.make_lr_schedule(0.01, LR_CONFIG, 10, 12)
-
-    def setup(seed):
-        model = new_model(seed)
-        ttrain.make_trainable_mask(model)
-        opt = ttrain.build_optimizer(model, OPTIMIZER)
-        return model, opt, ttrain.make_train_step(model, opt, sched, dict(max_norm=35))
-
-    model, opt, step = setup(0)
-    step(batch, 0)
-    step(batch, 1)
-    path = save_checkpoint(str(tmp_path), "iter_2", model, opt, dict(epoch=0, step=2))
-    assert latest_checkpoint(str(tmp_path)) == path and os.path.isfile(path)
-    step(batch, 2)
-
-    twin, twin_opt, twin_step = setup(5)   # other weights, empty momentum
-    meta = load_checkpoint(twin, path, optimizer=twin_opt)
-    assert meta == dict(epoch=0, step=2)
-    twin_step(batch, meta["step"])
-    for (k, a), b in zip(model.state_dict().items(), twin.state_dict().values()):
-        assert torch.equal(a, b), k
-    assert latest_checkpoint(str(tmp_path / "none")) is None
-
-
-def test_train_detector_runs_logs_and_resumes(tmp_path):
-    batches = [make_batch(seed=s) for s in (0, 1)]   # numpy: the runner moves them
-    model = new_model()
-    seen = []
-    runner = ttrain.train_detector(model, batches, CFG, str(tmp_path), device="cpu",
-                                   step_hook=lambda s, logs: seen.append((s, float(logs["loss"]))))
-    assert runner.step == 4 and [s for s, _ in seen] == [1, 2, 3, 4]
-    assert all(np.isfinite(v) for _, v in seen)
-    with open(tmp_path / "log.json") as f:
-        records = [json.loads(line) for line in f]
-    assert [r["step"] for r in records] == [1, 2, 3, 4]
-    assert [r["epoch"] for r in records] == [1, 1, 2, 2]
-    assert {"loss", "loss_cls", "loss_bbox", "loss_iou", "lr", "time"} <= set(records[0])
-    assert records[0]["loss"] == pytest.approx(seen[0][1])
-    assert sorted(os.listdir(tmp_path)) == ["epoch_1.pth", "epoch_2.pth", "latest", "log.json"]
-
-    # a second call finds the last checkpoint and goes on from epoch 3
-    again = ttrain.train_detector(new_model(seed=9), batches, dict(CFG, total_epochs=3),
-                                  str(tmp_path), device="cpu")
-    assert again.step == 6 and again.epoch == 2
-    meta = load_checkpoint(new_model(), latest_checkpoint(str(tmp_path)))
-    assert meta["epoch"] == 3 and meta["step"] == 6
-    # without auto_resume the run starts from the model it was given
-    fresh = ttrain.train_detector(new_model(), batches[:1], dict(CFG, total_epochs=1),
-                                  str(tmp_path / "fresh"), auto_resume=False, device="cpu")
-    assert fresh.step == 1
-
-
-def test_cuda_without_a_card_raises(tmp_path):
-    if torch.cuda.is_available():
-        pytest.skip("a card is present")
-    with pytest.raises(RuntimeError):
-        ttrain.train_detector(new_model(), [make_batch()], CFG, str(tmp_path))
