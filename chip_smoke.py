@@ -24,6 +24,13 @@ Phases (any failure exits non-zero):
      for bit, the chain through the wgmma cluster kernel (M off the 64-row
      band, clusters of 1 to 16 blocks, loop 0 to 64) and the mma.sync one,
      each also on a bf16 chain kept alive for 64 steps, checked step by step;
+     the accumulate through the wgmma kernel (K split over clusters) and the
+     mma.sync one on its edges (M, N and K off every tile, loops 1 to 300),
+     twice at the probe's shape (bit-equal runs, both kernels against plain
+     there at loop 64), on a one-hot b_t over every int8 value and every
+     finite bf16 bit pattern (bf16 bit-equal to an emulation of the tensor
+     cores' truncating f32 adds), and in int8 against torch._int_mm of the
+     stacked operands;
   3. the flagship IoU-aware RetinaNet R-50-FPN (configs/
      iou_aware_retinanet_r50_fpn_1x.py with class_topk=4, the model of
      __graft_entry__.FLAGSHIP/TEST_CFG) at full width with seeded random
@@ -37,8 +44,8 @@ Phases (any failure exits non-zero):
      tree (and none of the mma.sync kernel), a replay with the plain product
      that must give the same bits, and
      the head outputs' drift from f32; then the probe tool's own run, whose
-     chain and unaligned questions must launch the wgmma kernels and not the
-     mma.sync ones they replaced;
+     chain, accumulate and unaligned questions must launch the wgmma kernels
+     and not the mma.sync ones they replaced;
   4. the same model, training: ``train_detector`` for 6 SGD steps on a batch
      of 8 canvases with seeded gts, steps 2-6 with host syncs made errors;
      launch counts, finite and falling losses, frozen parameters unchanged,
@@ -115,6 +122,14 @@ CHAIN_SHAPES = ((5, 128), (65, 256), (130, 384), (65, 1152), (200, 4096), (512, 
 CHAIN_LOOPS = (0, 1, 2, 64)
 LIVE_LOOP = 64   # steps of the bf16 chains kept alive at the probe's shape
 HOLD_CYCLES = 5_000_000   # ~2.5 ms at 2 GHz, the card's spin before a timed loop
+# (M values, N values, bytes of K) of the accumulate kernels' cases: one row,
+# a 64-row warpgroup and a 128-row tile one under and over, the probe's 512;
+# N from one 8-column step to the probe's 2048, each tile width one under and
+# over; K of half a 32-byte step, just under, at and over one slab, and the
+# probe's 2048 and 4096 bytes (int8, bf16); each case with one of the loop
+# counts (past 127 and 255 int8(i) wraps, past 256 bf16(i) rounds)
+ACCUM_EDGES = ((1, 63, 65, 129, 512), (8, 65, 255, 257, 2048), (16, 112, 128, 144, 2048, 4096))
+ACCUM_LOOPS = (1, 2, 63, 64, 65, 300)
 # (M, N, K) of the dequantize epilogue's cases: ragged, narrow and wide tiles
 DEQUANT_SHAPES = ((129, 65, 144), (1000, 7, 1024), (2304, 64, 160), (3000, 256, 2304),
                   (16897, 255, 384), (16897, 128, 640), (17000, 512, 64))
@@ -593,13 +608,14 @@ def phase_mma_kernels(Mm) -> dict:
     kernel and plain version differ only in the order and rounding of the f32
     sum; the limit is 1e-5 of the largest sum of |a| |b| for the tiled product
     through either kernel (seen 8e-7 with mma.sync) and 5e-5 for the
-    accumulated one, whose plain version rounds the running f32 sum once per
-    product (seen 9e-6), and for the chain (which rounds y to bf16 after
-    every step, so a sum on a rounding boundary moves y by one bf16 step)
-    2^-7 relative plus 1e-3 of the largest |y|.  The dequantize epilogue is
+    accumulated one (``accum_limit``; its plain version rounds the running
+    f32 sum once per product, the tensor cores truncate), and for the chain
+    (which rounds y to bf16 after every step, so a sum on a rounding
+    boundary moves y by one bf16 step) 2^-7 relative plus 1e-3 of the
+    largest |y|.  The dequantize epilogue is
     bit-equal to its plain version (multiply and add rounded separately)."""
-    names = [f"{k}_{t}" for k in ("tiled_matmul", "chain_matmul", "accum_matmul",
-                                  "wgmma_matmul", "wgmma_unaligned", "wgmma_chain")
+    names = [f"{k}_{t}" for k in ("tiled_matmul", "chain_matmul", "wgmma_matmul",
+                                  "wgmma_unaligned", "wgmma_chain")
              for t in ("s8", "bf16")]
     err = {n: 0.0 for n in names + ["wgmma_dequant_s8"]}
     for m, n, k in MMA_SHAPES:
@@ -666,23 +682,172 @@ def phase_mma_kernels(Mm) -> dict:
     for m, kn in CHAIN_SHAPES:
         err.update(chain_cases(Mm, Mm.chain_matmul, "wgmma_chain", m, kn, CHAIN_LOOPS, err))
     err.update(live_chain_walk(Mm, Mm.chain_matmul, "wgmma_chain", pm, pk, LIVE_LOOP, err))
-    for m, n, k in ((7, 33, 147), (200, 100, 96), (pm, pn, pk)):
-        for loop in (1, 3, 64):
-            a, b_t = mma_operands(m, n, k, torch.int8, seed=loop)
-            out, want = Mm.accum_matmul(a, b_t, loop), Mm.accum_matmul_plain(a, b_t, loop)
-            torch.cuda.synchronize()
-            err["accum_matmul_s8"] = max(err["accum_matmul_s8"], max_abs(out, want))
-            check(out.dtype == torch.int32 and torch.equal(out, want),
-                  f"accum_matmul int8 ({m}, {k}) x ({k}, {n}) loop {loop}: bit-equal to plain")
-            a, b_t = mma_operands(m, n, k, torch.bfloat16, seed=loop)
-            out, want = Mm.accum_matmul(a, b_t, loop), Mm.accum_matmul_plain(a, b_t, loop)
-            torch.cuda.synchronize()
-            scale = sum(abs_product(Mm._perturbed(a, i), b_t) for i in range(loop))
+    err.update(accum_cases(Mm))
+    return err
+
+
+ACCUM_BF16_LIMIT = 5e-5   # of the summed |a||b|: the bf16 accumulate's limit
+
+
+def accum_limit(name: str, loop: int) -> float:
+    """The bf16 accumulate's limit, a share of the summed |a||b|: 5e-5 (seen
+    3.9e-5 on the wgmma kernel at loop 300).  The mma.sync kernel adds every
+    16-deep step of every product into one f32 accumulator, which the tensor
+    cores truncate: its error grows with the loop count (seen 1.0e-5 at loop
+    65, 5.9e-5 at 300, K 2048), so past loop 64 it keeps the limit's share a
+    product: 5e-5 x loop / 64."""
+    if name == "accum_matmul" and loop > 64:
+        return ACCUM_BF16_LIMIT * loop / 64
+    return ACCUM_BF16_LIMIT
+
+
+def accum_sum_scale(Mm, a, b_t, loop: int) -> float:
+    """The largest sum over k of |a_i||b| summed over the products i < loop:
+    the scale of the bf16 accumulate's rounding error."""
+    return sum(abs_product(Mm._perturbed(a, i), b_t) for i in range(loop))
+
+
+def stacked_operands(Mm, a, b_t, loop: int) -> tuple:
+    """[a_0 | a_1 | ... | a_{loop-1}] (M, loop K) and [b_t | ... | b_t] (N,
+    loop K): one plain product of these is the accumulated sum."""
+    return (torch.cat([Mm._perturbed(a, i) for i in range(loop)], dim=1),
+            b_t.repeat(1, loop))
+
+
+def one_hot_operands(dtype) -> tuple:
+    """a holding every int8 value (2, 128), or every finite bf16 bit pattern
+    (510, 128), and b_t the (128, 128) identity: each output is the sum over
+    the products of the perturbations of one element of a."""
+    if dtype == torch.int8:
+        a = torch.arange(-128, 128, dtype=torch.int16).to(torch.int8).view(2, 128)
+    else:
+        vals = torch.arange(-32768, 32768, dtype=torch.int32).to(torch.int16).view(torch.bfloat16)
+        a = vals[torch.isfinite(vals.float())].view(-1, 128)
+    return a.cuda(), torch.eye(128, dtype=dtype, device="cuda")
+
+
+TC_EXTRA_BITS = 2   # bits the tensor cores keep below f32's 24 where they align two addends
+
+
+def tensor_core_sum(Mm, a, loop: int) -> torch.Tensor:
+    """The one-hot bf16 sums as the H100's tensor cores add them into an f32
+    accumulator, emulated exactly in float64 on the host: each add aligns
+    the accumulator and the product to the larger one's exponent, drops
+    (truncates toward zero) the bits below 24 + TC_EXTRA_BITS of it, sums,
+    truncates the sum to f32 and gives +-inf from 2^128 on.  Plain f32
+    rounds each add to nearest and so differs in the last bit of some sums."""
+    acc = torch.zeros(a.shape, dtype=torch.float64)
+    for i in range(loop):
+        p = Mm._perturbed(a.cpu(), i).double()
+        big = torch.maximum(torch.frexp(acc)[1].masked_fill(acc == 0, -1 << 20),
+                             torch.frexp(p)[1].masked_fill(p == 0, -1 << 20)).clamp(min=-125)
+        grid = torch.ldexp(torch.ones_like(acc), big - 24 - TC_EXTRA_BITS)
+        x = torch.where(torch.isfinite(acc), torch.trunc(acc / grid) * grid, acc)
+        s = x + torch.trunc(p / grid) * grid   # exact: two multiples of grid under 2^27 grids
+        f = s.float()
+        f = torch.where(f.double().abs() > s.abs(), torch.nextafter(f, torch.zeros_like(f)), f)
+        acc = torch.where(s.abs() >= 2.0 ** 128, s.sign() * float("inf"), f.double())
+    return acc.float().to(a.device)
+
+
+def accum_cases(Mm) -> dict:
+    """P2 through the wgmma accumulate kernel (``accum_matmul``) and the
+    mma.sync one (``accum_matmul_mma_sync``) on every (M, N, K bytes) of
+    ACCUM_EDGES, with a loop count of ACCUM_LOOPS that moves from case to case,
+    and on the unaligned (7, 147) x (147, 33) at every loop count: int8
+    bit-equal to plain, bf16 within ``accum_limit`` of the summed |a||b|; the
+    probe shape twice (bit-equal runs), both kernels there against plain at
+    loop 64 under the same limits; the one-hot b_t that makes each output the
+    sum of the perturbations of one element of a, over all 256 int8 values
+    (bit-equal to plain) and all finite bf16 bit patterns (bit-equal to
+    ``tensor_core_sum``: the tensor cores truncate where they add into the
+    f32 accumulator, plain rounds to nearest); and, at the probe shape in
+    int8, the stacked ``torch._int_mm`` bit-equal to the kernel."""
+    err = {f"{k}_{t}": 0.0 for k in ("wgmma_accum", "accum_matmul") for t in ("s8", "bf16")}
+    sms = Mm.num_sms(torch.device("cuda"))
+    ms, ns, kbytes = ACCUM_EDGES
+    cases = [(m, n, kb, ACCUM_LOOPS[(x + y + z) % len(ACCUM_LOOPS)])
+             for x, m in enumerate(ms) for y, n in enumerate(ns) for z, kb in enumerate(kbytes)]
+    cases += [(7, 33, 147, loop) for loop in ACCUM_LOOPS]
+    plans, worst, failed = set(), {}, []
+    for m, n, kb, loop in cases:
+        for dtype, tag in ((torch.int8, "s8"), (torch.bfloat16, "bf16")):
+            k = kb if dtype == torch.int8 or kb % 2 else kb // 2   # 147: off the grid in both
+            a, b_t = mma_operands(m, n, k, dtype, seed=m + n + kb + loop)
+            want = Mm.accum_matmul_plain(a, b_t, loop)
+            scale = 0.0 if dtype == torch.int8 else accum_sum_scale(Mm, a, b_t, loop)
+            for fn, name in ((Mm.accum_matmul, "wgmma_accum"),
+                             (Mm.accum_matmul_mma_sync, "accum_matmul")):
+                before = Mm._build.launches[f"{name}_{tag}"]
+                out = fn(a, b_t, loop)
+                torch.cuda.synchronize()
+                diff = max_abs(out, want)
+                err[f"{name}_{tag}"] = max(err[f"{name}_{tag}"], diff)
+                rel = diff / scale if scale else diff
+                key = (name, tag, loop)
+                worst[key] = max(worst.get(key, 0.0), rel)
+                limit = accum_limit(name, loop) if scale else 0.0
+                if (Mm._build.launches[f"{name}_{tag}"] != before + 1 or out.dtype != want.dtype
+                        or rel > limit):
+                    failed.append(f"{name}_{tag} ({m}, {k}) x ({k}, {n}) loop {loop}: "
+                                  f"{out.dtype}, diff {diff:.3e} = {rel:.2e} (limit {limit:.1e})")
+            row = -(-k * a.element_size() // 16) * 16
+            plans.add(Mm.accum_plan(m, n, row, sms, Mm.accum_fits(a.device, dtype)))
+    print("accumulate, worst diff / summed |a||b| by kernel, type and loop: " + ", ".join(
+        f"{name} {tag} {loop}: {v:.2e}" for (name, tag, loop), v in sorted(worst.items())),
+        flush=True)
+    if failed:
+        raise AssertionError(f"{len(failed)} accumulate cases failed:\n" + "\n".join(failed[:20]))
+    check(True, f"accum_matmul (wgmma) and accum_matmul_mma_sync, M in {ms}, N in {ns}, K of "
+          f"{kbytes} bytes and (7, 147) x (147, 33), loops {ACCUM_LOOPS}: {len(cases)} int8 "
+          f"cases each bit-equal to plain, {len(cases)} bf16 cases within their limits; "
+          f"plans (tile width, cluster) {sorted(plans)}")
+    pm, pk, pn = PROBE_MKN
+    for dtype, tag in ((torch.int8, "s8"), (torch.bfloat16, "bf16")):
+        a, b_t = mma_operands(pm, pn, pk, dtype, seed=7)
+        first, second = Mm.accum_matmul(a, b_t, 64), Mm.accum_matmul(a, b_t, 64)
+        old = Mm.accum_matmul_mma_sync(a, b_t, 64)
+        want = Mm.accum_matmul_plain(a, b_t, 64)
+        torch.cuda.synchronize()
+        plan = Mm.accum_plan(pm, pn, pk * a.element_size(), sms, Mm.accum_fits(a.device, dtype))
+        check(torch.equal(first, second), f"accum_matmul {tag} ({pm}, {pk}) x ({pk}, {pn}) loop "
+              f"64, tiles {plan[0]} wide on clusters of {plan[1]}: two runs bit-equal")
+        scale = 0.0 if dtype == torch.int8 else accum_sum_scale(Mm, a, b_t, 64)
+        for out, name in ((first, "wgmma_accum"), (old, "accum_matmul")):
             diff = max_abs(out, want)
-            err["accum_matmul_bf16"] = max(err["accum_matmul_bf16"], diff)
-            check(out.dtype == torch.float32 and diff <= 5e-5 * scale,
-                  f"accum_matmul bf16 ({m}, {k}) x ({k}, {n}) loop {loop}: max abs diff "
-                  f"{diff:.3e} = {diff / scale:.2e} of the summed |a||b| (limit 5e-5)")
+            err[f"{name}_{tag}"] = max(err[f"{name}_{tag}"], diff)
+            limit = accum_limit(name, 64) * scale
+            check(out.dtype == want.dtype and diff <= limit,
+                  f"{name} {tag} ({pm}, {pk}) x ({pk}, {pn}) loop 64 against plain: diff "
+                  f"{diff:.3e} (limit {limit:.3e}" + (", bit-equal)" if scale == 0 else
+                                                      f" = {limit / scale:.0e} x {scale:.4e})"))
+        del old, want
+        if dtype == torch.int8:
+            sa, sb = stacked_operands(Mm, a, b_t, 64)
+            lib = torch._int_mm(sa, sb.t())
+            torch.cuda.synchronize()
+            check(torch.equal(lib, first), f"accum_matmul int8 ({pm}, {pk}) x ({pk}, {pn}) loop "
+                  f"64 bit-equal to torch._int_mm of the stacked ({pm}, {64 * pk}) x "
+                  f"({64 * pk}, {pn})")
+            del sa, sb, lib
+        del a, b_t, first, second
+    for dtype, tag in ((torch.int8, "s8"), (torch.bfloat16, "bf16")):
+        a, b_t = one_hot_operands(dtype)
+        for loop in (64, 300):
+            want = Mm.accum_matmul_plain(a, b_t, loop)
+            new, old = Mm.accum_matmul(a, b_t, loop), Mm.accum_matmul_mma_sync(a, b_t, loop)
+            torch.cuda.synchronize()
+            what = f"accum_matmul {tag} one-hot loop {loop}"
+            if dtype == torch.int8:
+                check(torch.equal(new, want) and torch.equal(old, want),
+                      f"{what}: all 256 int8 values, both kernels bit-equal to plain")
+                continue
+            tc = tensor_core_sum(Mm, a, loop)
+            moved = int((tc != want).sum())
+            check(torch.equal(new, tc) and torch.equal(old, tc),
+                  f"{what}: all {a.numel()} finite bf16 bit patterns, both kernels bit-equal to "
+                  f"the tensor cores' truncating f32 sum ({moved} sums differ from plain's "
+                  "rounding to nearest)")
     return err
 
 
@@ -1006,8 +1171,8 @@ def phase_low_precision(B, Mm, Q, f32_handle, cfg, inputs) -> tuple:
 
 def phase_probe(B) -> dict:
     """The probe tool's own run (chain, accumulate and tiled products in both
-    types at its shapes, the tiled one through both of its kernels); returns
-    the launch counts of that run."""
+    types at its shapes, the tiled one on aligned and unaligned operands);
+    returns the launch counts of that run."""
     from ioudet_torch.tools import probe_tensor_cores
     B.reset_launches()
     check(probe_tensor_cores.main() == 0, "probe_tensor_cores ran")
@@ -1015,10 +1180,11 @@ def phase_probe(B) -> dict:
     counts = dict(B.launches)
     reps = 5   # a warm-up and four timed programs
     want = {"wgmma_chain": reps * probe_tensor_cores.KERNEL_REPEAT,
-            "accum_matmul": reps * probe_tensor_cores.KERNEL_REPEAT,
+            "wgmma_accum": reps * probe_tensor_cores.KERNEL_REPEAT,
             "wgmma_matmul": reps * probe_tensor_cores.TILED_REPEAT,            # 4096^3
             "wgmma_unaligned": reps * probe_tensor_cores.UNALIGNED_REPEAT,     # K = 1023
-            "chain_matmul": 0, "tiled_matmul": 0}   # the mma.sync kernels they replace
+            # the mma.sync kernels they replace
+            "chain_matmul": 0, "tiled_matmul": 0, "accum_matmul": 0}
     check(all(counts[f"{k}_{t}"] == n for k, n in want.items() for t in ("s8", "bf16")),
           f"the probe launched every product in both types, through the wgmma kernels: "
           f"{counts}")
@@ -1494,15 +1660,29 @@ def phase_low_precision_timing(Mm, Q, handle, scales, rng, card: str) -> dict:
               f"{sms} SMs) against the mma.sync kernel {old:.4f} ms ({Mm.chain_blocks(pm)} "
               f"blocks; old, new, new, old), plain torch {plain:.4f} ms, bound "
               f"{cbound[0]:.4f} ms by {cbound[1]}, library none [{card}; {tag}]", flush=True)
-        row = (cuda_ms(lambda: Mm.accum_matmul(a, b_t, loop), 5),
-               cuda_ms(lambda: Mm.accum_matmul_plain(a, b_t, loop), 2, 1),
-               *tensor_bound(nbytes + pm * pn * 4, ops, int8), None)
-        times[f"accum_matmul_{suffix}"] = row
+        # the accumulate: the wgmma kernel against the mma.sync one, in turns
+        fits = Mm.accum_fits(a.device, dtype)
+        bn, ks = Mm.accum_plan(pm, pn, pk * a.element_size(), sms, fits)
+        old, new = in_turns(lambda: Mm.accum_matmul_mma_sync(a, b_t, loop),
+                            lambda: Mm.accum_matmul(a, b_t, loop), 5)
+        plain = cuda_ms(lambda: Mm.accum_matmul_plain(a, b_t, loop), 2, 1)
+        abound = tensor_bound(nbytes + pm * pn * 4, ops, int8)
+        sa, sb = stacked_operands(Mm, a, b_t, loop)   # outside the timed call
+        lib = cuda_ms((lambda: torch._int_mm(sa, sb.t())) if int8 else
+                      (lambda: torch.matmul(sa, sb.t())), 5)
+        del sa, sb
+        times[f"wgmma_accum_{suffix}"] = (new, plain, *abound, lib)
+        times[f"accum_matmul_{suffix}"] = (old, plain, *abound, lib)
         blocks = -(-pm // Mm.TILE_M) * -(-pn // Mm.mma_sync_tile_width(pm, pn, sms))
-        print(f"accum_matmul {tag} ({pm}, {pk}) x ({pk}, {pn}) loop {loop}: kernel "
-              f"{row[0]:.4f} ms ({ops / row[0] / 1e9:.1f} T(FL)OP/s, {blocks} blocks for "
-              f"{sms} SMs), plain torch {row[1]:.4f} ms, bound {row[2]:.4f} ms by "
-              f"{row[3]}, library none [{card}; {tag}]", flush=True)
+        print(f"accum_matmul {tag} ({pm}, {pk}) x ({pk}, {pn}) loop {loop}: wgmma kernel "
+              f"{new:.4f} ms ({ops / new / 1e9:.1f} T(FL)OP/s, {100 * abound[0] / new:.1f}% of "
+              f"the bound; tiles {bn} wide, K over clusters of {ks}, "
+              f"{Mm.accum_sms(pm, pn, (bn, ks), fits, sms)} of {sms} SMs) against the mma.sync "
+              f"kernel {old:.4f} ms ({blocks} blocks; old, new, new, old), plain torch "
+              f"{plain:.4f} ms, bound {abound[0]:.4f} ms by {abound[1]}, library "
+              f"({'torch._int_mm' if int8 else 'torch.matmul, bf16 output'} of the stacked "
+              f"({pm}, {loop * pk}) x ({loop * pk}, {pn})) {lib:.4f} ms [{card}; {tag}]",
+              flush=True)
         del a, b_t
     return times
 
@@ -1530,10 +1710,14 @@ KERNELS = {  # name: (source, the TPU kernel it replaces)
     "wgmma_unaligned_bf16": ("wgmma_kernel.cu", "tools/probe_pallas_int8_matmul.py:53"),
     "wgmma_chain_s8": ("wgmma_kernel.cu", "tools/probe_mxu_rate.py:39"),
     "wgmma_chain_bf16": ("wgmma_kernel.cu", "tools/probe_mxu_rate.py:47"),
+    # P2 on wgmma
+    "wgmma_accum_s8": ("wgmma_kernel.cu", "tools/probe_mxu_rate2.py:32"),
+    "wgmma_accum_bf16": ("wgmma_kernel.cu", "tools/probe_mxu_rate2.py:46"),
 }
 # the mma.sync kernels that the wgmma ones replaced on every main path; still
 # checked (phase 2) and timed (phase 5) through their _mma_sync entries
-REPLACED = ("tiled_matmul_s8", "tiled_matmul_bf16", "chain_matmul_s8", "chain_matmul_bf16")
+REPLACED = ("tiled_matmul_s8", "tiled_matmul_bf16", "chain_matmul_s8", "chain_matmul_bf16",
+            "accum_matmul_s8", "accum_matmul_bf16")
 
 
 def main() -> int:

@@ -49,8 +49,11 @@
 //   per element while the slab is staged (A goes through registers here, B
 //   through cp.async), so it is off the tensor cores' path as in the TPU
 //   kernel.  At 512 x 2048 outputs the 128 x 64 tile gives 128 blocks for 132
-//   SMs.  A wgmma version would apply the change to A fragments held in
-//   registers (wgmma takes A from registers) and reach a higher rate.
+//   SMs.  Every product streams the tile's rows of A and B from the L2 again.
+//   accum_wgmma_kernel of wgmma_kernel.cu replaced it on the main paths (each
+//   staged slab feeds all `loop` products, A perturbed in registers for
+//   register-A wgmma, K split over a cluster); this kernel stays reachable
+//   through mma_cuda.accum_matmul_mma_sync, checked and timed beside it.
 //
 // chain_kernel  replaces _call / _int8_kernel, _bf16_kernel of
 //   tools/probe_mxu_rate.py (P1): `loop` dependent products with the requant

@@ -2,9 +2,11 @@
 // loads into a ring of shared-memory stages, wgmma.mma_async from shared
 // memory, persistent blocks, and an epilogue that either hands back the raw
 // accumulators or dequantizes them; the same product for operands off TMA's
-// 16-byte grid; and the chain of dependent products on clusters that pass
-// their rows through distributed shared memory.  Behind a plain C interface loaded with
-// ctypes by ioudet_torch/ops/mma_cuda.py.  Built there with
+// 16-byte grid; the chain of dependent products on clusters that pass
+// their rows through distributed shared memory; and the sum of independent
+// perturbed products, A perturbed in registers, K split over a cluster.
+// Behind a plain C interface loaded with ctypes by
+// ioudet_torch/ops/mma_cuda.py.  Built there with
 //   nvcc -gencode arch=compute_90a,code=sm_90a -O3 -std=c++17 -shared
 //        -Xcompiler -fPIC -ldl
 //
@@ -92,6 +94,32 @@
 //   its next slab once this block's consumers are done with it (a remote
 //   arrive per slab), so the pushes of the next step's first slabs start as
 //   soon as their owner has written them and run ahead of the products.
+//
+// accum_wgmma_kernel  replaces _call / _int8_kernel, _bf16_kernel of
+//   tools/probe_mxu_rate2.py (P2), as tiled_kernel<.., ACCUM=true> of
+//   mma_kernel.cu did before it: `loop` independent products summed,
+//   acc += (a XOR int8(i)) @ b  or  acc += bf16(a + bf16(i)) @ b, every one
+//   of them run on the tensor cores.  Bound: operations (loop x the product
+//   over the same 3-6 MB of operands).  The mma.sync kernel ran its slabs
+//   product by product, so every product streamed the tile's rows of A and
+//   B from the L2 again (3.2 GB a launch in int8 at the probe's shape) and
+//   the feed, not the tensor cores, set its pace.  Design: slab-major.  A
+//   stage of A (128 rows x 128 bytes) and Bt (BN rows) arrives once by TMA,
+//   and the consumers run all `loop` products on it before they hand it
+//   back, so the loads fall by the factor `loop`.  A is perturbed in
+//   registers for the register-A form of wgmma: each consumer warp takes its
+//   16 rows of the stage with ldmatrix and for each i makes a perturbed copy
+//   (xor.b32 with int8(i) in every byte, or add.rn.bf16x2 with bf16(i): the
+//   bf16 sum rounded once, as the f32 sum rounded to bf16 is), into one of
+//   two sets of registers in turn, so that the next copy is made while the
+//   last group runs; B stays behind a shared-memory descriptor.  At the
+//   probe's 512 x 2048 outputs there are only 64 tiles of 128 x 128, so K is
+//   split over a cluster of ks blocks (mma_cuda.accum_plan): each sums its
+//   share of the slabs, stages its accumulators in its idle ring, and block
+//   r adds the ks partials of its rows through distributed shared memory,
+//   block 0 first (the same bits on every run), and stores them with the
+//   raw epilogue.  Tiles are at most 128 wide: at 256 the accumulators and
+//   the three sets of A need more registers than a thread of this block has.
 
 #include <cuda.h>
 #include <cuda_bf16.h>
@@ -220,6 +248,36 @@ __device__ __forceinline__ void wgmma_step(int (&d)[128], uint64_t da, uint64_t 
 __device__ __forceinline__ void wgmma_step(float (&d)[128], uint64_t da, uint64_t db) {
   WGMMA_STEP("wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16", WGMMA_D128, "%128",
              "%129", "%130", ", 1, 1, 0, 0", WGMMA_O128("+f", d));
+}
+
+// The same step with A (this warp's 16 rows x 32 bytes of K) from four
+// registers of the thread (the fragment of an m16n8k16 / m16n8k32 mma.sync:
+// rows g and g + 8, bytes 4t .. 4t + 3 and 16 + 4t .. 16 + 4t + 3) and only
+// B behind a descriptor.
+#define WGMMA_STEP_RS(INSTR, DLIST, A4, DB, P, TAIL, OLIST)                          \
+  asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, " P ", 0;\n" INSTR " {" DLIST "}, {" \
+               A4 "}, " DB ", p" TAIL ";\n}\n"                                         \
+               : OLIST                                                                 \
+               : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1))
+
+__device__ __forceinline__ void wgmma_step_rs(int (&d)[32], const uint32_t* a, uint64_t db) {
+  WGMMA_STEP_RS("wgmma.mma_async.sync.aligned.m64n64k32.s32.s8.s8", WGMMA_D32,
+                "%32, %33, %34, %35", "%36", "%37", "", WGMMA_O32("+r", d));
+}
+
+__device__ __forceinline__ void wgmma_step_rs(float (&d)[32], const uint32_t* a, uint64_t db) {
+  WGMMA_STEP_RS("wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16", WGMMA_D32,
+                "%32, %33, %34, %35", "%36", "%37", ", 1, 1, 0", WGMMA_O32("+f", d));
+}
+
+__device__ __forceinline__ void wgmma_step_rs(int (&d)[64], const uint32_t* a, uint64_t db) {
+  WGMMA_STEP_RS("wgmma.mma_async.sync.aligned.m64n128k32.s32.s8.s8", WGMMA_D64,
+                "%64, %65, %66, %67", "%68", "%69", "", WGMMA_O64("+r", d));
+}
+
+__device__ __forceinline__ void wgmma_step_rs(float (&d)[64], const uint32_t* a, uint64_t db) {
+  WGMMA_STEP_RS("wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16", WGMMA_D64,
+                "%64, %65, %66, %67", "%68", "%69", ", 1, 1, 0", WGMMA_O64("+f", d));
 }
 
 __device__ __forceinline__ void wgmma_fence() {
@@ -993,6 +1051,254 @@ chain_wgmma_kernel(const __grid_constant__ CUtensorMap map_b, const uint8_t* __r
   cluster_sync();   // no block leaves while a peer may still push into it
 }
 
+// ------------------------------------------------------------- accumulate
+
+// Four 8 x 16-byte matrices of shared memory into registers: lane l gives
+// the address of row l % 8 of matrix l / 8, and register j of lane (g, t)
+// gets bytes 4t .. 4t + 3 of row g of matrix j.
+__device__ __forceinline__ void ldmatrix_x4(uint32_t* r, uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(addr) : "memory");
+}
+
+// The probe's change to 4 bytes of A before product i: a XOR int8(i) ...
+__device__ __forceinline__ uint32_t perturb_word(uint32_t w, uint32_t step, std::true_type) {
+  uint32_t r;
+  asm volatile("xor.b32 %0, %1, %2;\n" : "=r"(r) : "r"(w), "r"(step));
+  return r;
+}
+
+// ... or bf16(a + bf16(i)) on both halves, rounded to nearest even from the
+// exact sum (what the f32 sum rounded to bf16 gives: 24 >= 2 x 8 + 2 bits)
+__device__ __forceinline__ uint32_t perturb_word(uint32_t w, uint32_t step, std::false_type) {
+  uint32_t r;
+  asm volatile("add.rn.bf16x2 %0, %1, %2;\n" : "=r"(r) : "r"(w), "r"(step));
+  return r;
+}
+
+// What perturb_word takes for product i: the byte int8(i) in all four
+// places, or bf16(i) (rounded to nearest even past 256) in both halves.
+template <bool INT8>
+__device__ __forceinline__ uint32_t perturb_step(int i) {
+  if constexpr (INT8) {
+    return static_cast<uint32_t>(i & 0xff) * 0x01010101u;
+  } else {
+    const uint32_t h = __bfloat16_as_ushort(__float2bfloat16_rn(static_cast<float>(i)));
+    return h | (h << 16);
+  }
+}
+
+template <bool INT8>
+__device__ __forceinline__ void perturb_frags(uint32_t (&p)[16], const uint32_t (&fa)[16],
+                                              int i) {
+  const uint32_t step = perturb_step<INT8>(i);
+  const std::integral_constant<bool, INT8> kind{};
+#pragma unroll
+  for (int j = 0; j < 16; ++j) p[j] = perturb_word(fa[j], step, kind);
+}
+
+// One product of the loop on the stage: A's fragments perturbed for product
+// i into p (whose last group is over), then four register-A steps against
+// the stage's B, committed as one group.
+template <bool INT8, typename AccT, int NA>
+__device__ __forceinline__ void accum_product(AccT (&acc)[NA], uint32_t (&p)[16],
+                                            const uint32_t (&fa)[16], int i, uint64_t db) {
+  perturb_frags<INT8>(p, fa, i);
+  wgmma_fence();   // the registers of A and the accumulators are written
+#pragma unroll
+  for (int ks = 0; ks < kSlab / 32; ++ks) wgmma_step_rs(acc, p + 4 * ks, db + 2 * ks);
+  wgmma_commit();
+}
+
+// Shared memory of block `rank` of the cluster at this offset, 16 bytes.
+__device__ __forceinline__ uint4 ld_cluster16(uint32_t addr, uint32_t rank) {
+  uint4 v;
+  asm volatile(
+      "{\n.reg .b32 remote;\n"
+      "mapa.shared::cluster.u32 remote, %4, %5;\n"
+      "ld.shared::cluster.v4.u32 {%0, %1, %2, %3}, [remote];\n}\n"
+      : "=r"(v.x), "=r"(v.y), "=r"(v.z), "=r"(v.w) : "r"(addr), "r"(rank) : "memory");
+  return v;
+}
+
+__device__ __forceinline__ uint32_t add_bits(uint32_t x, uint32_t y, std::true_type) {
+  return x + y;   // int32, exact (two's complement)
+}
+
+__device__ __forceinline__ uint32_t add_bits(uint32_t x, uint32_t y, std::false_type) {
+  return __float_as_uint(__fadd_rn(__uint_as_float(x), __uint_as_float(y)));
+}
+
+__device__ __forceinline__ uint32_t to_bits(int v) { return static_cast<uint32_t>(v); }
+__device__ __forceinline__ uint32_t to_bits(float v) { return __float_as_uint(v); }
+__device__ __forceinline__ void from_bits(int& v, uint32_t b) { v = static_cast<int>(b); }
+__device__ __forceinline__ void from_bits(float& v, uint32_t b) { v = __uint_as_float(b); }
+
+// The consumer thread's accumulators, 16 bytes at a time, into the block's
+// ring: word q of every thread side by side.
+template <typename AccT, int NA>
+__device__ __forceinline__ void stage_partial(const AccT (&acc)[NA], uint8_t* ring_ptr, int tid) {
+#pragma unroll
+  for (int q = 0; q < NA / 4; ++q)
+    *reinterpret_cast<uint4*>(ring_ptr + (q * 256 + tid) * 16) =
+        make_uint4(to_bits(acc[4 * q]), to_bits(acc[4 * q + 1]), to_bits(acc[4 * q + 2]),
+                   to_bits(acc[4 * q + 3]));
+}
+
+// The sum of the ks blocks' staged accumulators of this thread's place in
+// the tile, block 0 first, into acc: the same order on every run.
+template <bool INT8, typename AccT, int NA>
+__device__ __forceinline__ void reduce_partials(AccT (&acc)[NA], uint32_t ring, int tid,
+                                                uint32_t ks) {
+  const std::integral_constant<bool, INT8> kind{};
+#pragma unroll
+  for (int q = 0; q < NA / 4; ++q) {
+    const uint32_t off = ring + (q * 256 + tid) * 16;
+    uint4 v = ld_cluster16(off, 0);
+    for (uint32_t r = 1; r < ks; ++r) {
+      const uint4 w = ld_cluster16(off, r);
+      v = make_uint4(add_bits(v.x, w.x, kind), add_bits(v.y, w.y, kind),
+                     add_bits(v.z, w.z, kind), add_bits(v.w, w.w, kind));
+    }
+    from_bits(acc[4 * q], v.x);
+    from_bits(acc[4 * q + 1], v.y);
+    from_bits(acc[4 * q + 2], v.z);
+    from_bits(acc[4 * q + 3], v.w);
+  }
+}
+
+// out (M, N) = sum over i < loop of perturb_i(A) (M, K) x Bt (N, K)^T
+// through the maps of A and Bt (bytes, boxes of 128 x 128 and BN x 128),
+// kslabs slabs of 128 bytes of K; map_out (boxes of 16 rows x 128 bytes) is
+// read only if tma_out.  Blocks run as clusters of ks (1, 2, 4 or 8):
+// cluster c owns tile c (row tile c / n_tiles, column tile c % n_tiles) and
+// block `rank` of it the slabs rank kslabs / ks .. (rank + 1) kslabs / ks - 1.
+// A slab's stage arrives once by TMA and feeds all `loop` products before it
+// is handed back: each consumer warp takes its 16 rows of A into registers
+// with ldmatrix (the 128-byte swizzle applied to the addresses), and for
+// each i makes a perturbed copy of them (two copies in turn, so that the
+// next is made while the last group runs) and runs four register-A wgmma
+// steps on it.  With ks > 1 each block then stages its accumulators in its
+// ring, and block `rank` adds the ks blocks' partials (block 0 first) for
+// the warps rank 8 / ks .. (rank + 1) 8 / ks - 1, whose rows it stores.
+// Dynamic shared memory: Ring<BN>::smem_bytes.
+template <bool INT8, int BN>
+__global__ void __launch_bounds__(kThreads, 1)
+accum_wgmma_kernel(const __grid_constant__ CUtensorMap map_a,
+                   const __grid_constant__ CUtensorMap map_b,
+                   const __grid_constant__ CUtensorMap map_out, uint8_t* __restrict__ out,
+                   int M, int N, int kslabs, int n_tiles, int loop, int tma_out) {
+  constexpr int STAGES = Ring<BN>::stages, STAGE_BYTES = Ring<BN>::stage_bytes;
+  static_assert(BN <= 128, "the accumulators, A and its two perturbed copies fit 168 registers");
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t raw = static_cast<uint32_t>(__cvta_generic_to_shared(smem_raw));
+  const uint32_t ring = (raw + 1023u) & ~1023u;   // the swizzle repeats every 1024 bytes
+  uint8_t* ring_ptr = smem_raw + (ring - raw);
+  uint8_t* stage_out = ring_ptr + kRingBytes;
+  const uint32_t full = ring + kRingBytes + kStageOutBytes;   // STAGES barriers, then
+  const uint32_t empty = full + STAGES * 8;                   // STAGES more
+  const uint32_t rank = cluster_rank(), ks = cluster_size();
+  const int tile = blockIdx.x / static_cast<int>(ks);
+  const int m0 = (tile / n_tiles) * kBM, n0 = (tile % n_tiles) * BN;
+  const int s0 = static_cast<int>(rank * kslabs / ks);
+  const int s1 = static_cast<int>((rank + 1) * kslabs / ks);
+
+  if (threadIdx.x == 0) {
+#pragma unroll
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(full + s * 8, 1);    // the producer's arrive with the byte count
+      mbar_init(empty + s * 8, 8);   // lane 0 of each consumer warp
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  if (warp >= 8) {
+    // ------------------------------------------------------------ producer
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n");
+    if (threadIdx.x == 256) {
+      int stage = 0;
+      uint32_t phase = 0;
+      for (int s = s0; s < s1; ++s) {
+        mbar_wait(empty + stage * 8, phase ^ 1u);   // the consumers are done with the stage
+        const uint32_t bar = full + stage * 8, dst = ring + stage * STAGE_BYTES;
+        mbar_expect_tx(bar, STAGE_BYTES);   // whole boxes, zero fill included
+        tma_load(dst, &map_a, s * kSlab, m0, bar);
+        tma_load(dst + kABytes, &map_b, s * kSlab, n0, bar);
+        if (++stage == STAGES) {
+          stage = 0;
+          phase ^= 1u;
+        }
+      }
+    }
+    __syncwarp();
+    if (ks > 1) {   // the exchange of the partials: staged, then read
+      cluster_sync();
+      cluster_sync();
+    }
+  } else {
+    // ----------------------------------------------------------- consumers
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n");
+    const int wg = warp >> 2;
+    typename std::conditional<INT8, int, float>::type acc[BN / 2];
+#pragma unroll
+    for (int j = 0; j < BN / 2; ++j) acc[j] = 0;
+    pin(acc);
+    // the row of the stage and the half of a 32-byte step whose 16 bytes this
+    // lane's ldmatrix address names
+    const int lrow = wg * 64 + (warp & 3) * 16 + (lane & 7) + ((lane >> 3) & 1) * 8;
+    const int half = lane >> 4;
+    uint32_t fa[16], p0[16], p1[16];
+    int stage = 0;
+    uint32_t phase = 0;
+    for (int s = s0; s < s1; ++s) {
+      mbar_wait(full + stage * 8, phase);
+      const uint32_t base = ring + stage * STAGE_BYTES;
+#pragma unroll
+      for (int k = 0; k < kSlab / 32; ++k)
+        ldmatrix_x4(fa + 4 * k, base + lrow * kSlab + (((2 * k + half) ^ (lrow & 7)) << 4));
+#pragma unroll
+      for (int j = 0; j < 16; ++j) p0[j] = p1[j] = fa[j];
+      const uint64_t db = smem_desc(base + kABytes);
+      int i = 0;
+      for (; i + 1 < loop; i += 2) {   // at most two groups in flight, one on each copy
+        accum_product<INT8>(acc, p0, fa, i, db);
+        wgmma_wait<1>();   // the group on p1 is over
+        pin(acc);
+        accum_product<INT8>(acc, p1, fa, i + 1, db);
+        wgmma_wait<1>();   // the group on p0 is over
+        pin(acc);
+      }
+      if (i < loop) accum_product<INT8>(acc, p0, fa, i, db);
+      wgmma_wait<0>();
+      pin(acc);
+      if (lane == 0) mbar_arrive(empty + stage * 8);
+      if (++stage == STAGES) {
+        stage = 0;
+        phase ^= 1u;
+      }
+    }
+    const int per = 8 / static_cast<int>(ks);   // warps whose rows this block stores
+    const bool owner = warp / per == static_cast<int>(rank);
+    if (ks > 1) {
+      asm volatile("bar.sync 1, 256;\n" ::: "memory");   // no consumer reads the ring any more
+      stage_partial(acc, ring_ptr, threadIdx.x);
+      cluster_sync();   // every block's partials are staged
+      if (owner) reduce_partials<INT8>(acc, ring, threadIdx.x, ks);
+      cluster_sync();   // no block's ring is read any more
+    }
+    if (owner) {
+      uint32_t stores = 0;
+      store_tile<BN, EPI_RAW>(acc, stage_out + warp * kWarpOutBytes, &map_out, out, nullptr,
+                              nullptr, static_cast<long long>(m0) + warp * 16, n0, M, N,
+                              tma_out != 0, stores);
+      // shared memory outlives the stores that still read it
+      if (tma_out && lane == 0) tma_store_wait_read<0>();
+    }
+  }
+}
+
 typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
@@ -1156,6 +1462,62 @@ int chain_dispatch(const void* a, const void* bt, void* out, int is_int8, int m,
                    : launch_chain<false, 256>(a, bt, out, m, cs, loop, scale, fit, stream);
 }
 
+// accum_wgmma_kernel<INT8, BN> on clusters of ks blocks, one cluster a tile.
+// With fit non-null nothing is launched: *fit gets the number of such
+// clusters the device runs at once.
+template <bool INT8, int BN>
+int launch_accum(const void* a, const void* bt, void* out, int m, int n, long long row_bytes,
+                 int loop, int ks, int* fit, cudaStream_t stream) {
+  auto kernel = accum_wgmma_kernel<INT8, BN>;
+  constexpr int smem = Ring<BN>::smem_bytes;
+  cudaError_t cerr = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                          smem);
+  if (cerr != cudaSuccess) return static_cast<int>(cerr);
+  const long long n_tiles = (n + BN - 1) / BN;
+  const long long tiles = (m + kBM - 1) / kBM * n_tiles;
+  if (tiles * ks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
+  cudaLaunchAttribute attr;
+  attr.id = cudaLaunchAttributeClusterDimension;
+  attr.val.clusterDim.x = ks;
+  attr.val.clusterDim.y = 1;
+  attr.val.clusterDim.z = 1;
+  cudaLaunchConfig_t config = {};
+  config.gridDim = dim3(static_cast<unsigned>(fit ? ks : tiles * ks));
+  config.blockDim = dim3(kThreads);
+  config.dynamicSmemBytes = smem;
+  config.stream = stream;
+  config.attrs = &attr;
+  config.numAttrs = 1;
+  if (fit) {
+    *fit = 0;
+    cerr = cudaOccupancyMaxActiveClusters(fit, kernel, &config);
+    if (cerr != cudaSuccess) cudaGetLastError();   // a refused size leaves no error behind
+    return static_cast<int>(cerr);
+  }
+  const int tma_out = n % 4 == 0 && reinterpret_cast<uintptr_t>(out) % 16 == 0;
+  CUtensorMap map_a, map_b, map_out = {};
+  int err = encode_map(&map_a, a, m, row_bytes, kBM);
+  if (err == 0) err = encode_map(&map_b, bt, n, row_bytes, BN);
+  if (err == 0 && tma_out) err = encode_map(&map_out, out, m, 4LL * n, 16);
+  if (err != 0) return err;
+  cerr = cudaLaunchKernelEx(&config, kernel, map_a, map_b, map_out, static_cast<uint8_t*>(out),
+                            m, n, static_cast<int>((row_bytes + kSlab - 1) / kSlab),
+                            static_cast<int>(n_tiles), loop, tma_out);
+  return static_cast<int>(cerr != cudaSuccess ? cerr : cudaGetLastError());
+}
+
+template <bool INT8>
+int accum_dispatch(const void* a, const void* bt, void* out, int m, int n, long long row_bytes,
+                   int loop, int bn, int ks, int* fit, cudaStream_t stream) {
+  if (m <= 0 || n <= 0 || loop < 1 || (ks != 1 && ks != 2 && ks != 4 && ks != 8))
+    return static_cast<int>(cudaErrorInvalidValue);
+  switch (bn) {   // 256 would need 176 registers a consumer thread: ptxas has 168
+    case 64: return launch_accum<INT8, 64>(a, bt, out, m, n, row_bytes, loop, ks, fit, stream);
+    case 128: return launch_accum<INT8, 128>(a, bt, out, m, n, row_bytes, loop, ks, fit, stream);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
 bool aligned16(const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; }
 
 }  // namespace
@@ -1223,4 +1585,29 @@ extern "C" int ioudet_wgmma_chain(const void* a, const void* bt, void* out, int 
   if (a == nullptr || !aligned16(a) || !aligned16(bt) || !aligned16(out))
     return static_cast<int>(cudaErrorInvalidValue);
   return chain_dispatch(a, bt, out, is_int8, m, ns, cs, loop, scale, nullptr, stream);
+}
+
+// *clusters = how many clusters of ks blocks of the accumulate kernel (int8
+// if is_int8 else bf16, tiles bn = 64 or 128 wide) the current device
+// runs at once; nothing is launched.
+extern "C" int ioudet_accum_fit(int is_int8, int bn, int ks, void* clusters,
+                                cudaStream_t stream) {
+  if (clusters == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+  int* fit = static_cast<int*>(clusters);
+  return is_int8
+             ? accum_dispatch<true>(nullptr, nullptr, nullptr, 1, 1, kSlab, 1, bn, ks, fit, stream)
+             : accum_dispatch<false>(nullptr, nullptr, nullptr, 1, 1, kSlab, 1, bn, ks, fit, stream);
+}
+
+// c (m, n) int32 / f32 = sum over i < loop of perturb_i(a) (m, k) x bt (n, k)^T,
+// perturb_i(a) = a XOR int8(i) (int8 operands if is_int8) or bf16(a + bf16(i))
+// (bf16); tiles 128 x bn (64 or 128), K split over clusters of ks blocks
+// (1, 2, 4 or 8).  Row pitch and bases must be multiples of 16 bytes.
+extern "C" int ioudet_wgmma_accum(const void* a, const void* bt, void* c, int is_int8, int m,
+                                  int n, int k, int loop, int bn, int ks, cudaStream_t stream) {
+  const long long row_bytes = static_cast<long long>(k) * (is_int8 ? 1 : 2);
+  if (k <= 0 || row_bytes % 16 != 0 || !aligned16(a) || !aligned16(bt) || c == nullptr)
+    return static_cast<int>(cudaErrorInvalidValue);
+  return is_int8 ? accum_dispatch<true>(a, bt, c, m, n, row_bytes, loop, bn, ks, nullptr, stream)
+                 : accum_dispatch<false>(a, bt, c, m, n, row_bytes, loop, bn, ks, nullptr, stream);
 }

@@ -23,7 +23,13 @@ tensor-core probes of ``ioudet``'s ``tools/``:
     ``chain_matmul_mma_sync`` runs the ``mma.sync`` kernel;
   * ``accum_matmul`` (P2, ``probe_mxu_rate2._call``): ``loop`` independent
     products summed, ``acc += (a XOR int8(i)) @ b`` or
-    ``acc += bf16(a + bf16(i)) @ b``.
+    ``acc += bf16(a + bf16(i)) @ b``, on the ``wgmma`` accumulate kernel of
+    ``wgmma_kernel.cu``: each staged slab of K feeds all ``loop`` products,
+    A perturbed in registers, K split over a cluster where the tiles alone
+    would leave SMs idle (``accum_plan`` decides from the shape and what the
+    card fits; ``accum_operands`` pads K to a 16-byte pitch first).
+    ``accum_matmul_mma_sync`` runs the ``mma.sync`` kernel of
+    ``mma_kernel.cu``.
 
 Every function takes the second operand as ``b_t`` of shape (N, K), K
 contiguous, which is what the tensor-core mma wants and what a
@@ -39,8 +45,9 @@ multiply with TF32 off, rounding where the kernels round.  Launches are
 counted per kernel, operand type and epilogue in ``_build.launches``:
 ``wgmma_matmul_*`` and ``wgmma_dequant_s8`` for the TMA-fed ``wgmma``
 kernel, ``wgmma_unaligned_*`` for its form fed through registers,
-``wgmma_chain_*`` for the cluster chain, and ``tiled_matmul_*``,
-``chain_matmul_*``, ``accum_matmul_*`` for the ``mma.sync`` kernels.
+``wgmma_chain_*`` for the cluster chain, ``wgmma_accum_*`` for the
+accumulate kernel, and ``tiled_matmul_*``, ``chain_matmul_*``,
+``accum_matmul_*`` for the ``mma.sync`` kernels.
 """
 
 from __future__ import annotations
@@ -66,10 +73,12 @@ WGMMA_LIBRARY = _build.KernelLibrary(
      "ioudet_wgmma_matmul_dequant": [PTR] * 5 + [I32] * 6,
      "ioudet_wgmma_matmul_unaligned": [PTR, PTR, PTR] + [I32] * 6,
      "ioudet_chain_fit": [I32] * 3 + [PTR],
-     "ioudet_wgmma_chain": [PTR, PTR, PTR] + [I32] * 5 + [F32]},
+     "ioudet_wgmma_chain": [PTR, PTR, PTR] + [I32] * 5 + [F32],
+     "ioudet_accum_fit": [I32] * 3 + [PTR],
+     "ioudet_wgmma_accum": [PTR, PTR, PTR] + [I32] * 7},
     kernels=("wgmma_matmul_s8", "wgmma_matmul_bf16", "wgmma_dequant_s8",
              "wgmma_unaligned_s8", "wgmma_unaligned_bf16", "wgmma_chain_s8",
-             "wgmma_chain_bf16"))
+             "wgmma_chain_bf16", "wgmma_accum_s8", "wgmma_accum_bf16"))
 
 H100_SMS = 132                # the default of the pure tile rules below
 TILE_M = 128                  # kBM in both sources
@@ -81,6 +90,10 @@ WGMMA_BAND = 64               # kBand of wgmma_kernel.cu: rows of y one cluster 
 WGMMA_SLICES = (128, 256)     # columns of y a block of the cluster owns
 MAX_CLUSTER = 16              # blocks of a cluster, with the non-portable size allowed
 PLAIN_ROWS = 1 << 18          # rows per float64 product of the plain int8 form
+SLAB = 128                    # kSlab of wgmma_kernel.cu: bytes of K a stage holds
+ACCUM_TILES = (128, 64)       # tile widths of the accumulate kernel, widest first
+ACCUM_SPLITS = (1, 2, 4, 8)   # blocks of its clusters, each on a share of K's slabs
+ACCUM_MIN_SLABS = 4           # slabs a block keeps at least where K is split
 
 
 def _suffix(dtype: torch.dtype) -> str:
@@ -277,14 +290,108 @@ def tiled_matmul_dequant(a: torch.Tensor, b_t: torch.Tensor, scale: torch.Tensor
     return out
 
 
-def accum_matmul(a: torch.Tensor, b_t: torch.Tensor, loop: int) -> torch.Tensor:
-    """sum over i < loop of perturbed_i(a) (M, K) x b_t (N, K)^T -> (M, N)
-    int32 / f32, every product computed."""
+def accum_operands(a: torch.Tensor, b_t: torch.Tensor) -> tuple:
+    """a and b_t as the accumulate kernel takes them: K zero-padded to a row
+    pitch that is a multiple of 16 bytes, on fresh 16-byte aligned storage
+    (one ``F.pad`` copy each), or the operands themselves where both already
+    are so.  A padded column of a becomes ``int8(i)`` or ``bf16(i)`` after
+    the perturbation, but meets a zero column of b_t: the sum is unchanged."""
+    pad = -a.shape[1] % (TMA_ALIGN // a.element_size())
+    if pad == 0 and a.data_ptr() % TMA_ALIGN == 0 and b_t.data_ptr() % TMA_ALIGN == 0:
+        return a, b_t
+    return torch.nn.functional.pad(a, (0, pad)), torch.nn.functional.pad(b_t, (0, pad))
+
+
+def accum_plan(m: int, n: int, row_bytes: int, sms: int, fits: dict) -> tuple:
+    """(tile width, cluster size) of the accumulate kernel for a (m, K) x
+    b_t (n, K)^T whose row pitch is ``row_bytes`` (a multiple of 16).
+
+    A cluster of ks blocks owns a 128 x bn tile, each block a ks-th of K's
+    slabs, all ``loop`` products of them.  ``fits`` maps (bn, ks) to how
+    many such clusters the card runs at once (at most sms / ks); tiles
+    beyond that run in further waves.  A block's time goes as bn x its
+    slabs, so the plan takes the least waves x bn x ceil(slabs / ks), then
+    the widest tile, then the smallest cluster (ties are common: 64 tiles x 2 of 128 columns and 128
+    tiles of 64 do the same work a block).  K is split only where each block
+    keeps ACCUM_MIN_SLABS slabs, so that the exchange of the partial sums
+    stays small against the products: small shapes get ks = 1.  Raises
+    ValueError on a bad shape or if nothing fits the card."""
+    if m < 1 or n < 1 or row_bytes < 1 or row_bytes % TMA_ALIGN:
+        raise ValueError(f"({m}, {n}) with rows of {row_bytes} bytes: the accumulate kernel "
+                         f"needs a positive shape and a row pitch that is a multiple of "
+                         f"{TMA_ALIGN} bytes")
+    kslabs = -(-row_bytes // SLAB)
+    options = []
+    for bn in ACCUM_TILES:
+        tiles = -(-m // TILE_M) * -(-n // bn)
+        for ks in ACCUM_SPLITS:
+            at_once = min(fits.get((bn, ks), 0), sms // ks)
+            if (ks == 1 or kslabs >= ks * ACCUM_MIN_SLABS) and at_once > 0:
+                waves = -(-tiles // at_once)
+                options.append(((waves * bn * -(-kslabs // ks), -bn, ks), (bn, ks)))
+    if not options:
+        raise ValueError(f"no cluster of the accumulate kernel fits the card (fits {fits})")
+    return min(options)[1]
+
+
+def accum_sms(m: int, n: int, plan: tuple, fits: dict, sms: int = H100_SMS) -> int:
+    """SMs the accumulate kernel's first wave takes under ``plan``."""
+    bn, ks = plan
+    tiles = -(-m // TILE_M) * -(-n // bn)
+    return min(tiles, fits[plan], sms // ks) * ks
+
+
+_ACCUM_FITS: dict = {}
+
+
+def accum_fits(device, dtype: torch.dtype) -> dict:
+    """(tile width, cluster size) -> clusters of the accumulate kernel the
+    device runs at once, asked of the card once per (device, type, option)."""
+    lib = WGMMA_LIBRARY.build()
+    fits = {}
+    for bn in ACCUM_TILES:
+        for ks in ACCUM_SPLITS:
+            key = (torch.device(device).index, dtype, bn, ks)
+            if key not in _ACCUM_FITS:
+                count = ctypes.c_int(0)
+                err = lib.ioudet_accum_fit(int(dtype == torch.int8), bn, ks,
+                                           ctypes.addressof(count), None)
+                _ACCUM_FITS[key] = count.value if err == 0 else 0
+            fits[(bn, ks)] = _ACCUM_FITS[key]
+    return fits
+
+
+def _check_accum(a: torch.Tensor, b_t: torch.Tensor, loop: int) -> None:
     _check_operands(a, b_t)
     if loop < 1:
         raise ValueError(f"loop must be at least 1, got {loop}")
+
+
+def accum_matmul(a: torch.Tensor, b_t: torch.Tensor, loop: int) -> torch.Tensor:
+    """sum over i < loop of perturbed_i(a) (M, K) x b_t (N, K)^T -> (M, N)
+    int32 / f32, every product computed.  CUDA operands go to the wgmma
+    accumulate kernel (K padded to a 16-byte pitch where it is not one)."""
+    _check_accum(a, b_t, loop)
     if a.device.type == "cpu":
         return accum_matmul_plain(a, b_t, loop)
+    m, n = a.shape[0], b_t.shape[0]
+    a, b_t = accum_operands(a, b_t)
+    k = a.shape[1]
+    sms = num_sms(a.device)
+    bn, ks = accum_plan(m, n, k * a.element_size(), sms, accum_fits(a.device, a.dtype))
+    out = torch.empty(m, n, dtype=_acc_dtype(a.dtype), device=a.device)
+    _build.launch(WGMMA_LIBRARY.build().ioudet_wgmma_accum, f"wgmma_accum_{_suffix(a.dtype)}",
+                  a.data_ptr(), b_t.data_ptr(), out.data_ptr(), int(a.dtype == torch.int8),
+                  m, n, k, loop, bn, ks)
+    return out
+
+
+def accum_matmul_mma_sync(a: torch.Tensor, b_t: torch.Tensor, loop: int) -> torch.Tensor:
+    """``accum_matmul`` through the mma.sync kernel of mma_kernel.cu (every
+    product streams its tile's rows of A and B again): CUDA operands only."""
+    _check_accum(a, b_t, loop)
+    if a.device.type != "cuda":
+        raise ValueError(f"the mma.sync kernel needs CUDA operands, got {a.device}")
     return _launch_tiled("accum_matmul", a, b_t, loop, 1)
 
 

@@ -5,8 +5,9 @@
     python -m ioudet_torch.tools.probe_tensor_cores
 
 Four questions, each asked in int8 (-> int32) and in bf16 (-> f32) of the
-hand-written kernels of ``ioudet_torch/csrc/wgmma_kernel.cu`` (``wgmma``) and
-``ioudet_torch/csrc/mma_kernel.cu`` (``mma.sync``, the accumulate question):
+hand-written ``wgmma`` kernels of ``ioudet_torch/csrc/wgmma_kernel.cu`` (the
+``mma.sync`` kernels of ``ioudet_torch/csrc/mma_kernel.cu`` that they
+replaced are not launched here):
 
   * ``chain``: 64 dependent products (512, 2048) x (2048, 2048) with the
     requant inside the kernel, 8 kernels chained: the rate of a latency
@@ -14,7 +15,10 @@ hand-written kernels of ``ioudet_torch/csrc/wgmma_kernel.cu`` (``wgmma``) and
     kernel: a cluster a band of 64 rows, its blocks on slices of the columns,
     y passed between them through distributed shared memory;
   * ``accum``: 64 independent products of that shape summed in the kernel,
-    8 kernels: the sustainable rate;
+    8 kernels: the sustainable rate.  It runs on the ``wgmma`` accumulate
+    kernel: each staged slab of K feeds all 64 products, A perturbed in
+    registers, K split over clusters of blocks that add their partial sums
+    through distributed shared memory;
   * ``tiled``: one 4096^3 product, 16 chained through a requantization in
     plain torch (``// 512`` and clip for int8, ``* 0.01`` for bf16), which
     is inside the timed region as it is in ``ioudet``'s program.  Its row

@@ -24,7 +24,17 @@ through distributed shared memory (and the bytes the stages wait for, and the
 pusher's wait for free stages), without
 the pusher's wait for its own consumers' next y at each step, and with all
 three cut ("b only": the TMA stream of the block's slice of b and the
-handshake that frees the stages).  ``--baseline`` names other versions of the source with
+handshake that frees the stages).  The accumulate kernel (P2, 64 perturbed
+products at (512, 2048) x (2048, 2048)) is timed whole, without its
+``wgmma`` steps, without its perturbation (each product reuses the copy of
+A), without the exchange of the partial sums between the blocks of a
+cluster (each block stores its own), and with the loads only (no
+``ldmatrix``, products, exchange or stores: the TMA stream of each block's
+share of K and the handshake), and whole at every (tile width, cluster
+size) the card fits.  The wrapper's plan is also timed in alternating pairs
+against ``ACCUM_RIVAL``, the unsplit plan its cost model ties with at the
+probe's shape (plan, rival, rival, plan; ``ACCUM_PAIRS`` times), so that a
+difference between them can be told from the noise.  ``--baseline`` names other versions of the source with
 the same C interface (an earlier commit's, say), which are built and timed in
 the same turns under their file names.  The result is one JSON object of times in ms
 with the card's name and power limit.
@@ -58,10 +68,26 @@ CHAIN_PUSH = ("        mbar_add_tx(bar, kYSlab);   // y's slab, which its owner 
               "// every block's stage x is free\n")
 CHAIN_WAIT = ("        if (s > 0) mbar_wait(written, (s - 1) & 1);   "
               "// y of step s is in this block's slice\n")
+ACCUM_MMA = ("  for (int ks = 0; ks < kSlab / 32; ++ks) "
+             "wgmma_step_rs(acc, p + 4 * ks, db + 2 * ks);\n")
+ACCUM_PERTURB = "  perturb_frags<INT8>(p, fa, i);\n"
+ACCUM_EXCHANGE = ("      stage_partial(acc, ring_ptr, threadIdx.x);\n",
+                  "      if (owner) reduce_partials<INT8>(acc, ring, threadIdx.x, ks);\n")
+ACCUM_LDMATRIX = ("        ldmatrix_x4(fa + 4 * k, base + lrow * kSlab + "
+                  "(((2 * k + half) ^ (lrow & 7)) << 4));\n")
+ACCUM_STORE = ("      store_tile<BN, EPI_RAW>(acc, stage_out + warp * kWarpOutBytes, &map_out, out, "
+               "nullptr,\n"
+               "                              nullptr, static_cast<long long>(m0) + warp * 16, "
+               "n0, M, N,\n"
+               "                              tma_out != 0, stores);\n")
 CUTS = {"whole": (), "no_store": (STORE_CALL,), "no_mma": (MMA_LINE,),
         "loads_only": (STORE_CALL, MMA_LINE)}
 CHAIN_CUTS = {"chain_no_mma": (CHAIN_MMA,), "chain_no_push": CHAIN_PUSH,
               "chain_no_wait": (CHAIN_WAIT,), "chain_b_only": (CHAIN_MMA, *CHAIN_PUSH, CHAIN_WAIT)}
+ACCUM_CUTS = {"accum_no_mma": (ACCUM_MMA,), "accum_no_perturb": (ACCUM_PERTURB,),
+              "accum_no_exchange": ACCUM_EXCHANGE,
+              "accum_loads_only": (ACCUM_MMA, ACCUM_PERTURB, *ACCUM_EXCHANGE, ACCUM_LDMATRIX,
+                                   ACCUM_STORE)}
 # (name, M, K, N, operand type, dequantize to bf16)
 SHAPES = (("4096^3 int8", 4096, 4096, 4096, torch.int8, False),
           ("4096^3 bf16", 4096, 4096, 4096, torch.bfloat16, False),
@@ -71,6 +97,9 @@ SHAPES = (("4096^3 int8", 4096, 4096, 4096, torch.int8, False),
           ("layer1 1x1, dequantized", 1118208, 64, 256, torch.int8, True),
           ("tower conv at P3, dequantized", 279552, 2304, 256, torch.int8, True))
 REPS = 10
+ACCUM_RIVAL = (64, 1)   # (tile width, cluster size): no split of K, 128 tiles
+ACCUM_PAIRS = 8
+ACCUM_PAIR_REPS = 50
 HOLD_CYCLES = 5_000_000   # ~2.5 ms at 2 GHz
 
 
@@ -79,7 +108,7 @@ def variants(baselines: Sequence[str] = ()) -> dict:
     of each of the ``baselines`` as it is."""
     source = mma_cuda.WGMMA_LIBRARY.source.read_text()
     texts = {}
-    for name, cuts in {**CUTS, **CHAIN_CUTS}.items():
+    for name, cuts in {**CUTS, **CHAIN_CUTS, **ACCUM_CUTS}.items():
         text = source
         for cut in cuts:
             if text.count(cut) != 1:
@@ -157,12 +186,13 @@ def main(argv=()) -> int:
             if err != 0:
                 raise RuntimeError(f"{name}: launch failed: {err}")
 
-        tiled = [v for v in libs if v not in CHAIN_CUTS]
+        tiled = [v for v in libs if v not in CHAIN_CUTS and v not in ACCUM_CUTS]
         out[name] = dict(in_turns(libs, tiled, lambda lib: call(lib)), tile_width=bn)
         if not aligned:
             out[name].update(padded_parts(libs["whole"].build(), a, b_t, res, sms, stream))
         del a, b_t, res
     out.update(chain_parts(libs, sms, stream, gen, [Path(b).stem for b in baselines]))
+    out.update(accum_parts(libs, sms, stream, gen))
     print(json.dumps(out, indent=1))
     return 0
 
@@ -250,6 +280,56 @@ def chain_parts(libs: dict, sms: int, stream, gen, baselines: Sequence[str] = ()
                  for c, n in mma_cuda.chain_options(PROBE_K) if fits.get(c, 0) > 0}
         out[key] = dict(in_turns(libs, names, call), cluster=cs, slice=ns, plans=plans,
                         fits={str(c): f for c, f in fits.items()}, sms=sms)
+        del a, b_t, res
+    return out
+
+
+def accum_parts(libs: dict, sms: int, stream, gen) -> dict:
+    """The accumulate kernel at the probe's (512, 2048) x (2048, 2048), loop
+    64, whole and with each of ACCUM_CUTS, in int8 and bf16, at the plan the
+    wrapper takes; then whole at every plan the card fits, and the plan
+    against ACCUM_RIVAL in alternating pairs (``pairs``: the times of each in
+    order, and how many pairs the plan won)."""
+    from .probe_tensor_cores import LOOP, PROBE_K, PROBE_M, PROBE_N
+    dev = torch.device("cuda")
+    out = {}
+    names = ["whole"] + list(ACCUM_CUTS)
+    for dtype in (torch.int8, torch.bfloat16):
+        int8 = dtype == torch.int8
+        if int8:
+            a = torch.randint(-127, 128, (PROBE_M, PROBE_K), dtype=dtype, device=dev, generator=gen)
+            b_t = torch.randint(-127, 128, (PROBE_N, PROBE_K), dtype=dtype, device=dev,
+                                generator=gen)
+        else:
+            a = torch.randn(PROBE_M, PROBE_K, device=dev, generator=gen).to(dtype)
+            b_t = (torch.randn(PROBE_N, PROBE_K, device=dev, generator=gen) * 0.02).to(dtype)
+        res = torch.empty(PROBE_M, PROBE_N, device=dev,
+                          dtype=torch.int32 if int8 else torch.float32)
+        fits = mma_cuda.accum_fits(dev, dtype)
+        plan = mma_cuda.accum_plan(PROBE_M, PROBE_N, PROBE_K * a.element_size(), sms, fits)
+
+        def call(lib, plan=plan):
+            err = lib.ioudet_wgmma_accum(a.data_ptr(), b_t.data_ptr(), res.data_ptr(), int(int8),
+                                         PROBE_M, PROBE_N, PROBE_K, LOOP, *plan, stream)
+            if err != 0:
+                raise RuntimeError(f"accumulate: launch failed: {err}")
+
+        key = (f"accum {'int8' if int8 else 'bf16'} ({PROBE_M}, {PROBE_K}) x ({PROBE_K}, "
+               f"{PROBE_N}) loop {LOOP}")
+        whole = libs["whole"].build()
+        plans = {f"{bn} x {ks}": event_ms(lambda p=(bn, ks): call(whole, p))
+                 for (bn, ks), f in fits.items() if f > 0}
+        runs = {plan: [], ACCUM_RIVAL: []}
+        for _ in range(ACCUM_PAIRS):
+            for p in (plan, ACCUM_RIVAL, ACCUM_RIVAL, plan):
+                runs[p].append(event_ms(lambda p=p: call(whole, p), ACCUM_PAIR_REPS))
+        mine, rival = runs[plan], runs[ACCUM_RIVAL]
+        won = sum(mine[j] + mine[j + 1] < rival[j] + rival[j + 1] for j in range(0, len(mine), 2))
+        pairs = {f"{bn} x {ks}": t for (bn, ks), t in runs.items()}
+        out[key] = dict(in_turns(libs, names, call), tile_width=plan[0], cluster=plan[1],
+                        pairs=dict(pairs, plan_won=won, of=ACCUM_PAIRS),
+                        sms_used=mma_cuda.accum_sms(PROBE_M, PROBE_N, plan, fits, sms),
+                        plans=plans, fits={f"{bn} x {ks}": f for (bn, ks), f in fits.items()})
         del a, b_t, res
     return out
 

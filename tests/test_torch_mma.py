@@ -125,7 +125,7 @@ def test_chain_matmul_int8_long_chain_saturates_and_matches(monkeypatch):
     assert (np.abs(got.numpy()) == 127).any()
 
 
-@pytest.mark.parametrize("loop", [1, 3, 9])
+@pytest.mark.parametrize("loop", [1, 3, 9, 64])
 @pytest.mark.parametrize("kind", ["int8", "bfloat16"])
 @pytest.mark.parametrize("shape", SHAPES)
 def test_accum_matmul_matches_pallas_body(monkeypatch, kind, shape, loop):
@@ -199,7 +199,8 @@ def test_cpu_calls_count_no_launch():
 
 
 LAUNCH_KEYS = [f"{k}_{t}" for k in ("tiled_matmul", "chain_matmul", "accum_matmul",
-                                    "wgmma_matmul", "wgmma_unaligned", "wgmma_chain")
+                                    "wgmma_matmul", "wgmma_unaligned", "wgmma_chain",
+                                    "wgmma_accum")
                for t in ("s8", "bf16")] + ["wgmma_dequant_s8"]
 
 
@@ -235,6 +236,16 @@ LAUNCH_KEYS = [f"{k}_{t}" for k in ("tiled_matmul", "chain_matmul", "accum_matmu
                                            torch.ones(64, 64, dtype=torch.int8), 1),   # CPU
     lambda: mma_cuda.chain_matmul(torch.ones(4, 128, dtype=torch.int8),
                                   torch.ones(128, 128, dtype=torch.int8), -1),         # loop < 0
+    lambda: mma_cuda.accum_matmul(torch.ones(4, 8, dtype=torch.int8),
+                                  torch.ones(4, 8, dtype=torch.int8), -1),             # loop < 1
+    lambda: mma_cuda.accum_matmul(torch.ones(4, 8, dtype=torch.bfloat16),
+                                  torch.ones(4, 8, dtype=torch.int8), 1),              # mixed
+    lambda: mma_cuda.accum_matmul(torch.ones(4, 8, dtype=torch.int8, device="meta"),
+                                  torch.ones(4, 8, dtype=torch.int8, device="meta"), 1),  # meta
+    lambda: mma_cuda.accum_matmul_mma_sync(torch.ones(4, 16, dtype=torch.int8),
+                                           torch.ones(4, 16, dtype=torch.int8), 1),    # CPU
+    lambda: mma_cuda.accum_matmul_mma_sync(torch.ones(4, 16, dtype=torch.int8),
+                                           torch.ones(4, 16, dtype=torch.int8), 0),    # loop 0
 ])
 def test_wrappers_refuse_bad_operands(call):
     with pytest.raises(ValueError):
@@ -350,13 +361,16 @@ def test_dequant_plain_matches_ioudet_arithmetic(shape, out, bias):
 
 
 @pytest.mark.parametrize("name", ["no_store", "no_mma", "loads_only", "chain_no_mma",
-                                  "chain_no_push", "chain_no_wait", "chain_b_only"])
+                                  "chain_no_push", "chain_no_wait", "chain_b_only",
+                                  "accum_no_mma", "accum_no_perturb", "accum_no_exchange",
+                                  "accum_loads_only"])
 def test_parts_probe_finds_its_lines_in_the_kernel_source(name):
     """The probe of the wgmma kernels' parts cuts whole lines out of the
     kernels' source: each must be there exactly once."""
     from ioudet_torch.tools import probe_wgmma_parts
     source = mma_cuda.WGMMA_LIBRARY.source.read_text()
-    cuts = {**probe_wgmma_parts.CUTS, **probe_wgmma_parts.CHAIN_CUTS}[name]
+    cuts = {**probe_wgmma_parts.CUTS, **probe_wgmma_parts.CHAIN_CUTS,
+            **probe_wgmma_parts.ACCUM_CUTS}[name]
     assert cuts
     for cut in cuts:
         assert source.count(cut) == 1
@@ -374,6 +388,109 @@ def test_parts_probe_finds_its_lines_in_the_kernel_source(name):
     # the chain: y's slabs pushed to the cluster's blocks, clusters of up to 16
     "cp.async.bulk.shared::cluster.shared::cta.mbarrier::complete_tx::bytes",
     "mbarrier.expect_tx.relaxed", "cudaFuncAttributeNonPortableClusterSizeAllowed",
-    "%cluster_nctarank"])
+    "%cluster_nctarank",
+    # the accumulate: A perturbed in registers for register-A wgmma, partial
+    # sums added through distributed shared memory
+    'WGMMA_STEP_RS("wgmma.mma_async.sync.aligned.m64n128k32.s32.s8.s8"',
+    'WGMMA_STEP_RS("wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16"',
+    "ldmatrix.sync.aligned.m8n8.x4.shared.b16", "xor.b32", "add.rn.bf16x2",
+    "ld.shared::cluster.v4.u32", 'extern "C" int ioudet_wgmma_accum(',
+    'extern "C" int ioudet_accum_fit('])
 def test_wgmma_source_is_built_from_the_hopper_parts(needle):
     assert needle in mma_cuda.WGMMA_LIBRARY.source.read_text()
+
+
+@pytest.mark.parametrize("entry", ["ioudet_wgmma_accum", "ioudet_accum_fit"])
+def test_wgmma_library_binds_the_accumulate_entries(entry):
+    assert entry in mma_cuda.WGMMA_LIBRARY.functions
+
+
+# clusters of the accumulate kernel an H100 runs at once, by (tile width,
+# cluster size), as the card answered cudaOccupancyMaxActiveClusters
+H100_ACCUM_FITS = {(bn, ks): f for bn in (128, 64)
+                   for ks, f in ((1, 132), (2, 66), (4, 30), (8, 15))}
+
+
+@pytest.mark.parametrize("m,n,row_bytes,fits,plan", [
+    (512, 2048, 2048, H100_ACCUM_FITS, (128, 2)),    # the probe, int8: 64 tiles x 2
+    (512, 2048, 4096, H100_ACCUM_FITS, (128, 2)),    # ... bf16
+    (1, 8, 16, H100_ACCUM_FITS, (64, 1)),            # one slab: no split
+    (63, 65, 144, H100_ACCUM_FITS, (64, 1)),         # two slabs: fewer than 4 a block
+    (129, 257, 512, H100_ACCUM_FITS, (64, 1)),       # four slabs: still ks = 1
+    (7, 33, 160, H100_ACCUM_FITS, (64, 1)),
+    (4096, 4096, 4096, H100_ACCUM_FITS, (128, 1)),   # tiles enough to fill the card
+    (1, 2048, 4096, H100_ACCUM_FITS, (64, 8)),       # 32 narrow tiles in 3 waves of 15 x 8
+    (512, 2048, 2048, {(128, 2): 66, (64, 1): 132}, (128, 2)),
+    (512, 2048, 2048, {(64, 1): 132}, (64, 1)),      # only one option fits
+    (512, 2048, 2048, {(128, 4): 32, (128, 2): 66}, (128, 2))])   # a tie: the smaller cluster
+def test_accum_plan(m, n, row_bytes, fits, plan):
+    assert mma_cuda.accum_plan(m, n, row_bytes, 132, fits) == plan
+
+
+@pytest.mark.parametrize("m,n,row_bytes", [(512, 2048, 2048), (512, 2048, 4096), (63, 65, 144),
+                                           (1, 8, 16), (4096, 4096, 4096), (200, 300, 1024)])
+def test_accum_plan_keeps_a_share_of_slabs_a_block(m, n, row_bytes):
+    """K is split only into shares of at least ACCUM_MIN_SLABS slabs (so
+    never into more blocks than K has slabs), and the first wave never takes
+    more SMs than the card has."""
+    bn, ks = mma_cuda.accum_plan(m, n, row_bytes, 132, H100_ACCUM_FITS)
+    slabs = -(-row_bytes // mma_cuda.SLAB)
+    assert ks == 1 or slabs >= ks * mma_cuda.ACCUM_MIN_SLABS
+    assert ks <= slabs
+    assert mma_cuda.accum_sms(m, n, (bn, ks), H100_ACCUM_FITS) <= 132
+
+
+def test_accum_plan_fills_the_card_at_the_probe_shape():
+    for row_bytes in (2048, 4096):   # int8, bf16
+        plan = mma_cuda.accum_plan(512, 2048, row_bytes, 132, H100_ACCUM_FITS)
+        assert mma_cuda.accum_sms(512, 2048, plan, H100_ACCUM_FITS) >= 128
+
+
+@pytest.mark.parametrize("m,n,row_bytes,fits", [
+    (512, 2048, 2047, H100_ACCUM_FITS),   # a row pitch off the 16-byte grid
+    (0, 2048, 2048, H100_ACCUM_FITS),     # no rows
+    (512, 0, 2048, H100_ACCUM_FITS),
+    (512, 2048, 2048, {}),                # nothing fits the card
+    (512, 2048, 2048, {(128, 1): 0, (64, 2): 0})])
+def test_accum_plan_refuses(m, n, row_bytes, fits):
+    with pytest.raises(ValueError):
+        mma_cuda.accum_plan(m, n, row_bytes, 132, fits)
+
+
+@pytest.mark.parametrize("kind", ["int8", "bfloat16"])
+@pytest.mark.parametrize("k", [1, 7, 33, 147, 16, 24])
+def test_accum_operands_pad_changes_no_bit(kind, k):
+    """K zero-padded to a 16-byte pitch gives the same sum, bit for bit, at
+    the loop count where int8(i) wraps twice and bf16(i) rounds: a padded
+    column of a becomes int8(i) or bf16(i) but meets a zero column of b_t."""
+    a, b = operands(9, k, 5, kind, seed=k)
+    ta, tb = to_torch(a, kind), to_torch(b.T, kind).contiguous()   # as the card requires
+    pa, pb = mma_cuda.accum_operands(ta, tb)
+    step = 16 // ta.element_size()
+    assert pa.shape == (9, -(-k // step) * step) and pb.shape == (5, pa.shape[1])
+    assert pa.is_contiguous() and pb.is_contiguous()
+    assert pa.data_ptr() % 16 == 0 and pb.data_ptr() % 16 == 0
+    assert torch.equal(pa[:, :k], ta) and not pa[:, k:].any() and not pb[:, k:].any()
+    if pa.shape[1] == k:
+        assert pa is ta and pb is tb   # already aligned: no copy
+    want = mma_cuda.accum_matmul_plain(ta, tb, 300)
+    got = mma_cuda.accum_matmul_plain(pa, pb, 300)
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("loop,value,want", [
+    (64, 0.0, 2016.0),                      # 0 + 1 + ... + 63: exact either way
+    (64, -2.0 ** -25, 2016.0 - 2.0 ** -13),  # kept below 1.0's last bit, then truncated
+    (2, -2.0 ** -133, 1.0),                 # below the 2 extra bits of 1.0: dropped
+    (2, 3.3e38, float("inf")),              # past 2^128: +inf, not the largest f32
+])
+def test_tensor_core_sum_truncates_as_the_card(loop, value, want):
+    """chip_smoke.tensor_core_sum, the one-hot bf16 sums chip_smoke.py holds
+    both accumulate kernels to bit for bit, on sums worked by hand; the
+    second differs from plain, which rounds to nearest (2016.0)."""
+    from chip_smoke import tensor_core_sum
+    a = torch.full((1, 1), value, dtype=torch.bfloat16)
+    got = float(tensor_core_sum(mma_cuda, a, loop))
+    assert got == want
+    plain = float(mma_cuda.accum_matmul_plain(a, torch.ones(1, 1, dtype=torch.bfloat16), loop))
+    assert (got != plain) == (value == -2.0 ** -25)

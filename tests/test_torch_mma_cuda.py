@@ -1,7 +1,8 @@
 """The CUDA tensor-core kernels (chain, accumulate and tiled products, int8
 and bf16; the tiled one through its wgmma kernel, TMA-fed or, for operands
 off the 16-byte grid, fed through registers, and through the mma.sync kernel;
-the chain through the wgmma cluster kernel and the mma.sync one) against their
+the chain and the accumulate through their wgmma cluster kernels and the
+mma.sync ones) against their
 plain torch versions on the card, on the cases chip_smoke.py checks (int8
 bit-equal; bf16 within the limits stated there; the wgmma kernels' edge
 shapes and the dequantize epilogue), the quantized convolution through that
@@ -26,6 +27,7 @@ def test_kernels_match_plain_on_card():
     _build.reset_launches()
     err = chip_smoke.phase_mma_kernels(mma_cuda)   # raises on a mismatch
     assert err["tiled_matmul_s8"] == err["chain_matmul_s8"] == err["accum_matmul_s8"] == 0.0
+    assert err["wgmma_accum_s8"] == 0.0
     assert err["wgmma_matmul_s8"] == err["wgmma_dequant_s8"] == 0.0
     assert err["wgmma_unaligned_s8"] == err["wgmma_chain_s8"] == 0.0
     n = len(chip_smoke.MMA_SHAPES)
@@ -52,8 +54,14 @@ def test_kernels_match_plain_on_card():
     # the mma.sync chain: loops (0, 1, 2, 3, 64), (1, 2, 3) and (1, 2, 3, 64) at three shapes
     assert _build.launches["chain_matmul_s8"] == 12
     assert _build.launches["chain_matmul_bf16"] == 12 + live
-    assert _build.launches["accum_matmul_s8"] == 3 * 3
-    assert _build.launches["accum_matmul_bf16"] == 3 * 3
+    # the accumulate: every edge case and the unaligned one at each loop count
+    # through both kernels, the one-hot b_t at loops 64 and 300 through both,
+    # the probe shape twice through the wgmma kernel and once through the mma.sync one
+    ms, ns, kbytes = chip_smoke.ACCUM_EDGES
+    accum = len(ms) * len(ns) * len(kbytes) + len(chip_smoke.ACCUM_LOOPS) + 2
+    for t in ("s8", "bf16"):
+        assert _build.launches[f"accum_matmul_{t}"] == accum + 1
+        assert _build.launches[f"wgmma_accum_{t}"] == accum + 2
 
 
 @pytest.mark.cuda
@@ -135,4 +143,25 @@ def test_probe_launches_the_wgmma_kernels():
         pytest.skip("needs an NVIDIA GPU")
     counts = chip_smoke.phase_probe(_build)
     assert counts["wgmma_chain_s8"] > 0 and counts["wgmma_unaligned_bf16"] > 0
+    assert counts["wgmma_accum_s8"] > 0 and counts["wgmma_accum_bf16"] > 0
     assert counts["chain_matmul_s8"] == counts["tiled_matmul_bf16"] == 0
+    assert counts["accum_matmul_s8"] == counts["accum_matmul_bf16"] == 0
+
+
+@pytest.mark.cuda
+def test_accum_probe_shape_goes_through_the_wgmma_kernel():
+    """The probe's accumulate, (512, 2048) x (2048, 2048) loop 64 in int8,
+    launches the wgmma accumulate kernel once (K split over a cluster) and
+    not the mma.sync one, and is bit-equal to the plain sum."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    m, k, n = chip_smoke.PROBE_MKN
+    a, b_t = chip_smoke.mma_operands(m, n, k, torch.int8, seed=3, amp=1.0)
+    _build.reset_launches()
+    out = mma_cuda.accum_matmul(a, b_t, 64)
+    torch.cuda.synchronize()
+    assert _build.launches["wgmma_accum_s8"] == 1 and _build.launches["accum_matmul_s8"] == 0
+    assert torch.equal(out, mma_cuda.accum_matmul_plain(a, b_t, 64))
+    plan = mma_cuda.accum_plan(m, n, k, mma_cuda.num_sms(a.device),
+                               mma_cuda.accum_fits(a.device, torch.int8))
+    assert plan[1] > 1
