@@ -13,7 +13,9 @@ Phases (any failure exits non-zero):
      batch 16); the anchor-assignment pair bit for bit (dw/dh to 1e-6) on
      duplicated gts, anchors equal to gts, invalid anchors and gts, A up to
      209,538 and G up to 128; the focal pair to rtol 1e-6 (sum) and 1e-5 (dx)
-     on the flagship's five level shapes, f32 and bf16, contiguous and as the
+     on the flagship's five level shapes and on the sum kernel's edges (runs
+     of 1, 2, 4 and 8 positions, A = C = B = 1, labels 0, 1 and C in one run,
+     zero weights, logits at +-30 and 0), f32 and bf16, contiguous and as the
      permuted NCHW view, and the autograd function against autograd through
      the plain version; the three tensor-core products (chain, accumulate,
      tiled) in int8 bit for bit and in bf16 within stated limits, on ragged
@@ -55,8 +57,10 @@ Phases (any failure exits non-zero):
      and bf16 + int8 with peak memory, the int8 call's split, the train step,
      its parts and a torch.profiler summary of it, each kernel against its
      plain version, its bound and, where there is one, a library call at the
-     shape the main path gives it; each wgmma kernel beside the mma.sync
-     kernel it replaced, timed in turns (old, new, new, old).
+     shape the main path gives it; the focal sum at each of the five levels
+     with its route, run length, grid and the blocks an SM holds; each wgmma
+     kernel beside the mma.sync kernel it replaced, timed in turns (old, new,
+     new, old).
 The last two lines are the card's name and power limit, then
 ``{"ok": true, "device": {...}}``; the line before them lists the kernels.
 """
@@ -86,11 +90,17 @@ NUM_GTS = 100
 # (B, A, G) of the anchor-assignment cases; the last is the flagship's
 ASSIGN_SHAPES = ((3, 1, 1), (3, 500, 17), (3, 4096, 17), (3, 9000, 17),
                  (2, 9000, 128), (8, 209538, 100))
-# (B, H, W, A, C) of the focal cases: two ragged small ones, then the
-# flagship's five levels at batch 2
+# (B, H, W, A, C) of the focal cases with the sum kernel's edges, run on
+# focal_edge_case's data: A = C = B = 1 with H*W a whole 16-byte run (4 f32,
+# 8 bf16) and with an odd H*W (scalar loads); plane pitches of 168 and 48
+# bytes, off the 16-byte grid (runs of 2 and 4); runs of 4 f32 / 8 bf16 at C = 80
+FOCAL_EDGES = ((1, 4, 4, 1, 1), (1, 3, 3, 1, 1), (2, 6, 7, 3, 5), (3, 2, 6, 9, 80),
+               (2, 4, 8, 9, 80))
+# the focal cases: two ragged small ones, the flagship's five levels at batch
+# 2 (P5-P7 on scalar or shorter runs), then the edges
 FOCAL_SHAPES = ((2, 6, 9, 3, 7), (3, 5, 7, 9, 80), (2, 104, 168, 9, 80),
                 (2, 52, 84, 9, 80), (2, 26, 42, 9, 80), (2, 13, 21, 9, 80),
-                (2, 7, 11, 9, 80))
+                (2, 7, 11, 9, 80), *FOCAL_EDGES)
 P3_SHAPE = (TRAIN_BATCH, 104, 168, 9, 80)
 # (M, N, K) of the tiled product's cases: ragged ones, convolution-shaped ones
 # (K = 147 the stem, 576 and 2304 the 3x3 convs of layer1 and the towers) and
@@ -226,6 +236,22 @@ def focal_case(shape, seed: int = 0):
     logits = rng.normal(0, 3, (b, a * c, h, w)).astype(np.float32)
     labels = rng.integers(0, c + 1, (b, h * w * a + 13)).astype(np.int32)
     lw = rng.uniform(size=labels.shape).astype(np.float32)
+    return logits, labels, lw
+
+
+def focal_edge_case(shape, seed: int = 0):
+    """focal_case with the data edges of the sum kernel: labels 0, 1 and C
+    in turn along the positions of each anchor (so every run of two holds
+    two of them, every longer run all three), lw = 0 on every fifth
+    (position, anchor), and logits of +30, -30 and 0 on three of every seven
+    elements."""
+    b, h, w, a, c = shape
+    logits, labels, lw = focal_case(shape, seed)
+    j = np.arange(labels.shape[1]) - 5   # (position, anchor) index in the level's columns
+    labels[:] = np.array([0, 1, c], np.int32)[(j // a + j % a) % 3]
+    lw[:, j % 5 == 0] = 0.0
+    flat = logits.reshape(-1)
+    flat[0::7], flat[3::7], flat[5::7] = 30.0, -30.0, 0.0
     return logits, labels, lw
 
 
@@ -389,7 +415,8 @@ def phase_focal_kernels(Fc) -> dict:
     for shape in FOCAL_SHAPES:
         b, h, w, a, c = shape
         n = h * w * a
-        nchw, labels_all, lw_all = to_cuda(*focal_case(shape, seed=h))
+        case = focal_edge_case if shape in FOCAL_EDGES else focal_case
+        nchw, labels_all, lw_all = to_cuda(*case(shape, seed=h))
         labels, lw = labels_all[:, 5:5 + n], lw_all[:, 5:5 + n]
         for dtype, dx_tol in ((torch.float32, dict(rtol=1e-5, atol=1e-6)),
                               (torch.bfloat16, dict(rtol=2e-2, atol=1e-6))):
@@ -417,7 +444,11 @@ def phase_focal_kernels(Fc) -> dict:
                 err["focal_sum_kernel"] = max(err["focal_sum_kernel"], max_abs(total, want))
                 if dtype == torch.float32:
                     err["focal_dx_kernel"] = max(err["focal_dx_kernel"], worst)
-        # the autograd function against autograd through the plain version
+        # the autograd function against autograd through the plain version;
+        # on an edge case, on focal_case's logits (autograd takes d|x|/dx = 0
+        # at x = 0, which is not the derivative of the loss there)
+        if shape in FOCAL_EDGES:
+            nchw = to_cuda(focal_case(shape, seed=h)[0])[0]
         x1 = nchw.permute(0, 2, 3, 1).clone().requires_grad_(True)
         x2 = x1.detach().clone().requires_grad_(True)
         (3.0 * Fc.FusedLevelFocalSum.apply(x1, labels, lw, 2.0, 0.25, a)).backward()
@@ -1398,14 +1429,16 @@ def phase_timing(K, A, Fc, handle, runner, batch, rng, card: str) -> dict:
     bsz, h, w, a, c = P3_SHAPE
     nl = h * w * a
     with torch.no_grad():
-        x = runner.model(batch["img"])[0][0]
+        cls = runner.model(batch["img"])[0]
+        x = cls[0]
         _, targets, _ = head._targets(
             sizes, batch["gt_bboxes"], batch["gt_labels"], batch["gt_valid"],
             batch["img_shape"], batch["pad_shape"], dict(runner.model.train_cfg),
             None, None)
     check(tuple(x.shape) == (bsz, h, w, a * c) and not x.is_contiguous(),
           f"P3 logits of the step: {tuple(x.shape)}, strides {x.stride()}")
-    labels, lw = targets.labels[:, :nl], targets.label_weights[:, :nl]
+    all_labels, all_lw = targets.labels, targets.label_weights
+    labels, lw = all_labels[:, :nl], all_lw[:, :nl]
     del targets
     one = torch.ones((), device="cuda")
     small = (labels.numel() + lw.numel()) * 4
@@ -1429,6 +1462,27 @@ def phase_timing(K, A, Fc, handle, runner, batch, rng, card: str) -> dict:
         cuda_ms(lambda: Fc.focal_level_dx_plain(one, x, labels, lw, 2.0, 0.25, a), 5),
         *bound(2 * x.numel() * 4 + small + 4, x.numel() * FOCAL_BWD_FLOPS),
         lib_both - lib_fwd)
+    # K3a at each of the flagship's five levels, on the step's logits and targets
+    start, level_ms = 0, []
+    for i, (xl, (hl, wl)) in enumerate(zip(cls, sizes)):
+        n = hl * wl * a
+        lab, wts = all_labels[:, start:start + n], all_lw[:, start:start + n]
+        start += n
+        plan = Fc.sum_launch_plan(xl, a, 2.0)
+        ms = cuda_ms(lambda xl=xl, lab=lab, wts=wts: Fc.focal_level_sum(xl, lab, wts, 2.0, 0.25, a),
+                     20)
+        bnd, _ = bound(xl.numel() * 4 + (lab.numel() + wts.numel()) * 4 + 4,
+                       xl.numel() * FOCAL_FWD_FLOPS)
+        level_ms.append(ms)
+        print(f"focal_sum_kernel P{i + 3} {tuple(xl.shape)} f32, the step's logits: "
+              f"{ms:.4f} ms, {100 * bnd / ms:.1f}% of its bound {bnd:.4f} ms; route "
+              f"{'vector' if plan['vec'] > 1 else 'scalar'}, V {plan['vec']}, "
+              f"{plan['chunk']} classes a unit, grid {plan['blocks']} blocks of "
+              f"{Fc.SUM_THREADS}, {plan['resident']} resident an SM x {plan['sms']} SMs "
+              f"{tag}]", flush=True)
+    print(f"focal_sum_kernel, the five levels at batch {bsz}: {sum(level_ms):.4f} ms {tag}]",
+          flush=True)
+    del cls, all_labels, all_lw
     # the same pair on seeded random logits (sd 3), labels and weights
     rnd, rnd_labels, rnd_lw = to_cuda(*focal_case(P3_SHAPE, seed=11))
     rnd, rnd_labels, rnd_lw = rnd.permute(0, 2, 3, 1), rnd_labels[:, 5:5 + nl], rnd_lw[:, 5:5 + nl]

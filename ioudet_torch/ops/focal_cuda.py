@@ -6,7 +6,8 @@ of the TPU kernels of ``ioudet/ops/focal_pallas.py``:
 
   * ``focal_level_sum`` (``focal_sum_kernel``, K3a): the weighted focal sum
     of one level's (B, H, W, A*C) logits, the one-hot target rebuilt from
-    integer labels;
+    integer labels.  ``sum_vector`` and ``sum_plan`` (pure functions of the
+    shapes, strides and the card's counts) choose its route and grid;
   * ``focal_level_dx``  (``focal_dx_kernel``, K3b): that sum's gradient for
     the logits times an upstream scalar, in the logits' type and strides.
 
@@ -21,6 +22,8 @@ get no gradient.
 
 from __future__ import annotations
 
+import ctypes
+import functools
 from typing import Tuple
 
 import torch
@@ -28,15 +31,21 @@ import torch
 from . import _build
 from ._build import F32, I32, I64, PTR
 
-TILE = 128                 # positions per block (kTile in the source)
+TILE = 128                 # positions per block of the dx kernel (kTile in the source)
 MAX_SMEM = 48 * 1024       # dynamic shared memory a launch gets without opting in
 TARGET_BLOCKS = 8 * 132    # blocks that keep an H100's 132 SMs busy
-MIN_CHUNK = 8              # fewest channels a block is given
+MIN_CHUNK = 8              # fewest channels (dx) or classes (sum) a block or unit is given
+SUM_THREADS = 256          # threads a block of the sum kernel (kSumThreads in the source)
+RUN_BYTES = 16             # the widest load of a run of positions
+UNIT_COST = 2              # a sum unit's own work (indices, labels, weights), in classes:
+                           # fitted to the sum kernel's times over chunks of 8-80 on an H100
 
 _LEVEL = [I32] * 6 + [I64] * 6 + [F32] * 2   # B H W A C split, strides, gamma alpha
+_SUM_LEVEL = [I32] * 8 + [I64] * 6 + [F32] * 2   # B H W A C vec chunk blocks, strides, gamma alpha
 LIBRARY = _build.KernelLibrary(
     "focal_kernel.cu", (),
-    {"ioudet_focal_sum": [PTR, I32, PTR, PTR, PTR, PTR, PTR] + _LEVEL,
+    {"ioudet_focal_sum": [PTR, I32, PTR, PTR, PTR, PTR, PTR] + _SUM_LEVEL,
+     "ioudet_focal_sum_fit": [I32, I32, I32, PTR],
      "ioudet_focal_dx": [PTR, PTR, I32, PTR, PTR, PTR] + _LEVEL},
     kernels=("focal_sum_kernel", "focal_dx_kernel"))
 
@@ -104,7 +113,7 @@ def _check_level(logits, labels, lw, num_anchors) -> Tuple[int, int, int, int, i
 
 
 def channel_split(dims, channel_stride: int) -> int:
-    """Into how many chunks the kernels split a level's A*C channels, each
+    """Into how many chunks the dx kernel splits a level's A*C channels, each
     chunk with its own blocks: as many as bring the launch to TARGET_BLOCKS
     blocks, so that a small level is not a few blocks that each walk every
     channel.  1 for a unit channel stride, where threads run along the
@@ -116,12 +125,88 @@ def channel_split(dims, channel_stride: int) -> int:
     return max(1, min(-(-TARGET_BLOCKS // max(tiles, 1)), a * c // MIN_CHUNK))
 
 
-def _level_args(logits, labels, lw, dims, gamma, alpha) -> tuple:
-    """The kernels' shape, split, stride and constant arguments; raises on
-    what they do not take."""
+def sum_vector(dims, strides, itemsize: int, address: int) -> int:
+    """Positions a thread of the sum kernel loads at once: the most, up to
+    RUN_BYTES of logits (4 f32, 8 bf16), that keep every run's load on its
+    own grid.  That needs the positions to be a channel plane's unit-stride
+    axis (the permuted NCHW view: sw = 1, sh = W) and H*W, the channel and
+    image strides and the base address to be multiples of the run; else 1
+    (an odd H*W, a contiguous NHWC tensor, any other strides)."""
     b, h, w, a, c = dims
+    sb, sh, sw, sc = strides
+    if not ((w == 1 or sw == 1) and (h == 1 or sh == w)):
+        return 1
+    v = RUN_BYTES // itemsize
+    while v > 1 and ((h * w) % v or (a * c > 1 and sc % v) or (b > 1 and sb % v)
+                     or address % (v * itemsize)):
+        v //= 2
+    return v
+
+
+@functools.lru_cache(maxsize=256)
+def sum_plan(dims, vec: int, sms: int, resident: int) -> Tuple[int, int]:
+    """(classes a unit, blocks) of the sum kernel.  The grid is at most one
+    wave, ``sms`` x ``resident`` blocks.  A unit is a run of ``vec``
+    positions of one image and anchor and a chunk of its classes; the chunk
+    is the one of at least MIN_CHUNK classes (or all C) that gives the
+    busiest thread the least work, chunk + UNIT_COST a unit, when the units
+    are dealt out over the wave in turn (ties to the longer chunk), so that a
+    small level fills the card and a large one ends with no thread left a
+    whole unit behind."""
+    b, h, w, a, c = dims
+    runs = b * a * (h * w // vec)
+    wave = sms * resident * SUM_THREADS
+    best = None
+    for chunk in range(c, min(c, MIN_CHUNK) - 1, -1):
+        units = runs * -(-c // chunk)
+        busiest = -(-units // wave) * (chunk + UNIT_COST)
+        if best is None or busiest < best[0]:
+            best = (busiest, chunk, units)
+    _, chunk, units = best
+    return chunk, max(1, min(sms * resident, -(-units // SUM_THREADS)))
+
+
+_SUM_RESIDENT: dict = {}
+
+
+def sum_resident(device, dtype: torch.dtype, vec: int, gamma2: bool) -> int:
+    """Blocks of the sum kernel for (type, vec, gamma == 2) that an SM holds
+    at once, asked of the runtime once per device and instance."""
+    device = torch.device(device)
+    key = (device.index if device.index is not None else torch.cuda.current_device(),
+           dtype, vec, gamma2)
+    if key not in _SUM_RESIDENT:
+        count = ctypes.c_int(0)
+        err = LIBRARY.build().ioudet_focal_sum_fit(int(dtype == torch.bfloat16), vec,
+                                                   int(gamma2), ctypes.addressof(count), None)
+        if err != 0 or count.value < 1:
+            raise RuntimeError(f"focal_sum_kernel: occupancy query failed ({err}, {count.value})")
+        _SUM_RESIDENT[key] = count.value
+    return _SUM_RESIDENT[key]
+
+
+def sum_launch_plan(logits: torch.Tensor, num_anchors: int, gamma: float) -> dict:
+    """What ``focal_level_sum`` launches for these CUDA logits: vec, classes
+    a unit (chunk), blocks, the blocks an SM holds (resident) and SMs."""
+    b, h, w, ac = logits.shape
+    dims = (b, h, w, num_anchors, ac // num_anchors)
+    vec = sum_vector(dims, logits.stride(), logits.element_size(), logits.data_ptr())
+    sms = torch.cuda.get_device_properties(logits.device).multi_processor_count
+    resident = sum_resident(logits.device, logits.dtype, vec, float(gamma) == 2.0)
+    chunk, blocks = sum_plan(dims, vec, sms, resident)
+    return dict(vec=vec, chunk=chunk, blocks=blocks, resident=resident, sms=sms)
+
+
+def _check_rows(labels, lw) -> None:
     if labels.shape[1] > 1 and (labels.stride(1) != 1 or lw.stride(1) != 1):
         raise ValueError("labels and lw must have unit inner stride")
+
+
+def _level_args(logits, labels, lw, dims, gamma, alpha) -> tuple:
+    """The dx kernel's shape, split, stride and constant arguments; raises on
+    what it does not take."""
+    b, h, w, a, c = dims
+    _check_rows(labels, lw)
     smem = TILE * 8 + TILE * a * 8 + a * c * 2
     if smem > MAX_SMEM or a * c >= 1 << 16:
         raise ValueError(f"A={a}, C={c}: the tile needs {smem} B of shared memory "
@@ -140,19 +225,20 @@ def focal_level_sum(logits: torch.Tensor, labels: torch.Tensor, lw: torch.Tensor
     dims = _check_level(logits, labels, lw, num_anchors)
     if logits.device.type == "cpu":
         return focal_level_sum_plain(logits, labels, lw, gamma, alpha, num_anchors)
-    args = _level_args(logits, labels, lw, dims, gamma, alpha)
-    b, h, w = dims[:3]
-    blocks = b * ((h * w + TILE - 1) // TILE) * args[5]   # tiles x channel split
+    _check_rows(labels, lw)
     dev = logits.device
     if logits.numel() == 0:
         return torch.zeros((), dtype=torch.float32, device=dev)
-    partials = torch.empty(blocks, dtype=torch.float64, device=dev)
+    plan = sum_launch_plan(logits, num_anchors, gamma)
+    partials = torch.empty(plan["blocks"], dtype=torch.float64, device=dev)
     counter = torch.zeros(1, dtype=torch.int32, device=dev)
     out = torch.empty((), dtype=torch.float32, device=dev)
     _build.launch(LIBRARY.build().ioudet_focal_sum, "focal_sum_kernel",
                   logits.data_ptr(), int(logits.dtype == torch.bfloat16),
                   labels.data_ptr(), lw.data_ptr(), partials.data_ptr(),
-                  counter.data_ptr(), out.data_ptr(), *args)
+                  counter.data_ptr(), out.data_ptr(), *dims, plan["vec"], plan["chunk"],
+                  plan["blocks"], *logits.stride(), labels.stride(0), lw.stride(0),
+                  float(gamma), float(alpha))
     return out
 
 
