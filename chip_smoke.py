@@ -12,7 +12,9 @@ Phases (any failure exits non-zero):
      bit for bit on adversarial cases (N in 1, 63, 64, 65, 1000, 2000 at
      batch 16); the anchor-assignment pair bit for bit (dw/dh to 1e-6) on
      duplicated gts, anchors equal to gts, invalid anchors and gts, A up to
-     209,538 and G up to 128; the focal pair to rtol 1e-6 (sum) and 1e-5 (dx)
+     209,538 and G up to 128, and on the flagship's grid anchors at batch 2
+     (a training batch's gts, a valid gt off the canvas, an image without a
+     valid anchor, gts covering the canvas); the focal pair to rtol 1e-6 (sum) and 1e-5 (dx)
      on the flagship's five level shapes and on the sum kernel's edges (runs
      of 1, 2, 4 and 8 positions, A = C = B = 1, labels 0, 1 and C in one run,
      zero weights, logits at +-30 and 0), f32 and bf16, contiguous and as the
@@ -45,7 +47,8 @@ Phases (any failure exits non-zero):
      made errors, the wgmma kernel's dequantize launches against the module
      tree (and none of the mma.sync kernel), a replay with the plain product
      that must give the same bits, and
-     the head outputs' drift from f32; then the probe tool's own run, whose
+     the head outputs' drift from f32; grouped int8 convs (4 groups,
+     depthwise) against their plain replay; then the probe tool's own run, whose
      chain, accumulate and unaligned questions must launch the wgmma kernels
      and not the mma.sync ones they replaced;
   4. the same model, training: ``train_detector`` for 6 SGD steps on a batch
@@ -57,7 +60,9 @@ Phases (any failure exits non-zero):
      and bf16 + int8 with peak memory, the int8 call's split, the train step,
      its parts and a torch.profiler summary of it, each kernel against its
      plain version, its bound and, where there is one, a library call at the
-     shape the main path gives it; the focal sum at each of the five levels
+     shape the main path gives it; the assignment pair's pairs computed
+     against those that intersect, and its times on gts covering the canvas
+     (nothing to cull); the focal sum at each of the five levels
      with its route, run length, grid and the blocks an SM holds; each wgmma
      kernel beside the mma.sync kernel it replaced, timed in turns (old, new,
      new, old).
@@ -90,6 +95,11 @@ NUM_GTS = 100
 # (B, A, G) of the anchor-assignment cases; the last is the flagship's
 ASSIGN_SHAPES = ((3, 1, 1), (3, 500, 17), (3, 4096, 17), (3, 9000, 17),
                  (2, 9000, 128), (8, 209538, 100))
+# the anchor-assignment cases on the flagship's grid anchors at batch 2
+# (grid_assign_case): training-batch gts with part of one image left out, a
+# valid gt off the canvas (its gtmax is 0: rule b), an image without a valid
+# anchor, gts covering the canvas (nothing to cull)
+GRID_CASES = ("grid", "off_canvas", "no_valid_anchor", "covering")
 # (B, H, W, A, C) of the focal cases with the sum kernel's edges, run on
 # focal_edge_case's data: A = C = B = 1 with H*W a whole 16-byte run (4 f32,
 # 8 bf16) and with an odd H*W (scalar loads); plane pitches of 168 and 48
@@ -223,6 +233,64 @@ def assign_case(batch: int, num_anchors: int, num_gts: int, seed: int = 0,
     valid = rng.uniform(size=(batch, num_anchors)) < 0.9
     gt_valid = (rng.uniform(size=(batch, num_gts)) < 0.7) & gts_valid
     gt_labels = rng.integers(1, 81, (batch, num_gts)).astype(np.int32)
+    return anchors, valid, gt, gt_valid, gt_labels
+
+
+def flagship_anchors(levels: slice = slice(None)) -> torch.Tensor:
+    """(A, 4) f32 on the CPU: the flagship config's anchors on its canvas,
+    level by level in (H, W, anchor) order, from its head's own
+    ``level_anchors`` (the head built at a narrow width; the anchors do not
+    depend on it); ``levels`` picks some of P3-P7."""
+    from ioudet_torch.models.builder import HEADS
+    cfg = runpy.run_path(CONFIG)
+    args = dict(cfg["model"]["bbox_head"], in_channels=8, feat_channels=8, stacked_convs=1)
+    head = HEADS[args.pop("type")](**args)
+    h, w = cfg["canvas"]
+    sizes = [(-(-h // s), -(-w // s)) for s in head.anchor_strides]
+    return torch.cat(head.level_anchors(sizes, torch.device("cpu"))[levels])
+
+
+def gt_boxes(batch: int, num_gts: int, dense: bool, seed: int = 0) -> tuple:
+    """Seeded gts on the flagship's 832x1344 canvas as numpy arrays: boxes
+    (batch, num_gts, 4) f32, valid (batch, num_gts) bool (~60%), labels
+    1..80 int32.  ``dense``: each box covers the canvas but for up to 32 px
+    at each edge; else boxes of 16-600 px inside it."""
+    rng = np.random.default_rng(seed)
+    h, w = 832, 1344
+    if dense:
+        lo = rng.uniform(0, 32, (batch, num_gts, 2))
+        hi = np.array([w - 1, h - 1]) - rng.uniform(0, 32, (batch, num_gts, 2))
+        boxes = np.concatenate([lo, hi], -1)
+    else:
+        wh = rng.uniform(16, 600, (batch, num_gts, 2))
+        xy = rng.uniform(0, 1, (batch, num_gts, 2)) * (np.array([w - 1, h - 1]) - wh)
+        boxes = np.concatenate([xy, xy + wh], -1)
+    return (boxes.astype(np.float32), rng.uniform(size=(batch, num_gts)) < 0.6,
+            rng.integers(1, 81, (batch, num_gts)).astype(np.int32))
+
+
+def grid_assign_case(case: str, batch: int = 2, num_gts: int = NUM_GTS,
+                     levels: slice = slice(None), seed: int = 0):
+    """An input of GRID_CASES for the anchor-assignment kernels on the
+    flagship's anchors (832x1344 canvas; ``levels`` picks some of P3-P7),
+    where the kernels' hull tests really cull: seeded gts of 16-600 px, ~60%
+    valid (``covering``: each box covers the canvas but for up to 32 px at
+    each edge).  ``grid``: the second image's anchors left out outside its
+    1000x600 content; ``off_canvas``: gt 0 valid and off every anchor;
+    ``no_valid_anchor``: the second image's anchors all left out.  Returns
+    numpy arrays as ``assign_case``."""
+    if case not in GRID_CASES:
+        raise ValueError(f"unknown case {case!r}")
+    anchors = flagship_anchors(levels=levels).numpy()
+    gt, gt_valid, gt_labels = gt_boxes(batch, num_gts, dense=case == "covering", seed=seed)
+    valid = np.ones((batch, anchors.shape[0]), bool)
+    if case == "grid":
+        valid[1] = (anchors[:, 0] < 1000) & (anchors[:, 1] < 600)
+    elif case == "off_canvas":
+        gt[:, 0] = (2000.0, 1500.0, 2100.0, 1600.0)
+        gt_valid[:, 0] = True
+    elif case == "no_valid_anchor":
+        valid[1] = False
     return anchors, valid, gt, gt_valid, gt_labels
 
 
@@ -373,11 +441,17 @@ def phase_assign_kernels(A) -> dict:
     err = {"assign_gtmax_kernel": 0.0, "assign_targets_kernel": 0.0}
     settings = ((0.0, -1.0, (0.0,) * 4, (1.0,) * 4),
                 (0.3, 2.0, (0.0,) * 4, (0.1, 0.1, 0.2, 0.2)))
-    for bsz, na, ng in ASSIGN_SHAPES:
+    cases = [(f"B={bsz} A={na} G={ng}",
+              lambda gts_valid, b=bsz, n=na, g=ng: assign_case(b, n, g, seed=n + g,
+                                                               gts_valid=gts_valid))
+             for bsz, na, ng in ASSIGN_SHAPES]
+    cases += [(f"grid anchors, {case}, B=2 G={NUM_GTS}",
+               lambda gts_valid, c=case: _gts_valid(grid_assign_case(c), gts_valid))
+              for case in GRID_CASES]
+    for name, make in cases:
         for min_pos, pw, means, stds in settings:
             for gts_valid in (True, False):
-                anchors, valid, gt, gtv, gtl = to_cuda(*assign_case(
-                    bsz, na, ng, seed=na + ng, gts_valid=gts_valid))
+                anchors, valid, gt, gtv, gtl = to_cuda(*make(gts_valid))
                 table = A.gt_table(gt, gtl, gtv)
                 args = (0.5, 0.4, min_pos, 1.0 if pw <= 0 else pw, means, stds)
                 gtmax = A.assign_gtmax(anchors, valid, table)
@@ -402,10 +476,16 @@ def phase_assign_kernels(A) -> dict:
                 npos = int(outs[2].sum())
                 check(exact and same and dwh <= 1e-6 and
                       bool(torch.isfinite(outs[3]).all()) and (gts_valid or npos == 0),
-                      f"assign B={bsz} A={na} G={ng} min_pos={min_pos} pos_weight={pw} "
+                      f"assign {name} min_pos={min_pos} pos_weight={pw} "
                       f"gts_valid={gts_valid}: bit-equal to plain and from run to run, "
                       f"dw/dh within {dwh:.1e} ({npos} positives)")
     return err
+
+
+def _gts_valid(case: tuple, gts_valid: bool) -> tuple:
+    """An assignment case with every gt made padding unless ``gts_valid``."""
+    anchors, valid, gt, gtv, gtl = case
+    return anchors, valid, gt, gtv & gts_valid, gtl
 
 
 def phase_focal_kernels(Fc) -> dict:
@@ -1200,6 +1280,34 @@ def phase_low_precision(B, Mm, Q, f32_handle, cfg, inputs) -> tuple:
     return counts, handle, scales
 
 
+def phase_grouped_convs(B, Mm, Q) -> None:
+    """Grouped int8 convolutions on the card, 4 groups and depthwise (64
+    groups of one channel), bf16, dynamic scale: one dequantize launch of the
+    wgmma kernel a group, and the same bits as a replay with the plain
+    product."""
+    from ioudet_torch.models.utils.layers import Conv2d
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    x = torch.randn(2, 64, 52, 84, device="cuda", generator=gen).bfloat16()
+    for groups, out in ((4, 128), (64, 64)):
+        torch.manual_seed(groups)
+        mod = Conv2d(64, out, 3, padding=1, groups=groups, compute_dtype=torch.bfloat16).cuda()
+        with torch.no_grad():
+            B.reset_launches()
+            got = Q.quant_conv_call(mod, x)
+            torch.cuda.synchronize()
+            launched = B.launches["wgmma_dequant_s8"]
+            kernel = Mm.tiled_matmul_dequant
+            Mm.tiled_matmul_dequant = Mm.tiled_matmul_dequant_plain
+            try:
+                want = Q.quant_conv_call(mod, x)
+            finally:
+                Mm.tiled_matmul_dequant = kernel
+        check(launched == groups and tuple(got.shape) == (2, out, 52, 84) and
+              torch.equal(got, want) and bool(got.float().abs().max() > 0),
+              f"grouped int8 conv, {groups} groups of {64 // groups} channels: {launched} "
+              "dequantize launches, bit-equal to the replay with the plain product")
+
+
 def phase_probe(B) -> dict:
     """The probe tool's own run (chain, accumulate and tiled products in both
     types at its shapes, the tiled one on aligned and unaligned operands);
@@ -1409,20 +1517,49 @@ def phase_timing(K, A, Fc, handle, runner, batch, rng, card: str) -> dict:
     gtmax = A.assign_gtmax(anchors, avalid, table)
     outs = A.assign_targets(anchors, avalid, table, gtmax, *args)
     na, bsz, ng = anchors.shape[0], table.shape[0], table.shape[1]
-    # IoUs the data needs: valid gts x valid anchors, image by image
+    # IoUs the data needs: the valid pairs whose boxes intersect (a pair that
+    # does not has an IoU of +0 without arithmetic), counted on the card; the
+    # earlier bound counted every valid pair ("live"), printed beside it
+    pairs = A.pair_counts(anchors, avalid, table, gtmax)
     live = float((batch["gt_valid"].sum(1).double() * avalid.sum(1).double()).sum())
+    meet = float(pairs["intersecting"])
     in_bytes = na * 16 + bsz * na + table.numel() * 4
+    out_bytes = sum(o.numel() * 4 for o in outs)
     times["assign_gtmax_kernel"] = (
         cuda_ms(lambda: A.assign_gtmax(anchors, avalid, table), 20),
         cuda_ms(lambda: A.assign_gtmax_plain(anchors, avalid, table), 3, 1),
-        *bound(in_bytes + gtmax.numel() * 4,
-               live * (IOU_FLOPS + 1) + na * AREA_FLOPS), None)
+        *bound(in_bytes + gtmax.numel() * 4, meet * (IOU_FLOPS + 1) + na * AREA_FLOPS), None)
     times["assign_targets_kernel"] = (
         cuda_ms(lambda: A.assign_targets(anchors, avalid, table, gtmax, *args), 20),
         cuda_ms(lambda: A.assign_targets_plain(anchors, avalid, table, gtmax, *args), 3, 1),
-        *bound(in_bytes + gtmax.numel() * 4 + sum(o.numel() * 4 for o in outs),
-               live * (IOU_FLOPS + 4) + na * AREA_FLOPS + bsz * na * 30), None)
-    del outs
+        *bound(in_bytes + gtmax.numel() * 4 + out_bytes,
+               meet * (IOU_FLOPS + 4) + na * AREA_FLOPS + bsz * na * 30), None)
+    old_bounds = (bound(in_bytes + gtmax.numel() * 4, live * (IOU_FLOPS + 1) + na * AREA_FLOPS),
+                  bound(in_bytes + gtmax.numel() * 4 + out_bytes,
+                        live * (IOU_FLOPS + 4) + na * AREA_FLOPS + bsz * na * 30))
+    slots = pairs["slots"]
+    print(f"assignment pairs at A={na} G={ng} batch {bsz}: {slots} slots, {int(live)} valid "
+          f"({100 * live / slots:.2f}%), {pairs['intersecting']} intersecting "
+          f"({100 * meet / slots:.2f}%), computed by pass 1 {pairs['pass1']} "
+          f"({100 * pairs['pass1'] / slots:.2f}%) and pass 2 {pairs['pass2']} "
+          f"({100 * pairs['pass2'] / slots:.2f}%) {tag}]", flush=True)
+    for name, (t_old, by_old) in zip(("assign_gtmax_kernel", "assign_targets_kernel"),
+                                     old_bounds):
+        print(f"{name} bound recounted to the intersecting pairs: {times[name][2]:.4f} ms by "
+              f"{times[name][3]}; counted on every valid pair, the earlier count: {t_old:.4f} ms "
+              f"by {by_old} {tag}]", flush=True)
+    # the dense case: every valid gt covering the canvas, so that no pair is culled
+    boxes, gvalid, glabels = (torch.from_numpy(x).cuda()
+                              for x in gt_boxes(bsz, ng, dense=True, seed=0))
+    dense = A.gt_table(boxes, glabels, gvalid)
+    dense_max = A.assign_gtmax(anchors, avalid, dense)
+    dense_pairs = A.pair_counts(anchors, avalid, dense, dense_max)
+    print(f"assignment kernels, dense gts (each covering the canvas, {int(gvalid.sum())} valid; "
+          f"computed by pass 1 {100 * dense_pairs['pass1'] / slots:.2f}% of the slots): "
+          f"gtmax {cuda_ms(lambda: A.assign_gtmax(anchors, avalid, dense), 20):.4f} ms, "
+          f"targets {cuda_ms(lambda: A.assign_targets(anchors, avalid, dense, dense_max, *args), 20):.4f}"
+          f" ms {tag}]", flush=True)
+    del outs, dense, dense_max
 
     # K3 at P3, batch 8, on what the train step gives it: the head's own
     # classification output (a permuted NCHW view) and the targets' slices
@@ -1826,6 +1963,7 @@ def main() -> int:
     print("phase 3b: flagship low-precision serving: bf16, bf16 + static int8, "
           "bf16 + dynamic int8; then the tensor-core probe tool", flush=True)
     lp_launches, lp_handle, scales = phase_low_precision(B, Mm, Q, handle, cfg, inputs)
+    phase_grouped_convs(B, Mm, Q)
     del inputs
     torch.cuda.empty_cache()
     probe_launches = phase_probe(B)

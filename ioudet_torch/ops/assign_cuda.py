@@ -11,6 +11,10 @@ of the TPU kernels of ``ioudet/ops/assign_pallas.py``:
     then labels, label weights, the positive mask, ``bbox2delta`` targets
     and the matched gt box.
 
+Both kernels compute an IoU only for the gts that meet the hull of a warp's
+valid anchors (the rest are +0, exactly); ``pair_counts`` counts the pairs
+they compute beside the pairs that intersect.
+
 Each wrapper launches its kernel for CUDA tensors and runs its plain torch
 version (``*_plain``) only for CPU tensors; any other device raises.  The
 plain versions walk the anchors in chunks, so that no (B, G, A) tensor larger
@@ -26,6 +30,7 @@ from __future__ import annotations
 from typing import Sequence, Tuple
 
 import torch
+import torch.nn.functional as F
 
 from ..core.bbox.geometry import bbox_overlaps
 from ..core.bbox.transforms import bbox2delta
@@ -34,6 +39,7 @@ from ._build import F32, I32, PTR
 
 MAX_GTS = 128          # the kernels' shared-memory gt table
 PLAIN_CHUNK = 32768    # anchors per step of the plain versions
+HULL_ANCHORS = (64, 32)   # anchors under one hull test: a warp of pass 1, of pass 2
 _NEG = -2.0            # below the masked value (-1)
 
 # --fmad=false: the IoU of the two passes and of bbox_overlaps must be the
@@ -131,6 +137,54 @@ def assign_targets_plain(anchors: torch.Tensor, valid: torch.Tensor,
                      torch.where(pos[..., None], deltas, 0.0),
                      matched))
     return tuple(torch.cat(parts, dim=1) for parts in zip(*outs))
+
+
+# ----------------------------------------------------- the pairs they compute
+
+def hull_candidates(anchors: torch.Tensor, valid: torch.Tensor, table: torch.Tensor,
+                    group: int) -> tuple:
+    """The kernels' hull test: (candidates (B, groups, G) bool: valid gt g
+    meets the hull of the group's valid anchors; valid anchors a group
+    (B, groups) int64), for groups of ``group`` consecutive anchors."""
+    b, n = valid.shape
+    groups = -(-n // group)
+    pad = groups * group - n
+    a = F.pad(anchors, (0, 0, 0, pad)).view(1, groups, group, 4)
+    v = F.pad(valid, (0, pad)).view(b, groups, group)
+    lo = torch.where(v[..., None], a[..., :2], float("inf")).amin(dim=2)    # (B, groups, 2)
+    hi = torch.where(v[..., None], a[..., 2:], float("-inf")).amax(dim=2)
+    box = table[:, None, :, :4]                                     # (B, 1, G, 4)
+    span = torch.minimum(hi[:, :, None], box[..., 2:]) - torch.maximum(lo[:, :, None], box[..., :2])
+    meets = ((span + 1.0) > 0).all(dim=-1)
+    return meets & (table[:, None, :, 5] > 0), v.sum(dim=2)
+
+
+def pair_counts(anchors: torch.Tensor, valid: torch.Tensor, table: torch.Tensor,
+                gtmax: torch.Tensor, groups: tuple = HULL_ANCHORS, chunk: int = 16384) -> dict:
+    """(anchor, gt) pairs: every slot (B * G * A), the valid pairs whose boxes
+    intersect (the IoUs an exact walk has to compute), and the pairs each
+    pass computes, with hulls over ``groups`` anchors: pass 1 a candidate for
+    every anchor of its group, pass 2 for every valid anchor of an image
+    with a valid gt, with the valid gts of gtmax 0 among the candidates."""
+    n = anchors.shape[0]
+    gvalid = table[..., 5] > 0
+    cand, per_group = hull_candidates(anchors, valid, table, groups[0])
+    lanes = torch.full((cand.shape[1],), groups[0], device=anchors.device)
+    lanes[-1] = n - groups[0] * (cand.shape[1] - 1)
+    pass1 = (cand.sum(dim=2) * lanes).sum()
+    cand, per_group = hull_candidates(anchors, valid, table, groups[1])
+    zero = gvalid & (gtmax == 0)
+    live = gvalid.any(dim=1)[:, None] & (per_group > 0)
+    pass2 = ((cand | zero[:, None]).sum(dim=2) * per_group * live).sum()
+    meet = 0
+    for s in range(0, n, chunk):
+        a = anchors[s:s + chunk]
+        box = table[..., None, :4]
+        span = torch.minimum(a[:, 2:], box[..., 2:]) - torch.maximum(a[:, :2], box[..., :2])
+        hit = ((span + 1.0) > 0).all(dim=-1) & gvalid[..., None] & valid[:, None, s:s + chunk]
+        meet += int(hit.sum())
+    return {"slots": valid.shape[0] * table.shape[1] * n, "intersecting": meet,
+            "pass1": int(pass1), "pass2": int(pass2)}
 
 
 # ------------------------------------------------------------------- wrappers

@@ -88,10 +88,9 @@ def _padding(mod: nn.Conv2d) -> Tuple[int, int]:
 
 def weight_matrix(mod: nn.Conv2d) -> Tuple[torch.Tensor, torch.Tensor]:
     """The conv's quantized weight as the product's second operand: (O, K)
-    int8 with K = kh*kw*I in window order, zero-padded to a multiple of
-    ``K_ALIGN``, and its (O,) scales."""
-    if mod.groups != 1:
-        raise NotImplementedError(f"grouped convolutions (groups={mod.groups}) are not ported")
+    int8 with K = kh*kw*I/groups in window order, zero-padded to a multiple
+    of ``K_ALIGN``, and its (O,) scales.  The rows of group i are the
+    i-th O/groups of them."""
     wq, sw = _quantize_weight(mod.weight.detach())
     mat = wq.permute(0, 2, 3, 1).reshape(wq.shape[0], -1)
     return F.pad(mat, (0, -mat.shape[1] % K_ALIGN)).contiguous(), sw
@@ -127,17 +126,27 @@ def quant_conv_call(mod: nn.Conv2d, x: torch.Tensor,
     """Quantized twin of ``mod(x)`` on the module's own parameters: x (B, C,
     H, W) -> (B, O, Ho, Wo) in the conv's compute dtype.  ``act_scale``: a 0-d
     f32 tensor on x's device, or None for the dynamic absmax.  ``weight``:
-    what ``weight_matrix(mod)`` gave, if it was made ahead."""
+    what ``weight_matrix(mod)`` gave, if it was made ahead.  A grouped conv
+    runs one window gather and one product a group, on the group's channels
+    and rows, and concatenates the groups' outputs by channel."""
     wmat, sw = weight if weight is not None else weight_matrix(mod)
     q, sx = _quantize_tensor(x, act_scale)
     ph, pw = _padding(mod)
     q = q.permute(0, 2, 3, 1)
-    q = F.pad(q, (0, 0, pw, pw, ph, ph)) if ph or pw else q
-    cols, ho, wo = gather_windows(q.contiguous(), mod.kernel_size, mod.stride, mod.dilation)
+    q = (F.pad(q, (0, 0, pw, pw, ph, ph)) if ph or pw else q).contiguous()
+    scale = sx * sw
     bias = None if mod.bias is None else mod.bias.detach().float()
-    y = mma_cuda.tiled_matmul_dequant(cols, wmat, sx * sw, bias,
-                                      getattr(mod, "compute_dtype", torch.float32))
-    del cols
+    dtype = getattr(mod, "compute_dtype", torch.float32)
+    cin, cout = q.shape[3] // mod.groups, wmat.shape[0] // mod.groups
+    outs = []
+    for i in range(mod.groups):
+        cols, ho, wo = gather_windows(q[..., i * cin:(i + 1) * cin], mod.kernel_size,
+                                      mod.stride, mod.dilation)
+        rows = slice(i * cout, (i + 1) * cout)
+        outs.append(mma_cuda.tiled_matmul_dequant(cols, wmat[rows], scale[rows],
+                                                  None if bias is None else bias[rows], dtype))
+        del cols
+    y = outs[0] if mod.groups == 1 else torch.cat(outs, dim=1)
     return y.view(x.shape[0], ho, wo, -1).permute(0, 3, 1, 2)
 
 

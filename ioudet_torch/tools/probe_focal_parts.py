@@ -42,6 +42,7 @@ from typing import Sequence
 import torch
 
 from ..ops import _build, focal_cuda
+from .probe_parts import build_cut_variants, event_ms
 from .probe_tensor_cores import card_line
 
 CHAIN_LINE = "        const float loss = background_loss<kGamma2>(xv[v], wa, lv.gamma);\n"
@@ -66,7 +67,6 @@ GAMMA, ALPHA = 2.0, 0.25
 FOREGROUND = 0.01   # share of foreground (position, anchor) pairs in the sparse mix
 REPS = 20
 CHUNKS = (80, 40, 27, 20, 16, 10, 8)   # classes a unit, for the whole kernel's sweep
-HOLD_CYCLES = 5_000_000   # ~2.5 ms at 2 GHz
 # the C interface of a source whose sum kernel takes the dx kernel's tiles
 _TILED_SUM = {"ioudet_focal_sum": [_build.PTR, _build.I32] + [_build.PTR] * 5 + [_build.I32] * 6
               + [_build.I64] * 6 + [_build.F32] * 2}
@@ -76,27 +76,13 @@ def variants(baselines: Sequence[str] = ()) -> dict:
     """name -> (KernelLibrary, tiled): the source with each of CUTS made, the
     whole source, and each of the ``baselines`` as it is; ``tiled`` for a
     source of the earlier interface."""
-    source = focal_cuda.LIBRARY.source.read_text()
-    texts = {"whole": source}
-    for name, pairs in CUTS.items():
-        text = source
-        for old, new in pairs:
-            if text.count(old) != 1:
-                raise RuntimeError(f"{name}: the line to replace is not in the source once:\n{old}")
-            text = text.replace(old, new)
-        texts[name] = text
-    for path in baselines:
-        texts[Path(path).stem] = Path(path).read_text()
-    libs = {}
-    _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    for name, text in texts.items():
-        path = _build.BUILD_DIR / f"focal_probe_{name}.cu"
-        path.write_text(text)
-        tiled = "ioudet_focal_sum_fit" not in text
-        functions = _TILED_SUM if tiled else focal_cuda.LIBRARY.functions
-        libs[name] = (_build.KernelLibrary(str(path), (), functions, kernels=()), tiled)
-    _build.build_all([lib for lib, _ in libs.values()])
-    return libs
+    def tiled(text: str) -> bool:
+        return "ioudet_focal_sum_fit" not in text
+
+    libs = build_cut_variants(
+        focal_cuda.LIBRARY, CUTS, baselines, "focal_probe",
+        lambda text: _TILED_SUM if tiled(text) else focal_cuda.LIBRARY.functions)
+    return {name: (lib, tiled(lib.source.read_text())) for name, lib in libs.items()}
 
 
 def level_inputs(dense: bool, gen: torch.Generator) -> tuple:
@@ -145,21 +131,6 @@ def launcher(lib, tiled: bool, x, labels, lw, plan: dict):
     return fn
 
 
-def event_ms(fn, reps: int = REPS) -> float:
-    """Mean device time of fn() over ``reps`` calls; the card spins first, so
-    that the host has queued the calls before the first one starts."""
-    fn()
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    torch.cuda.synchronize()
-    torch.cuda._sleep(HOLD_CYCLES)
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / reps
-
-
 def main(argv=()) -> int:
     baselines = list(argv[argv.index("--baseline") + 1:]) if "--baseline" in argv else []
     if not torch.cuda.is_available():
@@ -181,7 +152,7 @@ def main(argv=()) -> int:
                 raise RuntimeError(f"{name} ({mix}): sum {got} against plain {want}")
         times = {v: [] for v in fns}
         for v in list(fns) + list(fns)[::-1]:
-            times[v].append(event_ms(fns[v]))
+            times[v].append(event_ms(fns[v], REPS))
         # the whole kernel on every chunk of CHUNKS, each on the blocks the
         # planner gives it
         whole = libs["whole"][0].build()
@@ -191,7 +162,7 @@ def main(argv=()) -> int:
             blocks = min(plan["sms"] * plan["resident"],
                          -(-units * -(-SHAPE[4] // chunk) // focal_cuda.SUM_THREADS))
             fn = launcher(whole, False, x, labels, lw, dict(plan, chunk=chunk, blocks=blocks))
-            chunks[str(chunk)] = event_ms(fn)
+            chunks[str(chunk)] = event_ms(fn, REPS)
         out[mix] = dict({v: sum(t) / len(t) for v, t in times.items()}, plan=plan, chunks=chunks)
         del x, labels, lw, fns
     print(json.dumps(out, indent=1))

@@ -50,6 +50,7 @@ from typing import Sequence
 import torch
 
 from ..ops import _build, mma_cuda
+from .probe_parts import build_cut_variants, event_ms
 from .probe_tensor_cores import card_line
 
 STORE_CALL = ("      store_tile<BN, EPI>(acc, stage_out + warp * kWarpOutBytes, &map_out, out, "
@@ -100,47 +101,14 @@ REPS = 10
 ACCUM_RIVAL = (64, 1)   # (tile width, cluster size): no split of K, 128 tiles
 ACCUM_PAIRS = 8
 ACCUM_PAIR_REPS = 50
-HOLD_CYCLES = 5_000_000   # ~2.5 ms at 2 GHz
 
 
 def variants(baselines: Sequence[str] = ()) -> dict:
     """name -> KernelLibrary of the source with that variant's lines cut, and
     of each of the ``baselines`` as it is."""
-    source = mma_cuda.WGMMA_LIBRARY.source.read_text()
-    texts = {}
-    for name, cuts in {**CUTS, **CHAIN_CUTS, **ACCUM_CUTS}.items():
-        text = source
-        for cut in cuts:
-            if text.count(cut) != 1:
-                raise RuntimeError(f"{name}: the line to cut is not in the source once:\n{cut}")
-            text = text.replace(cut, "")
-        texts[name] = text
-    for path in baselines:
-        texts[Path(path).stem] = Path(path).read_text()
-    libs = {}
-    _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    for name, text in texts.items():
-        path = _build.BUILD_DIR / f"wgmma_probe_{name}.cu"
-        path.write_text(text)
-        libs[name] = _build.KernelLibrary(str(path), mma_cuda.WGMMA_LIBRARY.extra_flags,
-                                          mma_cuda.WGMMA_LIBRARY.functions, kernels=())
-    _build.build_all(list(libs.values()))
-    return libs
-
-
-def event_ms(fn, reps: int = REPS) -> float:
-    """Mean device time of fn() over ``reps`` calls; the card spins first, so
-    that the host has queued the calls before the first one starts."""
-    fn()
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    torch.cuda.synchronize()
-    torch.cuda._sleep(HOLD_CYCLES)
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / reps
+    cuts = {name: tuple((line, "") for line in lines)
+            for name, lines in {**CUTS, **CHAIN_CUTS, **ACCUM_CUTS}.items()}
+    return build_cut_variants(mma_cuda.WGMMA_LIBRARY, cuts, baselines, "wgmma_probe")
 
 
 def main(argv=()) -> int:
@@ -232,7 +200,7 @@ def padded_parts(lib, a: torch.Tensor, b_t: torch.Tensor, res: torch.Tensor, sms
         raise RuntimeError(f"pad then TMA differs from the register-fed kernel by {diff}")
     times = {"pad_only": [], "pad_then_tma": []}
     for v in ("pad_only", "pad_then_tma", "pad_then_tma", "pad_only"):
-        times[v].append(event_ms(pad if v == "pad_only" else pad_then_tma))
+        times[v].append(event_ms(pad if v == "pad_only" else pad_then_tma, REPS))
     return dict({v: sum(t) / len(t) for v, t in times.items()}, padded_tile_width=bn)
 
 
@@ -242,7 +210,7 @@ def in_turns(libs: dict, names, fn) -> dict:
     times = {v: [] for v in names}
     for v in list(names) + list(names)[::-1]:
         lib = libs[v].build()
-        times[v].append(event_ms(lambda: fn(lib)))
+        times[v].append(event_ms(lambda: fn(lib), REPS))
     return {v: sum(t) / len(t) for v, t in times.items()}
 
 
@@ -276,7 +244,7 @@ def chain_parts(libs: dict, sms: int, stream, gen, baselines: Sequence[str] = ()
         key = f"chain {'int8' if int8 else 'bf16'} ({PROBE_M}, {PROBE_K}) loop {LOOP}"
         whole = libs["whole"].build()
         # every split the card runs, whole, beside the plan's
-        plans = {f"{c} x {n}": event_ms(lambda c=c, n=n: call(whole, c, n))
+        plans = {f"{c} x {n}": event_ms(lambda c=c, n=n: call(whole, c, n), REPS)
                  for c, n in mma_cuda.chain_options(PROBE_K) if fits.get(c, 0) > 0}
         out[key] = dict(in_turns(libs, names, call), cluster=cs, slice=ns, plans=plans,
                         fits={str(c): f for c, f in fits.items()}, sms=sms)
@@ -317,7 +285,7 @@ def accum_parts(libs: dict, sms: int, stream, gen) -> dict:
         key = (f"accum {'int8' if int8 else 'bf16'} ({PROBE_M}, {PROBE_K}) x ({PROBE_K}, "
                f"{PROBE_N}) loop {LOOP}")
         whole = libs["whole"].build()
-        plans = {f"{bn} x {ks}": event_ms(lambda p=(bn, ks): call(whole, p))
+        plans = {f"{bn} x {ks}": event_ms(lambda p=(bn, ks): call(whole, p), REPS)
                  for (bn, ks), f in fits.items() if f > 0}
         runs = {plan: [], ACCUM_RIVAL: []}
         for _ in range(ACCUM_PAIRS):

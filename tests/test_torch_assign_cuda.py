@@ -20,8 +20,8 @@ def test_kernels_match_plain_on_card():
     _build.reset_launches()
     err = chip_smoke.phase_assign_kernels(assign_cuda)   # raises on a mismatch
     assert err["assign_gtmax_kernel"] == 0.0 and err["assign_targets_kernel"] <= 1e-6
-    # two runs of each kernel per case: shapes x settings x gts_valid
-    cases = len(chip_smoke.ASSIGN_SHAPES) * 2 * 2
+    # two runs of each kernel per case: (shapes + grid cases) x settings x gts_valid
+    cases = (len(chip_smoke.ASSIGN_SHAPES) + len(chip_smoke.GRID_CASES)) * 2 * 2
     assert _build.launches["assign_gtmax_kernel"] == 2 * cases
     assert _build.launches["assign_targets_kernel"] == 2 * cases
 

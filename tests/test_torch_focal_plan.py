@@ -140,4 +140,8 @@ def test_parts_probe_finds_its_lines_in_the_kernel_source(name):
     assert pairs
     for old, new in pairs:
         assert source.count(old) == 1 and old != new
-    assert probe_focal_parts.main() == 1   # no card here
+
+
+def test_parts_probe_needs_a_card(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    assert probe_focal_parts.main() == 1

@@ -374,7 +374,12 @@ def test_parts_probe_finds_its_lines_in_the_kernel_source(name):
     assert cuts
     for cut in cuts:
         assert source.count(cut) == 1
-    assert probe_wgmma_parts.main() == 1   # no card here
+
+
+def test_parts_probe_needs_a_card(monkeypatch):
+    from ioudet_torch.tools import probe_wgmma_parts
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    assert probe_wgmma_parts.main() == 1
 
 
 @pytest.mark.parametrize("needle", [

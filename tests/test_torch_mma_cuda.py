@@ -135,6 +135,26 @@ def test_quantized_conv_goes_through_the_kernel(kernel, stride, padding, cin):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("groups", [4, 64])
+def test_grouped_quantized_conv_goes_through_the_kernel(groups):
+    """A grouped conv (4 groups; depthwise) on the card and on the CPU: one
+    dequantize launch a group, the same bits."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    rng = np.random.default_rng(groups)
+    conv = Conv2d(64, 64, 3, 1, 1, groups=groups)
+    x = torch.from_numpy(rng.normal(0, 1, (2, 64, 37, 41)).astype(np.float32))
+    scale = torch.tensor(0.03)
+    with torch.no_grad():
+        want = quant.quant_conv_call(conv, x, scale)
+        _build.reset_launches()
+        got = quant.quant_conv_call(conv.cuda(), x.cuda(), scale.cuda())
+        torch.cuda.synchronize()
+    assert _build.launches["wgmma_dequant_s8"] == groups
+    assert torch.equal(got.cpu(), want)
+
+
+@pytest.mark.cuda
 def test_probe_launches_the_wgmma_kernels():
     """The probe tool's chain and unaligned questions run on the wgmma
     kernels, and the mma.sync kernels they replaced are not launched

@@ -20,7 +20,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ioudet.ops import quant as jquant
-from ioudet_torch.models.utils.layers import Conv2d, ConvModule
+from ioudet_torch.models.utils.layers import Conv2d, ConvModule, same_pads
 from ioudet_torch.ops import _build, mma_cuda, quant
 
 
@@ -78,6 +78,19 @@ def test_quantize_weight_matches_ioudet():
 
 # ------------------------------------------------------------ quantized conv
 
+class SamePadded(nn.Module):
+    """XLA's 'SAME' padding ahead of a conv (``ConvModule`` has no groups)."""
+
+    def __init__(self, conv):
+        super().__init__()
+        self.conv = conv
+
+    def forward(self, x):
+        (kh, kw), (sh, sw) = self.conv.kernel_size, self.conv.stride
+        ph, pw = same_pads(x.shape[2], kh, sh), same_pads(x.shape[3], kw, sw)
+        return self.conv(F.pad(x, (pw[0], pw[1], ph[0], ph[1])))
+
+
 def conv_pair(features, groups, strides, padding, in_ch=8, seed=0, on_grid=False):
     """A flax conv with seeded params and the port's conv on the bridged
     weights: (flax module, variables, torch module)."""
@@ -98,28 +111,26 @@ def conv_pair(features, groups, strides, padding, in_ch=8, seed=0, on_grid=False
         tconv = mod = Conv2d(in_ch, features, 3, stride=strides,
                              padding=padding if isinstance(padding, int) else 0,
                              groups=groups)
-    if groups == 1:
-        with torch.no_grad():
-            tconv.weight.copy_(oihw(k))
-            tconv.bias.copy_(torch.from_numpy(b))
+        if padding == "SAME":
+            mod = SamePadded(tconv)
+    with torch.no_grad():
+        tconv.weight.copy_(oihw(k))
+        tconv.bias.copy_(torch.from_numpy(b))
     return conv, v, mod
 
 
+# (features, groups, strides, padding); groups 4 of 2 input channels each, and
+# a depthwise conv (groups = in_ch = 8)
 CASES = [(16, 1, (1, 1), 1), (16, 4, (2, 2), "SAME"), (8, 1, (1, 1), "VALID"),
-         (16, 1, (2, 2), "SAME"), (8, 1, (2, 2), 1)]
+         (16, 1, (2, 2), "SAME"), (8, 1, (2, 2), 1), (8, 8, (1, 1), 1)]
 
 
 @pytest.mark.parametrize("features,groups,strides,padding", CASES)
 def test_quant_conv_matches_ioudet(features, groups, strides, padding):
     """Static scale, f32: the port's quantized conv equals ioudet's to f32
-    roundoff; a grouped conv raises, as the port has none."""
+    roundoff, grouped convs included."""
     conv, v, mod = conv_pair(features, groups, strides, padding, seed=features)
     x = np.random.default_rng(2).normal(0, 1, (2, 10, 11, 8)).astype(np.float32)
-    if groups > 1:
-        with pytest.raises(NotImplementedError):
-            with quant.quantize_calls(mod, skip=()):
-                mod(nchw(x))
-        return
     with jquant.quantize_calls(skip=(), act_scale=0.03):
         want = np.asarray(conv.apply(v, jnp.asarray(x)))
     with torch.no_grad(), quant.quantize_calls(mod, skip=(), act_scale=0.03):
@@ -131,8 +142,7 @@ def test_quant_conv_matches_ioudet(features, groups, strides, padding):
     assert 0 < np.abs(got - exact).max() < 0.1 * exact.std() + 1e-3   # quantized, and close
 
 
-@pytest.mark.parametrize("features,groups,strides,padding",
-                         [c for c in CASES if c[1] == 1])
+@pytest.mark.parametrize("features,groups,strides,padding", CASES)
 def test_quant_conv_exact_on_grid(features, groups, strides, padding):
     """Weights and activations on the int8 grid, dynamic scale, no bias: the
     port's quantized conv is ioudet's bit for bit and reproduces the f32
