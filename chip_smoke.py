@@ -15,9 +15,10 @@ Phases (any failure exits non-zero):
      209,538 and G up to 128, and on the flagship's grid anchors at batch 2
      (a training batch's gts, a valid gt off the canvas, an image without a
      valid anchor, gts covering the canvas); the focal pair to rtol 1e-6 (sum) and 1e-5 (dx)
-     on the flagship's five level shapes and on the sum kernel's edges (runs
+     on the flagship's five level shapes and on the kernels' edges (runs
      of 1, 2, 4 and 8 positions, A = C = B = 1, labels 0, 1 and C in one run,
-     zero weights, logits at +-30 and 0), f32 and bf16, contiguous and as the
+     zero weights, logits at +-30 and 0, and at +-90 and +-100, where
+     exp(-|x|) is subnormal or zero), f32 and bf16, contiguous and as the
      permuted NCHW view, and the autograd function against autograd through
      the plain version; the three tensor-core products (chain, accumulate,
      tiled) in int8 bit for bit and in bf16 within stated limits, on ragged
@@ -62,8 +63,9 @@ Phases (any failure exits non-zero):
      plain version, its bound and, where there is one, a library call at the
      shape the main path gives it; the assignment pair's pairs computed
      against those that intersect, and its times on gts covering the canvas
-     (nothing to cull); the focal sum at each of the five levels
-     with its route, run length, grid and the blocks an SM holds; each wgmma
+     (nothing to cull); the focal sum and its gradient at each of the five
+     levels with the route, run length, grid and the blocks an SM holds, the
+     gradient also at P3 on dense labels and in bf16; each wgmma
      kernel beside the mma.sync kernel it replaced, timed in turns (old, new,
      new, old).
 The last two lines are the card's name and power limit, then
@@ -100,12 +102,16 @@ ASSIGN_SHAPES = ((3, 1, 1), (3, 500, 17), (3, 4096, 17), (3, 9000, 17),
 # valid gt off the canvas (its gtmax is 0: rule b), an image without a valid
 # anchor, gts covering the canvas (nothing to cull)
 GRID_CASES = ("grid", "off_canvas", "no_valid_anchor", "covering")
-# (B, H, W, A, C) of the focal cases with the sum kernel's edges, run on
+# the focal edge case whose other logits are +-90 and +-100, where exp(-|x|)
+# is subnormal or zero in f32 (runs of 4 f32 / 8 bf16)
+FOCAL_UNDERFLOW = (2, 4, 8, 3, 7)
+# (B, H, W, A, C) of the focal cases with the kernels' edges, run on
 # focal_edge_case's data: A = C = B = 1 with H*W a whole 16-byte run (4 f32,
 # 8 bf16) and with an odd H*W (scalar loads); plane pitches of 168 and 48
-# bytes, off the 16-byte grid (runs of 2 and 4); runs of 4 f32 / 8 bf16 at C = 80
+# bytes, off the 16-byte grid (runs of 2 and 4); runs of 4 f32 / 8 bf16 at C = 80;
+# the underflow case
 FOCAL_EDGES = ((1, 4, 4, 1, 1), (1, 3, 3, 1, 1), (2, 6, 7, 3, 5), (3, 2, 6, 9, 80),
-               (2, 4, 8, 9, 80))
+               (2, 4, 8, 9, 80), FOCAL_UNDERFLOW)
 # the focal cases: two ragged small ones, the flagship's five levels at batch
 # 2 (P5-P7 on scalar or shorter runs), then the edges
 FOCAL_SHAPES = ((2, 6, 9, 3, 7), (3, 5, 7, 9, 80), (2, 104, 168, 9, 80),
@@ -308,11 +314,11 @@ def focal_case(shape, seed: int = 0):
 
 
 def focal_edge_case(shape, seed: int = 0):
-    """focal_case with the data edges of the sum kernel: labels 0, 1 and C
+    """focal_case with the data edges of the kernels: labels 0, 1 and C
     in turn along the positions of each anchor (so every run of two holds
     two of them, every longer run all three), lw = 0 on every fifth
     (position, anchor), and logits of +30, -30 and 0 on three of every seven
-    elements."""
+    elements; on FOCAL_UNDERFLOW +90, -90, +100 and -100 on the other four."""
     b, h, w, a, c = shape
     logits, labels, lw = focal_case(shape, seed)
     j = np.arange(labels.shape[1]) - 5   # (position, anchor) index in the level's columns
@@ -320,6 +326,8 @@ def focal_edge_case(shape, seed: int = 0):
     lw[:, j % 5 == 0] = 0.0
     flat = logits.reshape(-1)
     flat[0::7], flat[3::7], flat[5::7] = 30.0, -30.0, 0.0
+    if tuple(shape) == FOCAL_UNDERFLOW:
+        flat[1::7], flat[2::7], flat[4::7], flat[6::7] = 90.0, -90.0, 100.0, -100.0
     return logits, labels, lw
 
 
@@ -1370,6 +1378,13 @@ def library_focal(x, onehot, lw, gamma=2.0, alpha=0.25):
     return (a_t * (1 - p_t) ** gamma * ce * lw).sum()
 
 
+def focal_plan_line(Fc, plan: dict) -> str:
+    """A focal kernel's launch plan, as phase 5 prints it."""
+    return (f"route {'vector' if plan['vec'] > 1 else 'scalar'}, V {plan['vec']}, "
+            f"{plan['chunk']} classes a unit, grid {plan['blocks']} blocks of "
+            f"{Fc.SUM_THREADS}, {plan['resident']} resident an SM x {plan['sms']} SMs")
+
+
 def train_step_parts(runner, batch, reps: int = 5) -> dict:
     """Medians by CUDA events of the parts of one train step: forward (the
     network), loss (of which the assignment alone), backward, update."""
@@ -1599,30 +1614,47 @@ def phase_timing(K, A, Fc, handle, runner, batch, rng, card: str) -> dict:
         cuda_ms(lambda: Fc.focal_level_dx_plain(one, x, labels, lw, 2.0, 0.25, a), 5),
         *bound(2 * x.numel() * 4 + small + 4, x.numel() * FOCAL_BWD_FLOPS),
         lib_both - lib_fwd)
-    # K3a at each of the flagship's five levels, on the step's logits and targets
-    start, level_ms = 0, []
+    # K3a and K3b at each of the flagship's five levels, on the step's
+    # logits and targets
+    start, level_ms = 0, {"focal_sum_kernel": [], "focal_dx_kernel": []}
     for i, (xl, (hl, wl)) in enumerate(zip(cls, sizes)):
         n = hl * wl * a
         lab, wts = all_labels[:, start:start + n], all_lw[:, start:start + n]
         start += n
-        plan = Fc.sum_launch_plan(xl, a, 2.0)
-        ms = cuda_ms(lambda xl=xl, lab=lab, wts=wts: Fc.focal_level_sum(xl, lab, wts, 2.0, 0.25, a),
-                     20)
-        bnd, _ = bound(xl.numel() * 4 + (lab.numel() + wts.numel()) * 4 + 4,
-                       xl.numel() * FOCAL_FWD_FLOPS)
-        level_ms.append(ms)
-        print(f"focal_sum_kernel P{i + 3} {tuple(xl.shape)} f32, the step's logits: "
-              f"{ms:.4f} ms, {100 * bnd / ms:.1f}% of its bound {bnd:.4f} ms; route "
-              f"{'vector' if plan['vec'] > 1 else 'scalar'}, V {plan['vec']}, "
-              f"{plan['chunk']} classes a unit, grid {plan['blocks']} blocks of "
-              f"{Fc.SUM_THREADS}, {plan['resident']} resident an SM x {plan['sms']} SMs "
-              f"{tag}]", flush=True)
-    print(f"focal_sum_kernel, the five levels at batch {bsz}: {sum(level_ms):.4f} ms {tag}]",
-          flush=True)
-    del cls, all_labels, all_lw
-    # the same pair on seeded random logits (sd 3), labels and weights
+        small_l = (lab.numel() + wts.numel()) * 4
+        dxl = torch.empty_like(xl)   # a dx of the wrapper's strides, for its plan
+        for name, plan, call, nbytes, flops in (
+                ("focal_sum_kernel", Fc.sum_launch_plan(xl, a, 2.0),
+                 lambda: Fc.focal_level_sum(xl, lab, wts, 2.0, 0.25, a),
+                 xl.numel() * 4 + small_l + 4, xl.numel() * FOCAL_FWD_FLOPS),
+                ("focal_dx_kernel", Fc.dx_launch_plan(xl, dxl, a, 2.0),
+                 lambda: Fc.focal_level_dx(one, xl, lab, wts, 2.0, 0.25, a),
+                 2 * xl.numel() * 4 + small_l + 4, xl.numel() * FOCAL_BWD_FLOPS)):
+            ms = cuda_ms(call, 20)
+            bnd, _ = bound(nbytes, flops)
+            level_ms[name].append(ms)
+            print(f"{name} P{i + 3} {tuple(xl.shape)} f32, the step's logits: {ms:.4f} ms, "
+                  f"{100 * bnd / ms:.1f}% of its bound {bnd:.4f} ms; {focal_plan_line(Fc, plan)} "
+                  f"{tag}]", flush=True)
+        del dxl
+    for name, each in level_ms.items():
+        print(f"{name}, the five levels at batch {bsz}: {sum(each):.4f} ms {tag}]", flush=True)
+    # seeded random logits (sd 3), weights and labels uniform in 0..C: the
+    # dense label mix, where nearly every (position, anchor) takes the patch
     rnd, rnd_labels, rnd_lw = to_cuda(*focal_case(P3_SHAPE, seed=11))
     rnd, rnd_labels, rnd_lw = rnd.permute(0, 2, 3, 1), rnd_labels[:, 5:5 + nl], rnd_lw[:, 5:5 + nl]
+    # K3b at P3 on the step's logits with the dense labels, and in bf16
+    xb = x.to(torch.bfloat16)   # keeps the view's strides
+    for what, args, nbytes in (
+            ("dense labels, f32", (x, rnd_labels, rnd_lw), 2 * x.numel() * 4),
+            ("bf16, the step's targets", (xb, labels, lw), 2 * xb.numel() * 2)):
+        plan = Fc.dx_launch_plan(args[0], torch.empty_like(args[0]), a, 2.0)
+        ms = cuda_ms(lambda args=args: Fc.focal_level_dx(one, *args, 2.0, 0.25, a), 20)
+        bnd, _ = bound(nbytes + small + 4, x.numel() * FOCAL_BWD_FLOPS)
+        print(f"focal_dx_kernel P3 {P3_SHAPE}, {what}: {ms:.4f} ms, {100 * bnd / ms:.1f}% of "
+              f"its bound {bnd:.4f} ms; {focal_plan_line(Fc, plan)} {tag}]", flush=True)
+    del xb, cls, all_labels, all_lw
+    # the pair on the random logits, labels and weights
     rnd_ms = (cuda_ms(lambda: Fc.focal_level_sum(rnd, rnd_labels, rnd_lw, 2.0, 0.25, a), 20),
               cuda_ms(lambda: Fc.focal_level_dx(one, rnd, rnd_labels, rnd_lw, 2.0, 0.25, a), 20))
     print(f"focal kernels at P3 on random logits and labels in place of the step's: "

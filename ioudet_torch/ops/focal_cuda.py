@@ -9,7 +9,9 @@ of the TPU kernels of ``ioudet/ops/focal_pallas.py``:
     integer labels.  ``sum_vector`` and ``sum_plan`` (pure functions of the
     shapes, strides and the card's counts) choose its route and grid;
   * ``focal_level_dx``  (``focal_dx_kernel``, K3b): that sum's gradient for
-    the logits times an upstream scalar, in the logits' type and strides.
+    the logits times an upstream scalar, in the logits' type and strides, on
+    the sum's units and wave (``dx_vector`` asks the logits' and dx's base
+    addresses for the run's grid).
 
 Each wrapper launches its kernel for CUDA tensors and runs its plain torch
 version (``*_plain``) only for CPU tensors; any other device raises.  The
@@ -31,22 +33,20 @@ import torch
 from . import _build
 from ._build import F32, I32, I64, PTR
 
-TILE = 128                 # positions per block of the dx kernel (kTile in the source)
-MAX_SMEM = 48 * 1024       # dynamic shared memory a launch gets without opting in
-TARGET_BLOCKS = 8 * 132    # blocks that keep an H100's 132 SMs busy
-MIN_CHUNK = 8              # fewest channels (dx) or classes (sum) a block or unit is given
-SUM_THREADS = 256          # threads a block of the sum kernel (kSumThreads in the source)
+MIN_CHUNK = 8              # fewest classes a unit is given (or all C)
+SUM_THREADS = 256          # threads a block of either kernel (kThreads in the source)
 RUN_BYTES = 16             # the widest load of a run of positions
-UNIT_COST = 2              # a sum unit's own work (indices, labels, weights), in classes:
-                           # fitted to the sum kernel's times over chunks of 8-80 on an H100
+UNIT_COST = 2              # a unit's own work (indices, labels, weights), in classes:
+                           # fitted to the sum kernel's times over chunks of 8-80 on an H100;
+                           # the dx kernel's chunk sweeps at P3-P7 agree
 
-_LEVEL = [I32] * 6 + [I64] * 6 + [F32] * 2   # B H W A C split, strides, gamma alpha
-_SUM_LEVEL = [I32] * 8 + [I64] * 6 + [F32] * 2   # B H W A C vec chunk blocks, strides, gamma alpha
+_LEVEL = [I32] * 8 + [I64] * 6 + [F32] * 2   # B H W A C vec chunk blocks, strides, gamma alpha
 LIBRARY = _build.KernelLibrary(
     "focal_kernel.cu", (),
-    {"ioudet_focal_sum": [PTR, I32, PTR, PTR, PTR, PTR, PTR] + _SUM_LEVEL,
+    {"ioudet_focal_sum": [PTR, I32, PTR, PTR, PTR, PTR, PTR] + _LEVEL,
      "ioudet_focal_sum_fit": [I32, I32, I32, PTR],
-     "ioudet_focal_dx": [PTR, PTR, I32, PTR, PTR, PTR] + _LEVEL},
+     "ioudet_focal_dx": [PTR, PTR, I32, PTR, PTR, PTR] + _LEVEL,
+     "ioudet_focal_dx_fit": [I32, I32, I32, PTR]},
     kernels=("focal_sum_kernel", "focal_dx_kernel"))
 
 
@@ -112,19 +112,6 @@ def _check_level(logits, labels, lw, num_anchors) -> Tuple[int, int, int, int, i
     return b, h, w, num_anchors, ac // num_anchors
 
 
-def channel_split(dims, channel_stride: int) -> int:
-    """Into how many chunks the dx kernel splits a level's A*C channels, each
-    chunk with its own blocks: as many as bring the launch to TARGET_BLOCKS
-    blocks, so that a small level is not a few blocks that each walk every
-    channel.  1 for a unit channel stride, where threads run along the
-    channels."""
-    b, h, w, a, c = dims
-    if channel_stride == 1:
-        return 1
-    tiles = b * ((h * w + TILE - 1) // TILE)
-    return max(1, min(-(-TARGET_BLOCKS // max(tiles, 1)), a * c // MIN_CHUNK))
-
-
 def sum_vector(dims, strides, itemsize: int, address: int) -> int:
     """Positions a thread of the sum kernel loads at once: the most, up to
     RUN_BYTES of logits (4 f32, 8 bf16), that keep every run's load on its
@@ -143,9 +130,17 @@ def sum_vector(dims, strides, itemsize: int, address: int) -> int:
     return v
 
 
+def dx_vector(dims, strides, itemsize: int, address: int, dx_address: int) -> int:
+    """Positions a thread of the dx kernel loads and stores at once:
+    ``sum_vector``'s run, on the grid of both base addresses (dx shares the
+    logits' strides, not their allocation)."""
+    return sum_vector(dims, strides, itemsize, address | dx_address)
+
+
 @functools.lru_cache(maxsize=256)
 def sum_plan(dims, vec: int, sms: int, resident: int) -> Tuple[int, int]:
-    """(classes a unit, blocks) of the sum kernel.  The grid is at most one
+    """(classes a unit, blocks) of the sum kernel, and of the dx kernel on
+    its own ``vec`` and ``resident``.  The grid is at most one
     wave, ``sms`` x ``resident`` blocks.  A unit is a run of ``vec``
     positions of one image and anchor and a chunk of its classes; the chunk
     is the one of at least MIN_CHUNK classes (or all C) that gives the
@@ -166,53 +161,61 @@ def sum_plan(dims, vec: int, sms: int, resident: int) -> Tuple[int, int]:
     return chunk, max(1, min(sms * resident, -(-units // SUM_THREADS)))
 
 
-_SUM_RESIDENT: dict = {}
+_RESIDENT: dict = {}
 
 
-def sum_resident(device, dtype: torch.dtype, vec: int, gamma2: bool) -> int:
-    """Blocks of the sum kernel for (type, vec, gamma == 2) that an SM holds
-    at once, asked of the runtime once per device and instance."""
+def resident_blocks(kernel: str, device, dtype: torch.dtype, vec: int, gamma2: bool) -> int:
+    """Blocks of the ``kernel`` ("sum" or "dx") instance for (type, vec,
+    gamma == 2) that an SM holds at once, asked of the runtime once per
+    device and instance."""
     device = torch.device(device)
-    key = (device.index if device.index is not None else torch.cuda.current_device(),
+    key = (kernel, device.index if device.index is not None else torch.cuda.current_device(),
            dtype, vec, gamma2)
-    if key not in _SUM_RESIDENT:
+    if key not in _RESIDENT:
         count = ctypes.c_int(0)
-        err = LIBRARY.build().ioudet_focal_sum_fit(int(dtype == torch.bfloat16), vec,
-                                                   int(gamma2), ctypes.addressof(count), None)
+        err = getattr(LIBRARY.build(), f"ioudet_focal_{kernel}_fit")(
+            int(dtype == torch.bfloat16), vec, int(gamma2), ctypes.addressof(count), None)
         if err != 0 or count.value < 1:
-            raise RuntimeError(f"focal_sum_kernel: occupancy query failed ({err}, {count.value})")
-        _SUM_RESIDENT[key] = count.value
-    return _SUM_RESIDENT[key]
+            raise RuntimeError(f"focal_{kernel}_kernel: occupancy query failed "
+                               f"({err}, {count.value})")
+        _RESIDENT[key] = count.value
+    return _RESIDENT[key]
+
+
+def launch_plan(kernel: str, logits: torch.Tensor, num_anchors: int, gamma: float,
+                vec: int) -> dict:
+    """The ``kernel``'s ("sum" or "dx") plan for these CUDA logits on runs of
+    ``vec``: vec, classes a unit (chunk), blocks, the blocks an SM holds
+    (resident) and SMs."""
+    b, h, w, ac = logits.shape
+    dims = (b, h, w, num_anchors, ac // num_anchors)
+    sms = torch.cuda.get_device_properties(logits.device).multi_processor_count
+    resident = resident_blocks(kernel, logits.device, logits.dtype, vec, float(gamma) == 2.0)
+    chunk, blocks = sum_plan(dims, vec, sms, resident)
+    return dict(vec=vec, chunk=chunk, blocks=blocks, resident=resident, sms=sms)
 
 
 def sum_launch_plan(logits: torch.Tensor, num_anchors: int, gamma: float) -> dict:
-    """What ``focal_level_sum`` launches for these CUDA logits: vec, classes
-    a unit (chunk), blocks, the blocks an SM holds (resident) and SMs."""
+    """What ``focal_level_sum`` launches for these CUDA logits."""
     b, h, w, ac = logits.shape
-    dims = (b, h, w, num_anchors, ac // num_anchors)
-    vec = sum_vector(dims, logits.stride(), logits.element_size(), logits.data_ptr())
-    sms = torch.cuda.get_device_properties(logits.device).multi_processor_count
-    resident = sum_resident(logits.device, logits.dtype, vec, float(gamma) == 2.0)
-    chunk, blocks = sum_plan(dims, vec, sms, resident)
-    return dict(vec=vec, chunk=chunk, blocks=blocks, resident=resident, sms=sms)
+    vec = sum_vector((b, h, w, num_anchors, ac // num_anchors), logits.stride(),
+                     logits.element_size(), logits.data_ptr())
+    return launch_plan("sum", logits, num_anchors, gamma, vec)
+
+
+def dx_launch_plan(logits: torch.Tensor, dx: torch.Tensor, num_anchors: int,
+                   gamma: float) -> dict:
+    """What ``focal_level_dx`` launches for these CUDA logits and the dx it
+    writes."""
+    b, h, w, ac = logits.shape
+    vec = dx_vector((b, h, w, num_anchors, ac // num_anchors), logits.stride(),
+                    logits.element_size(), logits.data_ptr(), dx.data_ptr())
+    return launch_plan("dx", logits, num_anchors, gamma, vec)
 
 
 def _check_rows(labels, lw) -> None:
     if labels.shape[1] > 1 and (labels.stride(1) != 1 or lw.stride(1) != 1):
         raise ValueError("labels and lw must have unit inner stride")
-
-
-def _level_args(logits, labels, lw, dims, gamma, alpha) -> tuple:
-    """The dx kernel's shape, split, stride and constant arguments; raises on
-    what it does not take."""
-    b, h, w, a, c = dims
-    _check_rows(labels, lw)
-    smem = TILE * 8 + TILE * a * 8 + a * c * 2
-    if smem > MAX_SMEM or a * c >= 1 << 16:
-        raise ValueError(f"A={a}, C={c}: the tile needs {smem} B of shared memory "
-                         f"(limit {MAX_SMEM})")
-    return (b, h, w, a, c, channel_split(dims, logits.stride(3)), *logits.stride(),
-            labels.stride(0), lw.stride(0), float(gamma), float(alpha))
 
 
 def focal_level_sum(logits: torch.Tensor, labels: torch.Tensor, lw: torch.Tensor,
@@ -250,15 +253,18 @@ def focal_level_dx(g, logits: torch.Tensor, labels: torch.Tensor, lw: torch.Tens
     dims = _check_level(logits, labels, lw, num_anchors)
     if logits.device.type == "cpu":
         return focal_level_dx_plain(g, logits, labels, lw, gamma, alpha, num_anchors)
-    args = _level_args(logits, labels, lw, dims, gamma, alpha)
+    _check_rows(labels, lw)
     g = torch.as_tensor(g, dtype=torch.float32, device=logits.device).reshape(())
     dx = torch.empty_strided(logits.shape, logits.stride(), dtype=logits.dtype,
                              device=logits.device)
     if logits.numel():
+        plan = dx_launch_plan(logits, dx, num_anchors, gamma)
         _build.launch(LIBRARY.build().ioudet_focal_dx, "focal_dx_kernel",
                       g.data_ptr(), logits.data_ptr(),
                       int(logits.dtype == torch.bfloat16), labels.data_ptr(),
-                      lw.data_ptr(), dx.data_ptr(), *args)
+                      lw.data_ptr(), dx.data_ptr(), *dims, plan["vec"], plan["chunk"],
+                      plan["blocks"], *logits.stride(), labels.stride(0), lw.stride(0),
+                      float(gamma), float(alpha))
     return dx
 
 

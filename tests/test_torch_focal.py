@@ -109,14 +109,3 @@ def test_wrapper_rejects_what_the_kernels_do_not_take():
     with pytest.raises(ValueError):
         focal_cuda.focal_level_dx(1.0, x, labels, lw, 2.0, 0.25, a + 1)
 
-
-def test_channel_split_fills_the_card_on_small_levels():
-    """The flagship's levels at batch 8 as permuted NCHW views: P3 has blocks
-    enough with one chunk, the smaller levels split their 720 channels; a
-    unit channel stride never splits, and a chunk keeps at least 8 channels."""
-    sizes = [(104, 168), (52, 84), (26, 42), (13, 21), (7, 11)]
-    splits = [focal_cuda.channel_split((8, h, w, 9, 80), h * w) for h, w in sizes]
-    assert splits == [1, 4, 15, 44, 90]
-    assert all(focal_cuda.channel_split((8, h, w, 9, 80), 1) == 1 for h, w in sizes)
-    assert focal_cuda.channel_split((2, 6, 9, 3, 7), 54) == 2
-    assert focal_cuda.channel_split((1, 1, 1, 1, 1), 5) == 1

@@ -71,10 +71,39 @@ def test_sum_kernel_on_the_p3_view_is_one_wave_and_deterministic():
 
 
 @pytest.mark.cuda
+def test_dx_kernel_on_the_p3_view_is_one_wave_and_deterministic():
+    """K3b on the flagship's P3 view at batch 2: runs of 4 f32, the grid the
+    planner gives for the blocks an SM holds (at most one wave), the same bits
+    twice, within rtol 1e-5 / atol 1e-6 of plain."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    shape = (2, 104, 168, 9, 80)
+    n = 104 * 168 * 9
+    nchw, labels, lw = chip_smoke.to_cuda(*chip_smoke.focal_case(shape, seed=1))
+    x, labels, lw = nchw.permute(0, 2, 3, 1), labels[:, 5:5 + n], lw[:, 5:5 + n]
+    g = torch.full((), 3.0, device="cuda")
+    plan = focal_cuda.dx_launch_plan(x, torch.empty_like(x), 9, 2.0)
+    assert plan["vec"] == 4 and plan["resident"] >= 1
+    assert plan["sms"] == torch.cuda.get_device_properties(0).multi_processor_count
+    assert (plan["chunk"], plan["blocks"]) == focal_cuda.sum_plan(shape, 4, plan["sms"],
+                                                                  plan["resident"])
+    assert plan["blocks"] <= plan["sms"] * plan["resident"]
+    _build.reset_launches()
+    first = focal_cuda.focal_level_dx(g, x, labels, lw, 2.0, 0.25, 9)
+    second = focal_cuda.focal_level_dx(g, x, labels, lw, 2.0, 0.25, 9)
+    torch.cuda.synchronize()
+    assert _build.launches["focal_dx_kernel"] == 2
+    assert first.stride() == x.stride() and torch.equal(first, second)
+    want = focal_cuda.focal_level_dx_plain(g, x, labels, lw, 2.0, 0.25, 9)
+    torch.testing.assert_close(first, want, rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("gamma, alpha", [(0.5, 0.25), (1.5, 0.5), (3.0, 0.75)])
 def test_sum_kernel_with_other_gammas(gamma, alpha):
-    """The sum kernel's instances for gamma != 2 (pt ** gamma through powf)
-    on runs of 4 and of 1, within 1e-6 of plain."""
+    """The kernels' instances for gamma != 2 (pt ** gamma through powf) on
+    runs of 4 and of 1: the sum within 1e-6 of plain, dx (for gamma >= 1,
+    where d pt ** gamma / d pt is bounded) within 1e-5 / 1e-6."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU")
     for shape in ((2, 26, 42, 9, 80), (2, 13, 21, 9, 80)):
@@ -85,3 +114,7 @@ def test_sum_kernel_with_other_gammas(gamma, alpha):
         got = focal_cuda.focal_level_sum(x, labels, lw, gamma, alpha, a)
         want = focal_cuda.focal_level_sum_plain(x, labels, lw, gamma, alpha, a)
         torch.testing.assert_close(got, want, rtol=1e-6, atol=0.0)
+        if gamma >= 1.0:
+            dx = focal_cuda.focal_level_dx(2.0, x, labels, lw, gamma, alpha, a)
+            dx_want = focal_cuda.focal_level_dx_plain(2.0, x, labels, lw, gamma, alpha, a)
+            torch.testing.assert_close(dx, dx_want, rtol=1e-5, atol=1e-6)

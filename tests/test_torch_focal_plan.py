@@ -1,8 +1,10 @@
-"""The focal sum kernel's planner on the CPU: which run of positions a thread
-loads (``sum_vector``) and how the level is cut into units and blocks
-(``sum_plan``), for the flagship's five levels at batch 8 in f32 and bf16, as
-the permuted NCHW view the heads return and contiguous, and on ragged
-shapes; and the parts probe's cuts of the kernel source.  Imports no JAX."""
+"""The focal kernels' planner on the CPU: which run of positions a thread
+loads (``sum_vector``; ``dx_vector`` for the dx kernel, which also asks dx's
+base address) and how the level is cut into units and blocks (``sum_plan``,
+for both kernels), for the flagship's five levels at batch 8 in f32 and
+bf16, as the permuted NCHW view the heads return and contiguous, and on
+ragged shapes; and the parts probe's cuts of the kernel source.  Imports no
+JAX."""
 
 import pytest
 import torch
@@ -129,6 +131,87 @@ def test_run_length_needs_positions_on_the_unit_stride():
     assert focal_cuda.sum_vector(dims, (720 * hw, 16 * 720, 720, 1), 4, 0) == 1
     # an image stride off the grid of the run
     assert focal_cuda.sum_vector(dims, (720 * hw + 2, 16, 1, hw), 4, 0) == 2
+
+
+@pytest.mark.parametrize("layout", ["view", "contiguous"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_dx_run_length_on_the_flagship_levels(dtype, layout):
+    """dx takes the sum's runs where both base addresses lie on the grid of
+    a 16-byte run (a fresh allocation does)."""
+    got = tuple(focal_cuda.dx_vector(*level(h, w, dtype, layout), 0, 512) for h, w in LEVELS)
+    assert got == (VIEW_VEC[dtype] if layout == "view" else (1,) * 5)
+
+
+@pytest.mark.parametrize("itemsize, dx_address, want", [
+    (4, 4, 1), (4, 8, 2), (4, 16 + 8, 2), (4, 32, 4),
+    (2, 2, 1), (2, 4, 2), (2, 8, 4), (2, 48, 8)])
+def test_dx_base_off_the_grid_shrinks_the_run(itemsize, dx_address, want):
+    """dx shares the logits' strides but not their allocation: a dx base off
+    the run's grid shrinks V as a logits base would, whichever of the two it
+    is (P3's view, where the strides allow 16-byte runs)."""
+    dims = (8, 104, 168, 9, 80)
+    strides = (720 * 104 * 168, 168, 1, 104 * 168)
+    assert focal_cuda.dx_vector(dims, strides, itemsize, 0, dx_address) == want
+    assert focal_cuda.dx_vector(dims, strides, itemsize, dx_address, 0) == want
+    assert focal_cuda.sum_vector(dims, strides, itemsize, 0) == 16 // itemsize
+
+
+@pytest.mark.parametrize("resident", [3, 4, 6])
+def test_dx_plan_is_one_wave_and_fills_it(resident):
+    """The dx kernel's plan on its own run (here a dx base off the 16-byte
+    grid: runs of 2 f32) and resident count: at most one wave, all of it
+    where the units suffice, the chunk that leaves the busiest thread the
+    fewest classes."""
+    wave = SMS * resident * focal_cuda.SUM_THREADS
+    for h, w in LEVELS:
+        dims, strides, itemsize = level(h, w, torch.float32, "view")
+        vec = focal_cuda.dx_vector(dims, strides, itemsize, 0, 8)
+        assert vec == (2 if (h * w) % 2 == 0 else 1)
+        chunk, blocks = focal_cuda.sum_plan(dims, vec, SMS, resident)
+        b, _, _, a, c = dims
+        units = b * a * (h * w // vec) * -(-c // chunk)
+        assert blocks == min(SMS * resident, -(-units // focal_cuda.SUM_THREADS))
+        assert busiest(dims, vec, chunk, wave) == least_busiest(dims, vec, wave)
+        if units >= wave:
+            assert blocks == SMS * resident
+
+
+def test_dx_plan_at_p3_batch_8():
+    """The dx kernel at P3, batch 8, on the blocks an H100 holds of it (5 at
+    V = 4 f32, 48 registers; 4 at V = 8 bf16, 64 registers): f32 unsplit in
+    one wave of 660 blocks, 1.86 units a thread (busiest 164 classes against
+    180 in chunks of 16); bf16 in chunks of 16 on 528 blocks, 5.8 units a
+    thread (108 against 164 unsplit)."""
+    dims, strides, itemsize = level(104, 168, torch.float32, "view")
+    assert focal_cuda.dx_vector(dims, strides, itemsize, 0, 512) == 4
+    assert focal_cuda.sum_plan(dims, 4, SMS, 5) == (80, SMS * 5)
+    assert busiest(dims, 4, 80, SMS * 5 * 256) == 164
+    assert busiest(dims, 4, 16, SMS * 5 * 256) == 180
+    assert focal_cuda.dx_vector(dims, strides, 2, 0, 512) == 8
+    assert focal_cuda.sum_plan(dims, 8, SMS, 4) == (16, SMS * 4)
+    assert busiest(dims, 8, 16, SMS * 4 * 256) == 108
+    assert busiest(dims, 8, 80, SMS * 4 * 256) == 164
+
+
+@pytest.mark.parametrize("name", sorted(probe_focal_parts.DX_CUTS))
+def test_parts_probe_finds_its_dx_lines_in_the_kernel_source(name):
+    """The dx probe's cuts replace whole lines of the kernel's source, each
+    there exactly once."""
+    source = focal_cuda.LIBRARY.source.read_text()
+    pairs = probe_focal_parts.DX_CUTS[name]
+    assert pairs
+    for old, new in pairs:
+        assert source.count(old) == 1 and old != new
+
+
+def test_probe_keeps_the_old_dx_split_rule():
+    """The probe's copy of the tiled dx kernel's channel split, for a
+    --baseline source of that interface: P3 unsplit, the smaller levels split
+    over blockIdx.z, a unit channel stride never."""
+    sizes = [(104, 168), (52, 84), (26, 42), (13, 21), (7, 11)]
+    assert [probe_focal_parts.old_split((8, h, w, 9, 80), h * w) for h, w in sizes] == \
+        [1, 4, 15, 44, 90]
+    assert all(probe_focal_parts.old_split((8, h, w, 9, 80), 1) == 1 for h, w in sizes)
 
 
 @pytest.mark.parametrize("name", sorted(probe_focal_parts.CUTS))
