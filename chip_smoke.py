@@ -9,9 +9,12 @@ Phases (any failure exits non-zero):
   1. build the five CUDA sources of ioudet_torch/csrc with nvcc, side by side
      (--kernels-only adds -Xptxas -v and prints what nvcc said on stderr);
   2. each kernel against its plain torch version on the card: the NMS pair
-     bit for bit on adversarial cases (N in 1, 63, 64, 65, 1000, 2000 at
-     batch 16); the anchor-assignment pair bit for bit (dw/dh to 1e-6) on
-     duplicated gts, anchors equal to gts, invalid anchors and gts, A up to
+     bit for bit, and bit-equal to a second run, on adversarial cases and
+     edges (disjoint boxes, all invalid, one box suppressing the rest,
+     multiclass candidates; N in 1, 63, 64, 65, 1000, 2000 at batch 16 and
+     1, and N = 12000 at batch 2, the reduce's windows); the
+     anchor-assignment pair bit for bit (dw/dh to 1e-6) on duplicated gts,
+     anchors equal to gts, invalid anchors and gts, A up to
      209,538 and G up to 128, and on the flagship's grid anchors at batch 2
      (a training batch's gts, a valid gt off the canvas, an image without a
      valid anchor, gts covering the canvas); the focal pair to rtol 1e-6 (sum) and 1e-5 (dx)
@@ -61,8 +64,10 @@ Phases (any failure exits non-zero):
      and bf16 + int8 with peak memory, the int8 call's split, the train step,
      its parts and a torch.profiler summary of it, each kernel against its
      plain version, its bound and, where there is one, a library call at the
-     shape the main path gives it; the assignment pair's pairs computed
-     against those that intersect, and its times on gts covering the canvas
+     shape the main path gives it; the NMS pair also at batch 1 and on the
+     flagship's own candidates, with the reduce's dependent steps; the
+     assignment pair's pairs computed against those that intersect, and its
+     times on gts covering the canvas
      (nothing to cull); the focal sum and its gradient at each of the five
      levels with the route, run length, grid and the blocks an SM holds, the
      gradient also at P3 on dense labels and in bf16; each wgmma
@@ -90,6 +95,7 @@ import torch
 ROOT = os.path.dirname(os.path.abspath(__file__))
 CONFIG = os.path.join(ROOT, "configs", "iou_aware_retinanet_r50_fpn_1x.py")
 NMS_SIZES = (1, 63, 64, 65, 1000, 2000)
+NMS_WINDOWS = 12000   # nms_pre's largest in configs/: 188 words, three slab windows
 BATCH = 16
 TRAIN_BATCH = 8
 TRAIN_STEPS = 6
@@ -206,6 +212,41 @@ def nms_cases(n: int, batch: int, seed: int = 0):
              ("chains", chain, all_valid), ("chains_invalid", chain, some_valid),
              ("duplicates", dup, some_valid), ("class_offset", offset, all_valid),
              ("iou_at_threshold", thresh, all_valid)]
+    return [(name, np.ascontiguousarray(b, dtype=np.float32), v)
+            for name, b, v in cases]
+
+
+def nms_edge_cases(n: int, batch: int, seed: int = 0):
+    """The greedy NMS kernels' edges, as ``nms_cases``: disjoint boxes, all
+    valid, so that every box is kept (the most rows the reduce's OR pass
+    takes); every box invalid; one box that suppresses every later one (all
+    boxes equal, the first is kept); candidates as ``multiclass_nms`` makes
+    them: jittered copies of n/16 objects on a 1333x800 image, each under
+    one of its object's 4 classes (of 80), offset by class x (the largest
+    coordinate + 1), sorted by score, valid above a score threshold."""
+    rng = np.random.default_rng(seed)
+    j = np.arange(n)
+    grid = np.stack([j % 64 * 30.0, j // 64 * 30.0], -1)
+    disjoint = np.broadcast_to(np.concatenate([grid, grid + 20.0], -1), (batch, n, 4))
+    objects = n // 16 + 1
+    xy = rng.uniform(0.0, 1000.0, (batch, objects, 2)) * [1.0, 0.6]
+    obj = np.concatenate([xy, xy + rng.uniform(16.0, 300.0, (batch, objects, 2))], -1)
+    which = rng.integers(0, objects, (batch, n))
+    boxes = np.take_along_axis(obj, which[..., None], axis=1) + \
+        rng.uniform(-8.0, 8.0, (batch, n, 4))
+    same = np.broadcast_to(boxes[:, :1], (batch, n, 4))
+    classes = rng.integers(0, 80, (batch, objects, 4))
+    labels = np.take_along_axis(np.take_along_axis(classes, which[..., None], axis=1),
+                                rng.integers(0, 4, (batch, n, 1)), axis=2)
+    scores = rng.uniform(size=(batch, n))
+    order = np.argsort(-scores, axis=1, kind="stable")
+    offset = np.take_along_axis(boxes + labels * (boxes.max(axis=(1, 2), keepdims=True) + 1.0),
+                                order[..., None], axis=1)
+    cases = [("disjoint", disjoint, np.ones((batch, n), bool)),
+             ("all_invalid", boxes, np.zeros((batch, n), bool)),
+             ("first_suppresses_all", same, np.ones((batch, n), bool)),
+             ("multiclass_candidates", offset,
+              np.take_along_axis(scores, order, axis=1) > 0.05)]
     return [(name, np.ascontiguousarray(b, dtype=np.float32), v)
             for name, b, v in cases]
 
@@ -407,14 +448,18 @@ def phase_kernels(K) -> dict:
     """Each kernel against its plain version on the card; returns the
     largest difference of each (0 means bit-equal)."""
     err = {"nms_mask_kernel": 0.0, "nms_reduce_kernel": 0.0}
-    for n in NMS_SIZES:
-        for name, boxes, valid in nms_cases(n, BATCH, seed=n):
+    # every size at batch 16 and 1, and N = 12000 (nms_pre's largest in
+    # configs/) at batch 2, where the reduce's slabs come in several windows
+    for n, bsz in [(n, bsz) for n in NMS_SIZES for bsz in (BATCH, 1)] + [(NMS_WINDOWS, 2)]:
+        kept, differ = [], []
+        for name, boxes, valid in nms_cases(n, bsz, seed=n) + nms_edge_cases(n, bsz, seed=n):
             b = torch.from_numpy(boxes).cuda()
             v = torch.from_numpy(valid).cuda()
             words = K.nms_mask(b, 0.5)
             torch.cuda.synchronize()
             keep = K.nms_reduce(words, v)
             torch.cuda.synchronize()
+            again = K.nms_mask(b, 0.5), K.nms_reduce(words, v)
             plain_words = K.nms_mask_plain(b, 0.5)
             plain_keep = K.nms_reduce_plain(plain_words, v)
             torch.cuda.synchronize()
@@ -423,9 +468,14 @@ def phase_kernels(K) -> dict:
                                          float((words != plain_words).any()))
             err["nms_reduce_kernel"] = max(err["nms_reduce_kernel"],
                                            float((keep != plain_keep).any()))
-            check(torch.equal(words, plain_words) and torch.equal(keep, plain_keep),
-                  f"N={n} {name}: mask words and keep bit-equal to plain "
-                  f"({int(keep.sum())} kept of {int(v.sum())} valid)")
+            if not (torch.equal(words, plain_words) and torch.equal(keep, plain_keep)
+                    and torch.equal(again[0], words) and torch.equal(again[1], keep)):
+                differ.append(name)
+            kept.append(f"{name} {int(keep.sum())}/{int(v.sum())}")
+            del b, v, words, keep, again, plain_words, plain_keep
+        check(not differ, f"N={n} batch {bsz}: mask words and keep bit-equal to plain and to "
+                          f"a second run on every case (differing: {differ}; kept/valid: "
+                          f"{', '.join(kept)})")
     # every selection of the slice relies on stable descending sort keeping
     # ties in index order on the card, as lax.top_k does
     x = torch.tensor([1.0, 3.0, 3.0, 2.0, 3.0] * 4000, device="cuda")
@@ -991,6 +1041,26 @@ def canvases(batch: int, rng) -> tuple:
     return img, img_shapes, factors, pad
 
 
+def nms_inputs(K, handle, inputs) -> tuple:
+    """(boxes, valid): the class-offset candidates and their valid mask that
+    ``multiclass_nms`` hands ``K.greedy_keep`` in one ``predict``."""
+    from ioudet_torch.apis.inference import predict
+
+    seen = []
+    greedy = K.greedy_keep
+
+    def capture(boxes, valid, thr):
+        seen.append((boxes.clone(), valid.clone()))
+        return greedy(boxes, valid, thr)
+
+    K.greedy_keep = capture
+    try:
+        predict(handle, *inputs)
+    finally:
+        K.greedy_keep = greedy
+    return seen[0]
+
+
 def phase_slice(B, K, handle, inputs) -> dict:
     """Returns the kernels' launch counts of the main path's run."""
     from ioudet_torch.apis.inference import inference_detector, predict
@@ -1367,6 +1437,34 @@ def bound(nbytes: float, flops: float) -> tuple:
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+def k1_bounds(boxes, words, keep) -> tuple:
+    """(bound_ms, bound_by) of the mask pass and of the reduce on these
+    inputs.  The mask reads the boxes and writes every word, and computes
+    the N(N-1)/2 IoUs of each image; the walk reads the diagonal word of
+    every row, the later words of the rows it keeps and the valid flags, and
+    writes keep: what this run's data needs."""
+    bsz, n, _ = boxes.shape
+    nw = words.shape[2]
+    kept = keep.sum(dim=1).double()
+    need = float((kept * nw * 8).sum()) + bsz * n * (8 + 1 + 1)
+    return (bound(boxes.numel() * 4 + words.numel() * 8,
+                  bsz * n * (n - 1) // 2 * IOU_FLOPS + bsz * n * AREA_FLOPS),
+            bound(need, float(kept.sum()) * nw))
+
+
+def k1_line(K, what: str, boxes, keep, mask_ms: float, reduce_ms: float,
+            mask_bound: tuple, reduce_bound: tuple, tag: str) -> str:
+    """K1's times on one case, with their bounds and the reduce's dependent
+    steps (the kept rows of the longest image, plus one barrier a row
+    block), as phase 5 prints them."""
+    n = boxes.shape[1]
+    kmax = int(keep.sum(dim=1).max())
+    return (f"K1 N={n} {what}: nms_mask_kernel {mask_ms:.4f} ms (bound {mask_bound[0]:.4f} ms by "
+            f"{mask_bound[1]}), nms_reduce_kernel {reduce_ms:.4f} ms (bound "
+            f"{reduce_bound[0]:.4f} ms by {reduce_bound[1]}; chain steps {kmax + K.num_words(n)}: "
+            f"{kmax} kept rows of the longest image + {K.num_words(n)} barriers) {tag}]")
+
+
 def library_focal(x, onehot, lw, gamma=2.0, alpha=0.25):
     """The focal sum built on F.binary_cross_entropy_with_logits, the usual
     composition in plain PyTorch.  A yardstick only: the port never calls it."""
@@ -1507,20 +1605,40 @@ def phase_timing(K, A, Fc, handle, runner, batch, rng, card: str) -> dict:
     b, v = to_cuda(boxes, valid)
     words = K.nms_mask(b, 0.5)
     keep = K.nms_reduce(words, v)
-    n, nw = 2000, K.num_words(2000)
-    pairs = BATCH * n * (n - 1) // 2
+    mask_bound, reduce_bound = k1_bounds(b, words, keep)
     times["nms_mask_kernel"] = (
         cuda_ms(lambda: K.nms_mask(b, 0.5), 50), cuda_ms(lambda: K.nms_mask_plain(b, 0.5), 10),
-        *bound(b.numel() * 4 + words.numel() * 8,
-               pairs * IOU_FLOPS + BATCH * n * AREA_FLOPS), None)
-    # the walk reads the diagonal word of every row and the later words of
-    # the rows it keeps: what this run's data needs
-    kept = keep.sum(dim=1).double()
-    need = float((kept * nw * 8).sum()) + BATCH * n * (8 + 1 + 1)
+        *mask_bound, None)
     times["nms_reduce_kernel"] = (
         cuda_ms(lambda: K.nms_reduce(words, v), 50),
-        cuda_ms(lambda: K.nms_reduce_plain(words, v), 2, 1),
-        *bound(need, float(kept.sum()) * nw), None)
+        cuda_ms(lambda: K.nms_reduce_plain(words, v), 2, 1), *reduce_bound, None)
+    print(k1_line(K, f"random, batch {BATCH}", b, keep, times["nms_mask_kernel"][0],
+                  times["nms_reduce_kernel"][0], mask_bound, reduce_bound, tag), flush=True)
+    # K1 on the random case at batch 1, and on the flagship's own candidates
+    # at batch 16 and 1: what multiclass_nms hands greedy_keep in one predict,
+    # retina_cls.bias zeroed as in phase 3
+    bias = handle.model.bbox_head.retina_cls.bias
+    prior, training = bias.detach().clone(), handle.model.training
+    handle.model.eval()
+    with torch.no_grad():
+        bias.zero_()
+        k1_rng = np.random.default_rng(5)   # leaves rng's later draws as they were
+        k1_cases = {f"flagship candidates, batch {bsz}":
+                    nms_inputs(K, handle, canvases(bsz, k1_rng)) for bsz in (BATCH, 1)}
+        bias.copy_(prior)
+    handle.model.train(training)
+    _, boxes, valid = nms_cases(2000, 1, seed=7)[0]
+    k1_cases["random, batch 1"] = to_cuda(boxes, valid)
+    for what, (cb, cv) in k1_cases.items():
+        cw = K.nms_mask(cb, 0.5)
+        ck = K.nms_reduce(cw, cv)
+        check(torch.equal(cw, K.nms_mask_plain(cb, 0.5)) and
+              torch.equal(ck, K.nms_reduce_plain(cw, cv)),
+              f"K1 on {what} (N={cb.shape[1]}): bit-equal to plain")
+        print(k1_line(K, what, cb, ck, cuda_ms(lambda: K.nms_mask(cb, 0.5), 50),
+                      cuda_ms(lambda: K.nms_reduce(cw, cv), 50), *k1_bounds(cb, cw, ck), tag),
+              flush=True)
+    del k1_cases
 
     # K2 at the flagship's shape: its own anchors, the training batch's gts
     head = runner.model.bbox_head

@@ -31,8 +31,9 @@ LIBRARY = _build.KernelLibrary(
     {"ioudet_nms_mask": [PTR, PTR, I32, I32, F32],
      "ioudet_nms_reduce": [PTR, PTR, PTR, I32, I32]},
     kernels=("nms_mask_kernel", "nms_reduce_kernel"))
-# the reduce keeps ceil(N/64) + 64 words in the 48 KB of static-size shared
-# memory a launch gets without opting in
+# the largest N the wrappers take: the reduce keeps ceil(N/64) words of
+# removed rows and two slab windows of 64 x 64 words in dynamic shared memory
+# (113 KB at this N, of the 227 KB a block may opt into)
 MAX_N = 64 * (48 * 1024 // 8 - 64)
 
 
