@@ -2,8 +2,11 @@
 
 ``ioudet`` (JAX/Flax/Pallas) is the reference this package is tested
 against; the layout mirrors its tree and names.  This package imports torch
-and never jax.  The serving slice is ported: device preprocess, ResNet-FPN,
-the IoU-aware RetinaNet head's inference and a hand-written CUDA greedy NMS.
+and never jax.  Ported: serving (device preprocess, ResNet-FPN, the
+IoU-aware RetinaNet head, a hand-written CUDA greedy NMS), training (anchor
+assignment and focal loss in hand-written CUDA), low-precision serving, and
+evaluation (COCO-style datasets, their pipeline and loader,
+``single_device_test``, COCOeval).
 """
 
 __version__ = "0.1.0"

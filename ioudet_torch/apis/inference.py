@@ -2,9 +2,11 @@
 
 ``init_detector`` builds a detector from a config and either loads a
 checkpoint or draws seeded random weights; ``predict`` runs the batched
-fixed-shape ``simple_test``; ``inference_detector`` takes one decoded HWC
-uint8 image (BGR, the cv2 contract), preprocesses it on the model's device
-(no image library) and returns the per-class list of (k, 5) arrays.
+fixed-shape ``simple_test``; ``inference_detector`` takes one HWC uint8
+image (BGR, the cv2 contract) or a path, read as the data pipeline reads it
+(``data/pipelines/loading.py``: netpbm without an image library),
+preprocesses it on the model's device and returns the per-class list of
+(k, 5) arrays.
 """
 
 from __future__ import annotations
@@ -16,6 +18,7 @@ import numpy as np
 import torch
 
 from ..core.bbox.transforms import bbox2result
+from ..data.pipelines.loading import imread
 from ..models import build_detector
 from ..ops.preprocess import IMAGENET_MEAN, IMAGENET_STD, preprocess
 from ..utils.config import Config
@@ -95,12 +98,12 @@ def pipeline_settings(cfg: dict):
 
 
 def inference_detector(handle: DetectorHandle,
-                       img: Union[np.ndarray, torch.Tensor]) -> List[np.ndarray]:
-    """img: (H, W, 3) uint8, BGR.  Returns ``num_classes - 1`` float32 (k, 5)
-    arrays in original-image coordinates."""
+                       img: Union[str, np.ndarray, torch.Tensor]) -> List[np.ndarray]:
+    """img: (H, W, 3) uint8, BGR, or the path of an image file.  Returns
+    ``num_classes - 1`` float32 (k, 5) arrays in original-image
+    coordinates."""
     if isinstance(img, str):
-        raise TypeError("pass a decoded (H, W, 3) uint8 image; the port reads "
-                        "no image files")
+        img = imread(img)
     arr = img if isinstance(img, torch.Tensor) else torch.from_numpy(
         np.ascontiguousarray(img))
     if arr.dtype != torch.uint8 or arr.dim() != 3 or arr.shape[2] != 3:

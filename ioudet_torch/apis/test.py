@@ -1,0 +1,159 @@
+"""Batched evaluation (counterpart of ``ioudet/apis/test.py``).
+
+``single_device_test`` runs a dataset through ``simple_test`` on the
+model's device and returns one ``bbox2result`` list an image, in dataset
+order, as ``ioudet``'s does.  Two routes feed it (``eval_batches``):
+
+  * the host pipeline: the dataset's own test pipeline on the loader's
+    threads (decode, resize, normalize, pad), each batch pinned and copied
+    to the device without a wait;
+  * ``device_preprocess=True``: the threads only decode; resize, normalize
+    and pad run on the device (``ops/preprocess.py``), with the settings
+    read from the dataset's pipeline (``_pipeline_specs``).
+
+Batches hold one orientation each (one canvas).  A group's last batch runs
+at its own size: the port compiles nothing, so it need not pad, and the
+loader's padding repeats are dropped before the device sees them.  The
+multi-device merge (``multi_host_test``), test-time augmentation and the
+mask route are not ported yet.
+"""
+
+from __future__ import annotations
+
+import logging
+import os
+import time
+from concurrent.futures import ThreadPoolExecutor
+from typing import Callable, Iterator, List, Tuple
+
+import numpy as np
+import torch
+
+from ..core.bbox.transforms import bbox2result
+from ..data.loader import build_dataloader, to_device
+from ..data.pipelines.loading import imread
+from ..ops.preprocess import IMAGENET_MEAN, IMAGENET_STD, preprocess_batch
+
+logger = logging.getLogger(__name__)
+
+INPUT_KEYS = ("img", "img_shape", "scale_factor", "pad_shape")
+
+
+def _pipeline_specs(dataset):
+    """(canvas, max_scale, mean, std, to_rgb) of the dataset's test pipeline,
+    so that the device route reproduces it; ``ioudet``'s defaults where a
+    step is absent."""
+    canvas, max_scale = (832, 1344), (1333, 800)
+    mean, std, to_rgb = IMAGENET_MEAN, IMAGENET_STD, True
+    for step in dataset.pipeline.transforms:
+        name = type(step).__name__
+        if name == "Resize":
+            max_scale = tuple(step.img_scale[0])
+        elif name == "Pad" and step.size:
+            canvas = tuple(step.size)
+        elif name == "Normalize":
+            mean, std = tuple(step.mean), tuple(step.std)
+            to_rgb = bool(step.to_rgb)
+    return canvas, max_scale, mean, std, to_rgb
+
+
+def _host_batches(dataset, device, imgs_per_batch, workers):
+    loader = build_dataloader(dataset, imgs_per_batch, workers, shuffle=False,
+                              drop_last=False)
+    seen = set()
+    for batch in loader:
+        idx = [int(i) for i in batch["idx"]]
+        # the loader fills a group's last batch with repeats: drop them
+        keep = [b for b, i in enumerate(idx) if i not in seen and i not in idx[:b]]
+        if not keep:
+            continue
+        seen.update(idx[b] for b in keep)
+        sel = slice(None) if len(keep) == len(idx) else np.asarray(keep)
+        yield [idx[b] for b in keep], tuple(to_device(batch[k][sel], device)
+                                            for k in INPUT_KEYS)
+
+
+def _device_batches(dataset, device, imgs_per_batch, workers):
+    canvas, max_scale, mean, std, to_rgb = _pipeline_specs(dataset)
+    infos = dataset.img_infos
+    # one raw buffer shape for the dataset (ioudet's bucket): the largest
+    # image rounded up to 256
+    bh = max(256, -(-max(i["height"] for i in infos) // 256) * 256)
+    bw = max(256, -(-max(i["width"] for i in infos) // 256) * 256)
+    land = [i for i, info in enumerate(infos) if info["width"] >= info["height"]]
+    port = [i for i, info in enumerate(infos) if info["width"] < info["height"]]
+    portrait = (canvas[1], canvas[0]) if canvas[0] < canvas[1] else canvas
+    jobs = [(group[s:s + imgs_per_batch], cv)
+            for group, cv in ((land, canvas), (port, portrait))
+            for s in range(0, len(group), imgs_per_batch)]
+    pin = device.type == "cuda"
+    with ThreadPoolExecutor(max(1, workers)) as pool:
+        def submit(job):
+            return [pool.submit(imread, os.path.join(dataset.img_prefix,
+                                                     infos[i]["filename"]))
+                    for i in job[0]]
+
+        pending = submit(jobs[0]) if jobs else []
+        for j, (idxs, cv) in enumerate(jobs):
+            decoded = [f.result() for f in pending]
+            # decode the next batch while this one is on the device
+            pending = submit(jobs[j + 1]) if j + 1 < len(jobs) else []
+            raw = torch.zeros((len(idxs), bh, bw, 3), dtype=torch.uint8, pin_memory=pin)
+            shapes = np.empty((len(idxs), 2), np.int32)
+            for b, arr in enumerate(decoded):
+                h, w = arr.shape[:2]
+                raw.numpy()[b, :h, :w] = arr
+                shapes[b] = h, w
+            imgs, img_shapes, factors = preprocess_batch(
+                raw.to(device, non_blocking=True), to_device(shapes, device),
+                canvas=cv, max_scale=max_scale, mean=mean, std=std, flip_channels=to_rgb)
+            pad_shapes = np.tile(np.asarray([cv], np.int32), (len(idxs), 1))
+            yield idxs, (imgs, img_shapes, factors, to_device(pad_shapes, device))
+
+
+def eval_batches(dataset, device, imgs_per_batch: int = 8, workers: int = 4,
+                 device_preprocess: bool = False
+                 ) -> Iterator[Tuple[List[int], Tuple[torch.Tensor, ...]]]:
+    """The evaluation loop's batches on ``device``: (dataset indices, (imgs
+    (B, H, W, 3) f32 canvas, img_shapes (B, 2), scale_factors (B,),
+    pad_shapes (B, 2))), every image once, one orientation a batch."""
+    device = torch.device(device)
+    route = _device_batches if device_preprocess else _host_batches
+    return route(dataset, device, imgs_per_batch, workers)
+
+
+@torch.inference_mode()
+def single_device_test(handle, dataset, imgs_per_batch: int = 8, workers: int = 4,
+                       progress: bool = True, device_preprocess: bool = False) -> list:
+    """handle: a ``DetectorHandle`` or a detector; runs on its device.
+    Returns one list of ``num_classes - 1`` (k, 5) float32 arrays an image,
+    in dataset order."""
+    model = getattr(handle, "model", handle)
+    device = next(model.parameters()).device
+    num_classes = model.bbox_head.num_classes
+    results: dict = {}
+    t0 = time.perf_counter()
+    for n, (idxs, inputs) in enumerate(eval_batches(dataset, device, imgs_per_batch,
+                                                    workers, device_preprocess)):
+        dets, labels = model.simple_test(*inputs)
+        dets, labels = dets.cpu().numpy(), labels.cpu().numpy()
+        for b, i in enumerate(idxs):
+            results[i] = bbox2result(dets[b], labels[b], num_classes)
+        if progress and (n + 1) % 20 == 0:
+            logger.info("eval %d/%d (%.1f img/s%s)", len(results), len(dataset),
+                        len(results) / (time.perf_counter() - t0),
+                        ", device preprocess" if device_preprocess else "")
+    if len(results) != len(dataset):
+        raise RuntimeError(f"evaluated {len(results)} of {len(dataset)} images")
+    return [results[i] for i in range(len(dataset))]
+
+
+def make_eval_hook(val_dataset, imgs_per_batch: int = 8) -> Callable:
+    """``hook(model) -> metrics``: ``single_device_test`` on ``val_dataset``,
+    then its ``evaluate`` (the train loop's validation)."""
+    def hook(model):
+        results = single_device_test(model, val_dataset, imgs_per_batch=imgs_per_batch,
+                                     progress=False)
+        return val_dataset.evaluate(results) if hasattr(val_dataset, "evaluate") else {}
+
+    return hook

@@ -10,8 +10,9 @@
   * ``make_train_step``: one function per step: forward, backward, gradient
     clipping, update.  It returns the log dict as device tensors and copies
     nothing to the host;
-  * ``Runner`` and ``train_detector``: the epoch loop over any iterable of
-    batch dicts, with logging, checkpoints and resume.
+  * ``Runner`` and ``train_detector``: the epoch loop over a dataset (its
+    loader built from ``cfg.data``) or any iterable of batch dicts, with
+    logging, checkpoints, resume and an optional validation each epoch.
 """
 
 from __future__ import annotations
@@ -24,6 +25,9 @@ from typing import Callable, Dict, Iterable, Optional
 
 import torch
 
+from ..data import build_dataloader
+from ..data.datasets import ConcatDataset, CustomDataset, RepeatDataset
+from ..data.loader import to_device
 from .checkpoint import latest_checkpoint, load_checkpoint, save_checkpoint
 
 BATCH_KEYS = ("img", "gt_bboxes", "gt_labels", "gt_valid", "img_shape", "pad_shape",
@@ -173,14 +177,16 @@ class Runner:
     """Epoch runner: a log record every ``log_interval`` iterations (the only
     place that copies losses to the host), a checkpoint every
     ``checkpoint_interval`` epochs, ``step_hook(step, log_vars)`` after every
-    step."""
+    step, ``eval_hook(model) -> metrics`` after every epoch (logged as
+    mode 'val')."""
 
     def __init__(self, model: torch.nn.Module, optimizer: torch.optim.Optimizer,
                  train_step: Callable, work_dir: str, log_interval: int = 50,
                  checkpoint_interval: int = 1,
                  lr_schedule: Optional[Callable[[int], float]] = None,
                  meta: Optional[dict] = None,
-                 step_hook: Optional[Callable] = None):
+                 step_hook: Optional[Callable] = None,
+                 eval_hook: Optional[Callable] = None):
         self.model = model
         self.optimizer = optimizer
         self.train_step = train_step
@@ -190,6 +196,7 @@ class Runner:
         self.lr_schedule = lr_schedule
         self.meta = meta or {}
         self.step_hook = step_hook
+        self.eval_hook = eval_hook
         self.step = 0
         self.epoch = 0
         self.device = next(model.parameters()).device
@@ -214,8 +221,7 @@ class Runner:
             f.write(json.dumps(record, default=float) + "\n")
 
     def _to_device(self, batch: dict) -> dict:
-        return {k: torch.as_tensor(batch[k]).to(self.device, non_blocking=True)
-                for k in BATCH_KEYS if k in batch}
+        return {k: to_device(batch[k], self.device) for k in BATCH_KEYS if k in batch}
 
     def run(self, loader: Iterable[dict], total_epochs: int) -> "Runner":
         self.model.train()
@@ -242,6 +248,10 @@ class Runner:
                 t_data = time.time()
             if (epoch + 1) % self.checkpoint_interval == 0:
                 self.save(f"epoch_{epoch + 1}")
+            if self.eval_hook is not None:
+                self.model.eval()
+                self._log(dict(mode="val", epoch=epoch + 1, **self.eval_hook(self.model)))
+                self.model.train()
         return self
 
 
@@ -249,20 +259,31 @@ class Runner:
 # top-level entry
 # --------------------------------------------------------------------------
 
-def train_detector(model, loader: Iterable[dict], cfg, work_dir: str,
+def train_detector(model, data, cfg, work_dir: str,
                    resume_from: Optional[str] = None, auto_resume: bool = True,
-                   device="cuda", step_hook: Optional[Callable] = None) -> Runner:
-    """Train ``model`` (a detector or a ``DetectorHandle``) over ``loader``,
-    any sized iterable of batch dicts with the keys of ``BATCH_KEYS``, under
-    the config's ``optimizer``, ``optimizer_config``, ``lr_config``,
-    ``total_epochs``, ``log_config`` and ``checkpoint_config``.  Runs on
-    ``device``; a CUDA device that is not there raises.  Returns the Runner
-    (``.model``, ``.optimizer``, ``.step``)."""
+                   device="cuda", step_hook: Optional[Callable] = None,
+                   seed: int = 0, validate: bool = False, val_dataset=None) -> Runner:
+    """Train ``model`` (a detector or a ``DetectorHandle``) under the
+    config's ``optimizer``, ``optimizer_config``, ``lr_config``,
+    ``total_epochs``, ``log_config`` and ``checkpoint_config``.
+
+    ``data`` is a dataset of the port's data pipeline, whose loader is built
+    from ``cfg.data`` (``imgs_per_gpu``, ``workers_per_gpu``; shuffled from
+    ``seed``, ragged tail dropped), or any sized iterable of batch dicts with
+    the keys of ``BATCH_KEYS``.  With ``validate`` and a ``val_dataset``,
+    each epoch ends with ``single_device_test`` and ``evaluate`` on it.
+    Runs on ``device``; a CUDA device that is not there raises.  Returns the
+    Runner (``.model``, ``.optimizer``, ``.step``)."""
     model = getattr(model, "model", model)
     device = torch.device(device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(f"device {device} requested but CUDA is not available")
     model.to(device)
+    loader = data
+    if isinstance(data, (CustomDataset, ConcatDataset, RepeatDataset)):
+        data_cfg = dict(cfg.get("data") or {})
+        loader = build_dataloader(data, data_cfg.get("imgs_per_gpu", 2),
+                                  data_cfg.get("workers_per_gpu", 2), shuffle=True, seed=seed)
     total_epochs = cfg.get("total_epochs", 12)
     sched = make_lr_schedule(cfg["optimizer"]["lr"], dict(cfg.get("lr_config", {})),
                              len(loader), total_epochs)
@@ -270,12 +291,15 @@ def train_detector(model, loader: Iterable[dict], cfg, work_dir: str,
     optimizer = build_optimizer(model, dict(cfg["optimizer"]))
     grad_clip = dict(cfg.get("optimizer_config") or {}).get("grad_clip")
     step_fn = make_train_step(model, optimizer, sched, grad_clip)
+    eval_hook = None
+    if validate and val_dataset is not None:
+        from .test import make_eval_hook
+        eval_hook = make_eval_hook(val_dataset)
+    meta = dict(config=getattr(cfg, "text", ""), CLASSES=getattr(data, "CLASSES", None))
     runner = Runner(model, optimizer, step_fn, work_dir,
                     log_interval=dict(cfg.get("log_config", {})).get("interval", 50),
                     checkpoint_interval=dict(cfg.get("checkpoint_config", {})).get("interval", 1),
-                    lr_schedule=sched,
-                    meta=dict(config=getattr(cfg, "text", "")),
-                    step_hook=step_hook)
+                    lr_schedule=sched, meta=meta, step_hook=step_hook, eval_hook=eval_hook)
     if resume_from:
         runner.resume(resume_from)
     elif auto_resume:

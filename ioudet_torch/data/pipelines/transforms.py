@@ -1,0 +1,204 @@
+"""Host-side image and box transforms (counterpart of
+``ioudet/data/pipelines/transforms.py``: Resize, RandomFlip, Normalize,
+Pad).
+
+  * Resize keep_ratio: factor = min(long / max(h, w), short / min(h, w))
+    (mmcv imrescale), output size int(dim * factor + 0.5);
+  * ``imresize`` is the port's own bilinear resize in numpy, bit-exact
+    with ``cv2.resize(..., INTER_LINEAR)`` on uint8 (see its docstring); it
+    is used on every machine, whether cv2 is there or not;
+  * flip mirrors boxes with the +1 convention (x2' = w - x1 - 1);
+  * Normalize: (img - mean) / std in f32 after BGR -> RGB when to_rgb;
+  * Pad: to ``size_divisor`` (``pad_shape``) and onto a fixed canvas, one
+    per orientation.
+
+The SSD and segmentation transforms are not ported yet.
+"""
+
+from __future__ import annotations
+
+from typing import Optional, Tuple
+
+import numpy as np
+
+from ..rng import sample_rng
+
+COEF_BITS = 11   # cv2's INTER_RESIZE_COEF_BITS: coefficients in steps of 1/2048
+COEF_SCALE = 1 << COEF_BITS
+
+
+def imrescale_size(h: int, w: int, scale: Tuple[int, int]) -> Tuple[int, int, float]:
+    """mmcv.imrescale sizing: scale = (long, short) bound."""
+    max_long, max_short = max(scale), min(scale)
+    factor = min(max_long / max(h, w), max_short / min(h, w))
+    return int(h * factor + 0.5), int(w * factor + 0.5), factor
+
+
+def _taps(dst: int, src: int):
+    """cv2's source index and fraction of each output pixel along one axis:
+    half-pixel centres, the coordinate rounded to f32 once, the fraction
+    taken in f32, both coefficients rounded to 1/2048 (half to even)."""
+    scale = 1.0 / (dst / src)   # cv2 inverts the inverse scale
+    f = ((np.arange(dst) + 0.5) * scale - 0.5).astype(np.float32)
+    s = np.floor(f).astype(np.int64)
+    f = f - s.astype(np.float32)
+    return s, f
+
+
+def _coefs(f: np.ndarray):
+    one = np.float32(1)
+    return (np.rint((one - f) * np.float32(COEF_SCALE)).astype(np.int32),
+            np.rint(f * np.float32(COEF_SCALE)).astype(np.int32))
+
+
+def imresize(img: np.ndarray, size_hw: Tuple[int, int]) -> np.ndarray:
+    """Bilinear resize of an (H, W[, C]) uint8 image to ``size_hw``,
+    bit-exact with ``cv2.resize(img, (w, h), interpolation=INTER_LINEAR)``:
+
+      * the same size is a copy; exactly half in both axes is cv2's area
+        path, (a + b + c + d + 2) >> 2;
+      * otherwise two fixed-point passes.  Along x, a source index below 0
+        or at the last column clamps with weight 0 on the second tap, and
+        each row becomes int32 sums in units of 1/2048.  Along y the row
+        indices clamp but the weights do not, and the two rows combine as
+        cv2's uint8 kernel does: (((b0 * (r0 >> 4)) >> 16) + ((b1 * (r1 >>
+        4)) >> 16) + 2) >> 2.
+    """
+    if img.dtype != np.uint8:
+        raise ValueError(f"imresize takes uint8 images, got {img.dtype}")
+    h, w = img.shape[:2]
+    dh, dw = size_hw
+    if (dh, dw) == (h, w):
+        return img.copy()
+    if 2 * dh == h and 2 * dw == w:
+        s = img.astype(np.int32)
+        s = s[0::2, 0::2] + s[0::2, 1::2] + s[1::2, 0::2] + s[1::2, 1::2]
+        return ((s + 2) >> 2).astype(np.uint8)
+    src = img.reshape(h, w, -1).astype(np.int32)
+    sx, fx = _taps(dw, w)
+    edge = (sx < 0) | (sx >= w - 1)
+    fx[edge] = 0
+    sx = np.clip(sx, 0, w - 1)
+    a0, a1 = _coefs(fx)
+    sy, fy = _taps(dh, h)
+    b0, b1 = _coefs(fy)
+    y0, y1 = np.clip(sy, 0, h - 1), np.clip(sy + 1, 0, h - 1)
+    # only the source rows that some output row reads
+    rows, inv = np.unique(np.concatenate([y0, y1]), return_inverse=True)
+    part = src[rows]
+    hor = part[:, sx] * a0[:, None] + part[:, np.minimum(sx + 1, w - 1)] * a1[:, None]
+    hor >>= 4
+    r0, r1 = hor[inv[:dh]], hor[inv[dh:]]
+    out = ((b0[:, None, None] * r0) >> 16) + ((b1[:, None, None] * r1) >> 16)
+    out = (out + 2) >> 2
+    return out.astype(np.uint8).reshape((dh, dw) + img.shape[2:])
+
+
+class Resize:
+    """keep_ratio rescale into ``img_scale`` (long, short), or to it exactly
+    without keep_ratio; several scales are sampled per image ('range': long
+    and short edges uniformly between the ends; 'value': one of them)."""
+
+    def __init__(self, img_scale=(1333, 800), keep_ratio: bool = True,
+                 multiscale_mode: str = "range"):
+        self.img_scale = img_scale if isinstance(img_scale[0], (tuple, list)) \
+            else [tuple(img_scale)]
+        self.keep_ratio = keep_ratio
+        self.multiscale_mode = multiscale_mode
+
+    def _pick_scale(self):
+        if len(self.img_scale) == 1:
+            return self.img_scale[0]
+        if self.multiscale_mode == "value":
+            return sample_rng().choice(self.img_scale)
+        longs = [max(s) for s in self.img_scale]
+        shorts = [min(s) for s in self.img_scale]
+        return (sample_rng().randint(min(longs), max(longs)),
+                sample_rng().randint(min(shorts), max(shorts)))
+
+    def __call__(self, results: dict) -> dict:
+        img = results["img"]
+        h, w = img.shape[:2]
+        scale = self._pick_scale()
+        if self.keep_ratio:
+            nh, nw, factor = imrescale_size(h, w, scale)
+        else:
+            nh, nw = scale
+            factor = np.array([nw / w, nh / h, nw / w, nh / h], np.float32)
+        results["img"] = imresize(img, (nh, nw))
+        results["img_shape"] = (nh, nw)
+        results["scale_factor"] = factor
+        for key in ("gt_bboxes", "gt_bboxes_ignore"):
+            if key in results and len(results[key]):
+                results[key] = results[key] * factor
+        return results
+
+
+class RandomFlip:
+    """Horizontal flip with probability ``flip_ratio``, drawn from the
+    sample's stream."""
+
+    def __init__(self, flip_ratio: float = 0.5):
+        self.flip_ratio = flip_ratio
+
+    def __call__(self, results: dict) -> dict:
+        flip = sample_rng().random() < self.flip_ratio
+        results["flip"] = flip
+        if flip:
+            results["img"] = np.ascontiguousarray(results["img"][:, ::-1])
+            w = results["img_shape"][1]
+            for key in ("gt_bboxes", "gt_bboxes_ignore"):
+                if key in results and len(results[key]):
+                    b = results[key].copy()
+                    b[:, 0] = w - results[key][:, 2] - 1
+                    b[:, 2] = w - results[key][:, 0] - 1
+                    results[key] = b
+        return results
+
+
+class Normalize:
+    def __init__(self, mean=(123.675, 116.28, 103.53),
+                 std=(58.395, 57.12, 57.375), to_rgb: bool = True):
+        self.mean = np.asarray(mean, np.float32)
+        self.std = np.asarray(std, np.float32)
+        self.to_rgb = to_rgb
+
+    def __call__(self, results: dict) -> dict:
+        img = results["img"].astype(np.float32)
+        if self.to_rgb and results.get("channel_order", "bgr") == "bgr":
+            img = img[..., ::-1]
+        results["img"] = (img - self.mean) / self.std
+        results["img_norm_cfg"] = dict(mean=self.mean, std=self.std, to_rgb=self.to_rgb)
+        return results
+
+
+class Pad:
+    """Pad with zeros to ``size_divisor`` (recorded as ``pad_shape``) and
+    onto the fixed canvas ``size``, turned for portrait images."""
+
+    def __init__(self, size: Optional[Tuple[int, int]] = None,
+                 size_divisor: Optional[int] = None):
+        self.size = tuple(size) if size else None
+        self.size_divisor = size_divisor
+
+    def __call__(self, results: dict) -> dict:
+        img = results["img"]
+        h, w = img.shape[:2]
+        if self.size_divisor:
+            ph = int(np.ceil(h / self.size_divisor)) * self.size_divisor
+            pw = int(np.ceil(w / self.size_divisor)) * self.size_divisor
+        else:
+            ph, pw = h, w
+        results["pad_shape"] = (ph, pw)
+        if self.size:
+            th, tw = self.size
+            if (h > w) != (th > tw):
+                th, tw = tw, th
+        else:
+            th, tw = ph, pw
+        if th < h or tw < w:
+            raise ValueError(f"canvas {(th, tw)} is smaller than the image {(h, w)}")
+        canvas = np.zeros((th, tw) + img.shape[2:], img.dtype)
+        canvas[:h, :w] = img
+        results["img"] = canvas
+        return results

@@ -3,8 +3,11 @@
 Two towers of ``stacked_convs`` x (3x3 conv + ReLU) shared across FPN levels,
 then 3x3 ``retina_cls`` (A * (num_classes - 1) sigmoid logits) and
 ``retina_reg`` (A * 4 deltas).  Init: normal(0.01) weights, cls bias
--log((1 - p) / p) with p = 0.01.  Anchors: ``octave_base_scale`` *
-2^(i / ``scales_per_octave``), ratios (0.5, 1, 2) -> A = 9.
+-log((1 - p) / p) with p = 0.01.  Anchors: scales 4 * 2^(i / 3), i < 3,
+ratios (0.5, 1, 2) -> A = 9.  As in ``ioudet``, the scales are
+``octave_scales()`` whatever ``octave_base_scale`` and
+``scales_per_octave`` say (mmdet derives them from the two); only an
+explicit ``anchor_scales`` changes them.
 """
 
 from __future__ import annotations
@@ -27,8 +30,7 @@ class RetinaHead(AnchorHead):
     def __init__(self, stacked_convs: int = 4, octave_base_scale: int = 4,
                  scales_per_octave: int = 3,
                  anchor_scales: Optional[Sequence[float]] = None, **kwargs):
-        super().__init__(anchor_scales=anchor_scales or octave_scales(
-            octave_base_scale, scales_per_octave), **kwargs)
+        super().__init__(anchor_scales=anchor_scales or octave_scales(), **kwargs)
         self.stacked_convs = stacked_convs
         chans = [self.in_channels] + [self.feat_channels] * stacked_convs
         self.cls_convs = nn.ModuleList(

@@ -44,6 +44,16 @@ SETTINGS = ((0.5, 0.4, 0.0, 1.0, (0.0,) * 4, (1.0,) * 4),
 ZERO_THR = ((0.0, 0.0, 0.0, 1.0, (0.0,) * 4, (1.0,) * 4),)
 
 
+@pytest.fixture(autouse=True)
+def one_thread():
+    """Small tensors in Python loops: one intra-op thread, so that the
+    test workers running beside this one do not slow it down many times."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def groups_of(anchors, valid, group):
     """anchors (1, n_groups, group, 4) and valid (B, n_groups, group), the
     ragged edge padded with left-out anchors."""

@@ -169,3 +169,35 @@ def test_config_file_builds_the_flagship():
 def test_unported_options_raise(change):
     with pytest.raises(NotImplementedError):
         build_detector(dict(TINY, **change))
+
+
+def test_retina_head_anchor_scales_follow_ioudet():
+    """ioudet's RetinaHead fixes its anchor scales at octave_scales() and
+    ignores octave_base_scale / scales_per_octave (mmdet derives the scales
+    from them); the port follows ioudet: the same anchors and detections at
+    octave_base_scale=8, scales_per_octave=2."""
+    cfg = dict(TINY, bbox_head=dict(TINY["bbox_head"], octave_base_scale=8,
+                                    scales_per_octave=2))
+    model = randomize(build_detector(cfg, None, TEST_CFG), seed=4)
+    det = jax_build_detector(dict(cfg), None, TEST_CFG)
+    params = bridge(model, 18, 2)   # the same nine anchors a location, or this fails
+    head_scales = det.apply({"params": params}, method=lambda m: m.bbox_head.anchor_scales)
+    assert model.bbox_head.anchor_scales == tuple(head_scales) == (4, 4 * 2 ** (1 / 3),
+                                                                   4 * 2 ** (2 / 3))
+    sizes = [(8, 12), (4, 6), (2, 3), (1, 2), (1, 1)]
+    pads = np.array([[64, 96], [50, 70]], np.int32)
+    anchors, valid = model.bbox_head.get_anchors(sizes, torch.from_numpy(pads))
+    ref_anchors, ref_valid = det.apply(
+        {"params": params}, method=lambda m: m.bbox_head.get_anchors(sizes, jnp.asarray(pads)))
+    np.testing.assert_array_equal(anchors.numpy(), np.asarray(ref_anchors))
+    np.testing.assert_array_equal(valid.numpy(), np.asarray(ref_valid))
+    x = np.random.default_rng(6).normal(0, 1, (2, 64, 96, 3)).astype(np.float32)
+    shapes, factors = np.array([[64, 96], [50, 70]], np.int32), np.array([1.0, 0.75], np.float32)
+    with torch.no_grad():
+        dets, labels = model.simple_test(torch.from_numpy(x), torch.from_numpy(shapes),
+                                         torch.from_numpy(factors), torch.from_numpy(pads))
+    jd, jl = jax.jit(lambda p, *a: det.apply({"params": p}, *a, method=det.simple_test))(
+        params, jnp.asarray(x), jnp.asarray(shapes), jnp.asarray(factors), jnp.asarray(pads))
+    assert int((labels >= 0).sum()) >= 12
+    np.testing.assert_array_equal(labels.numpy(), np.asarray(jl))
+    np.testing.assert_allclose(dets.numpy(), np.asarray(jd), rtol=1e-4, atol=1e-3)

@@ -36,6 +36,16 @@ CASES = [(s, "view", v) for s in SMALL for v in (1, 2, 4, 8) if (s[1] * s[2]) % 
 CASES += [(s, "contiguous", 1) for s in SMALL]
 
 
+@pytest.fixture(autouse=True)
+def one_thread():
+    """Small tensors in Python loops: one intra-op thread, so that the
+    test workers running beside this one do not slow it down many times."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def level(shape, layout):
     """f32 logits (the view or contiguous), labels and weights as the slices
     chip_smoke.phase_focal_kernels takes."""

@@ -1,6 +1,7 @@
 """The port's inference API on the CPU at a tiny config: init_detector,
-predict and inference_detector, the absence of jax from a run of the port,
-and no silent CPU fallback when a card is asked for."""
+predict and inference_detector (on arrays and paths), the absence of jax
+from a run of the port, and no silent CPU fallback when a card is asked
+for."""
 
 import os
 import subprocess
@@ -93,9 +94,21 @@ def test_cuda_without_a_card_raises():
         init_detector(CFG, device="cuda")
 
 
-def test_rejects_paths_and_bad_images(handle):
-    with pytest.raises(TypeError):
-        inference_detector(handle, "image.jpg")
+def test_rejects_paths_and_bad_images(handle, tmp_path):
+    """A path is read as ioudet's inference_detector reads one (a .ppm by
+    the port's own decoder): the same result as the decoded array; a
+    missing file raises, and so does an array that is not (H, W, 3) uint8."""
+    from ioudet_torch.data.pipelines.loading import imwrite_netpbm
+
+    img = np.random.default_rng(3).integers(0, 256, (52, 76, 3), dtype=np.uint8)
+    path = str(tmp_path / "request.ppm")
+    imwrite_netpbm(path, img)
+    from_path, from_array = inference_detector(handle, path), inference_detector(handle, img)
+    assert sum(map(len, from_array)) > 0
+    for a, b in zip(from_path, from_array):
+        np.testing.assert_array_equal(a, b)
+    with pytest.raises(FileNotFoundError):
+        inference_detector(handle, str(tmp_path / "missing.ppm"))
     with pytest.raises(ValueError):
         inference_detector(handle, np.zeros((10, 10), np.uint8))
 
