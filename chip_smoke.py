@@ -92,7 +92,22 @@ Phases (any failure exits non-zero):
      (int8: 0.3 and 0.08), and its AP50 > 0.7 and AP > 0.4 met at one seed
      at least; (6c) images per second of ``single_device_test``
      by either route and of ``predict`` alone on the canvases, and the host
-     pipeline's time an image.
+     pipeline's time an image;
+  7. the paper's other configs, each read from configs/, full width,
+     seeded random weights, TF32 off for the checks: (7a) ``predict`` at
+     batch 16 of ResNeXt-101 64x4d, DCN (deformable 3x3s in stages 3-4,
+     offset convs drawn so that taps fall between pixels) and GCB, host
+     syncs made errors, K1a / K1b once, the plain-NMS replay bit-equal, GPU
+     against CPU on a small canvas (and the DCN model's own f32-vs-f64 drift
+     on the CPU); (7b) two DCN ``train_detector`` steps at batch 2: step 1
+     against the plain K2 / K3, every offset conv's gradient nonzero, K2 / K3
+     launches a step, finite losses; (7c) the mstest config (R-101, views at
+     1333x800 and 1666x1000 with flip, 1024x1696 canvases) through
+     ``build_dataset``, ``tta_test`` and ``evaluate`` on 6 planted .ppm
+     images, each result bit-equal to a replay of its views through the
+     decode, the map back and the plain NMS, K1 once an image, the ground
+     truth at AP = 1; (7d) the VOC config on a planted VOC2007 tree of 8
+     images through ``single_device_test`` and ``evaluate``; (7e) timings.
 The last two lines are the card's name and power limit, then
 ``{"ok": true, "device": {...}}``; the line before them lists the kernels.
 """
@@ -1118,38 +1133,91 @@ def phase_slice(B, K, handle, inputs) -> dict:
         check(ok, f"inference_detector {im.shape[:2]}: {sum(map(len, res))} "
                   "dets in a per-class list")
 
-    # the same candidates through the plain NMS on the card
+    check_plain_nms_replay(K, handle, inputs, dets, labels, "flagship")
+    return counts
+
+
+@contextlib.contextmanager
+def plain_nms(K):
+    """K1's wrapper replaced by the plain mask and walk for the block."""
+    greedy = K.greedy_keep
+    K.greedy_keep = lambda b, v, t: K.nms_reduce_plain(K.nms_mask_plain(b, t), v)
+    try:
+        yield
+    finally:
+        K.greedy_keep = greedy
+
+
+def check_plain_nms_replay(K, handle, inputs, dets, labels, what: str) -> None:
+    """The same candidates through the plain NMS on the card give the bits of
+    the kernels' run and of ``predict``'s ``dets`` and ``labels``."""
+    from ioudet_torch.models.heads.anchor_head import batched_nms
+
     with torch.inference_mode():
         outs = handle.model(inputs[0])
         boxes, scores = handle.model.bbox_head.decode_candidates(
             *outs, inputs[1], handle.model.test_cfg)
-        from ioudet_torch.models.heads.anchor_head import batched_nms
         kernel_out = batched_nms(boxes, scores, inputs[2], handle.model.test_cfg, True)
-        greedy = K.greedy_keep
-        K.greedy_keep = lambda b, v, t: K.nms_reduce_plain(K.nms_mask_plain(b, t), v)
-        try:
+        with plain_nms(K):
             plain_out = batched_nms(boxes, scores, inputs[2], handle.model.test_cfg, True)
-        finally:
-            K.greedy_keep = greedy
     check(torch.equal(kernel_out[0], plain_out[0]) and
           torch.equal(kernel_out[1], plain_out[1]) and
           torch.equal(kernel_out[0], dets) and torch.equal(kernel_out[1], labels),
-          "dets and labels through the kernels equal the plain-NMS replay")
-    return counts
+          f"{what}: dets and labels through the kernels equal the plain-NMS replay")
 
 
-def loss_and_head_grads(model, batch) -> tuple:
+HEAD_WEIGHTS = ("bbox_head.retina_cls.weight", "bbox_head.retina_reg.weight",
+                "bbox_head.retina_iou.weight")
+
+
+def loss_and_grads(model, batch, names=HEAD_WEIGHTS) -> tuple:
     """One forward and backward without an update: the detached loss dict and
-    the weight gradients of the three output convolutions."""
+    the gradients of the named parameters (the three output convolutions'
+    weights by default)."""
     model.zero_grad(set_to_none=True)
     losses = model.forward_train(batch["img"], batch["gt_bboxes"], batch["gt_labels"],
                                  batch["gt_valid"], batch["img_shape"], batch["pad_shape"])
     sum(losses.values()).backward()
-    head = model.bbox_head
-    grads = {n: getattr(head, n).weight.grad.clone()
-             for n in ("retina_cls", "retina_reg", "retina_iou")}
+    params = dict(model.named_parameters())
+    grads = {n: params[n].grad.clone() for n in names}
     model.zero_grad(set_to_none=True)
     return {k: v.detach() for k, v in losses.items()}, grads
+
+
+@contextlib.contextmanager
+def plain_kernels(A, Fc):
+    """K2's and K3's wrappers replaced by their plain versions for the block."""
+    swapped = {(A, "assign_gtmax"): A.assign_gtmax_plain,
+               (A, "assign_targets"): A.assign_targets_plain,
+               (Fc, "focal_level_sum"): Fc.focal_level_sum_plain,
+               (Fc, "focal_level_dx"): Fc.focal_level_dx_plain}
+    kept = {key: getattr(*key) for key in swapped}
+    for (mod, name), fn in swapped.items():
+        setattr(mod, name, fn)
+    try:
+        yield
+    finally:
+        for (mod, name), fn in kept.items():
+            setattr(mod, name, fn)
+
+
+def check_step_replay(A, Fc, model, batch, names=HEAD_WEIGHTS, what: str = "step 1") -> tuple:
+    """Step 1's losses and gradients through the kernels against the same
+    step with the plain versions in their place: losses to rtol 1e-5, each
+    gradient to 1e-3 of its largest |value|.  Returns the kernels' run."""
+    kernel_losses, kernel_grads = loss_and_grads(model, batch, names)
+    with plain_kernels(A, Fc):
+        plain_losses, plain_grads = loss_and_grads(model, batch, names)
+    for k in kernel_losses:
+        torch.testing.assert_close(kernel_losses[k], plain_losses[k], rtol=1e-5, atol=0.0)
+    for k in kernel_grads:
+        scale = float(plain_grads[k].abs().max())
+        diff = max_abs(kernel_grads[k], plain_grads[k])
+        check(diff <= 1e-3 * scale, f"{what}, grad of {k}: kernels against the plain "
+              f"replay, max abs diff {diff:.2e} of max {scale:.2e} (limit 1e-3)")
+    check(True, f"{what} losses through the kernels within 1e-5 of the plain replay: "
+          + ", ".join(f"{k} {float(v):.6f}" for k, v in kernel_losses.items()))
+    return kernel_losses, kernel_grads
 
 
 def phase_train(B, A, Fc, handle, cfg) -> tuple:
@@ -1167,28 +1235,7 @@ def phase_train(B, A, Fc, handle, cfg) -> tuple:
 
     # step 1 with the kernels, then with the plain versions in their place
     model.train()
-    kernel_losses, kernel_grads = loss_and_head_grads(model, batch)
-    swapped = {(A, "assign_gtmax"): A.assign_gtmax_plain,
-               (A, "assign_targets"): A.assign_targets_plain,
-               (Fc, "focal_level_sum"): Fc.focal_level_sum_plain,
-               (Fc, "focal_level_dx"): Fc.focal_level_dx_plain}
-    kept = {key: getattr(*key) for key in swapped}
-    for (mod, name), fn in swapped.items():
-        setattr(mod, name, fn)
-    try:
-        plain_losses, plain_grads = loss_and_head_grads(model, batch)
-    finally:
-        for (mod, name), fn in kept.items():
-            setattr(mod, name, fn)
-    for k in kernel_losses:
-        torch.testing.assert_close(kernel_losses[k], plain_losses[k], rtol=1e-5, atol=0.0)
-    for k in kernel_grads:
-        scale = float(plain_grads[k].abs().max())
-        diff = max_abs(kernel_grads[k], plain_grads[k])
-        check(diff <= 1e-3 * scale, f"step 1, grad of {k}.weight: kernels against the "
-              f"plain replay, max abs diff {diff:.2e} of max {scale:.2e} (limit 1e-3)")
-    check(True, "step 1 losses through the kernels within 1e-5 of the plain replay: "
-          + ", ".join(f"{k} {float(v):.6f}" for k, v in kernel_losses.items()))
+    kernel_losses, _ = check_step_replay(A, Fc, model, batch)
 
     history = []
 
@@ -1430,7 +1477,7 @@ def phase_probe(B) -> dict:
     return counts
 
 
-def phase_reference(handle) -> None:
+def phase_reference(handle, what: str = "flagship") -> None:
     """Full-width model on a small canvas, GPU against CPU (f32, TF32 off):
     every branch to 2e-3 (f32 sums over 100+ layers in another order)."""
     rng = np.random.default_rng(2)
@@ -1443,7 +1490,7 @@ def phase_reference(handle) -> None:
         for g, c in zip(g_lvls, c_lvls):
             scale = float(c.abs().max()) + 1e-6
             worst = max(worst, float((g.cpu() - c).abs().max()) / scale)
-    check(worst <= 2e-3, f"GPU forward matches CPU forward: max rel err {worst:.2e}")
+    check(worst <= 2e-3, f"{what}: GPU forward matches CPU forward: max rel err {worst:.2e}")
 
 
 IOU_FLOPS = 16    # one IoU given the areas: intersection 10, product, union 2, floor, division, compare
@@ -2408,6 +2455,433 @@ def phase_eval_timing(handle, dataset, card: str) -> None:
     torch.cuda.empty_cache()
 
 
+# ------------------------------------------------ phase 7: the paper's other configs
+
+PAPER_BACKBONES = (("x101_64x4d", "iou_aware_retinanet_x101_64x4d_fpn_1x.py"),
+                   ("dcn", "dcn_iou_aware_retinanet_r50_fpn_1x.py"),
+                   ("gcb", "gcb_iou_aware_retinanet_r50_fpn_1x.py"))
+MSTEST = "iou_aware_retinanet_r101_fpn_mstest.py"
+VOC = "iou_aware_retinanet_r50_fpn_voc.py"
+DCN_TRAIN_BATCH = 2
+DCN_TRAIN_STEPS = 2
+# 7c's planted images, 4 landscape and 2 portrait; 7d's, VOC's usual sizes
+TTA_SIZES = ((600, 1000), (480, 640), (800, 1333), (427, 640), (640, 480), (1000, 750))
+VOC_SIZES = ((375, 500), (500, 375), (333, 500), (500, 333), (281, 500), (375, 500),
+             (500, 400), (366, 500))
+OFFSET_STD = 0.1   # x 1 / sqrt(fan_in): the seeded offset convs of 7a and 7e
+
+
+def paper_cfg(name: str) -> dict:
+    """A config of configs/ with its ``_base_`` merged by the port's loader,
+    trained as phase 4 trains: one epoch, one log record at the last step,
+    gradient clipping at 35."""
+    from ioudet_torch.utils.config import Config
+
+    cfg = Config.fromfile(os.path.join(ROOT, "configs", name)).todict()
+    return dict(cfg, total_epochs=1, log_config=dict(interval=DCN_TRAIN_STEPS),
+                optimizer_config=dict(grad_clip=dict(max_norm=35, norm_type=2)))
+
+
+def serving_handle(cfg: dict, seed: int = 0):
+    """``init_detector`` on the card, seeded, with retina_cls.bias zeroed as in
+    phase 3; a deformable backbone's offset convs (zero at init) drawn at std
+    ``OFFSET_STD`` / sqrt(fan_in), so that the taps fall between pixels and
+    off the image (``f64_drift`` says why not larger)."""
+    from ioudet_torch.apis.inference import init_detector
+
+    handle = init_detector(cfg, device="cuda", seed=seed)
+    g = torch.Generator().manual_seed(seed)
+    with torch.no_grad():
+        handle.model.bbox_head.retina_cls.bias.zero_()
+        for name, m in handle.model.named_modules():
+            if name.endswith("conv2_offset"):
+                w = torch.empty(m.weight.shape).normal_(
+                    0.0, OFFSET_STD * m.weight[0].numel() ** -0.5, generator=g)
+                m.weight.copy_(w)
+    return handle
+
+
+def f64_drift(model, scale: float = 1.0) -> float:
+    """The CPU f32 forward of ``model`` against its f64 forward on the
+    reference canvas of ``phase_reference``, as there (the largest |diff| as
+    a share of each output's largest |f64 value|), with the offset convs'
+    weights times ``scale``.  It is the floor under the GPU-vs-CPU check:
+    deformable layers whose offsets send most taps off the small canvas's
+    maps amplify f32 roundoff, wherever it is computed."""
+    x = torch.from_numpy(np.random.default_rng(2).normal(0, 1, (1, 128, 192, 3)))
+    m32 = copy.deepcopy(model).cpu()
+    with torch.no_grad():
+        for name, m in m32.named_modules():
+            if name.endswith("conv2_offset"):
+                m.weight.mul_(scale)
+    m64 = copy.deepcopy(m32).double()
+    for m in m64.modules():
+        for attr in ("compute_dtype", "dtype"):
+            if getattr(m, attr, None) == torch.float32:
+                setattr(m, attr, torch.float64)
+    with torch.inference_mode():
+        outs32, outs64 = m32(x.float()), m64(x)
+    return max(float((a.double() - b).abs().max() / b.abs().max())
+               for la, lb in zip(outs32, outs64) for a, b in zip(la, lb))
+
+
+def add_counts(total: dict, seen: dict) -> dict:
+    return {k: total.get(k, 0) + v for k, v in seen.items()}
+
+
+def phase_paper_serving(B, K, inputs) -> tuple:
+    """7a: ``predict`` of x101-64x4d, DCN and GCB at full width on the batch of
+    canvases, host syncs made errors; K1 once a ``predict``, the plain-NMS
+    replay, GPU against CPU.  Returns (launch counts, the handles)."""
+    from ioudet_torch.apis.inference import predict
+
+    counts, handles = {}, {}
+    bsz = inputs[0].shape[0]
+    for tag, name in PAPER_BACKBONES:
+        t = time.perf_counter()
+        handle = serving_handle(paper_cfg(name))
+        nparams = sum(p.numel() for p in handle.model.parameters())
+        predict(handle, *inputs)   # warm-up
+        torch.cuda.synchronize()
+        B.reset_launches()
+        dets, labels = set_sync_errors(lambda: predict(handle, *inputs))
+        torch.cuda.synchronize()
+        seen = dict(B.launches)
+        counts = add_counts(counts, seen)
+        check(seen["nms_mask_kernel"] == 1 and seen["nms_reduce_kernel"] == 1,
+              f"{tag} ({name}, {nparams:,} parameters): K1a and K1b launched once in one "
+              f"predict at batch {bsz}")
+        check_predict_outputs(dets, labels, bsz, handle.model.bbox_head.cls_out_channels,
+                              f"{tag} predict")
+        check_plain_nms_replay(K, handle, inputs, dets, labels, tag)
+        phase_reference(handle, tag)
+        if tag == "dcn":
+            print(f"dcn: the CPU's f32 forward against its f64 forward on the same canvas: "
+                  f"{f64_drift(handle.model):.2e} at offset convs of std {OFFSET_STD} / "
+                  f"sqrt(fan_in), {f64_drift(handle.model, 10.0):.2e} at "
+                  f"{10 * OFFSET_STD:g} / sqrt(fan_in)", flush=True)
+        print(f"7a {tag}: {time.perf_counter() - t:.2f} s", flush=True)
+        handles[tag] = handle
+        torch.cuda.empty_cache()
+    return counts, handles
+
+
+def phase_dcn_train(B, A, Fc) -> dict:
+    """7b: ``train_detector`` on the DCN config, its offset convs at their zero
+    init; step 1 replayed with the plain K2 / K3, every offset conv's weight
+    gradient nonzero, K2 / K3 launches a step as in phase 4, losses finite."""
+    from ioudet_torch.apis.inference import init_detector
+    from ioudet_torch.apis.train import train_detector
+
+    cfg = paper_cfg(PAPER_BACKBONES[1][1])
+    handle = init_detector(cfg, device="cuda", seed=1)
+    model = handle.model
+    batch = {k: torch.from_numpy(v).cuda()
+             for k, v in train_batch(DCN_TRAIN_BATCH, NUM_GTS).items()}
+    offsets = tuple(f"{n}.weight" for n, _ in model.named_modules() if n.endswith("conv2_offset"))
+    model.train()
+    _, grads = check_step_replay(A, Fc, model, batch, HEAD_WEIGHTS + offsets, "DCN step 1")
+    norms = [float(grads[n].norm()) for n in offsets]
+    check(len(offsets) == 9 and min(norms) > 0,
+          f"DCN step 1: each of the {len(offsets)} conv2_offset weights has a nonzero "
+          f"gradient (norms {min(norms):.3e} .. {max(norms):.3e})")
+    history = []
+
+    def hook(step, log_vars):
+        history.append(log_vars)
+        torch.cuda.set_sync_debug_mode("error" if step < DCN_TRAIN_STEPS else 0)
+
+    torch.cuda.synchronize()
+    B.reset_launches()
+    with tempfile.TemporaryDirectory() as work_dir:
+        try:
+            train_detector(handle, [batch] * DCN_TRAIN_STEPS, cfg, work_dir, device="cuda",
+                           step_hook=hook)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    counts = dict(B.launches)
+    want = {"assign_gtmax_kernel": DCN_TRAIN_STEPS, "assign_targets_kernel": DCN_TRAIN_STEPS,
+            "focal_sum_kernel": 5 * DCN_TRAIN_STEPS, "focal_dx_kernel": 5 * DCN_TRAIN_STEPS}
+    check(all(counts[k] == n for k, n in want.items()),
+          f"DCN train path launched K2 and K3, 1 + 1 + 5 + 5 a step: {counts}")
+    losses = [{k: float(v) for k, v in h.items()} for h in history]
+    for i, rec in enumerate(losses):
+        print(f"DCN step {i + 1}: " + ", ".join(f"{k} {v:.6f}" for k, v in rec.items()))
+    check(len(losses) == DCN_TRAIN_STEPS and
+          all(np.isfinite(v) for rec in losses for v in rec.values()),
+          f"DCN: every loss of the {DCN_TRAIN_STEPS} steps is finite, step 2 without a "
+          "host sync")
+    del handle, model, batch
+    torch.cuda.empty_cache()
+    return counts
+
+
+def same_results(a: list, b: list) -> bool:
+    return len(a) == len(b) and all(
+        x.dtype == y.dtype and x.shape == y.shape and np.array_equal(x, y) for x, y in zip(a, b))
+
+
+def tta_replay(K, handle, views, test_cfg) -> list:
+    """One image's views through the model and ``decode_candidates``, mapped
+    back here (flip: x' = w - x - 1, then divided by the view's f32 scale),
+    concatenated and through ``multiclass_nms`` with the plain NMS."""
+    from ioudet_torch.core.bbox.transforms import bbox2result
+    from ioudet_torch.core.post_processing import multiclass_nms
+
+    model = handle.model
+    boxes, scores = [], []
+    with torch.inference_mode():
+        for v in views:
+            shape = torch.from_numpy(v["img_shape"]).cuda()
+            b, sc = model.bbox_head.decode_candidates(
+                *model(torch.from_numpy(v["img"])[None].cuda()), shape[None], test_cfg)
+            b = b[0]
+            if v["flip"]:
+                w = shape[1]
+                b = torch.stack([w - b[:, 2] - 1, b[:, 1], w - b[:, 0] - 1, b[:, 3]], dim=-1)
+            boxes.append(b / torch.from_numpy(v["scale_factor"]).cuda())
+            scores.append(sc[0])
+        with plain_nms(K):
+            dets, labels = multiclass_nms(
+                torch.cat(boxes)[None], torch.cat(scores)[None], test_cfg["score_thr"],
+                test_cfg["nms"]["iou_thr"], test_cfg["max_per_img"])
+    return bbox2result(dets[0], labels[0], model.bbox_head.num_classes)
+
+
+def phase_tta(B, K) -> tuple:
+    """7c: the mstest config (R-101, views at 1333x800 and 1666x1000, flip, on
+    1024x1696 canvases) through ``build_dataset``, ``tta_test`` and
+    ``evaluate`` on planted .ppm images.  Returns (launch counts, the handle,
+    the dataset, its test_cfg, its directory)."""
+    from ioudet_torch.apis.test import tta_test
+    from ioudet_torch.data import build_dataset
+
+    cfg = paper_cfg(MSTEST)
+    handle = serving_handle(cfg)
+    tmp = tempfile.TemporaryDirectory()
+    ann_file, img_dir = plant_coco(tmp.name, TTA_SIZES, 80, seed=7)
+    dataset = build_dataset(dict(cfg["data"]["test"], ann_file=ann_file, img_prefix=img_dir))
+    views = dataset[0]
+    check(len(views) == 4 and [bool(v["flip"]) for v in views] == [False, True, False, True]
+          and {tuple(v["img"].shape) for v in views} == {(1024, 1696, 3)},
+          f"7c: {len(dataset)} images ({', '.join(f'{h}x{w}' for h, w in TTA_SIZES)}), "
+          "4 views an image on the 1024x1696 canvas, scale-major, flip False / True")
+    torch.cuda.synchronize()
+    B.reset_launches()
+    t = time.perf_counter()
+    results = tta_test(handle, dataset, cfg["test_cfg"])
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t
+    counts = dict(B.launches)
+    check(counts["nms_mask_kernel"] == len(dataset) and
+          counts["nms_reduce_kernel"] == len(dataset),
+          f"tta_test: K1a and K1b launched once an image ({len(dataset)} images, {run_s:.2f} s)")
+    bad = [i for i in range(len(dataset))
+           if not same_results(results[i], tta_replay(K, handle, dataset[i], cfg["test_cfg"]))]
+    check(not bad, "tta_test: each image's result bit-equal to its views' replay through "
+          f"decode_candidates, the map back and the plain NMS (differing: {bad})")
+    metrics = dataset.evaluate(results)
+    check(all(np.isfinite(v) and -1 <= v <= 1 for v in metrics.values()),
+          f"tta_test: {sum(sum(map(len, r)) for r in results)} detections; random weights: "
+          f"AP {metrics['AP']:.4f}")
+    metrics = dataset.evaluate(gt_as_results(dataset))
+    check(metrics["AP"] == 1.0 and metrics["AR100"] == 1.0,
+          f"7c: the ground truth fed back: AP {metrics['AP']!r}, AR100 {metrics['AR100']!r}")
+    return counts, handle, dataset, cfg["test_cfg"], tmp
+
+
+def plant_voc(root: str, sizes, seed: int, year: str = "VOC2007") -> tuple:
+    """A VOC-style tree under ``root/<year>``: Annotations/<id>.xml,
+    JPEGImages/<id>.jpg (binary netpbm bytes under the .jpg name) and
+    ImageSets/Main/test.txt.  Dark noise with 2-5 boxes an image of random
+    VOC classes; one box in four ``difficult``, the tag left out of every
+    third object, and one object an image of a class VOC does not have.
+    Returns (ann_file, img_prefix)."""
+    from ioudet_torch.core.evaluation.class_names import VOC_CLASSES
+    from ioudet_torch.data.pipelines.loading import imwrite_netpbm
+
+    rng = np.random.default_rng(seed)
+    prefix = os.path.join(root, year)
+    for sub in ("Annotations", "JPEGImages", os.path.join("ImageSets", "Main")):
+        os.makedirs(os.path.join(prefix, sub), exist_ok=True)
+    ids = []
+    for i, (h, w) in enumerate(sizes):
+        img_id = f"{i:06d}"
+        img = rng.integers(0, 60, (h, w, 3), dtype=np.uint8)
+        objects = []
+        for j in range(int(rng.integers(2, 6)) + 1):
+            bw, bh = int(rng.integers(w // 10, w // 3)), int(rng.integers(h // 10, h // 3))
+            x, y = int(rng.integers(0, w - bw)), int(rng.integers(0, h - bh))
+            img[y:y + bh, x:x + bw] = rng.integers(80, 256, 3)
+            name = "unicorn" if j == 0 else VOC_CLASSES[int(rng.integers(0, len(VOC_CLASSES)))]
+            difficult = "" if j % 3 == 2 else \
+                f"<difficult>{int(rng.uniform() < 0.25)}</difficult>"
+            objects.append(f"<object><name>{name}</name>{difficult}<bndbox><xmin>{x}</xmin>"
+                           f"<ymin>{y}</ymin><xmax>{x + bw - 1}</xmax><ymax>{y + bh - 1}</ymax>"
+                           "</bndbox></object>")
+        with open(os.path.join(prefix, "Annotations", f"{img_id}.xml"), "w") as f:
+            f.write(f"<annotation><folder>{year}</folder><filename>{img_id}.jpg</filename>"
+                    f"<size><width>{w}</width><height>{h}</height><depth>3</depth></size>"
+                    + "".join(objects) + "</annotation>")
+        imwrite_netpbm(os.path.join(prefix, "JPEGImages", f"{img_id}.jpg"), img)
+        ids.append(img_id)
+    ann_file = os.path.join(prefix, "ImageSets", "Main", "test.txt")
+    with open(ann_file, "w") as f:
+        f.write("\n".join(ids) + "\n")
+    return ann_file, prefix + "/"
+
+
+def voc_gt_as_results(dataset) -> list:
+    """The dataset's non-difficult ground truth as detections of score 1, one
+    ``bbox2result`` list an image."""
+    out = []
+    for i in range(len(dataset)):
+        ann = dataset.get_ann_info(i)
+        out.append([np.concatenate([ann["bboxes"][ann["labels"] == c + 1],
+                                    np.ones((int((ann["labels"] == c + 1).sum()), 1))],
+                                   axis=1).astype(np.float32)
+                    for c in range(len(dataset.CLASSES))])
+    return out
+
+
+def phase_voc(B) -> dict:
+    """7d: the VOC config on a planted VOC2007 tree through ``build_dataset``,
+    ``single_device_test`` and ``evaluate``."""
+    from ioudet_torch.apis.test import single_device_test
+    from ioudet_torch.core.evaluation import eval_map
+    from ioudet_torch.data import build_dataset
+
+    cfg = paper_cfg(VOC)
+    handle = serving_handle(cfg)
+    with tempfile.TemporaryDirectory() as root:
+        ann_file, prefix = plant_voc(root, VOC_SIZES, seed=8)
+        dataset = build_dataset(dict(cfg["data"]["test"], ann_file=ann_file, img_prefix=prefix))
+        anns = [dataset.get_ann_info(i) for i in range(len(dataset))]
+        check(dataset.year == 2007 and len(dataset) == len(VOC_SIZES),
+              f"7d: {len(dataset)} images, {sum(len(a['bboxes']) for a in anns)} boxes and "
+              f"{sum(len(a['bboxes_ignore']) for a in anns)} difficult ones (ignored), "
+              "evaluated in '11points' mode (VOC2007)")
+        torch.cuda.synchronize()
+        B.reset_launches()
+        results = single_device_test(handle, dataset, EVAL_BATCH, EVAL_WORKERS, progress=False)
+        torch.cuda.synchronize()
+        counts = dict(B.launches)
+        n = check_results_replay(handle, dataset, results, False, "VOC single_device_test")
+        check(counts["nms_mask_kernel"] == n and counts["nms_reduce_kernel"] == n,
+              f"VOC: K1a and K1b launched once for each of the loop's {n} predicts")
+        metrics = dataset.evaluate(results)
+        check(0.0 <= metrics["mAP"] <= 1.0, f"VOC: random weights: mAP {metrics['mAP']:.4f}")
+        gt = voc_gt_as_results(dataset)
+        mean_ap = dataset.evaluate(gt)["mAP"]
+        area = eval_map(gt, [a["bboxes"] for a in anns], [a["labels"] for a in anns],
+                        num_classes=len(dataset.CLASSES), mode="area")[0]
+        check(area == 1.0 and abs(mean_ap - 1.0) <= 2.0 ** -52,
+              f"VOC: the ground truth fed back: mAP {mean_ap!r} in '11points' mode (eleven "
+              f"steps of 1/11 in float64, as ioudet sums them), {area!r} in 'area' mode")
+    del handle
+    torch.cuda.empty_cache()
+    return counts
+
+
+@contextlib.contextmanager
+def deform_events(D, spans: dict):
+    """Each deformable conv's sampling and product recorded between CUDA
+    events, into ``spans['sampling']`` and ``spans['product']``."""
+    kept = D.sample_taps, D.tap_product
+
+    def timed(fn, key):
+        def run(*args, **kwargs):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = fn(*args, **kwargs)
+            end.record()
+            spans[key].append((start, end))
+            return out
+        return run
+
+    D.sample_taps, D.tap_product = timed(kept[0], "sampling"), timed(kept[1], "product")
+    try:
+        yield
+    finally:
+        D.sample_taps, D.tap_product = kept
+
+
+def deform_split(handle, inputs, reps: int = 3) -> tuple:
+    """(predict ms, sampling ms, product ms, deformable convs a predict) by
+    CUDA events, medians of ``reps`` predicts."""
+    from ioudet_torch.apis.inference import predict
+    from ioudet_torch.ops import deform_conv as D
+
+    rows = []
+    for _ in range(reps):
+        spans = {"sampling": [], "product": []}
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        with deform_events(D, spans):
+            start.record()
+            predict(handle, *inputs)
+            end.record()
+            torch.cuda.synchronize()
+        rows.append((start.elapsed_time(end),
+                     sum(s.elapsed_time(e) for s, e in spans["sampling"]),
+                     sum(s.elapsed_time(e) for s, e in spans["product"]),
+                     len(spans["sampling"])))
+    return tuple(statistics.median(r[i] for r in rows) for i in range(4))
+
+
+def phase_paper_timing(handles, tta, rng, card: str) -> None:
+    """7e: ``predict`` of the three new backbones at batch 1 and 16, the DCN
+    model's deformable convs by CUDA events, ``tta_test`` in images a second;
+    TF32 off and on."""
+    from ioudet_torch.apis.inference import predict
+    from ioudet_torch.apis.test import tta_test
+
+    tta_handle, dataset, test_cfg = tta
+    for tf32 in (False, True):
+        set_tf32(tf32)
+        tag = f"[{card}; f32, TF32 {'on' if tf32 else 'off'}]"
+        for bsz, reps in ((1, 5), (BATCH, 3)):
+            inputs = canvases(bsz, rng)
+            for name, handle in handles.items():
+                predict(handle, *inputs)
+                ms = host_ms(lambda: predict(handle, *inputs), reps=reps)
+                print(f"7e {name} predict batch {bsz}: median of {reps} {ms:.3f} ms, "
+                      f"{bsz * 1e3 / ms:.2f} img/s {tag}", flush=True)
+            if bsz == BATCH:
+                total, sampling, product, n = deform_split(handles["dcn"], inputs)
+                print(f"7e dcn predict batch {bsz}, CUDA events, median of 3: {total:.3f} ms; "
+                      f"its {n} deformable convs: sampling {sampling:.3f} ms "
+                      f"({100 * sampling / total:.1f}%), product {product:.3f} ms "
+                      f"({100 * product / total:.1f}%) {tag}", flush=True)
+            del inputs
+            torch.cuda.empty_cache()
+        ms = host_ms(lambda: tta_test(tta_handle, dataset, test_cfg), reps=2)
+        print(f"7e tta_test, {len(dataset)} images x 4 views (R-101, 1024x1696 canvases): "
+              f"median of 2 {ms:.3f} ms, {len(dataset) * 1e3 / ms:.3f} img/s {tag}", flush=True)
+    set_tf32(False)
+
+
+def phase_paper(B, K, A, Fc, rng, card: str) -> dict:
+    """Phase 7; returns the kernels' launch counts of its main paths."""
+    t = time.perf_counter()
+    inputs = canvases(BATCH, rng)
+    counts, handles = phase_paper_serving(B, K, inputs)
+    del inputs
+    torch.cuda.empty_cache()
+    counts = add_counts(counts, phase_dcn_train(B, A, Fc))
+    tta_counts, tta_handle, dataset, test_cfg, tmp = phase_tta(B, K)
+    counts = add_counts(counts, tta_counts)
+    counts = add_counts(counts, phase_voc(B))
+    phase_paper_timing(handles, (tta_handle, dataset, test_cfg), rng, card)
+    tmp.cleanup()
+    del handles, tta_handle
+    torch.cuda.empty_cache()
+    print(f"phase 7: {time.perf_counter() - t:.2f} s", flush=True)
+    return counts
+
+
 KERNELS = {  # name: (source, the TPU kernel it replaces)
     "nms_mask_kernel": ("nms_kernel.cu", "ioudet/ops/nms_pallas.py:26"),
     "nms_reduce_kernel": ("nms_kernel.cu", "ioudet/ops/nms_pallas.py:81"),
@@ -2527,6 +3001,12 @@ def main() -> int:
     eval_dir.cleanup()
     del eval_handle
     torch.cuda.empty_cache()
+
+    print("phase 7: the paper's other configs; TF32 off: 7a predict of x101-64x4d, DCN and "
+          "GCB, 7b two DCN train steps, 7c the mstest config through tta_test, 7d the VOC "
+          "config through single_device_test, 7e timings", flush=True)
+    paper_launches = phase_paper(B, K, A, Fc, rng, card)
+    launches = {k: launches[k] + paper_launches[k] for k in launches}
     check(all(launches[name] > 0 for name in KERNELS if name not in REPLACED) and
           all(launches[name] == 0 for name in REPLACED),
           "every kernel was launched on a main path, and none of those the wgmma kernels "

@@ -28,11 +28,17 @@ _BN = {"scale": "weight", "bias": "bias", "mean": "running_mean",
 
 
 def _tensor(x) -> torch.Tensor:
+    """An f32 copy of a numpy or JAX array or of a torch tensor (a tensor on
+    the ``meta`` device stays one, so a tree of shapes bridges too)."""
+    if isinstance(x, torch.Tensor):
+        return x.detach().to(torch.float32).clone()
     return torch.from_numpy(np.array(x, dtype=np.float32))
 
 
 def _oihw(kernel) -> torch.Tensor:
-    return _tensor(np.transpose(np.asarray(kernel), (3, 2, 0, 1)))
+    """HWIO -> OIHW; a grouped kernel (kh, kw, in / groups, out) becomes
+    torch's (out, in / groups, kh, kw)."""
+    return _tensor(kernel).permute(3, 2, 0, 1).contiguous()
 
 
 def _conv(sd: dict, prefix: str, leaf: dict) -> None:
@@ -44,6 +50,25 @@ def _conv(sd: dict, prefix: str, leaf: dict) -> None:
 def _bn(sd: dict, prefix: str, leaf: dict) -> None:
     for k, v in leaf.items():
         sd[f"{prefix}.{_BN[k]}"] = _tensor(v)
+
+
+def _context_block(sd: dict, prefix: str, tree: dict) -> None:
+    """flax ``context_block/{conv_mask, <fusion>_down, <fusion>_ln,
+    <fusion>_up}`` -> mmdet's ``conv_mask``, ``<fusion>_conv.{0,1,3}`` (the
+    LayerNorm's affine as (planes, 1, 1))."""
+    for name, leaf in tree.items():
+        if name == "conv_mask":
+            _conv(sd, f"{prefix}.conv_mask", leaf)
+            continue
+        m = re.fullmatch(r"(channel_(?:add|mul))_(down|ln|up)", name)
+        if not m:
+            raise KeyError(f"unknown context block param {name}")
+        dst = f"{prefix}.{m.group(1)}_conv.{dict(down=0, ln=1, up=3)[m.group(2)]}"
+        if m.group(2) == "ln":
+            sd[dst + ".weight"] = _tensor(leaf["scale"]).reshape(-1, 1, 1)
+            sd[dst + ".bias"] = _tensor(leaf["bias"]).reshape(-1, 1, 1)
+        else:
+            _conv(sd, dst, leaf)
 
 
 def _backbone(sd: dict, tree: dict, prefix: str = "backbone") -> None:
@@ -61,8 +86,12 @@ def _backbone(sd: dict, tree: dict, prefix: str = "backbone") -> None:
                     _conv(sd, base + ".downsample.0", leaf)
                 elif sub == "downsample_bn":
                     _bn(sd, base + ".downsample.1", leaf)
-                elif re.fullmatch(r"conv\d", sub):
+                elif re.fullmatch(r"conv\d", sub) or sub == "conv2_offset":
                     _conv(sd, f"{base}.{sub}", leaf)
+                elif sub == "conv2_kernel":   # the deformable 3x3, a bare kernel
+                    sd[f"{base}.conv2.weight"] = _oihw(leaf)
+                elif sub == "context_block":
+                    _context_block(sd, f"{base}.context_block", leaf)
                 elif re.fullmatch(r"bn\d", sub):
                     _bn(sd, f"{base}.{sub}", leaf)
                 else:

@@ -13,8 +13,13 @@ order, as ``ioudet``'s does.  Two routes feed it (``eval_batches``):
 
 Batches hold one orientation each (one canvas).  A group's last batch runs
 at its own size: the port compiles nothing, so it need not pad, and the
-loader's padding repeats are dropped before the device sees them.  The
-multi-device merge (``multi_host_test``), test-time augmentation and the
+loader's padding repeats are dropped before the device sees them.
+
+``tta_test`` is the route of a test pipeline that ends in
+``MultiScaleFlipAug``: each image's views go through the model and
+``decode_candidates`` one at a time, are mapped back and merged, and one
+``multiclass_nms`` an image runs over the union (``aug_test``).  The
+multi-device merge (``multi_host_test``), the two-stage TTA merge and the
 mask route are not ported yet.
 """
 
@@ -24,12 +29,13 @@ import logging
 import os
 import time
 from concurrent.futures import ThreadPoolExecutor
-from typing import Callable, Iterator, List, Tuple
+from typing import Callable, Iterator, List, Optional, Tuple
 
 import numpy as np
 import torch
 
 from ..core.bbox.transforms import bbox2result
+from ..core.post_processing import merge_aug_bboxes, multiclass_nms
 from ..data.loader import build_dataloader, to_device
 from ..data.pipelines.loading import imread
 from ..ops.preprocess import IMAGENET_MEAN, IMAGENET_STD, preprocess_batch
@@ -146,6 +152,53 @@ def single_device_test(handle, dataset, imgs_per_batch: int = 8, workers: int = 
     if len(results) != len(dataset):
         raise RuntimeError(f"evaluated {len(results)} of {len(dataset)} images")
     return [results[i] for i in range(len(dataset))]
+
+
+@torch.inference_mode()
+def aug_test(handle, samples: List[dict], test_cfg: Optional[dict] = None
+             ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Multi-scale / flip TTA of one image, single-stage: ``samples`` are its
+    ``MultiScaleFlipAug`` views (img, img_shape, scale_factor, flip).
+    Returns (dets (max_per_img, 5), labels (max_per_img,)), label -1 padding,
+    on the model's device.
+
+    As ``ioudet``'s merge, the one NMS takes only ``score_thr``, the NMS
+    ``iou_thr`` and ``max_per_img`` from ``test_cfg``: ``pre_nms_total``
+    stays 2000 and ``class_topk`` unset whatever the config says."""
+    model = getattr(handle, "model", handle)
+    device = next(model.parameters()).device
+    cfg = dict(model.test_cfg or {}) if test_cfg is None else dict(test_cfg)
+    boxes, scores, metas = [], [], []
+    for s in samples:
+        img = torch.from_numpy(np.ascontiguousarray(s["img"], np.float32))[None].to(device)
+        img_shape = torch.from_numpy(np.asarray(s["img_shape"], np.int32)).to(device)
+        b, sc = model.bbox_head.decode_candidates(*model(img), img_shape[None], cfg)
+        boxes.append(b[0])
+        scores.append(sc[0])
+        factor = torch.from_numpy(np.asarray(s["scale_factor"], np.float32)).to(device)
+        metas.append(dict(img_shape=img_shape, scale_factor=factor, flip=bool(s["flip"])))
+    merged_boxes, merged_scores = merge_aug_bboxes(boxes, scores, metas)
+    dets, labels = multiclass_nms(merged_boxes[None], merged_scores[None],
+                                  score_thr=cfg.get("score_thr", 0.05),
+                                  iou_thr=cfg.get("nms", {}).get("iou_thr", 0.5),
+                                  max_per_img=cfg.get("max_per_img", 100))
+    return dets[0], labels[0]
+
+
+def tta_test(handle, dataset, test_cfg: Optional[dict] = None) -> list:
+    """``aug_test`` over a dataset whose test pipeline ends in
+    ``MultiScaleFlipAug`` (each item a list of views), on the model's
+    device.  Returns one ``bbox2result`` list an image, in dataset order."""
+    model = getattr(handle, "model", handle)
+    num_classes = model.bbox_head.num_classes
+    results = []
+    for idx in range(len(dataset)):
+        views = dataset[idx]
+        if not isinstance(views, list):
+            raise TypeError("tta_test needs a test pipeline that ends in MultiScaleFlipAug")
+        dets, labels = aug_test(model, views, test_cfg)
+        results.append(bbox2result(dets, labels, num_classes))
+    return results
 
 
 def make_eval_hook(val_dataset, imgs_per_batch: int = 8) -> Callable:

@@ -85,6 +85,29 @@ def delta2bbox(rois: torch.Tensor, deltas: torch.Tensor,
     return torch.stack([x1, y1, x2, y2], dim=-1).reshape(deltas.shape)
 
 
+def bbox_flip(bboxes: torch.Tensor, img_shape) -> torch.Tensor:
+    """Mirror (..., 4 + extra) boxes in a (H, W) image: x1' = w - x2 - 1,
+    x2' = w - x1 - 1; trailing columns (scores) ride along."""
+    w = img_shape[1]
+    flipped = torch.stack([w - bboxes[..., 2] - 1, bboxes[..., 1],
+                           w - bboxes[..., 0] - 1, bboxes[..., 3]], dim=-1)
+    return torch.cat([flipped, bboxes[..., 4:]], dim=-1)
+
+
+def bbox_mapping(bboxes: torch.Tensor, img_shape, scale_factor, flip: bool) -> torch.Tensor:
+    """Original-image boxes -> a view's (scaled, maybe flipped) boxes."""
+    new = bboxes * scale_factor
+    return bbox_flip(new, img_shape) if flip else new
+
+
+def bbox_mapping_back(bboxes: torch.Tensor, img_shape, scale_factor, flip: bool) -> torch.Tensor:
+    """The inverse of ``bbox_mapping``, used to merge test-time views.  Pass
+    ``scale_factor`` as a tensor: on the card, division by a Python float
+    multiplies by its reciprocal, which is not ``ioudet``'s quotient."""
+    new = bbox_flip(bboxes, img_shape) if flip else bboxes
+    return new / scale_factor
+
+
 def bbox2result(bboxes, labels, num_classes: int) -> List[np.ndarray]:
     """(N, 5) dets + 0-based labels -> the reference's per-class list of
     ``num_classes - 1`` float32 (k, 5) numpy arrays.

@@ -7,9 +7,11 @@ from __future__ import annotations
 
 import copy
 
-from .datasets import CocoDataset, ConcatDataset, CustomDataset, RepeatDataset
+from .datasets import (CocoDataset, ConcatDataset, CustomDataset, RepeatDataset, VOCDataset,
+                       WIDERFaceDataset, XMLDataset)
 
-DATASETS = {"CustomDataset": CustomDataset, "CocoDataset": CocoDataset}
+DATASETS = {c.__name__: c for c in (CustomDataset, CocoDataset, XMLDataset, VOCDataset,
+                                    WIDERFaceDataset)}
 
 
 def _build(cfg: dict):

@@ -1,5 +1,7 @@
 from .coco import CocoDataset
 from .custom import CustomDataset
 from .wrappers import ConcatDataset, RepeatDataset
+from .xml_style import VOCDataset, WIDERFaceDataset, XMLDataset
 
-__all__ = ["CocoDataset", "CustomDataset", "ConcatDataset", "RepeatDataset"]
+__all__ = ["CocoDataset", "CustomDataset", "ConcatDataset", "RepeatDataset", "VOCDataset",
+           "WIDERFaceDataset", "XMLDataset"]

@@ -10,7 +10,9 @@ Pad).
   * flip mirrors boxes with the +1 convention (x2' = w - x1 - 1);
   * Normalize: (img - mean) / std in f32 after BGR -> RGB when to_rgb;
   * Pad: to ``size_divisor`` (``pad_shape``) and onto a fixed canvas, one
-    per orientation.
+    per orientation;
+  * Resize and RandomFlip take a view's ``scale_override`` /
+    ``flip_override`` from ``MultiScaleFlipAug`` (``test_aug.py``).
 
 The SSD and segmentation transforms are not ported yet.
 """
@@ -97,7 +99,9 @@ def imresize(img: np.ndarray, size_hw: Tuple[int, int]) -> np.ndarray:
 class Resize:
     """keep_ratio rescale into ``img_scale`` (long, short), or to it exactly
     without keep_ratio; several scales are sampled per image ('range': long
-    and short edges uniformly between the ends; 'value': one of them)."""
+    and short edges uniformly between the ends; 'value': one of them).  A
+    sample's ``scale_override`` (set by ``MultiScaleFlipAug`` for its view)
+    takes the place of ``img_scale``, and nothing is drawn then."""
 
     def __init__(self, img_scale=(1333, 800), keep_ratio: bool = True,
                  multiscale_mode: str = "range"):
@@ -119,7 +123,7 @@ class Resize:
     def __call__(self, results: dict) -> dict:
         img = results["img"]
         h, w = img.shape[:2]
-        scale = self._pick_scale()
+        scale = results.get("scale_override") or self._pick_scale()
         if self.keep_ratio:
             nh, nw, factor = imrescale_size(h, w, scale)
         else:
@@ -136,13 +140,18 @@ class Resize:
 
 class RandomFlip:
     """Horizontal flip with probability ``flip_ratio``, drawn from the
-    sample's stream."""
+    sample's stream; a sample's ``flip_override`` (``MultiScaleFlipAug``'s
+    view) decides instead, and then nothing is drawn, so the stream stays
+    ``ioudet``'s."""
 
     def __init__(self, flip_ratio: float = 0.5):
         self.flip_ratio = flip_ratio
 
     def __call__(self, results: dict) -> dict:
-        flip = sample_rng().random() < self.flip_ratio
+        if "flip_override" in results:
+            flip = bool(results["flip_override"])
+        else:
+            flip = sample_rng().random() < self.flip_ratio
         results["flip"] = flip
         if flip:
             results["img"] = np.ascontiguousarray(results["img"][:, ::-1])

@@ -5,6 +5,11 @@ mmdet module names (``conv1``, ``bn1``, ``layer{i}.{j}.conv{k}``,
 3x3) and 'caffe' style (stride on the first 1x1) bottlenecks, and
 ``frozen_stages``.  Takes NCHW and returns the NCHW stage outputs selected by
 ``out_indices``.
+
+Bottleneck options, per stage as in ``ioudet``: grouped 3x3 convs (ResNeXt,
+``groups`` / ``base_width``), a deformable 3x3 (``stage_with_dcn``, v2 with
+``dcn_modulated``: ``conv2_offset`` then ``conv2`` as ``DeformConv``) and a
+global-context block after ``bn3`` (``stage_with_gcb``).
 """
 
 from __future__ import annotations
@@ -15,6 +20,8 @@ from typing import Optional, Sequence, Union
 import torch
 from torch import nn
 
+from ...ops.deform_conv import DeformConv
+from ..plugins import ContextBlock
 from ..utils.layers import Conv2d, FrozenBatchNorm, check_norm_cfg, compute_dtype
 
 
@@ -50,18 +57,31 @@ class Bottleneck(nn.Module):
 
     def __init__(self, inplanes: int, planes: int, stride: int = 1,
                  downsample: bool = False, style: str = "pytorch",
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32, groups: int = 1,
+                 base_width: int = 4, with_dcn: bool = False,
+                 dcn_modulated: bool = False, with_gcb: bool = False):
         super().__init__()
         if style not in ("pytorch", "caffe"):
             raise ValueError(f"style must be 'pytorch' or 'caffe', got {style!r}")
         c1_stride, c2_stride = (stride, 1) if style == "caffe" else (1, stride)
+        # ResNeXt's width rule as ioudet writes it
+        width = planes if groups == 1 else int((planes * (base_width / 64.0)) * groups)
         out = planes * self.expansion
-        self.conv1 = _conv(inplanes, planes, 1, c1_stride, dtype)
-        self.bn1 = FrozenBatchNorm(planes, dtype=dtype)
-        self.conv2 = _conv(planes, planes, 3, c2_stride, dtype)
-        self.bn2 = FrozenBatchNorm(planes, dtype=dtype)
-        self.conv3 = _conv(planes, out, 1, dtype=dtype)
+        self.conv1 = _conv(inplanes, width, 1, c1_stride, dtype)
+        self.bn1 = FrozenBatchNorm(width, dtype=dtype)
+        self.with_dcn, self.dcn_modulated = with_dcn, dcn_modulated
+        if with_dcn:
+            # offsets (dy, dx a tap), then 9 mask logits for v2; zero init
+            self.conv2_offset = Conv2d(width, 27 if dcn_modulated else 18, 3, c2_stride, 1,
+                                       compute_dtype=dtype)
+            self.conv2 = DeformConv(width, width, 3, c2_stride, compute_dtype=dtype)
+        else:
+            self.conv2 = Conv2d(width, width, 3, c2_stride, 1, groups=groups, bias=False,
+                                compute_dtype=dtype)
+        self.bn2 = FrozenBatchNorm(width, dtype=dtype)
+        self.conv3 = _conv(width, out, 1, dtype=dtype)
         self.bn3 = FrozenBatchNorm(out, dtype=dtype)
+        self.context_block = ContextBlock(out, dtype=dtype) if with_gcb else None
         self.relu = nn.ReLU(inplace=True)
         self.downsample = nn.Sequential(
             _conv(inplanes, out, 1, stride, dtype),
@@ -70,8 +90,16 @@ class Bottleneck(nn.Module):
     def forward(self, x):
         identity = x if self.downsample is None else self.downsample(x)
         out = self.relu(self.bn1(self.conv1(x)))
-        out = self.relu(self.bn2(self.conv2(out)))
+        if self.with_dcn:
+            om = self.conv2_offset(out)
+            mask = torch.sigmoid(om[:, 18:]) if self.dcn_modulated else None
+            out = self.conv2(out, om[:, :18], mask)
+        else:
+            out = self.conv2(out)
+        out = self.relu(self.bn2(out))
         out = self.bn3(self.conv3(out))
+        if self.context_block is not None:
+            out = self.context_block(out)
         return self.relu(out + identity)
 
 
@@ -95,6 +123,9 @@ class ResNet(nn.Module):
                  stage_with_dcn: Sequence[bool] = (False,) * 4,
                  dcn_modulated: bool = False,
                  stage_with_gcb: Sequence[bool] = (False,) * 4,
+                 groups: int = 1, base_width: int = 4,
+                 gen_attention: Optional[dict] = None,
+                 stage_with_gen_attention: Sequence[Sequence[int]] = ((),) * 4,
                  stem_space_to_depth: bool = False,
                  dtype: Union[None, str, torch.dtype] = None):
         super().__init__()
@@ -102,8 +133,7 @@ class ResNet(nn.Module):
             raise KeyError(f"invalid depth {depth} for resnet")
         check_norm_cfg(norm_cfg)
         not_ported = dict(conv_cfg=conv_cfg is not None,
-                          dcn=any(stage_with_dcn) or dcn_modulated,
-                          gcb=any(stage_with_gcb),
+                          gen_attention=gen_attention is not None,
                           stem_space_to_depth=stem_space_to_depth)
         for name, used in not_ported.items():
             if used:
@@ -126,8 +156,13 @@ class ResNet(nn.Module):
                 stride = strides[i] if j == 0 else 1
                 downsample = j == 0 and (stride != 1 or
                                          inplanes != planes * block.expansion)
+                extra = {}
+                if block is Bottleneck:
+                    extra = dict(groups=groups, base_width=base_width,
+                                 with_dcn=bool(stage_with_dcn[i]), dcn_modulated=dcn_modulated,
+                                 with_gcb=bool(stage_with_gcb[i]))
                 blocks.append(block(inplanes, planes, stride, downsample, style,
-                                    dtype))
+                                    dtype, **extra))
                 inplanes = planes * block.expansion
             setattr(self, f"layer{i + 1}", nn.Sequential(*blocks))
         self._freeze_stages()
@@ -143,14 +178,21 @@ class ResNet(nn.Module):
 
     def init_weights(self, generator: torch.Generator) -> None:
         """Random init drawn from ``generator``: He-normal (fan_out) convs,
-        identity FrozenBN (zero scale on each block's last BN when
-        ``zero_init_residual``)."""
+        deformable ones too, zero conv biases (the context blocks'), zero
+        offset convs, identity FrozenBN (zero scale on each block's last BN
+        when ``zero_init_residual``)."""
         with torch.no_grad():
             for m in self.modules():
-                if isinstance(m, nn.Conv2d):
-                    fan_out = m.out_channels * m.kernel_size[0] * m.kernel_size[1]
-                    m.weight.normal_(0.0, math.sqrt(2.0 / fan_out),
+                if isinstance(m, (nn.Conv2d, DeformConv)):
+                    o, _, kh, kw = m.weight.shape
+                    m.weight.normal_(0.0, math.sqrt(2.0 / (o * kh * kw)),
                                      generator=generator)
+                if isinstance(m, nn.Conv2d) and m.bias is not None:
+                    m.bias.zero_()
+            for m in self.modules():
+                if isinstance(m, Bottleneck) and m.with_dcn:
+                    m.conv2_offset.weight.zero_()
+                    m.conv2_offset.bias.zero_()
             if self.zero_init_residual:
                 for m in self.modules():
                     if isinstance(m, Bottleneck):

@@ -10,6 +10,7 @@ from __future__ import annotations
 from typing import Optional
 
 from .backbones.resnet import ResNet
+from .backbones.resnext import ResNeXt
 from .detectors.single_stage import (IoUAwareRetinaNet, RetinaNet,
                                      SingleStageDetector)
 from .heads.iou_aware_retina_head import IoUAwareRetinaHead
@@ -18,7 +19,7 @@ from .losses import CrossEntropyLoss, FocalLoss, L1Loss, SmoothL1Loss
 from .necks.fpn import FPN
 from .utils.layers import compute_dtype
 
-BACKBONES = {"ResNet": ResNet}
+BACKBONES = {"ResNet": ResNet, "ResNeXt": ResNeXt}
 NECKS = {"FPN": FPN}
 HEADS = {"RetinaHead": RetinaHead, "IoUAwareRetinaHead": IoUAwareRetinaHead}
 DETECTORS = {"SingleStageDetector": SingleStageDetector,

@@ -6,8 +6,11 @@ repo's ``tools/test.py``).
         [--device-preprocess] [--device cuda]
 
 Without a checkpoint the weights are seeded random ones.  ``--device``
-defaults to ``cuda`` and raises where there is no card.  Drawing results
-(``--show``) and test-time augmentation are not ported yet.
+defaults to ``cuda`` and raises where there is no card.  A test pipeline
+that holds ``MultiScaleFlipAug`` runs through ``tta_test`` (one image at a
+time, ``--batch`` and ``--device-preprocess`` unused).  ``--eval bbox`` is
+COCO's metric, ``--eval mAP`` VOC's.  Drawing results (``--show``) is not
+ported yet.
 """
 
 from __future__ import annotations
@@ -23,7 +26,7 @@ def parse_args(argv=None):
     p.add_argument("checkpoint", nargs="?", default=None)
     p.add_argument("--out", default=None, help="pickle of the per-image results")
     p.add_argument("--json_out", default=None, help="COCO result records as JSON")
-    p.add_argument("--eval", nargs="*", default=[], help="metrics: bbox (COCO)")
+    p.add_argument("--eval", nargs="*", default=[], help="metrics: bbox (COCO) / mAP (VOC)")
     p.add_argument("--batch", type=int, default=8)
     p.add_argument("--device-preprocess", action="store_true",
                    help="decode on the host; resize, normalize and pad on the device")
@@ -35,15 +38,18 @@ def main(argv=None) -> dict:
     """Returns {metric: metrics dict} for the metrics of ``--eval``."""
     args = parse_args(argv)
     from ioudet_torch.apis.inference import init_detector
-    from ioudet_torch.apis.test import single_device_test
+    from ioudet_torch.apis.test import single_device_test, tta_test
     from ioudet_torch.data import build_dataset
     from ioudet_torch.utils.config import Config
 
     cfg = Config.fromfile(args.config)
     handle = init_detector(cfg, args.checkpoint, device=args.device)
     dataset = build_dataset(cfg.data["test"])
-    results = single_device_test(handle, dataset, imgs_per_batch=args.batch,
-                                 device_preprocess=args.device_preprocess)
+    if any(s.get("type") == "MultiScaleFlipAug" for s in cfg.data["test"]["pipeline"]):
+        results = tta_test(handle, dataset, cfg.get("test_cfg", {}))
+    else:
+        results = single_device_test(handle, dataset, imgs_per_batch=args.batch,
+                                     device_preprocess=args.device_preprocess)
     if args.out:
         with open(args.out, "wb") as f:
             pickle.dump(results, f)
@@ -52,7 +58,8 @@ def main(argv=None) -> dict:
             json.dump(dataset.results2json(results), f)
     metrics = {}
     for metric in args.eval:
-        metrics[metric] = dataset.evaluate(results, metric=metric)
+        metrics[metric] = dataset.evaluate(results, **({} if metric == "mAP"
+                                                        else dict(metric=metric)))
         print(metrics[metric])
     return metrics
 

@@ -203,7 +203,7 @@ def test_dataset_wrappers_and_build_dataset(planted):
         np.testing.assert_array_equal(ours.flag, ref.flag)
         assert_samples_equal(ours[len(SIZES) + 3], ref[len(SIZES) + 3])
     with pytest.raises(KeyError, match="not ported"):
-        build_dataset(dict(base, type="VOCDataset"))
+        build_dataset(dict(base, type="CityscapesDataset"))
 
 
 def test_unported_steps_raise():

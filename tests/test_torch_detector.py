@@ -161,9 +161,11 @@ def test_config_file_builds_the_flagship():
 
 @pytest.mark.parametrize("change", [
     dict(backbone=dict(type="ResNet", depth=50, stem_space_to_depth=True)),
-    dict(backbone=dict(type="ResNet", depth=50, stage_with_dcn=(False, True, True, True))),
+    dict(backbone=dict(type="ResNet", depth=50, gen_attention=dict(
+        type="GeneralizedAttention", attention_type="0010"),
+        stage_with_gen_attention=((), (), (0, 1), ()))),
     dict(backbone=dict(type="ResNet", depth=50, norm_cfg=dict(type="GN"))),
-    dict(backbone=dict(type="ResNet", depth=50, stage_with_gcb=(False, True, True, True))),
+    dict(backbone=dict(type="ResNet", depth=50, conv_cfg=dict(type="ConvWS"))),
     dict(dtype="float16"),   # bfloat16 is ported (tests/test_torch_dtype.py)
 ])
 def test_unported_options_raise(change):
