@@ -1,9 +1,11 @@
-"""Drive the PyTorch port's serving, low-precision serving, training and
-evaluation paths once on one NVIDIA GPU and check them.
+"""Drive the PyTorch port's serving, low-precision serving, training
+(f32, bf16 and data parallel) and evaluation paths once on one NVIDIA GPU
+and check them.
 
     python3 chip_smoke.py                  # everything, as below
     python3 chip_smoke.py --kernels-only   # phases 1-2: a short first run
                                            # after a change to a kernel
+    (phase 8b starts this script with --dp-rank as each rank of its group)
 
 Phases (any failure exits non-zero):
   1. build the five CUDA sources of ioudet_torch/csrc with nvcc, side by side
@@ -107,7 +109,30 @@ Phases (any failure exits non-zero):
      images, each result bit-equal to a replay of its views through the
      decode, the map back and the plain NMS, K1 once an image, the ground
      truth at AP = 1; (7d) the VOC config on a planted VOC2007 tree of 8
-     images through ``single_device_test`` and ``evaluate``; (7e) timings.
+     images through ``single_device_test`` and ``evaluate``; (7e) timings;
+  8. training as the recipe runs it, TF32 off: (8a) the flagship built with
+     dtype="bfloat16" (f32 parameters, bf16 convolutions, f32 losses and
+     optimizer state), batch 8 with 100 gt slots: step 1's losses and head
+     weight gradients against the plain-K2 / K3 replay (gradients to 1e-3 of
+     their largest |value|, as in f32), K3a / K3b at each of the five levels
+     on the step's own bf16 logits (sum to 1e-5; dx within one bf16 step,
+     and at most 1e-5 of its elements a step apart: K3b's bf16 dx rounds
+     once, as the plain version's, and an element whose two f32 values
+     straddle a rounding boundary rounds the other way) and their times,
+     six ``train_detector`` steps with every loss and gradient finite
+     (``utils/debug.check_finite``), K2 / K3 launches a step, and the
+     step's median of 10 beside phase 5's f32 steps; (8b) data parallel: two
+     ranks on cuda:0 over gloo (``--dp-rank``: this script started as one
+     rank of ``init_dist``'s group) train three steps at imgs_per_gpu 2,
+     their logged losses and parameters against one process at batch 4
+     (losses rtol 1e-4; parameters within 1e-2 of each tensor's change plus
+     two f32 steps at its scale), rank 0 alone writing; their
+     ``multi_host_test`` of 9 planted images bit-equal to
+     ``single_device_test``; one rank over NCCL for one DDP step; (8c)
+     ``python -m ioudet_torch.tools.train`` on the flagship config,
+     ``--dtype bfloat16 --n-devices 1``, two iterations over a planted
+     dataset (started beside 8b's untimed checks), then the tool's ``main``
+     again in this process, resumed from its checkpoint for an epoch more.
 The last two lines are the card's name and power limit, then
 ``{"ok": true, "device": {...}}``; the line before them lists the kernels.
 """
@@ -136,6 +161,9 @@ NMS_WINDOWS = 12000   # nms_pre's largest in configs/: 188 words, three slab win
 BATCH = 16
 TRAIN_BATCH = 8
 TRAIN_STEPS = 6
+# phase 5's f32 train step, TF32 off (False) and on (True): (median ms, peak GiB),
+# printed again beside phase 8's bf16 step
+F32_STEP: dict = {}
 NUM_GTS = 100
 # (B, A, G) of the anchor-assignment cases; the last is the flagship's
 ASSIGN_SHAPES = ((3, 1, 1), (3, 500, 17), (3, 4096, 17), (3, 9000, 17),
@@ -1656,6 +1684,7 @@ def phase_timing(K, A, Fc, handle, runner, batch, rng, card: str) -> dict:
         torch.cuda.reset_peak_memory_stats()
         ms = host_ms(lambda: runner.train_step(batch, step), reps=10, warmup=2)
         peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        F32_STEP[tf32] = (ms, peak)
         print(f"train step batch {TRAIN_BATCH}: median of 10 {ms:.3f} ms, "
               f"{TRAIN_BATCH * 1e3 / ms:.2f} img/s, peak memory {peak:.2f} GiB "
               f"{tag}, TF32 {'on' if tf32 else 'off'}]", flush=True)
@@ -2882,6 +2911,453 @@ def phase_paper(B, K, A, Fc, rng, card: str) -> dict:
     return counts
 
 
+# ------------------------------------- phase 8: training as the recipe runs it
+
+DP_WORLD = 2           # 8b: ranks, both on cuda:0, over gloo
+DP_IMGS_PER_GPU = 2
+DP_STEPS = 3
+DP_EVAL_SIZES = ((800, 1333),) * 6 + ((1333, 800),) * 3   # uneven shards at batch 2
+CLI_SIZES = ((800, 1333),) * 4                           # 8c: two iterations of 2
+BF16_ULP = 2.0 ** -7   # a bf16 step, relative to a value's magnitude (bound)
+BF16_APART = 1e-5      # 8a: the share of K3b's bf16 dx elements that may round apart
+RANK_TIMEOUT_S = 400
+# 8b: a rank's parameters against the one process's, as a share of each
+# tensor's change over the steps.  The ranks sum the same terms in another
+# order (cuDNN's weight gradients over 2 images, then gloo's sum of the two
+# partial gradients), and a tower bias's gradient sums ~10^6 terms with
+# cancellation.  On an NVIDIA H100 80GB HBM3 (700 W), with the faults of
+# ``ioudet_torch.tools.probe_dp_faults`` planted in the ranks: sound 0.165
+# of this limit (1.603 of 1e-3); gradients averaged over the ranks 66.4, a
+# loss divided by a rank's own positives 83.2.
+DP_PARAM_TOL = 1e-2
+
+
+def bf16_cfg() -> dict:
+    cfg = flagship_cfg()
+    return dict(cfg, model=dict(cfg["model"], dtype="bfloat16"))
+
+
+def focal_level_inputs(Fc, model, batch) -> list:
+    """The (g, logits, labels, weights, gamma, alpha, A) that one backward of
+    the step hands K3b at each of the five levels."""
+    seen, dx = [], Fc.focal_level_dx
+
+    def capture(g, logits, labels, lw, gamma, alpha, num_anchors):
+        seen.append((g.detach().clone(), logits.detach(), labels, lw, gamma, alpha,
+                     num_anchors))
+        return dx(g, logits, labels, lw, gamma, alpha, num_anchors)
+
+    Fc.focal_level_dx = capture
+    try:
+        loss_and_grads(model, batch)
+    finally:
+        Fc.focal_level_dx = dx
+    return seen
+
+
+def check_bf16_focal_levels(Fc, levels, card: str) -> None:
+    """K3a and K3b on the bf16 step's own logits and targets at each level:
+    the sum to rtol 1e-5 of the plain version's, the bf16 dx within one bf16
+    step of the plain version's (both round an f32 value once: where the two
+    f32 values straddle a rounding boundary, they round apart), with at most
+    ``BF16_APART`` of the elements apart; then their times against their
+    bounds."""
+    tag = f"[{card}; bf16"
+    sums = {"focal_sum_kernel": [], "focal_dx_kernel": []}
+    for i, (g, x, lab, lw, gamma, alpha, a) in enumerate(levels):
+        one = torch.ones((), device=x.device)
+        check(x.dtype == torch.bfloat16, f"P{i + 3}: the step hands K3b bf16 logits "
+              f"{tuple(x.shape)}, strides {x.stride()}")
+        got = Fc.focal_level_sum(x, lab, lw, gamma, alpha, a)
+        want = Fc.focal_level_sum_plain(x, lab, lw, gamma, alpha, a)
+        torch.testing.assert_close(got, want, rtol=1e-5, atol=0.0)
+        k = Fc.focal_level_dx(g, x, lab, lw, gamma, alpha, a)
+        p = Fc.focal_level_dx_plain(g, x, lab, lw, gamma, alpha, a)
+        kf, pf = k.float(), p.float()
+        step = (torch.maximum(kf.abs(), pf.abs()) * BF16_ULP).clamp(min=2.0 ** -133)
+        beyond = int(((kf - pf).abs() > step).sum())
+        apart = int((k != p).sum())
+        check(k.dtype == torch.bfloat16 and k.stride() == x.stride() and beyond == 0 and
+              apart <= BF16_APART * k.numel(),
+              f"P{i + 3} bf16: K3a's sum within 1e-5 of plain ({float(got):.6f}); K3b's dx "
+              f"bf16 in the logits' strides, within one bf16 step of plain ({apart} of "
+              f"{k.numel()} elements round apart; limit {BF16_APART:g} of them)")
+        small = (lab.numel() + lw.numel()) * 4
+        for name, call, nbytes, flops in (
+                ("focal_sum_kernel", lambda: Fc.focal_level_sum(x, lab, lw, gamma, alpha, a),
+                 x.numel() * 2 + small + 4, x.numel() * FOCAL_FWD_FLOPS),
+                ("focal_dx_kernel", lambda: Fc.focal_level_dx(one, x, lab, lw, gamma, alpha, a),
+                 2 * x.numel() * 2 + small + 4, x.numel() * FOCAL_BWD_FLOPS)):
+            ms = cuda_ms(call, 20)
+            bnd, by = bound(nbytes, flops)
+            sums[name].append(ms)
+            print(f"{name} P{i + 3} {tuple(x.shape)} bf16, the step's logits: {ms:.4f} ms, "
+                  f"{100 * bnd / ms:.1f}% of its bound {bnd:.4f} ms by {by} {tag}]", flush=True)
+    for name, each in sums.items():
+        print(f"{name}, the five levels in bf16 at batch {TRAIN_BATCH}: {sum(each):.4f} ms "
+              f"{tag}]", flush=True)
+
+
+def phase_bf16_train(B, A, Fc, card: str) -> dict:
+    """8a: the flagship built with dtype="bfloat16" (f32 parameters, bf16
+    convolutions, f32 losses and optimizer state), batch 8 with 100 gt
+    slots.  Returns the kernels' launch counts of its six steps."""
+    from ioudet_torch.apis.inference import init_detector
+    from ioudet_torch.apis.train import train_detector
+    from ioudet_torch.utils.debug import check_finite, grads_of
+
+    cfg = bf16_cfg()
+    handle = init_detector(cfg, device="cuda", seed=0)
+    model = handle.model.train()
+    check(model.backbone.conv1.compute_dtype == torch.bfloat16 and
+          all(p.dtype == torch.float32 for p in model.parameters()),
+          "bf16 flagship: convolutions compute in bf16, parameters are f32")
+    batch = {k: torch.from_numpy(v).cuda()
+             for k, v in train_batch(TRAIN_BATCH, NUM_GTS).items()}
+    torch.backends.cudnn.deterministic = True   # the replay differs in the kernels only
+    try:
+        check_step_replay(A, Fc, model, batch, what="bf16 step 1")
+        levels = focal_level_inputs(Fc, model, batch)
+    finally:
+        torch.backends.cudnn.deterministic = False
+    check(len(levels) == 5, f"one backward hands K3b its five levels: {len(levels)}")
+    # the backward pass visits the levels from P7 up: P3 (the largest) first
+    levels.sort(key=lambda lv: -lv[1].numel())
+    check_bf16_focal_levels(Fc, levels, card)
+    del levels
+
+    history, nonfinite = [], []
+
+    def hook(step, log_vars):
+        history.append({k: float(v) for k, v in log_vars.items()})
+        nonfinite.extend(check_finite(grads_of(model)))
+
+    torch.cuda.synchronize()
+    B.reset_launches()
+    with tempfile.TemporaryDirectory() as work_dir:
+        runner = train_detector(handle, [batch] * TRAIN_STEPS, cfg, work_dir, device="cuda",
+                                step_hook=hook)
+        torch.cuda.synchronize()
+        counts = dict(B.launches)
+    want = {"assign_gtmax_kernel": TRAIN_STEPS, "assign_targets_kernel": TRAIN_STEPS,
+            "focal_sum_kernel": 5 * TRAIN_STEPS, "focal_dx_kernel": 5 * TRAIN_STEPS}
+    check(all(counts[k] == n for k, n in want.items()),
+          f"bf16 train path launched every kernel, 1 + 1 + 5 + 5 a step: {counts}")
+    for i, rec in enumerate(history):
+        print(f"bf16 step {i + 1}: " + ", ".join(f"{k} {v:.6f}" for k, v in rec.items()))
+    check(not nonfinite and all(np.isfinite(v) for rec in history for v in rec.values()),
+          f"{TRAIN_STEPS} bf16 steps: every loss and every gradient finite (check_finite)")
+
+    step = runner.step + 1
+    torch.cuda.reset_peak_memory_stats()
+    ms = host_ms(lambda: runner.train_step(batch, step), reps=10, warmup=2)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    f32 = "; ".join(f"f32 TF32 {'on' if on else 'off'} (phase 5) {v[0]:.3f} ms, peak "
+                    f"{v[1]:.2f} GiB" for on, v in sorted(F32_STEP.items()))
+    print(f"train step batch {TRAIN_BATCH} bf16: median of 10 {ms:.3f} ms, "
+          f"{TRAIN_BATCH * 1e3 / ms:.2f} img/s, peak memory {peak:.2f} GiB; {f32} "
+          f"[{card}]", flush=True)
+    runner.optimizer.zero_grad(set_to_none=True)
+    return counts
+
+
+def dp_batches() -> list:
+    """8b's global batches: DP_STEPS seeded batches of DP_WORLD x
+    DP_IMGS_PER_GPU canvases, numpy."""
+    return [train_batch(DP_WORLD * DP_IMGS_PER_GPU, NUM_GTS, seed=20 + s)
+            for s in range(DP_STEPS)]
+
+
+def dp_cfg(cfg: dict) -> dict:
+    return dict(cfg, total_epochs=1, log_config=dict(interval=1))
+
+
+def dp_rank_main(argv: list) -> int:
+    """One rank of 8b, in its own process:
+    ``chip_smoke.py --dp-rank RANK WORLD PORT BACKEND OUT_DIR ANN_FILE IMG_DIR``.
+    Joins the group on cuda:0 (``init_dist``), trains its share of
+    ``dp_batches`` through ``train_detector``, then (ANN_FILE not "-")
+    evaluates the planted dataset through ``multi_host_test``; writes what it
+    saw to OUT_DIR/rank<RANK>.pt."""
+    rank, world, port, backend, out_dir, ann_file, img_dir = argv
+    os.environ.update(RANK=rank, LOCAL_RANK="0", WORLD_SIZE=world, MASTER_ADDR="localhost",
+                      MASTER_PORT=port)
+    sys.path.insert(0, ROOT)
+    import torch.distributed as dist
+    from ioudet_torch.apis.inference import init_detector
+    from ioudet_torch.apis.test import multi_host_test
+    from ioudet_torch.apis.train import train_detector
+    from ioudet_torch.data import build_dataset
+    from ioudet_torch.ops import _build as B
+    from ioudet_torch.parallel import init_dist
+
+    r, n = int(rank), int(world)
+    device = init_dist(backend=backend, device="cuda:0")
+    set_tf32(False)
+    cfg = flagship_cfg()
+    handle = init_detector(cfg, device=device, seed=0)
+    share = slice(r * DP_IMGS_PER_GPU, (r + 1) * DP_IMGS_PER_GPU)
+    batches = [{k: v[share] for k, v in b.items()} for b in dp_batches()[:3 if n > 1 else 1]]
+    losses, stamps = [], []
+
+    def hook(step, log_vars):
+        torch.cuda.synchronize()
+        stamps.append(time.perf_counter())
+        losses.append({k: float(v) for k, v in log_vars.items()})
+
+    B.reset_launches()
+    with tempfile.TemporaryDirectory() as work_dir:
+        stamps.append(time.perf_counter())
+        runner = train_detector(handle, batches, dp_cfg(cfg), work_dir, device=device,
+                                step_hook=hook)
+        wrote = sorted(os.listdir(work_dir))
+    params = {k: v.detach().to("cpu", copy=True) for k, v in handle.model.named_parameters()
+              if v.requires_grad}
+    results = None
+    if ann_file != "-":
+        with torch.no_grad():
+            handle.model.bbox_head.retina_cls.bias.zero_()
+        dataset = build_dataset(dict(cfg["data"]["test"], ann_file=ann_file, img_prefix=img_dir))
+        results = multi_host_test(handle, dataset, imgs_per_batch=DP_IMGS_PER_GPU, workers=2,
+                                  progress=False)
+    torch.cuda.synchronize()
+    torch.save(dict(losses=losses, stamps=stamps, wrote=wrote, results=results,
+                    counts=dict(B.launches), backend=dist.get_backend(),
+                    world=dist.get_world_size(), ddp=runner.train_step.ddp is not None,
+                    params=params),
+               os.path.join(out_dir, f"rank{r}.pt"))
+    dist.destroy_process_group()
+    return 0
+
+
+def free_port() -> int:
+    import socket
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def start_ranks(world: int, backend: str, out_dir: str, ann_file: str = "-",
+                img_dir: str = "-") -> tuple:
+    """Start ``world`` ranks of ``dp_rank_main`` on cuda:0; returns what
+    ``finish_ranks`` waits for."""
+    port = str(free_port())
+    logs = [tempfile.TemporaryFile() for _ in range(world)]
+    procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__), "--dp-rank", str(r),
+                               str(world), port, backend, out_dir, ann_file, img_dir],
+                              cwd=ROOT, stdout=logs[r], stderr=subprocess.STDOUT)
+             for r in range(world)]
+    return procs, logs, out_dir, backend
+
+
+def finish_ranks(started: tuple) -> list:
+    """Wait for the ranks, and fail with a rank's log if one did not end
+    with 0 (the others are stopped).  Returns each rank's output in rank
+    order."""
+    procs, logs, out_dir, backend = started
+    try:
+        deadline = time.time() + RANK_TIMEOUT_S
+        for p in procs:
+            p.wait(timeout=max(1.0, deadline - time.time()))
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for r, (p, log) in enumerate(zip(procs, logs)):
+        log.seek(0)
+        text = log.read().decode(errors="replace")
+        log.close()
+        if p.returncode != 0:
+            print(text[-8000:], file=sys.stderr)
+            raise AssertionError(f"8b: rank {r} of {len(procs)} ({backend}) exited "
+                                 f"{p.returncode}")
+    return [torch.load(os.path.join(out_dir, f"rank{r}.pt"), weights_only=False)
+            for r in range(len(procs))]
+
+
+def phase_data_parallel(card: str) -> dict:
+    """8b: two ranks on cuda:0 over gloo against one process at the global
+    batch; their ``multi_host_test`` against ``single_device_test``; one rank
+    over NCCL.  Returns the ranks' launch counts."""
+    from ioudet_torch.apis.inference import init_detector
+    from ioudet_torch.apis.test import single_device_test
+    from ioudet_torch.apis.train import train_detector
+    from ioudet_torch.data import build_dataset
+
+    cfg = flagship_cfg()
+    with tempfile.TemporaryDirectory() as tmp:
+        ann_file, img_dir = plant_coco(tmp, DP_EVAL_SIZES, 80, seed=7)
+        t = time.perf_counter()
+        ranks = finish_ranks(start_ranks(DP_WORLD, "gloo", tmp, ann_file, img_dir))
+        print(f"8b: {DP_WORLD} ranks on cuda:0 over gloo: {DP_STEPS} steps at "
+              f"imgs_per_gpu {DP_IMGS_PER_GPU}, multi_host_test of {len(DP_EVAL_SIZES)} "
+              f"images, {time.perf_counter() - t:.2f} s with start-up", flush=True)
+        check(all(o["world"] == DP_WORLD and o["backend"] == "gloo" and o["ddp"] for o in ranks),
+              f"both ranks trained under DDP in a gloo group of {DP_WORLD}")
+        check(ranks[0]["wrote"] == ["epoch_1.pth", "latest", "log.json"] and
+              ranks[1]["wrote"] == [], f"rank 0 alone wrote its work dir: {ranks[0]['wrote']}, "
+              f"rank 1: {ranks[1]['wrote']}")
+
+        set_tf32(False)
+        handle = init_detector(cfg, device="cuda", seed=0)
+        start = {k: v.detach().clone() for k, v in handle.model.named_parameters()}
+        one, stamps = [], []
+
+        def hook(step, log_vars):
+            torch.cuda.synchronize()
+            stamps.append(time.perf_counter())
+            one.append({k: float(v) for k, v in log_vars.items()})
+
+        with tempfile.TemporaryDirectory() as work_dir:
+            stamps.append(time.perf_counter())
+            train_detector(handle, dp_batches(), dp_cfg(cfg), work_dir, device="cuda",
+                           step_hook=hook)
+        params = {k: v.detach() for k, v in handle.model.named_parameters()}
+        worst_loss = max(abs(o["losses"][i][k] - one[i][k]) / abs(one[i][k])
+                         for o in ranks for i in range(DP_STEPS) for k in one[i])
+        # a tensor's limit: DP_PARAM_TOL of its largest change over the
+        # steps, plus two f32 steps at its largest |value| (where the change
+        # is small, rounding at the parameter's scale decides)
+        worst_param, worst_name, largest = 0.0, "", 0.0
+        for o in ranks:
+            for k, v in o["params"].items():
+                diff = float((v.to(params[k].device) - params[k]).abs().max())
+                limit = DP_PARAM_TOL * float((params[k] - start[k]).abs().max()) + \
+                    2.0 ** -22 * float(params[k].abs().max())
+                largest = max(largest, diff)
+                if diff / limit > worst_param:
+                    worst_param, worst_name = diff / limit, k
+        check(worst_loss <= 1e-4 and worst_param <= 1.0,
+              f"{DP_WORLD} ranks x {DP_IMGS_PER_GPU} images against one process at batch "
+              f"{DP_WORLD * DP_IMGS_PER_GPU}, {DP_STEPS} steps: logged losses (the global "
+              f"batch's) within rtol {worst_loss:.2e} (limit 1e-4); each rank's parameters "
+              f"within {worst_param:.3f} of their limit ({DP_PARAM_TOL:g} of the tensor's "
+              f"change + 2 f32 steps at its scale; worst {worst_name}), largest |difference| "
+              f"{largest:.3e}")
+        for i in range(DP_STEPS):
+            print(f"8b step {i + 1}: one process " +
+                  ", ".join(f"{k} {v:.6f}" for k, v in one[i].items()) + "; ranks " +
+                  ", ".join(f"{k} {ranks[0]['losses'][i][k]:.6f}" for k in one[i]))
+        rank_ms = [1e3 * (o["stamps"][-1] - o["stamps"][1]) / (DP_STEPS - 1) for o in ranks]
+        one_ms = 1e3 * (stamps[-1] - stamps[1]) / (DP_STEPS - 1)
+        print(f"8b steps 2-{DP_STEPS}: {DP_WORLD} ranks x batch {DP_IMGS_PER_GPU} on one card "
+              f"over gloo {max(rank_ms):.3f} ms a step; one process at batch "
+              f"{DP_WORLD * DP_IMGS_PER_GPU} {one_ms:.3f} ms a step (f32, TF32 off) "
+              f"[{card}]", flush=True)
+
+        # untimed from here: the NCCL rank and 8c's first CLI run start
+        # beside this process's single_device_test
+        nccl_started = start_ranks(1, "nccl", tmp)
+        cli = start_cli(tmp)
+        with torch.no_grad():
+            for k, v in ranks[0]["params"].items():
+                params[k].copy_(v)
+            handle.model.bbox_head.retina_cls.bias.zero_()
+        dataset = build_dataset(dict(cfg["data"]["test"], ann_file=ann_file, img_prefix=img_dir))
+        want = single_device_test(handle, dataset, imgs_per_batch=DP_IMGS_PER_GPU, workers=2,
+                                  progress=False)
+        check(all(len(o["results"]) == len(want) and
+                  all(same_results(a, b) for a, b in zip(o["results"], want)) for o in ranks),
+              f"multi_host_test on {DP_WORLD} ranks: every rank's merged list of "
+              f"{len(dataset)} images bit-equal to single_device_test's "
+              f"({sum(sum(map(len, r)) for r in want)} detections)")
+        del handle, params, start
+        torch.cuda.empty_cache()
+
+        nccl = finish_ranks(nccl_started)[0]
+        check(nccl["backend"] == "nccl" and nccl["ddp"] and nccl["world"] == 1 and
+              all(np.isfinite(v) for v in nccl["losses"][0].values()) and
+              nccl["counts"]["assign_gtmax_kernel"] == 1 and
+              nccl["counts"]["focal_dx_kernel"] == 5,
+              f"one rank over NCCL: a DDP step, finite losses {nccl['losses'][0]}")
+        finish_cli(cli)
+    counts = {}
+    for o in ranks + [nccl]:
+        for k, v in o["counts"].items():
+            counts[k] = counts.get(k, 0) + v
+    want = {"assign_gtmax_kernel": DP_WORLD * DP_STEPS + 1,
+            "focal_dx_kernel": 5 * (DP_WORLD * DP_STEPS + 1)}
+    check(all(counts[k] == n for k, n in want.items()) and counts["nms_mask_kernel"] > 0,
+          f"the ranks launched K2 and K3 every step, and K1 in multi_host_test: {counts}")
+    return counts
+
+
+def write_cli_config(path: str, ann_file: str, img_dir: str, epochs: int) -> None:
+    """The flagship's config file with the planted dataset as its train set."""
+    with open(path, "w") as f:
+        f.write(f"_base_ = {CONFIG!r}\n"
+                f"data = dict(imgs_per_gpu=2, workers_per_gpu=2, train=dict("
+                f"ann_file={ann_file!r}, img_prefix={img_dir!r}))\n"
+                f"total_epochs = {epochs}\nlog_config = dict(interval=1)\n"
+                "optimizer_config = dict(grad_clip=dict(max_norm=35, norm_type=2))\n")
+
+
+def cli_args(root: str) -> list:
+    return [os.path.join(root, "cli_cfg.py"), "--dtype", "bfloat16", "--n-devices", "1",
+            "--work_dir", os.path.join(root, "cli_work")]
+
+
+def start_cli(root: str) -> tuple:
+    """8c's first run: ``python -m ioudet_torch.tools.train`` on the
+    flagship config with a planted train set of CLI_SIZES, in its own
+    process."""
+    ann_file, img_dir = plant_coco(os.path.join(root, "cli_data"), CLI_SIZES, 80, seed=9)
+    write_cli_config(cli_args(root)[0], ann_file, img_dir, epochs=1)
+    log = tempfile.TemporaryFile()
+    proc = subprocess.Popen([sys.executable, "-m", "ioudet_torch.tools.train", *cli_args(root)],
+                            cwd=ROOT, stdout=log, stderr=subprocess.STDOUT)
+    return proc, log, root, ann_file, img_dir, time.perf_counter()
+
+
+def finish_cli(started: tuple) -> None:
+    """8c: the first run wrote log.json and a .pth; then ``tools.train``'s
+    ``main`` again in this process, one epoch further, resumes from it."""
+    from ioudet_torch.tools import train as train_tool
+    proc, log, root, ann_file, img_dir, t = started
+    try:
+        proc.wait(timeout=RANK_TIMEOUT_S)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    log.seek(0)
+    text = log.read().decode(errors="replace")
+    log.close()
+    if proc.returncode != 0:
+        print(text[-8000:], file=sys.stderr)
+        raise AssertionError(f"8c: tools.train exited {proc.returncode}")
+    args = cli_args(root)
+    work = os.path.join(root, "cli_work")
+    with open(os.path.join(work, "log.json")) as f:
+        first = [json.loads(line) for line in f]
+    check([r["step"] for r in first] == [1, 2] and all(np.isfinite(r["loss"]) for r in first)
+          and os.path.isfile(os.path.join(work, "epoch_1.pth")),
+          f"8c: python -m ioudet_torch.tools.train --dtype bfloat16 --n-devices 1: 2 "
+          f"iterations, log.json and epoch_1.pth ({time.perf_counter() - t:.2f} s with "
+          "start-up, beside 8b's checks); losses " + ", ".join(f"{r['loss']:.4f}" for r in first))
+    write_cli_config(args[0], ann_file, img_dir, epochs=2)
+    runner = train_tool.main(args)
+    with open(os.path.join(work, "log.json")) as f:
+        steps = [json.loads(line)["step"] for line in f]
+    check(runner.step == 4 and steps == [1, 2, 3, 4] and
+          runner.model.backbone.conv1.compute_dtype == torch.bfloat16 and
+          os.path.isfile(os.path.join(work, "epoch_2.pth")),
+          f"8c: tools.train's main again, total_epochs 2: resumed from epoch_1.pth at step "
+          f"2 and trained epoch 2 in bf16: log steps {steps}")
+
+
+def phase_recipe_training(B, A, Fc, card: str) -> dict:
+    t = time.perf_counter()
+    counts = phase_bf16_train(B, A, Fc, card)
+    torch.cuda.empty_cache()
+    print(f"8a: {time.perf_counter() - t:.2f} s", flush=True)
+    t = time.perf_counter()
+    counts = add_counts(counts, phase_data_parallel(card))
+    print(f"8b and 8c: {time.perf_counter() - t:.2f} s", flush=True)
+    return counts
+
+
 KERNELS = {  # name: (source, the TPU kernel it replaces)
     "nms_mask_kernel": ("nms_kernel.cu", "ioudet/ops/nms_pallas.py:26"),
     "nms_reduce_kernel": ("nms_kernel.cu", "ioudet/ops/nms_pallas.py:81"),
@@ -2915,11 +3391,18 @@ REPLACED = ("tiled_matmul_s8", "tiled_matmul_bf16", "chain_matmul_s8", "chain_ma
             "accum_matmul_s8", "accum_matmul_bf16")
 
 
+def since(start: float) -> str:
+    """The seconds since ``start``, for a phase's header."""
+    return f" (at {time.perf_counter() - start:.1f} s)"
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this check "
               "needs an NVIDIA GPU", file=sys.stderr)
         return 1
+    if sys.argv[1:2] == ["--dp-rank"]:
+        return dp_rank_main(sys.argv[2:])
     sys.path.insert(0, ROOT)
     from ioudet_torch.apis.inference import init_detector
     from ioudet_torch.ops import _build as B
@@ -2931,7 +3414,7 @@ def main() -> int:
 
     card = card_line()
     print(f"card: {card}; torch {torch.__version__}, CUDA {torch.version.cuda}", flush=True)
-    t = time.perf_counter()
+    t = start = time.perf_counter()
     kernels_only = "--kernels-only" in sys.argv[1:]
     B.ptxas_verbose = kernels_only   # registers, spills and shared memory, on stderr
     libraries = (K.LIBRARY, A.LIBRARY, Fc.LIBRARY, Mm.LIBRARY, Mm.WGMMA_LIBRARY)
@@ -2940,7 +3423,7 @@ def main() -> int:
           f"side in {time.perf_counter() - t:.2f} s", flush=True)
 
     set_tf32(False)
-    print("phase 2: kernels against plain torch on the card", flush=True)
+    print("phase 2: kernels against plain torch on the card" + since(start), flush=True)
     err = phase_kernels(K)
     err.update(phase_assign_kernels(A))
     err.update(phase_focal_kernels(Fc))
@@ -2952,7 +3435,7 @@ def main() -> int:
 
     print("phase 3: flagship serving slice; TF32 off for cuDNN and matmul; "
           "retina_cls.bias zeroed so that random-weight scores clear "
-          "score_thr and NMS sees real work", flush=True)
+          "score_thr and NMS sees real work" + since(start), flush=True)
     cfg = flagship_cfg()
     handle = init_detector(cfg, device="cuda", seed=0)
     bias = handle.model.bbox_head.retina_cls.bias.detach().clone()
@@ -2965,7 +3448,7 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     print("phase 3b: flagship low-precision serving: bf16, bf16 + static int8, "
-          "bf16 + dynamic int8; then the tensor-core probe tool", flush=True)
+          "bf16 + dynamic int8; then the tensor-core probe tool" + since(start), flush=True)
     lp_launches, lp_handle, scales = phase_low_precision(B, Mm, Q, handle, cfg, inputs)
     phase_grouped_convs(B, Mm, Q)
     del inputs
@@ -2975,13 +3458,13 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     print(f"phase 4: flagship train path, batch {TRAIN_BATCH}, {TRAIN_STEPS} steps; "
-          "TF32 off; retina_cls.bias back at its focal prior", flush=True)
+          "TF32 off; retina_cls.bias back at its focal prior" + since(start), flush=True)
     with torch.no_grad():
         handle.model.bbox_head.retina_cls.bias.copy_(bias)
     train_launches, runner, batch = phase_train(B, A, Fc, handle, cfg)
     launches = {k: launches[k] + train_launches[k] for k in launches}
 
-    print("phase 5: timings", flush=True)
+    print("phase 5: timings" + since(start), flush=True)
     times = phase_timing(K, A, Fc, handle, runner, batch, rng, card)
     del runner, batch
     torch.cuda.empty_cache()
@@ -2992,7 +3475,7 @@ def main() -> int:
     print("phase 6: the evaluation entry point; TF32 off: 6a the flagship through "
           "single_device_test and evaluate on a planted dataset, 6b the multiclass "
           "recipe through build_dataset, train_detector, single_device_test and evaluate, "
-          "6c timings", flush=True)
+          "6c timings" + since(start), flush=True)
     set_tf32(False)
     eval_launches, eval_handle, eval_dataset, eval_dir = phase_eval(B, cfg)
     recipe_launches = phase_recipe(B, Q)
@@ -3004,9 +3487,20 @@ def main() -> int:
 
     print("phase 7: the paper's other configs; TF32 off: 7a predict of x101-64x4d, DCN and "
           "GCB, 7b two DCN train steps, 7c the mstest config through tta_test, 7d the VOC "
-          "config through single_device_test, 7e timings", flush=True)
+          "config through single_device_test, 7e timings" + since(start), flush=True)
     paper_launches = phase_paper(B, K, A, Fc, rng, card)
     launches = {k: launches[k] + paper_launches[k] for k in launches}
+    torch.cuda.empty_cache()
+
+    print("phase 8: training as the recipe runs it; TF32 off: 8a the flagship in bf16, "
+          f"8b data parallel: {DP_WORLD} ranks on cuda:0 over gloo against one process, "
+          "multi_host_test, one rank over NCCL; 8c tools.train --dtype bfloat16"
+          + since(start), flush=True)
+    set_tf32(False)
+    t = time.perf_counter()
+    recipe_launches = phase_recipe_training(B, A, Fc, card)
+    launches = {k: launches[k] + recipe_launches.get(k, 0) for k in launches}
+    print(f"phase 8: {time.perf_counter() - t:.2f} s", flush=True)
     check(all(launches[name] > 0 for name in KERNELS if name not in REPLACED) and
           all(launches[name] == 0 for name in REPLACED),
           "every kernel was launched on a main path, and none of those the wgmma kernels "
@@ -3017,6 +3511,7 @@ def main() -> int:
                     bound_ms=times[name][2], bound_by=times[name][3],
                     library_ms=times[name][4])
                for name, (source, replaces) in KERNELS.items()]
+    print(f"chip_smoke: {time.perf_counter() - start:.1f} s", flush=True)
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

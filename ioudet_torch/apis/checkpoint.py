@@ -11,17 +11,25 @@ tree of that structure goes through it, so gradients and momentum buffers of
 
 A training checkpoint is one ``<work_dir>/<name>.pth`` holding the mmdet
 payload {meta (epoch, step, ...), state_dict, optimizer}, and a ``latest``
-marker file beside it for auto-resume.
+marker file beside it for auto-resume.  ``load_checkpoint`` also reads
+``ioudet``'s checkpoint directories (``state.msgpack`` + ``meta.json``,
+``ioudet/apis/checkpoint.py``): the parameters through
+``state_dict_from_flax``, the optax state into the torch optimizer's
+(``load_optax_state``) and the meta with its ``step`` and ``epoch``.  The port
+writes ``.pth`` files only.
 """
 
 from __future__ import annotations
 
+import json
 import os
 import re
-from typing import Dict, Optional
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
+
+from ..utils.flax_msgpack import msgpack_restore
 
 _BN = {"scale": "weight", "bias": "bias", "mean": "running_mean",
        "var": "running_var"}
@@ -129,16 +137,89 @@ def _head(sd: dict, tree: dict, prefix: str = "bbox_head") -> None:
 
 def state_dict_from_flax(params: dict) -> Dict[str, torch.Tensor]:
     """``ioudet`` RetinaNet-family params {backbone, neck, bbox_head} -> a
-    state_dict for the port's detector (mmdet key layout)."""
+    state_dict for the port's detector (mmdet key layout).  A partial tree
+    (a pretrained backbone alone, or the trainable leaves of an optimizer
+    state) gives the entries it holds."""
     unknown = set(params) - {"backbone", "neck", "bbox_head"}
     if unknown:
         raise KeyError(f"unsupported parameter groups: {sorted(unknown)}")
     sd: Dict[str, torch.Tensor] = {}
-    _backbone(sd, params["backbone"])
+    if "backbone" in params:
+        _backbone(sd, params["backbone"])
     if "neck" in params:
         _neck(sd, params["neck"])
-    _head(sd, params["bbox_head"])
+    if "bbox_head" in params:
+        _head(sd, params["bbox_head"])
     return sd
+
+
+def _prune(tree):
+    """The tree without its empty dicts: optax's ``MaskedNode`` (a frozen
+    leaf's place in a masked optimizer state) is written as ``{}``."""
+    if not isinstance(tree, dict):
+        return tree
+    out = {k: _prune(v) for k, v in tree.items()}
+    return {k: v for k, v in out.items() if not (isinstance(v, dict) and not v)}
+
+
+def _optax_leaves(tree, found: list) -> list:
+    """The optimizer states in an optax state tree, as flax writes it
+    (``multi_transform``'s ``inner_states``, ``chain``'s '0', '1', ...): the
+    dicts that hold a momentum ``trace`` or Adam's ``mu`` / ``nu`` /
+    ``count``."""
+    if isinstance(tree, dict):
+        if "trace" in tree or {"mu", "nu", "count"} <= set(tree):
+            found.append(tree)
+        else:
+            for v in tree.values():
+                _optax_leaves(v, found)
+    return found
+
+
+def load_optax_state(model: torch.nn.Module, optimizer: torch.optim.Optimizer,
+                     opt_state: dict) -> None:
+    """``ioudet``'s optax state (as restored from a checkpoint directory)
+    into ``optimizer``'s: a momentum ``trace`` into SGD's
+    ``momentum_buffer``, Adam's ``mu`` / ``nu`` / ``count`` into AdamW's
+    ``exp_avg`` / ``exp_avg_sq`` / ``step``.  Every parameter the optimizer
+    trains must find its state, and every state its parameter."""
+    found = _optax_leaves(opt_state, [])
+    if len(found) != 1:
+        raise KeyError(f"expected one momentum or Adam state in the optax state, found "
+                       f"{len(found)}")
+    leaf = found[0]
+    names = {id(p): n for n, p in model.named_parameters()}
+    trained = {names[id(p)]: p for g in optimizer.param_groups for p in g["params"]}
+    if "trace" in leaf:
+        if not isinstance(optimizer, torch.optim.SGD):
+            raise TypeError(f"a momentum trace needs SGD, not {type(optimizer).__name__}")
+        slots = {"momentum_buffer": state_dict_from_flax(_prune(leaf["trace"]))}
+    else:
+        if not isinstance(optimizer, torch.optim.AdamW):
+            raise TypeError(f"an Adam state needs AdamW, not {type(optimizer).__name__}")
+        slots = {"exp_avg": state_dict_from_flax(_prune(leaf["mu"])),
+                 "exp_avg_sq": state_dict_from_flax(_prune(leaf["nu"]))}
+    for slot, sd in slots.items():
+        if set(sd) != set(trained):
+            raise KeyError(f"optax {slot} state for {sorted(set(sd) ^ set(trained))[:8]}: "
+                           "not the parameters the optimizer trains")
+    for name, p in trained.items():
+        state = {slot: sd[name].to(p.device) for slot, sd in slots.items()}
+        if "count" in leaf:
+            state["step"] = torch.tensor(float(np.asarray(leaf["count"])))
+        optimizer.state[p] = state
+
+
+def read_flax_checkpoint(path: str) -> Tuple[dict, dict]:
+    """(state tree, meta) of an ``ioudet`` checkpoint directory."""
+    with open(os.path.join(path, "state.msgpack"), "rb") as f:
+        state = msgpack_restore(f.read())
+    meta_path = os.path.join(path, "meta.json")
+    meta = {}
+    if os.path.exists(meta_path):
+        with open(meta_path) as f:
+            meta = json.load(f)
+    return state, meta
 
 
 _BLOCK = re.compile(r"backbone\.layer(\d+)\.(\d+)\.(conv\d|downsample\.0)$")
@@ -238,23 +319,58 @@ def latest_checkpoint(work_dir: str) -> Optional[str]:
         return os.path.join(work_dir, f.read().strip())
 
 
-def load_checkpoint(model: torch.nn.Module, filename: str, strict: bool = True,
-                    optimizer: Optional[torch.optim.Optimizer] = None) -> dict:
-    """Load an mmdet-layout ``.pth`` (a state_dict, or a dict holding one
-    under ``state_dict``) into ``model`` and, when ``optimizer`` is given and
-    the file holds its state, into the optimizer.  Returns the checkpoint's
-    ``meta``.  ``ioudet``'s flax checkpoint directories are not read yet."""
+def read_weights(filename: str) -> Tuple[Dict[str, torch.Tensor], dict, dict]:
+    """(state_dict, optimizer state, meta) of a checkpoint: an mmdet-layout
+    ``.pth`` (a state_dict, or a dict holding one under ``state_dict``; the
+    optimizer state is torch's) or an ``ioudet`` directory (the parameters
+    bridged; the optimizer state is optax's tree, ``{}`` where there is
+    none)."""
     if os.path.isdir(filename):
-        raise NotImplementedError(
-            "flax msgpack checkpoint directories are not supported yet; "
-            "convert with state_dict_from_flax")
+        state, meta = read_flax_checkpoint(filename)
+        if state.get("model_state"):
+            raise NotImplementedError(f"{filename}: model_state {sorted(state['model_state'])} "
+                                      "(GHM's EMA) is not ported")
+        return state_dict_from_flax(state.get("params", state)), \
+            state.get("opt_state") or {}, meta
     ckpt = torch.load(filename, map_location="cpu", weights_only=True)
     if not isinstance(ckpt, dict):
         raise TypeError(f"{filename}: expected a dict, got {type(ckpt)}")
     sd = ckpt.get("state_dict", ckpt)
     sd = {(k[len("module."):] if k.startswith("module.") else k): v
           for k, v in sd.items() if not k.endswith("num_batches_tracked")}
+    return sd, ckpt.get("optimizer") or {}, ckpt.get("meta", {})
+
+
+def load_checkpoint(model: torch.nn.Module, filename: str, strict: bool = True,
+                    optimizer: Optional[torch.optim.Optimizer] = None) -> dict:
+    """Load a checkpoint (``read_weights``: a ``.pth`` or an ``ioudet``
+    directory) into ``model`` and, when ``optimizer`` is given and the
+    checkpoint holds its state, into the optimizer.  Returns the
+    checkpoint's ``meta`` (``epoch``, ``step``, ...)."""
+    sd, opt_state, meta = read_weights(filename)
     model.load_state_dict(sd, strict=strict)
-    if optimizer is not None and "optimizer" in ckpt:
-        optimizer.load_state_dict(ckpt["optimizer"])
-    return ckpt.get("meta", {})
+    if optimizer is not None and opt_state:
+        if os.path.isdir(filename):
+            load_optax_state(model, optimizer, opt_state)
+        else:
+            optimizer.load_state_dict(opt_state)
+    return meta
+
+
+def merge_weights(model: torch.nn.Module, filename: str) -> list:
+    """``load_from``: the checkpoint's weights over the model's own (a
+    partial tree, such as a pretrained backbone, leaves the rest as it
+    was).  A name the model does not have or a shape that differs raises.
+    Returns the names loaded."""
+    sd, _, _ = read_weights(filename)
+    own = model.state_dict()
+    unknown = sorted(set(sd) - set(own))
+    if unknown:
+        raise KeyError(f"{filename}: {len(unknown)} names the model does not have: "
+                       f"{unknown[:8]}")
+    for k, v in sd.items():
+        if tuple(v.shape) != tuple(own[k].shape):
+            raise ValueError(f"{filename}: {k} has shape {tuple(v.shape)}, the model "
+                             f"{tuple(own[k].shape)}")
+    model.load_state_dict(sd, strict=False)
+    return sorted(sd)

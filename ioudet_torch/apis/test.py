@@ -18,9 +18,12 @@ loader's padding repeats are dropped before the device sees them.
 ``tta_test`` is the route of a test pipeline that ends in
 ``MultiScaleFlipAug``: each image's views go through the model and
 ``decode_candidates`` one at a time, are mapped back and merged, and one
-``multiclass_nms`` an image runs over the union (``aug_test``).  The
-multi-device merge (``multi_host_test``), the two-stage TTA merge and the
-mask route are not ported yet.
+``multiclass_nms`` an image runs over the union (``aug_test``).
+
+``multi_host_test`` is the data-parallel evaluation: each rank of a
+``torch.distributed`` group runs its shard of the batches, the fixed-shape
+per-image outputs go through ``allgather_pytrees``, and every rank gets the
+whole list.  The two-stage TTA merge and the mask route are not ported yet.
 """
 
 from __future__ import annotations
@@ -39,6 +42,7 @@ from ..core.post_processing import merge_aug_bboxes, multiclass_nms
 from ..data.loader import build_dataloader, to_device
 from ..data.pipelines.loading import imread
 from ..ops.preprocess import IMAGENET_MEAN, IMAGENET_STD, preprocess_batch
+from ..parallel.mesh import allgather_pytrees, rank, world_size
 
 logger = logging.getLogger(__name__)
 
@@ -63,14 +67,20 @@ def _pipeline_specs(dataset):
     return canvas, max_scale, mean, std, to_rgb
 
 
-def _host_batches(dataset, device, imgs_per_batch, workers):
+def _host_batches(dataset, device, imgs_per_batch, workers, num_shards, shard_index):
     loader = build_dataloader(dataset, imgs_per_batch, workers, shuffle=False,
-                              drop_last=False)
+                              drop_last=False, num_shards=num_shards,
+                              shard_index=shard_index)
     seen = set()
     for batch in loader:
         idx = [int(i) for i in batch["idx"]]
-        # the loader fills a group's last batch with repeats: drop them
-        keep = [b for b, i in enumerate(idx) if i not in seen and i not in idx[:b]]
+        # unshuffled, a group's indices rise, and the loader fills its last
+        # batch with the group's first images again: cut the batch where it
+        # stops rising, so that every image runs in the batch it has in one
+        # shard (results bit-equal across shard counts); then drop what this
+        # shard ran already (a shard's padding batches)
+        rising = next((b for b in range(1, len(idx)) if idx[b] <= idx[b - 1]), len(idx))
+        keep = [b for b in range(rising) if idx[b] not in seen]
         if not keep:
             continue
         seen.update(idx[b] for b in keep)
@@ -79,7 +89,7 @@ def _host_batches(dataset, device, imgs_per_batch, workers):
                                             for k in INPUT_KEYS)
 
 
-def _device_batches(dataset, device, imgs_per_batch, workers):
+def _device_batches(dataset, device, imgs_per_batch, workers, num_shards, shard_index):
     canvas, max_scale, mean, std, to_rgb = _pipeline_specs(dataset)
     infos = dataset.img_infos
     # one raw buffer shape for the dataset (ioudet's bucket): the largest
@@ -91,7 +101,7 @@ def _device_batches(dataset, device, imgs_per_batch, workers):
     portrait = (canvas[1], canvas[0]) if canvas[0] < canvas[1] else canvas
     jobs = [(group[s:s + imgs_per_batch], cv)
             for group, cv in ((land, canvas), (port, portrait))
-            for s in range(0, len(group), imgs_per_batch)]
+            for s in range(0, len(group), imgs_per_batch)][shard_index::num_shards]
     pin = device.type == "cuda"
     with ThreadPoolExecutor(max(1, workers)) as pool:
         def submit(job):
@@ -118,40 +128,85 @@ def _device_batches(dataset, device, imgs_per_batch, workers):
 
 
 def eval_batches(dataset, device, imgs_per_batch: int = 8, workers: int = 4,
-                 device_preprocess: bool = False
+                 device_preprocess: bool = False, num_shards: int = 1, shard_index: int = 0
                  ) -> Iterator[Tuple[List[int], Tuple[torch.Tensor, ...]]]:
     """The evaluation loop's batches on ``device``: (dataset indices, (imgs
     (B, H, W, 3) f32 canvas, img_shapes (B, 2), scale_factors (B,),
-    pad_shapes (B, 2))), every image once, one orientation a batch."""
+    pad_shapes (B, 2))), one orientation a batch; every image once, or with
+    ``num_shards`` > 1 the ``shard_index``-th share of the batches (an image
+    may then come again in another shard)."""
     device = torch.device(device)
     route = _device_batches if device_preprocess else _host_batches
-    return route(dataset, device, imgs_per_batch, workers)
+    return route(dataset, device, imgs_per_batch, workers, num_shards, shard_index)
 
 
 @torch.inference_mode()
 def single_device_test(handle, dataset, imgs_per_batch: int = 8, workers: int = 4,
-                       progress: bool = True, device_preprocess: bool = False) -> list:
+                       progress: bool = True, device_preprocess: bool = False,
+                       return_raw: bool = False, num_shards: int = 1,
+                       shard_index: int = 0):
     """handle: a ``DetectorHandle`` or a detector; runs on its device.
     Returns one list of ``num_classes - 1`` (k, 5) float32 arrays an image,
-    in dataset order."""
+    in dataset order.
+
+    ``return_raw=True`` returns ``{dataset index: (dets (max_per_img, 5),
+    labels (max_per_img,))}`` numpy arrays instead, for the images of shard
+    ``shard_index`` of ``num_shards`` (the whole dataset by default): the
+    fixed shapes that ``multi_host_test`` gathers."""
     model = getattr(handle, "model", handle)
     device = next(model.parameters()).device
     num_classes = model.bbox_head.num_classes
     results: dict = {}
     t0 = time.perf_counter()
     for n, (idxs, inputs) in enumerate(eval_batches(dataset, device, imgs_per_batch,
-                                                    workers, device_preprocess)):
+                                                    workers, device_preprocess,
+                                                    num_shards, shard_index)):
         dets, labels = model.simple_test(*inputs)
         dets, labels = dets.cpu().numpy(), labels.cpu().numpy()
         for b, i in enumerate(idxs):
-            results[i] = bbox2result(dets[b], labels[b], num_classes)
+            results[i] = (dets[b], labels[b]) if return_raw else \
+                bbox2result(dets[b], labels[b], num_classes)
         if progress and (n + 1) % 20 == 0:
             logger.info("eval %d/%d (%.1f img/s%s)", len(results), len(dataset),
                         len(results) / (time.perf_counter() - t0),
                         ", device preprocess" if device_preprocess else "")
+    if return_raw:
+        return results
     if len(results) != len(dataset):
         raise RuntimeError(f"evaluated {len(results)} of {len(dataset)} images")
     return [results[i] for i in range(len(dataset))]
+
+
+def multi_host_test(handle, dataset, imgs_per_batch: int = 8, workers: int = 4,
+                    progress: bool = True, device_preprocess: bool = False) -> list:
+    """``single_device_test`` over the ranks of a ``torch.distributed``
+    group: each rank runs its shard of the batches, the per-image
+    ``(dets (max_per_img, 5), labels (max_per_img,))`` and the image indices
+    go through ``allgather_pytrees``, the loader's repeats are dropped (the
+    first copy is kept), and every rank returns the whole list in dataset
+    order.  One rank: ``single_device_test``."""
+    n = world_size()
+    if n == 1:
+        return single_device_test(handle, dataset, imgs_per_batch, workers, progress,
+                                  device_preprocess)
+    raw = single_device_test(handle, dataset, imgs_per_batch, workers, progress,
+                             device_preprocess, return_raw=True, num_shards=n,
+                             shard_index=rank())
+    idxs = np.asarray(sorted(raw), np.int64)
+    if len(idxs):
+        fields = (np.stack([raw[i][0] for i in idxs]).astype(np.float32),
+                  np.stack([raw[i][1] for i in idxs]).astype(np.int64))
+    else:   # an empty shard: the trailing shapes come from a peer
+        fields = (np.zeros((0,), np.float32), np.zeros((0,), np.int64))
+    num_classes = getattr(handle, "model", handle).bbox_head.num_classes
+    merged: dict = {}
+    for s_idx, s_dets, s_labels in allgather_pytrees((idxs,) + fields):
+        for j, i in enumerate(s_idx.tolist()):
+            if i not in merged:
+                merged[i] = bbox2result(s_dets[j], s_labels[j], num_classes)
+    if sorted(merged) != list(range(len(dataset))):
+        raise RuntimeError(f"the ranks evaluated {len(merged)} of {len(dataset)} images")
+    return [merged[i] for i in range(len(dataset))]
 
 
 @torch.inference_mode()
@@ -202,11 +257,12 @@ def tta_test(handle, dataset, test_cfg: Optional[dict] = None) -> list:
 
 
 def make_eval_hook(val_dataset, imgs_per_batch: int = 8) -> Callable:
-    """``hook(model) -> metrics``: ``single_device_test`` on ``val_dataset``,
-    then its ``evaluate`` (the train loop's validation)."""
+    """``hook(model) -> metrics``: ``multi_host_test`` on ``val_dataset``
+    (every rank sees the whole merged list), then its ``evaluate`` (the
+    train loop's validation)."""
     def hook(model):
-        results = single_device_test(model, val_dataset, imgs_per_batch=imgs_per_batch,
-                                     progress=False)
+        results = multi_host_test(model, val_dataset, imgs_per_batch=imgs_per_batch,
+                                  progress=False)
         return val_dataset.evaluate(results) if hasattr(val_dataset, "evaluate") else {}
 
     return hook

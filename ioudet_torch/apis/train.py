@@ -5,14 +5,29 @@
   * ``make_trainable_mask``: the backbone's stem and frozen stages get
     ``requires_grad=False`` (FrozenBN statistics are buffers and never train;
     FrozenBN weights and biases of unfrozen stages do train, as in ``ioudet``);
-  * ``build_optimizer``: SGD with momentum; the weight decay is added to the
-    gradient before the momentum buffer and the LR applied after it;
+  * ``build_optimizer``: SGD with momentum (the weight decay added to the
+    gradient before the momentum buffer, the LR applied after it), or Adam /
+    AdamW as ``ioudet``'s optax chain builds them (the weight decay
+    decoupled for both);
   * ``make_train_step``: one function per step: forward, backward, gradient
     clipping, update.  It returns the log dict as device tensors and copies
     nothing to the host;
   * ``Runner`` and ``train_detector``: the epoch loop over a dataset (its
     loader built from ``cfg.data``) or any iterable of batch dicts, with
     logging, checkpoints, resume and an optional validation each epoch.
+
+Low precision follows ``ioudet``'s policy: parameters, gradients, the
+losses and the optimizer state are f32; a model built with
+``dtype="bfloat16"`` computes its convolutions in bf16 through its own
+per-call casts.  There is no loss scaling and no ``torch.autocast``.
+
+Data parallel: one process a device in a ``torch.distributed`` group
+(``parallel.init_dist``).  ``ioudet`` computes the loss of the whole global
+batch in one program, so every loss is divided by the positive count of the
+whole global batch; the port matches it: the anchor head all-reduces the
+count before the division, each rank's loss is its share of the global
+loss, and the gradients are summed over the ranks (a summing comm hook in
+place of DDP's mean).  The logged losses are the global batch's.
 """
 
 from __future__ import annotations
@@ -24,11 +39,17 @@ import time
 from typing import Callable, Dict, Iterable, Optional
 
 import torch
+import torch.distributed as dist
+from torch import nn
+from torch.nn.parallel import DistributedDataParallel
 
 from ..data import build_dataloader
 from ..data.datasets import ConcatDataset, CustomDataset, RepeatDataset
 from ..data.loader import to_device
-from .checkpoint import latest_checkpoint, load_checkpoint, save_checkpoint
+from ..parallel.mesh import barrier, is_initialized, local_rank, rank, world_size
+from ..utils.debug import assert_dtype_policy
+from ..utils.logging import get_root_logger
+from .checkpoint import latest_checkpoint, load_checkpoint, merge_weights, save_checkpoint
 
 BATCH_KEYS = ("img", "gt_bboxes", "gt_labels", "gt_valid", "img_shape", "pad_shape",
               "gt_bboxes_ignore", "gt_ignore_valid")
@@ -90,20 +111,31 @@ def make_trainable_mask(model: torch.nn.Module,
 
 
 def build_optimizer(model: torch.nn.Module, optimizer_cfg: dict) -> torch.optim.Optimizer:
-    """SGD over the model's trainable parameters (call ``make_trainable_mask``
-    first).  ``torch.optim.SGD`` adds ``weight_decay * p`` to the gradient,
-    folds the result into the momentum buffer and applies the LR last, the
-    order ``ioudet``'s optax chain has.  The LR is set per step by the train
-    step."""
+    """The optimizer of ``ioudet``'s chain over the model's trainable
+    parameters (call ``make_trainable_mask`` first: a frozen parameter gets
+    no state and no update).  The LR is set per step by the train step.
+
+      * SGD: ``torch.optim.SGD`` adds ``weight_decay * p`` to the gradient,
+        folds the result into the momentum buffer and applies the LR last,
+        the order of optax's ``add_decayed_weights``, ``trace``, LR.
+      * Adam and AdamW alike: optax's ``scale_by_adam`` (the config's
+        ``beta1`` / ``beta2``, eps 1e-8 outside the square root), then
+        ``weight_decay * p`` added to that update, then the LR: the decay is
+        decoupled, which is ``torch.optim.AdamW``'s rule, for both names.
+        (``torch.optim.Adam``'s ``weight_decay`` adds to the gradient
+        instead.)"""
     cfg = dict(optimizer_cfg)
     opt_type = cfg.pop("type", "SGD")
-    if opt_type != "SGD":
-        raise NotImplementedError(f"optimizer {opt_type!r} is not ported yet; only SGD is")
     params = [p for p in model.parameters() if p.requires_grad]
-    return torch.optim.SGD(params, lr=cfg.get("lr", 0.01),
-                           momentum=cfg.get("momentum", 0.9),
-                           weight_decay=cfg.get("weight_decay", 0.0),
-                           nesterov=cfg.get("nesterov", False))
+    lr, wd = cfg.get("lr", 0.01), cfg.get("weight_decay", 0.0)
+    if opt_type == "SGD":
+        return torch.optim.SGD(params, lr=lr, momentum=cfg.get("momentum", 0.9),
+                               weight_decay=wd, nesterov=cfg.get("nesterov", False))
+    if opt_type in ("Adam", "AdamW"):
+        return torch.optim.AdamW(params, lr=lr, betas=(cfg.get("beta1", 0.9),
+                                                       cfg.get("beta2", 0.999)),
+                                 eps=1e-8, weight_decay=wd)
+    raise KeyError(f"unsupported optimizer {opt_type}")
 
 
 def clip_grad_norm(params: Iterable[torch.nn.Parameter], max_norm: float) -> torch.Tensor:
@@ -130,6 +162,39 @@ def parse_losses(losses: Dict[str, torch.Tensor]):
 # train step
 # --------------------------------------------------------------------------
 
+class _ForwardTrain(nn.Module):
+    """The detector with ``forward_train`` as its forward, for DDP to wrap
+    (DDP's hooks run around ``forward``)."""
+
+    def __init__(self, model: nn.Module):
+        super().__init__()
+        self.model = model
+
+    def forward(self, *args, **kwargs):
+        return self.model.forward_train(*args, **kwargs)
+
+
+def _sum_gradients(group, bucket):
+    """DDP comm hook: the gradients summed over the ranks, not averaged
+    (each rank's loss is already its share of the global batch's)."""
+    fut = dist.all_reduce(bucket.buffer(), group=group, async_op=True).get_future()
+    return fut.then(lambda f: f.value()[0])
+
+
+def data_parallel(model: nn.Module) -> DistributedDataParallel:
+    """``model.forward_train`` wrapped in DDP over the default group, with
+    summed gradients.  On a card, ``device_ids`` is the model's device.
+    Every trainable parameter gets a gradient every step, so
+    ``find_unused_parameters`` stays off; FrozenBN's statistics never change,
+    so no buffers are broadcast."""
+    device = next(model.parameters()).device
+    ddp = DistributedDataParallel(
+        _ForwardTrain(model), device_ids=[device] if device.type == "cuda" else None,
+        broadcast_buffers=False, find_unused_parameters=False)
+    ddp.register_comm_hook(None, _sum_gradients)
+    return ddp
+
+
 def make_train_step(model: torch.nn.Module, optimizer: torch.optim.Optimizer,
                     lr_schedule: Callable[[int], float],
                     grad_clip: Optional[dict] = None) -> Callable:
@@ -137,15 +202,16 @@ def make_train_step(model: torch.nn.Module, optimizer: torch.optim.Optimizer,
 
     batch keys: img, gt_bboxes, gt_labels, gt_valid, img_shape, pad_shape
     (+ gt_bboxes_ignore, gt_ignore_valid), tensors on the model's device;
-    ``step`` is the number of steps taken so far and picks the LR.  Only a
-    float32 model trains: a bfloat16 one raises (its training is not held
-    against ``ioudet`` yet)."""
-    low = {m.compute_dtype for m in model.modules()
-           if getattr(m, "compute_dtype", torch.float32) != torch.float32}
-    if low:
-        raise NotImplementedError(f"training a model that computes in {sorted(map(str, low))} "
-                                  "is not ported; build it with dtype='float32'")
+    ``step`` is the number of steps taken so far and picks the LR.  The
+    parameters must be f32 (a bf16 model computes in bf16 and keeps f32
+    parameters).  In a process group the model runs under
+    ``data_parallel`` (``train_step.ddp``; None without a group), the batch
+    is this rank's share, and the log dict holds the global batch's losses
+    (summed over the ranks)."""
+    assert_dtype_policy(model)
     params = [p for group in optimizer.param_groups for p in group["params"]]
+    ddp = data_parallel(model) if is_initialized() else None
+    forward = model.forward_train if ddp is None else ddp
 
     def train_step(batch: dict, step: int) -> Dict[str, torch.Tensor]:
         lr = lr_schedule(step)
@@ -155,7 +221,7 @@ def make_train_step(model: torch.nn.Module, optimizer: torch.optim.Optimizer,
         if "gt_bboxes_ignore" in batch:
             kw = dict(gt_bboxes_ignore=batch["gt_bboxes_ignore"],
                       gt_ignore_valid=batch["gt_ignore_valid"])
-        losses = model.forward_train(
+        losses = forward(
             batch["img"], batch["gt_bboxes"], batch["gt_labels"], batch["gt_valid"],
             batch["img_shape"], batch["pad_shape"], **kw)
         total, log_vars = parse_losses(losses)
@@ -164,8 +230,14 @@ def make_train_step(model: torch.nn.Module, optimizer: torch.optim.Optimizer,
         if grad_clip:
             clip_grad_norm(params, grad_clip.get("max_norm", 35))
         optimizer.step()
-        return {k: v.detach() for k, v in log_vars.items()}
+        log_vars = {k: v.detach() for k, v in log_vars.items()}
+        if world_size() > 1:
+            stacked = torch.stack([v.float() for v in log_vars.values()])
+            dist.all_reduce(stacked)
+            log_vars = dict(zip(log_vars, stacked.unbind()))
+        return log_vars
 
+    train_step.ddp = ddp
     return train_step
 
 
@@ -178,7 +250,14 @@ class Runner:
     place that copies losses to the host), a checkpoint every
     ``checkpoint_interval`` epochs, ``step_hook(step, log_vars)`` after every
     step, ``eval_hook(model) -> metrics`` after every epoch (logged as
-    mode 'val')."""
+    mode 'val').
+
+    In a process group, rank 0 alone writes ``log.json``, the checkpoints
+    and the TensorBoard events; every rank runs the eval hook (which merges
+    the ranks' results) and resumes from the same checkpoint.  With
+    ``tensorboard`` the records also go to ``<work_dir>/tf_logs`` through
+    ``torch.utils.tensorboard`` where the ``tensorboard`` package is
+    installed, and a warning says so where it is not."""
 
     def __init__(self, model: torch.nn.Module, optimizer: torch.optim.Optimizer,
                  train_step: Callable, work_dir: str, log_interval: int = 50,
@@ -186,7 +265,8 @@ class Runner:
                  lr_schedule: Optional[Callable[[int], float]] = None,
                  meta: Optional[dict] = None,
                  step_hook: Optional[Callable] = None,
-                 eval_hook: Optional[Callable] = None):
+                 eval_hook: Optional[Callable] = None,
+                 tensorboard: bool = False):
         self.model = model
         self.optimizer = optimizer
         self.train_step = train_step
@@ -197,28 +277,57 @@ class Runner:
         self.meta = meta or {}
         self.step_hook = step_hook
         self.eval_hook = eval_hook
+        self.logger = get_root_logger()
         self.step = 0
         self.epoch = 0
         self.device = next(model.parameters()).device
+        self.is_writer = rank() == 0
         os.makedirs(work_dir, exist_ok=True)
         self.log_file = os.path.join(work_dir, "log.json")
+        self.tb_writer = None
+        if tensorboard and self.is_writer:
+            try:
+                from torch.utils.tensorboard import SummaryWriter
+                self.tb_writer = SummaryWriter(os.path.join(work_dir, "tf_logs"))
+            except ImportError:
+                self.logger.warning("tensorboard is not installed; TensorBoard logging off")
 
     def resume(self, path: Optional[str] = None) -> bool:
+        """Load the model, the optimizer, the step and the epoch from ``path``
+        (a ``.pth`` or an ``ioudet`` checkpoint directory; by default the one
+        ``<work_dir>/latest`` names).  False where there is none."""
         path = path or latest_checkpoint(self.work_dir)
-        if not path or not os.path.isfile(path):
+        if not path or not os.path.exists(path):
             return False
         meta = load_checkpoint(self.model, path, optimizer=self.optimizer)
         self.epoch = int(meta.get("epoch", 0))
         self.step = int(meta.get("step", 0))
+        self.logger.info(f"resumed from {path} at epoch {self.epoch}, step {self.step}")
         return True
 
-    def save(self, name: str) -> str:
-        meta = dict(self.meta, epoch=self.epoch + 1, step=self.step)
-        return save_checkpoint(self.work_dir, name, self.model, self.optimizer, meta)
+    def save(self, name: str) -> Optional[str]:
+        """Rank 0 writes the checkpoint; every rank waits for it."""
+        path = None
+        if self.is_writer:
+            meta = dict(self.meta, epoch=self.epoch + 1, step=self.step)
+            path = save_checkpoint(self.work_dir, name, self.model, self.optimizer, meta)
+            self.logger.info(f"saved checkpoint {path}")
+        barrier()
+        return path
 
     def _log(self, record: dict) -> None:
+        self.logger.info(" ".join(f"{k}={v:.4f}" if isinstance(v, float) else f"{k}={v}"
+                                  for k, v in record.items()))
+        if not self.is_writer:
+            return
         with open(self.log_file, "a") as f:
             f.write(json.dumps(record, default=float) + "\n")
+        if self.tb_writer is not None:
+            for k, v in record.items():
+                if isinstance(v, (int, float)) and k not in ("epoch", "iter", "step"):
+                    self.tb_writer.add_scalar(f"{record.get('mode', 'train')}/{k}", float(v),
+                                              int(record.get("step", self.step)))
+            self.tb_writer.flush()
 
     def _to_device(self, batch: dict) -> dict:
         return {k: to_device(batch[k], self.device) for k in BATCH_KEYS if k in batch}
@@ -252,6 +361,8 @@ class Runner:
                 self.model.eval()
                 self._log(dict(mode="val", epoch=epoch + 1, **self.eval_hook(self.model)))
                 self.model.train()
+        if self.tb_writer is not None:
+            self.tb_writer.close()
         return self
 
 
@@ -262,23 +373,48 @@ class Runner:
 def train_detector(model, data, cfg, work_dir: str,
                    resume_from: Optional[str] = None, auto_resume: bool = True,
                    device="cuda", step_hook: Optional[Callable] = None,
-                   seed: int = 0, validate: bool = False, val_dataset=None) -> Runner:
+                   seed: int = 0, validate: bool = False, val_dataset=None,
+                   load_from: Optional[str] = None,
+                   n_devices: Optional[int] = None) -> Runner:
     """Train ``model`` (a detector or a ``DetectorHandle``) under the
     config's ``optimizer``, ``optimizer_config``, ``lr_config``,
-    ``total_epochs``, ``log_config`` and ``checkpoint_config``.
+    ``total_epochs``, ``log_config`` (``interval``, ``tensorboard``) and
+    ``checkpoint_config``.
 
     ``data`` is a dataset of the port's data pipeline, whose loader is built
-    from ``cfg.data`` (``imgs_per_gpu``, ``workers_per_gpu``; shuffled from
-    ``seed``, ragged tail dropped), or any sized iterable of batch dicts with
-    the keys of ``BATCH_KEYS``.  With ``validate`` and a ``val_dataset``,
-    each epoch ends with ``single_device_test`` and ``evaluate`` on it.
-    Runs on ``device``; a CUDA device that is not there raises.  Returns the
-    Runner (``.model``, ``.optimizer``, ``.step``)."""
+    from ``cfg.data`` (``imgs_per_gpu`` images a rank, ``workers_per_gpu``;
+    shuffled from ``seed``, ragged tail dropped, this rank's shard of the
+    batches), or any sized iterable of batch dicts with the keys of
+    ``BATCH_KEYS`` (in a process group: this rank's share of each global
+    batch).  With ``validate`` and a ``val_dataset``, each epoch ends with
+    ``multi_host_test`` and ``evaluate`` on it.
+
+    Runs on ``device``; a CUDA device that is not there raises.  In a
+    process group of N ranks (``parallel.init_dist``) the step is data
+    parallel and ``n_devices``, where given, must be N; "cuda" means
+    ``cuda:LOCAL_RANK``.  ``load_from`` (or the config's): weights only, a
+    ``.pth`` or an ``ioudet`` checkpoint directory, merged over the model's
+    own.  ``resume_from`` (or with ``auto_resume`` the work dir's latest):
+    weights, optimizer state, step and epoch.  Returns the Runner
+    (``.model``, ``.optimizer``, ``.step``)."""
     model = getattr(model, "model", model)
+    world = world_size()
+    if n_devices is not None and n_devices != world:
+        raise ValueError(f"n_devices={n_devices}, but the process group has {world} "
+                         "rank(s); start one process a device (tools/train.py --n-devices, "
+                         "or torchrun)")
     device = torch.device(device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(f"device {device} requested but CUDA is not available")
+    if device.type == "cuda":
+        if not torch.cuda.is_available():
+            raise RuntimeError(f"device {device} requested but CUDA is not available")
+        if device.index is None and world > 1:
+            device = torch.device("cuda", local_rank())
+    logger = get_root_logger()
     model.to(device)
+    load_from = load_from or cfg.get("load_from")
+    if load_from:
+        names = merge_weights(model, load_from)
+        logger.info(f"loaded {len(names)} tensors from {load_from}")
     loader = data
     if isinstance(data, (CustomDataset, ConcatDataset, RepeatDataset)):
         data_cfg = dict(cfg.get("data") or {})
@@ -296,10 +432,12 @@ def train_detector(model, data, cfg, work_dir: str,
         from .test import make_eval_hook
         eval_hook = make_eval_hook(val_dataset)
     meta = dict(config=getattr(cfg, "text", ""), CLASSES=getattr(data, "CLASSES", None))
+    log_cfg = dict(cfg.get("log_config", {}))
     runner = Runner(model, optimizer, step_fn, work_dir,
-                    log_interval=dict(cfg.get("log_config", {})).get("interval", 50),
+                    log_interval=log_cfg.get("interval", 50),
                     checkpoint_interval=dict(cfg.get("checkpoint_config", {})).get("interval", 1),
-                    lr_schedule=sched, meta=meta, step_hook=step_hook, eval_hook=eval_hook)
+                    lr_schedule=sched, meta=meta, step_hook=step_hook, eval_hook=eval_hook,
+                    tensorboard=log_cfg.get("tensorboard", False))
     if resume_from:
         runner.resume(resume_from)
     elif auto_resume:

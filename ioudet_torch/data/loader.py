@@ -8,8 +8,11 @@
     queue, each under the random stream of its (seed, epoch, index)
     (``rng.py``), so a run does not depend on the worker count.  A
     sample's exception reaches the consumer.
-  * There is one shard: data parallel is not ported yet.  Batches stay
-    numpy; the consumer pins them and copies them to its device.
+  * data parallel: the batch list is padded to a multiple of the shard
+    count by drawing batches again and dealt out round-robin, one shard a
+    rank (the shard count and index default to the ``torch.distributed``
+    world and rank).  Batches stay numpy; the consumer pins them and copies
+    them to its device.
 """
 
 from __future__ import annotations
@@ -17,11 +20,12 @@ from __future__ import annotations
 import queue
 import threading
 from concurrent.futures import ThreadPoolExecutor
-from typing import Iterator
+from typing import Iterator, Optional
 
 import numpy as np
 import torch
 
+from ..parallel.mesh import rank, world_size
 from .rng import clear_sample_rng, make_sample_rng, set_sample_rng
 
 
@@ -37,17 +41,29 @@ def collate(samples) -> dict:
     return out
 
 
+def _shards(num_shards: Optional[int], shard_index: Optional[int]) -> tuple:
+    """(count, index): as given, else the process group's world and rank."""
+    if num_shards is None:
+        return world_size(), rank()
+    return num_shards, shard_index or 0
+
+
 class GroupedBatchSampler:
-    """Index lists of ``batch_size``, each from one orientation group."""
+    """Index lists of ``batch_size``, each from one orientation group; of
+    ``num_shards`` shards, the ``shard_index``-th."""
 
     def __init__(self, flags: np.ndarray, batch_size: int, shuffle: bool = True,
-                 seed: int = 0, drop_last: bool = False):
+                 seed: int = 0, drop_last: bool = False,
+                 num_shards: Optional[int] = None, shard_index: Optional[int] = None):
         self.flags = np.asarray(flags)
         self.batch_size = batch_size
         self.shuffle = shuffle
         self.seed = seed
         self.epoch = 0
         self.drop_last = drop_last
+        self.num_shards, self.shard_index = _shards(num_shards, shard_index)
+        if not 0 <= self.shard_index < self.num_shards:
+            raise ValueError(f"shard {self.shard_index} of {self.num_shards}")
 
     def set_epoch(self, epoch: int):
         self.epoch = epoch
@@ -69,14 +85,21 @@ class GroupedBatchSampler:
                 batches.append(idxs[b * self.batch_size:(b + 1) * self.batch_size].tolist())
         if self.shuffle:
             batches = [batches[i] for i in rng.permutation(len(batches))]
-        return iter(batches)
+        # every rank takes the same number of steps, or the gradient
+        # all-reduce waits for ever: batches drawn again fill the last round
+        pad = (-len(batches)) % self.num_shards
+        if pad and batches:
+            extra = rng.integers(0, len(batches), pad) if self.shuffle \
+                else np.arange(pad) % len(batches)
+            batches += [batches[int(i)] for i in extra]
+        return iter(batches[self.shard_index::self.num_shards])
 
     def __len__(self):
         total = 0
         for g in np.unique(self.flags):
             n = int((self.flags == g).sum())
             total += n // self.batch_size if self.drop_last else -(-n // self.batch_size)
-        return total
+        return -(-total // self.num_shards)
 
 
 class _Failed:
@@ -85,15 +108,18 @@ class _Failed:
 
 
 class DataLoader:
-    """Prefetching loader over a map-style dataset."""
+    """Prefetching loader over a map-style dataset; ``num_shards`` /
+    ``shard_index`` as ``GroupedBatchSampler``'s."""
 
     def __init__(self, dataset, batch_size: int, shuffle: bool = True,
                  num_workers: int = 4, seed: int = 0, drop_last: bool = False,
-                 prefetch: int = 4):
+                 prefetch: int = 4, num_shards: Optional[int] = None,
+                 shard_index: Optional[int] = None):
         self.dataset = dataset
         self.batch_size = batch_size
         flags = getattr(dataset, "flag", np.zeros(len(dataset), np.uint8))
-        self.sampler = GroupedBatchSampler(flags, batch_size, shuffle, seed, drop_last)
+        self.sampler = GroupedBatchSampler(flags, batch_size, shuffle, seed, drop_last,
+                                           num_shards, shard_index)
         self.num_workers = max(1, num_workers)
         self.prefetch = prefetch
 
@@ -165,7 +191,9 @@ def build_dataloader(dataset, imgs_per_gpu: int, workers_per_gpu: int = 2,
                      num_gpus: int = 1, shuffle: bool = True, seed: int = 0,
                      **kwargs) -> DataLoader:
     """``imgs_per_gpu * num_gpus`` images a batch; without ``drop_last``
-    given, a shuffled (training) loader drops the ragged tail."""
+    given, a shuffled (training) loader drops the ragged tail.  A rank of a
+    process group loads its own shard (``num_shards`` / ``shard_index`` in
+    ``kwargs`` say otherwise)."""
     kwargs.setdefault("drop_last", shuffle)
     return DataLoader(dataset, batch_size=imgs_per_gpu * num_gpus, shuffle=shuffle,
                       num_workers=workers_per_gpu * num_gpus, seed=seed, **kwargs)

@@ -12,12 +12,14 @@ from __future__ import annotations
 from typing import Dict, List, Optional, Sequence, Tuple, Union
 
 import torch
+import torch.distributed as dist
 from torch import nn
 
 from ...core.anchor import AnchorGenerator, anchor_target
 from ...core.bbox import MaxIoUAssigner
 from ...core.post_processing import multiclass_nms
 from ..losses import fused_level_focal_sum
+from ...parallel.mesh import world_size
 from ..utils.layers import compute_dtype
 
 DEFAULT_LOSS_CLS = dict(type="FocalLoss", use_sigmoid=True, gamma=2.0, alpha=0.25,
@@ -144,7 +146,12 @@ class AnchorHead(nn.Module):
 
     def _targets(self, featmap_sizes, gt_bboxes, gt_labels, gt_valid, img_shapes,
                  pad_shapes, train_cfg, gt_bboxes_ignore, gt_ignore_valid):
-        """(flat anchors, AnchorTargets, num_pos as an f32 device scalar >= 1)."""
+        """(flat anchors, AnchorTargets, num_pos as an f32 device scalar >= 1).
+
+        In a process group of more than one rank (data-parallel training)
+        num_pos is the positives of every rank's images, all-reduced before
+        the floor of 1: ``ioudet`` divides each loss by the global batch's
+        count, not by this rank's share of it."""
         if self.sampling:
             raise NotImplementedError("anchor subsampling (non-focal classification "
                                       "losses) is not ported yet")
@@ -157,7 +164,11 @@ class AnchorHead(nn.Module):
             allowed_border=train_cfg.get("allowed_border", -1),
             pos_weight=train_cfg.get("pos_weight", -1),
             gt_bboxes_ignore=gt_bboxes_ignore, gt_ignore_valid=gt_ignore_valid)
-        return anchors, targets, targets.num_total_pos.clamp(min=1).float()
+        num_pos = targets.num_total_pos.float()
+        if world_size() > 1:
+            num_pos = num_pos.clone()
+            dist.all_reduce(num_pos)
+        return anchors, targets, num_pos.clamp(min=1)
 
     def loss(self, cls_scores, bbox_preds, gt_bboxes, gt_labels, gt_valid,
              img_shapes, pad_shapes, train_cfg, gt_bboxes_ignore=None,

@@ -27,6 +27,7 @@ Tolerances.
   * the eval tail on the same bf16 head outputs: labels exact, dets 1e-4.
 """
 
+import copy
 import os
 import subprocess
 import sys
@@ -124,11 +125,17 @@ def test_a_part_can_name_its_own_dtype():
 
 
 def test_training_a_bf16_model_raises(pair):
-    twin = pair[1]
+    """A model that computes in bf16 trains (parameters, gradients and the
+    optimizer state in f32: tests/test_torch_train_bf16.py holds it against
+    ioudet); one whose parameters are bf16 raises."""
+    twin = copy.deepcopy(pair[1])
     make_trainable_mask(twin)
     opt = build_optimizer(twin, dict(type="SGD", lr=0.01, momentum=0.9, weight_decay=1e-4))
-    with pytest.raises(NotImplementedError):
-        make_train_step(twin, opt, lambda step: 0.01)
+    make_train_step(twin, opt, lambda step: 0.01)
+    halved = copy.deepcopy(twin).to(torch.bfloat16)
+    opt = build_optimizer(halved, dict(type="SGD", lr=0.01, momentum=0.9, weight_decay=1e-4))
+    with pytest.raises(TypeError):
+        make_train_step(halved, opt, lambda step: 0.01)
 
 
 def test_init_detector_takes_the_configs_dtype():

@@ -199,8 +199,10 @@ def test_trainable_mask_and_optimizer():
     assert len(opt.param_groups[0]["params"]) == sum(mask.values())
     assert opt.defaults["momentum"] == 0.9 and opt.defaults["weight_decay"] == 1e-4
     assert all(ttrain.make_trainable_mask(model, frozen_stages=-1).values())
-    with pytest.raises(NotImplementedError):
-        ttrain.build_optimizer(model, dict(type="Adam", lr=1e-3))
+    adam = ttrain.build_optimizer(model, dict(type="Adam", lr=1e-3, weight_decay=1e-4))
+    assert isinstance(adam, torch.optim.AdamW)   # decoupled decay, as optax's chain
+    with pytest.raises(KeyError):
+        ttrain.build_optimizer(model, dict(type="RMSprop", lr=1e-3))
 
 
 @pytest.mark.parametrize("max_norm", [0.5, 1e6])
