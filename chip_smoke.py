@@ -1,6 +1,6 @@
 """Drive the PyTorch port's serving, low-precision serving, training
-(f32, bf16 and data parallel) and evaluation paths once on one NVIDIA GPU
-and check them.
+(f32, bf16 and data parallel) and evaluation paths, and Faster R-CNN's,
+once on one NVIDIA GPU and check them.
 
     python3 chip_smoke.py                  # everything, as below
     python3 chip_smoke.py --kernels-only   # phases 1-2: a short first run
@@ -132,7 +132,26 @@ Phases (any failure exits non-zero):
      ``python -m ioudet_torch.tools.train`` on the flagship config,
      ``--dtype bfloat16 --n-devices 1``, two iterations over a planted
      dataset (started beside 8b's untimed checks), then the tool's ``main``
-     again in this process, resumed from its checkpoint for an epoch more.
+     again in this process, resumed from its checkpoint for an epoch more;
+  9. Faster R-CNN R-50-FPN (configs/faster_rcnn_r50_fpn_1x.py) at full width
+     and depth, seeded random weights, f32, TF32 off for the checks, the
+     final NMS's score_thr at 0 (random weights score near 1/81): (9a)
+     ``predict`` at batch 8 and 1 of 832x1344 canvases with host syncs made
+     errors, K1a and K1b twice a predict (the RPN's proposals at IoU 0.7,
+     the detections of 80 classes at 0.5, N = 2000 an image each), each
+     stage's valid candidates, outputs bit-equal to a replay with the plain
+     NMS at both stages; (9b) step 1 against its plain-NMS replay with the
+     same draws (losses rtol 1e-5, the RPN and box-head gradients to 1e-3 of
+     their largest |value|), then three ``train_detector`` steps at batch 2
+     with 100 gt slots (the config's SGD, RPN sampler 256, R-CNN 512 at 25%),
+     K1 once a step, K2 and K3 never, the four losses finite; (9d)
+     ``predict`` at batch 8 and 1 and its parts by CUDA events (backbone +
+     FPN, RPN head + proposal NMS, RoIAlign, box head, decode + final NMS),
+     K1 at each stage's own candidates, the train step with peak memory,
+     TF32 off and on; (9c) ``single_device_test`` and ``evaluate`` on phase
+     6's dataset, bit-equal to a ``predict`` replay, K1 twice a predict, and
+     the RPN config's ``predict`` and AR@100/300/1000 by
+     ``make_proposal_recall_hook``.
 The last two lines are the card's name and power limit, then
 ``{"ok": true, "device": {...}}``; the line before them lists the kernels.
 """
@@ -1112,18 +1131,26 @@ def nms_inputs(K, handle, inputs) -> tuple:
     from ioudet_torch.apis.inference import predict
 
     seen = []
+    with nms_calls(K, seen):
+        predict(handle, *inputs)
+    return seen[0][:2]
+
+
+@contextlib.contextmanager
+def nms_calls(K, seen: list):
+    """Every (boxes, valid, iou_thr) that ``multiclass_nms`` hands K1's
+    wrapper inside the block, copied, in call order; the kernels still run."""
     greedy = K.greedy_keep
 
     def capture(boxes, valid, thr):
-        seen.append((boxes.clone(), valid.clone()))
+        seen.append((boxes.clone(), valid.clone(), thr))
         return greedy(boxes, valid, thr)
 
     K.greedy_keep = capture
     try:
-        predict(handle, *inputs)
+        yield
     finally:
         K.greedy_keep = greedy
-    return seen[0]
 
 
 def phase_slice(B, K, handle, inputs) -> dict:
@@ -1198,13 +1225,14 @@ HEAD_WEIGHTS = ("bbox_head.retina_cls.weight", "bbox_head.retina_reg.weight",
                 "bbox_head.retina_iou.weight")
 
 
-def loss_and_grads(model, batch, names=HEAD_WEIGHTS) -> tuple:
+def loss_and_grads(model, batch, names=HEAD_WEIGHTS, **kw) -> tuple:
     """One forward and backward without an update: the detached loss dict and
     the gradients of the named parameters (the three output convolutions'
-    weights by default)."""
+    weights by default); ``kw`` goes to ``forward_train``."""
     model.zero_grad(set_to_none=True)
     losses = model.forward_train(batch["img"], batch["gt_bboxes"], batch["gt_labels"],
-                                 batch["gt_valid"], batch["img_shape"], batch["pad_shape"])
+                                 batch["gt_valid"], batch["img_shape"], batch["pad_shape"],
+                                 **kw)
     sum(losses.values()).backward()
     params = dict(model.named_parameters())
     grads = {n: params[n].grad.clone() for n in names}
@@ -3358,6 +3386,307 @@ def phase_recipe_training(B, A, Fc, card: str) -> dict:
     return counts
 
 
+# ------------------------------------------------- phase 9: Faster R-CNN
+
+TWO_STAGE = "faster_rcnn_r50_fpn_1x.py"
+RPN_ONLY = "rpn_r50_fpn_1x.py"
+TWO_STAGE_BATCH = 8
+TWO_STAGE_TRAIN_BATCH = 2   # the config's imgs_per_gpu
+TWO_STAGE_STEPS = 3
+TWO_STAGE_NAMES = ("rpn_head.rpn_cls.weight", "rpn_head.rpn_reg.weight",
+                   "bbox_head.shared_fcs.0.weight", "bbox_head.fc_cls.weight",
+                   "bbox_head.fc_reg.weight")
+
+
+def two_stage_cfg(name: str = TWO_STAGE) -> dict:
+    """A two-stage config of configs/ as the port's loader reads it, one
+    epoch of TWO_STAGE_STEPS logged at the last, with gradient clipping at
+    35 as phase 4 (the weights are random); a Faster R-CNN's
+    ``rcnn.score_thr`` set to 0: with random weights the softmax is near
+    1/81, under the config's 0.05, and the final NMS would see no
+    candidate."""
+    from ioudet_torch.utils.config import Config
+
+    cfg = Config.fromfile(os.path.join(ROOT, "configs", name)).todict()
+    if "rcnn" in cfg["test_cfg"]:
+        cfg["test_cfg"]["rcnn"]["score_thr"] = 0.0
+    return dict(cfg, total_epochs=1, log_config=dict(interval=TWO_STAGE_STEPS),
+                optimizer_config=dict(grad_clip=dict(max_norm=35, norm_type=2)))
+
+
+def two_stage_serving(B, K, handle, inputs) -> dict:
+    """9a: ``predict`` at batch 8 and 1 with host syncs made errors: K1a and
+    K1b twice a predict (proposals, detections), each stage's candidates,
+    outputs bit-equal to a plain-NMS replay.  Returns the launch counts."""
+    from ioudet_torch.apis.inference import predict
+
+    counts = {}
+    for bsz in (TWO_STAGE_BATCH, 1):
+        args = tuple(x[:bsz] for x in inputs)
+        predict(handle, *args)   # warm-up: anchors reach the device here
+        torch.cuda.synchronize()
+        B.reset_launches()
+        dets, labels = set_sync_errors(lambda: predict(handle, *args))
+        torch.cuda.synchronize()
+        seen = dict(B.launches)
+        counts = add_counts(counts, seen)
+        check(seen["nms_mask_kernel"] == 2 and seen["nms_reduce_kernel"] == 2,
+              f"Faster R-CNN predict at batch {bsz}: K1a and K1b launched twice (the RPN's "
+              f"proposals, the R-CNN's detections), host syncs made errors: {seen}")
+        check_predict_outputs(dets, labels, bsz, handle.model.bbox_head.num_classes - 1,
+                              f"Faster R-CNN predict at batch {bsz}")
+        stages = []
+        with nms_calls(K, stages):
+            predict(handle, *args)
+        check(len(stages) == 2 and [s[0].shape[1] for s in stages] == [2000, 2000],
+              f"batch {bsz}: two NMS stages of N = 2000 candidates an image")
+        print(f"9a batch {bsz}: valid NMS candidates an image, proposals (IoU "
+              f"{stages[0][2]}): {stages[0][1].sum(1).tolist()}; detections (IoU "
+              f"{stages[1][2]}, 80 classes): {stages[1][1].sum(1).tolist()}; valid "
+              f"detections {int((labels >= 0).sum())}", flush=True)
+        with plain_nms(K):
+            plain = predict(handle, *args)
+        check(torch.equal(plain[0], dets) and torch.equal(plain[1], labels),
+              f"batch {bsz}: dets and labels through the kernels bit-equal to a replay "
+              "with the plain NMS at both stages")
+    return counts
+
+
+def two_stage_losses(model, batch, names=TWO_STAGE_NAMES) -> tuple:
+    """Step 1's forward and backward without an update, with the draws of
+    step 0 (``step_generator(device, 0, 0)``): the detached losses and the
+    gradients of ``names``."""
+    from ioudet_torch.apis.train import step_generator
+
+    return loss_and_grads(model, batch, names,
+                          generator=step_generator(batch["img"].device, 0, 0))
+
+
+def two_stage_training(B, K, handle, cfg) -> tuple:
+    """9b: step 1 against its plain-NMS replay, then ``train_detector`` for
+    TWO_STAGE_STEPS steps at batch 2 with 100 gt slots: K1 once a step, K2
+    and K3 never, the four losses finite.  Returns (launch counts, runner,
+    batch)."""
+    from ioudet_torch.apis.train import train_detector
+
+    model = handle.model.train()
+    batch = {k: torch.from_numpy(v).cuda()
+             for k, v in train_batch(TWO_STAGE_TRAIN_BATCH, NUM_GTS).items()}
+    kernel_losses, kernel_grads = two_stage_losses(model, batch)
+    with plain_nms(K):
+        plain_losses, plain_grads = two_stage_losses(model, batch)
+    for k in kernel_losses:
+        torch.testing.assert_close(kernel_losses[k], plain_losses[k], rtol=1e-5, atol=0.0)
+    for k in kernel_grads:
+        scale = float(plain_grads[k].abs().max())
+        diff = max_abs(kernel_grads[k], plain_grads[k])
+        check(diff <= 1e-3 * scale, f"step 1, grad of {k}: kernels against the plain-NMS "
+              f"replay, max abs diff {diff:.2e} of max {scale:.2e} (limit 1e-3)")
+    check(True, "step 1 losses through K1 within 1e-5 of the plain-NMS replay: " +
+          ", ".join(f"{k} {float(v):.6f}" for k, v in kernel_losses.items()))
+
+    per_step, history = [], []
+
+    def hook(step, log_vars):
+        per_step.append(dict(B.launches))
+        history.append({k: float(v) for k, v in log_vars.items()})
+        B.reset_launches()
+
+    torch.cuda.synchronize()
+    B.reset_launches()
+    with tempfile.TemporaryDirectory() as work_dir:
+        runner = train_detector(handle, [batch] * TWO_STAGE_STEPS, cfg, work_dir,
+                                device="cuda", step_hook=hook)
+    want = {"nms_mask_kernel": 1, "nms_reduce_kernel": 1, "assign_gtmax_kernel": 0,
+            "assign_targets_kernel": 0, "focal_sum_kernel": 0, "focal_dx_kernel": 0}
+    check(all(all(c[k] == n for k, n in want.items()) for c in per_step),
+          f"each of {TWO_STAGE_STEPS} Faster R-CNN steps launched K1a and K1b once, K2 and K3 "
+          f"never: {per_step}")
+    for i, rec in enumerate(history):
+        print(f"9b step {i + 1}: " + ", ".join(f"{k} {v:.6f}" for k, v in rec.items()))
+    check(all(sorted(r) == ["loss", "loss_bbox", "loss_cls", "rpn_loss_bbox", "rpn_loss_cls"]
+              and all(np.isfinite(v) for v in r.values()) for r in history),
+          "every step's four losses (and their sum) finite")
+    for k, v in kernel_losses.items():
+        check(abs(history[0][k] - float(v)) <= 1e-5 * abs(float(v)),
+              f"step 1 {k} of train_detector equals the replay's")
+    counts = {}
+    for c in per_step:
+        counts = add_counts(counts, c)
+    return counts, runner, batch
+
+
+def two_stage_eval(B, dataset) -> dict:
+    """9c: the Faster R-CNN through ``single_device_test`` and ``evaluate`` on
+    phase 6's planted dataset, bit-equal to a ``predict`` replay, K1 twice a
+    predict; the RPN config's ``predict`` and its AR@100/300/1000 by the
+    proposal recall hook.  Returns the launch counts."""
+    from ioudet_torch.apis.inference import init_detector, predict
+    from ioudet_torch.apis.test import make_proposal_recall_hook, single_device_test
+    from ioudet_torch.core.evaluation import eval_recalls
+
+    handle = init_detector(two_stage_cfg(), device="cuda", seed=0)
+    torch.cuda.synchronize()
+    B.reset_launches()
+    t = time.perf_counter()
+    results = single_device_test(handle, dataset, EVAL_BATCH, EVAL_WORKERS, progress=False)
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t
+    counts = dict(B.launches)
+    n = check_results_replay(handle, dataset, results, False, "Faster R-CNN single_device_test")
+    check(counts["nms_mask_kernel"] == 2 * n and counts["nms_reduce_kernel"] == 2 * n,
+          f"single_device_test: K1a and K1b launched twice for each of its {n} predicts")
+    metrics = dataset.evaluate(results)
+    check(all(np.isfinite(v) and -1 <= v <= 1 for v in metrics.values()),
+          f"Faster R-CNN on {len(dataset)} planted images: loop {run_s:.2f} s; random "
+          f"weights: AP {metrics['AP']:.4f}, AP50 {metrics['AP50']:.4f}, "
+          f"AR100 {metrics['AR100']:.4f}")
+    del handle
+    torch.cuda.empty_cache()
+
+    rpn = init_detector(two_stage_cfg(RPN_ONLY), device="cuda", seed=0)
+    inputs = canvases(TWO_STAGE_BATCH, np.random.default_rng(4))
+    predict(rpn, *inputs)   # warm-up
+    torch.cuda.synchronize()
+    B.reset_launches()
+    dets, labels = predict(rpn, *inputs)
+    torch.cuda.synchronize()
+    seen = dict(B.launches)
+    counts = add_counts(counts, seen)
+    check(seen["nms_mask_kernel"] == 1 and seen["nms_reduce_kernel"] == 1 and
+          tuple(dets.shape) == (inputs[0].shape[0], 2000, 5) and
+          bool(((labels == 0) | (labels == -1)).all()),
+          f"RPN predict at batch {inputs[0].shape[0]}: (B, 2000, 5) proposals of one class, "
+          f"K1 once; {int((labels == 0).sum())} valid")
+    t = time.perf_counter()
+    recall = make_proposal_recall_hook(dataset, imgs_per_batch=EVAL_BATCH)(rpn.model)
+    check(all(0.0 <= v <= 1.0 for v in recall.values()),
+          f"RPN proposal recall on {len(dataset)} planted images ({time.perf_counter() - t:.2f}"
+          " s), random weights: " + ", ".join(f"{k} {v:.4f}" for k, v in recall.items()))
+    gts = [dataset.get_ann_info(i)["bboxes"] for i in range(len(dataset))]
+    full = eval_recalls(gts, [np.concatenate([g, np.ones((len(g), 1))], 1) for g in gts],
+                        (100, 300, 1000), [0.5])
+    check(bool((full == 1.0).all()), "the ground truth fed back as proposals: AR@100, "
+          "AR@300 and AR@1000 exactly 1")
+    return counts
+
+
+def two_stage_split(handle, inputs, reps: int = 5) -> dict:
+    """Medians by CUDA events of a ``predict``'s parts, by hooks on the
+    detector's modules: backbone + FPN, RPN head + proposal NMS (to the
+    extractor), RoIAlign (the extractor), the box head, the final decode
+    and NMS (to the end)."""
+    from ioudet_torch.apis.inference import predict
+
+    model = handle.model
+    marks = []
+
+    def mark(*_):
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        marks.append(ev)
+
+    hooks = [model.backbone.register_forward_pre_hook(mark),
+             model.neck.register_forward_hook(mark),
+             model.bbox_roi_extractor.register_forward_pre_hook(mark),
+             model.bbox_roi_extractor.register_forward_hook(mark),
+             model.bbox_head.register_forward_hook(mark)]
+    names = ("backbone + FPN", "RPN head + proposal NMS", "RoIAlign", "box head",
+             "decode + final NMS")
+    parts = {k: [] for k in names}
+    try:
+        for _ in range(reps + 1):
+            marks.clear()
+            predict(handle, *inputs)
+            mark()
+            torch.cuda.synchronize()
+            for k, a, b in zip(names, marks, marks[1:]):
+                parts[k].append(a.elapsed_time(b))
+    finally:
+        for h in hooks:
+            h.remove()
+    return {k: statistics.median(v[1:]) for k, v in parts.items()}
+
+
+def two_stage_timing(K, handle, runner, batch, inputs, card: str) -> None:
+    """9d: ``predict`` at batch 8 and 1 and its parts, K1 at each stage's own
+    candidates, the train step at batch 2 with peak memory; TF32 off and on."""
+    from ioudet_torch.apis.inference import predict
+
+    for tf32 in (False, True):
+        set_tf32(tf32)
+        tag = f"[{card}; f32, TF32 {'on' if tf32 else 'off'}]"
+        for bsz in (TWO_STAGE_BATCH, 1):
+            args = tuple(x[:bsz] for x in inputs)
+            torch.cuda.reset_peak_memory_stats()
+            ms = host_ms(lambda: predict(handle, *args), reps=10)
+            peak = torch.cuda.max_memory_allocated() / 2 ** 30
+            print(f"Faster R-CNN predict batch {bsz}: median of 10 {ms:.3f} ms, "
+                  f"{bsz * 1e3 / ms:.2f} img/s, peak memory {peak:.2f} GiB {tag}", flush=True)
+        parts = two_stage_split(handle, inputs)
+        print(f"Faster R-CNN predict batch {TWO_STAGE_BATCH} by CUDA events (median of 5), ms: "
+              + ", ".join(f"{k} {v:.3f}" for k, v in parts.items()) + f" {tag}", flush=True)
+    set_tf32(False)
+    stages = []
+    with nms_calls(K, stages):
+        predict(handle, *inputs)
+    for (boxes, valid, thr), what in zip(stages, ("proposals", "detections")):
+        words = K.nms_mask(boxes, thr)
+        keep = K.nms_reduce(words, valid)
+        check(torch.equal(words, K.nms_mask_plain(boxes, thr)) and
+              torch.equal(keep, K.nms_reduce_plain(words, valid)),
+              f"K1 on the {what} stage's own candidates: bit-equal to plain")
+        plain = (cuda_ms(lambda: K.nms_mask_plain(boxes, thr), 5),
+                 cuda_ms(lambda: K.nms_reduce_plain(words, valid), 1, 1))
+        print(k1_line(K, f"Faster R-CNN {what}, IoU {thr}, batch {TWO_STAGE_BATCH}", boxes, keep,
+                      cuda_ms(lambda: K.nms_mask(boxes, thr), 50),
+                      cuda_ms(lambda: K.nms_reduce(words, valid), 50), *k1_bounds(boxes, words, keep),
+                      f"plain {plain[0]:.4f} / {plain[1]:.4f} ms [{card}; f32"), flush=True)
+    runner.model.train()
+    for tf32 in (False, True):
+        set_tf32(tf32)
+        torch.cuda.reset_peak_memory_stats()
+        ms = host_ms(lambda: runner.train_step(batch, TWO_STAGE_STEPS), reps=10, warmup=2)
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        print(f"Faster R-CNN train step batch {TWO_STAGE_TRAIN_BATCH}: median of 10 {ms:.3f} ms, "
+              f"{TWO_STAGE_TRAIN_BATCH * 1e3 / ms:.2f} img/s, peak memory {peak:.2f} GiB "
+              f"[{card}; f32, TF32 {'on' if tf32 else 'off'}]", flush=True)
+    set_tf32(False)
+
+
+def phase_two_stage(B, K, dataset, rng, card: str) -> dict:
+    """Phase 9: Faster R-CNN R-50-FPN (configs/faster_rcnn_r50_fpn_1x.py) at
+    full width and depth, seeded random weights, f32, TF32 off for the
+    checks.  Returns the kernels' launch counts of its main-path runs."""
+    from ioudet_torch.apis.inference import init_detector
+
+    set_tf32(False)
+    t = time.perf_counter()
+    cfg = two_stage_cfg()
+    handle = init_detector(cfg, device="cuda", seed=0)
+    nparams = sum(p.numel() for p in handle.model.parameters())
+    inputs = canvases(TWO_STAGE_BATCH, rng)
+    print(f"9a: Faster R-CNN ({TWO_STAGE}, {nparams:,} parameters), rcnn score_thr 0",
+          flush=True)
+    counts = two_stage_serving(B, K, handle, inputs)
+    print(f"9a: {time.perf_counter() - t:.2f} s", flush=True)
+    t = time.perf_counter()
+    train_counts, runner, batch = two_stage_training(B, K, handle, cfg)
+    counts = add_counts(counts, train_counts)
+    print(f"9b: {time.perf_counter() - t:.2f} s", flush=True)
+    t = time.perf_counter()
+    handle.model.eval()
+    two_stage_timing(K, handle, runner, batch, inputs, card)
+    print(f"9d: {time.perf_counter() - t:.2f} s", flush=True)
+    del handle, runner, batch, inputs
+    torch.cuda.empty_cache()
+    t = time.perf_counter()
+    counts = add_counts(counts, two_stage_eval(B, dataset))
+    print(f"9c: {time.perf_counter() - t:.2f} s", flush=True)
+    torch.cuda.empty_cache()
+    return counts
+
+
 KERNELS = {  # name: (source, the TPU kernel it replaces)
     "nms_mask_kernel": ("nms_kernel.cu", "ioudet/ops/nms_pallas.py:26"),
     "nms_reduce_kernel": ("nms_kernel.cu", "ioudet/ops/nms_pallas.py:81"),
@@ -3481,7 +3810,6 @@ def main() -> int:
     recipe_launches = phase_recipe(B, Q)
     launches = {k: launches[k] + eval_launches[k] + recipe_launches[k] for k in launches}
     phase_eval_timing(eval_handle, eval_dataset, card)
-    eval_dir.cleanup()
     del eval_handle
     torch.cuda.empty_cache()
 
@@ -3501,6 +3829,16 @@ def main() -> int:
     recipe_launches = phase_recipe_training(B, A, Fc, card)
     launches = {k: launches[k] + recipe_launches.get(k, 0) for k in launches}
     print(f"phase 8: {time.perf_counter() - t:.2f} s", flush=True)
+
+    print("phase 9: Faster R-CNN R-50-FPN at full width; TF32 off for the checks: 9a predict "
+          "at batch 8 and 1 (K1 at both NMS stages), 9b three train steps at batch 2, 9c "
+          "single_device_test and evaluate on phase 6's dataset and the RPN's recall, 9d "
+          "timings" + since(start), flush=True)
+    t = time.perf_counter()
+    two_stage_launches = phase_two_stage(B, K, eval_dataset, rng, card)
+    launches = {k: launches[k] + two_stage_launches.get(k, 0) for k in launches}
+    eval_dir.cleanup()
+    print(f"phase 9: {time.perf_counter() - t:.2f} s", flush=True)
     check(all(launches[name] > 0 for name in KERNELS if name not in REPLACED) and
           all(launches[name] == 0 for name in REPLACED),
           "every kernel was launched on a main path, and none of those the wgmma kernels "

@@ -3,9 +3,10 @@
 
 The port's modules use the mmdet state_dict key layout, so a reference
 ``.pth`` loads as it is.  ``state_dict_from_flax`` turns ``ioudet``'s
-parameter tree for the RetinaNet family (nested dicts of arrays, HWIO conv
-kernels) into that layout: it is the inverse of ``ioudet``'s
-``convert_torch_retinanet`` and its resnet / fpn / retina-head parts.  Any
+parameter tree for the RetinaNet family and for Faster R-CNN / RPN (nested
+dicts of arrays, HWIO conv kernels, (in, out) dense kernels) into that
+layout: it is the inverse of ``ioudet``'s ``convert_torch_retinanet`` and
+``convert_torch_faster_rcnn`` and their parts.  Any
 tree of that structure goes through it, so gradients and momentum buffers of
 ``ioudet`` can be laid beside the port's as well.
 
@@ -124,23 +125,59 @@ def _neck(sd: dict, tree: dict, prefix: str = "neck") -> None:
         _conv(sd, f"{prefix}.{dst}.conv", node["conv"])
 
 
+ROI_FEAT_SIZE = 7   # the RoI feature's side in every box head the port builds
+
+
+def _dense(sd: dict, prefix: str, leaf: dict, roi_input: bool = False) -> None:
+    """flax (in, out) kernel -> torch (out, in).  ``roi_input``: the layer
+    takes ``ioudet``'s flattened (S, S, C) RoI feature, and the input axis is
+    permuted to the port's (C, S, S) (the inverse of ``ioudet``'s
+    ``convert_torch_shared_fc_bbox_head``)."""
+    w = _tensor(leaf["kernel"]).t()
+    if roi_input:
+        out, s = w.shape[0], ROI_FEAT_SIZE
+        w = w.reshape(out, s, s, -1).permute(0, 3, 1, 2).reshape(out, -1)
+    sd[prefix + ".weight"] = w.contiguous()
+    sd[prefix + ".bias"] = _tensor(leaf["bias"])
+
+
+def _roi_head(sd: dict, tree: dict, prefix: str = "bbox_head") -> None:
+    """SharedFCBBoxHead's tree {shared_fc<i>, fc_cls, fc_reg} -> mmdet's
+    shared_fcs.<i>, fc_cls, fc_reg; shared_fc0 takes the flattened RoI
+    feature and gets its input permuted.  A box head with shared convs or
+    without shared fcs is not bridged."""
+    if "shared_fc0" not in tree or any(k.startswith("shared_conv") for k in tree):
+        raise NotImplementedError(
+            f"box head tree {sorted(tree)}: only SharedFCBBoxHead's is bridged")
+    for name, leaf in tree.items():
+        m = re.fullmatch(r"shared_fc(\d+)", name)
+        if m:
+            _dense(sd, f"{prefix}.shared_fcs.{m.group(1)}", leaf, roi_input=m.group(1) == "0")
+        elif name in ("fc_cls", "fc_reg"):
+            _dense(sd, f"{prefix}.{name}", leaf)
+        else:
+            raise KeyError(f"unknown box head param {name}")
+
+
 def _head(sd: dict, tree: dict, prefix: str = "bbox_head") -> None:
     for name, leaf in tree.items():
         m = re.fullmatch(r"(cls|reg)_conv(\d+)", name)
         if m:
             _conv(sd, f"{prefix}.{m.group(1)}_convs.{m.group(2)}.conv", leaf)
-        elif name in ("retina_cls", "retina_reg", "retina_iou"):
+        elif name in ("retina_cls", "retina_reg", "retina_iou", "rpn_conv", "rpn_cls",
+                      "rpn_reg"):
             _conv(sd, f"{prefix}.{name}", leaf)
         else:
             raise KeyError(f"unknown head param {name}")
 
 
 def state_dict_from_flax(params: dict) -> Dict[str, torch.Tensor]:
-    """``ioudet`` RetinaNet-family params {backbone, neck, bbox_head} -> a
-    state_dict for the port's detector (mmdet key layout).  A partial tree
-    (a pretrained backbone alone, or the trainable leaves of an optimizer
+    """``ioudet`` params of the RetinaNet family {backbone, neck, bbox_head}
+    or of Faster R-CNN / RPN {backbone, neck, rpn_head, bbox_head} -> a
+    state_dict for the port's detector (mmdet key layout).  A partial tree (a
+    pretrained backbone alone, or the trainable leaves of an optimizer
     state) gives the entries it holds."""
-    unknown = set(params) - {"backbone", "neck", "bbox_head"}
+    unknown = set(params) - {"backbone", "neck", "rpn_head", "bbox_head"}
     if unknown:
         raise KeyError(f"unsupported parameter groups: {sorted(unknown)}")
     sd: Dict[str, torch.Tensor] = {}
@@ -148,8 +185,13 @@ def state_dict_from_flax(params: dict) -> Dict[str, torch.Tensor]:
         _backbone(sd, params["backbone"])
     if "neck" in params:
         _neck(sd, params["neck"])
-    if "bbox_head" in params:
-        _head(sd, params["bbox_head"])
+    if "rpn_head" in params:
+        _head(sd, params["rpn_head"], "rpn_head")
+    head = params.get("bbox_head", {})
+    if any(k.startswith(("shared_", "fc_")) for k in head):
+        _roi_head(sd, head)
+    elif head:
+        _head(sd, head)
     return sd
 
 

@@ -119,4 +119,4 @@ def inference_detector(handle: DetectorHandle,
     pad_shape = torch.tensor([canvas], dtype=torch.int32, device=dev)
     dets, labels = predict(handle, canvas_img[None], img_shape[None],
                            factor[None], pad_shape)
-    return bbox2result(dets[0], labels[0], handle.model.bbox_head.num_classes)
+    return bbox2result(dets[0], labels[0], handle.model.num_result_classes)

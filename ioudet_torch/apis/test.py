@@ -23,7 +23,9 @@ loader's padding repeats are dropped before the device sees them.
 ``multi_host_test`` is the data-parallel evaluation: each rank of a
 ``torch.distributed`` group runs its shard of the batches, the fixed-shape
 per-image outputs go through ``allgather_pytrees``, and every rank gets the
-whole list.  The two-stage TTA merge and the mask route are not ported yet.
+whole list.  A two-stage detector serves through the same functions, and
+a proposal model's recall is ``make_proposal_recall_hook``'s.  The
+two-stage TTA merge and the mask route are not ported yet.
 """
 
 from __future__ import annotations
@@ -155,7 +157,7 @@ def single_device_test(handle, dataset, imgs_per_batch: int = 8, workers: int = 
     fixed shapes that ``multi_host_test`` gathers."""
     model = getattr(handle, "model", handle)
     device = next(model.parameters()).device
-    num_classes = model.bbox_head.num_classes
+    num_classes = model.num_result_classes
     results: dict = {}
     t0 = time.perf_counter()
     for n, (idxs, inputs) in enumerate(eval_batches(dataset, device, imgs_per_batch,
@@ -198,7 +200,7 @@ def multi_host_test(handle, dataset, imgs_per_batch: int = 8, workers: int = 4,
                   np.stack([raw[i][1] for i in idxs]).astype(np.int64))
     else:   # an empty shard: the trailing shapes come from a peer
         fields = (np.zeros((0,), np.float32), np.zeros((0,), np.int64))
-    num_classes = getattr(handle, "model", handle).bbox_head.num_classes
+    num_classes = getattr(handle, "model", handle).num_result_classes
     merged: dict = {}
     for s_idx, s_dets, s_labels in allgather_pytrees((idxs,) + fields):
         for j, i in enumerate(s_idx.tolist()):
@@ -245,7 +247,7 @@ def tta_test(handle, dataset, test_cfg: Optional[dict] = None) -> list:
     ``MultiScaleFlipAug`` (each item a list of views), on the model's
     device.  Returns one ``bbox2result`` list an image, in dataset order."""
     model = getattr(handle, "model", handle)
-    num_classes = model.bbox_head.num_classes
+    num_classes = model.num_result_classes
     results = []
     for idx in range(len(dataset)):
         views = dataset[idx]
@@ -254,6 +256,25 @@ def tta_test(handle, dataset, test_cfg: Optional[dict] = None) -> list:
         dets, labels = aug_test(model, views, test_cfg)
         results.append(bbox2result(dets, labels, num_classes))
     return results
+
+
+def make_proposal_recall_hook(val_dataset, proposal_nums=(100, 300, 1000), iou_thrs=(0.5,),
+                              imgs_per_batch: int = 8) -> Callable:
+    """``hook(model) -> {"AR@N": recall}`` of a proposal model (``RPN``):
+    ``single_device_test`` of ``val_dataset``, then the recall of each
+    image's top N proposals against its gt boxes (``eval_recalls``)."""
+    from ..core.evaluation import eval_recalls
+
+    def hook(model):
+        results = single_device_test(model, val_dataset, imgs_per_batch=imgs_per_batch,
+                                     progress=False)
+        gts = [val_dataset.get_ann_info(i)["bboxes"] for i in range(len(val_dataset))]
+        props = [np.concatenate(r) if len(r) else np.zeros((0, 5), np.float32)
+                 for r in results]
+        recalls = eval_recalls(gts, props, proposal_nums, iou_thrs)
+        return {f"AR@{n}": float(recalls[i, 0]) for i, n in enumerate(proposal_nums)}
+
+    return hook
 
 
 def make_eval_hook(val_dataset, imgs_per_batch: int = 8) -> Callable:

@@ -195,31 +195,42 @@ def data_parallel(model: nn.Module) -> DistributedDataParallel:
     return ddp
 
 
+def step_generator(device, seed: int, step: int) -> torch.Generator:
+    """The generator of one train step's draws (anchor and roi sampling):
+    seeded from the run's seed, the step and this rank, on the model's
+    device, so a resumed run draws what an unbroken one would and each
+    rank's images get their own draws (``ioudet`` splits a key per image of
+    the global batch).  Outside a process group the rank is 0 of 1."""
+    return torch.Generator(device).manual_seed((seed * 2 ** 32 + step) * world_size() + rank())
+
+
 def make_train_step(model: torch.nn.Module, optimizer: torch.optim.Optimizer,
                     lr_schedule: Callable[[int], float],
-                    grad_clip: Optional[dict] = None) -> Callable:
+                    grad_clip: Optional[dict] = None, seed: int = 0) -> Callable:
     """``train_step(batch, step) -> log dict`` of detached device tensors.
 
     batch keys: img, gt_bboxes, gt_labels, gt_valid, img_shape, pad_shape
     (+ gt_bboxes_ignore, gt_ignore_valid), tensors on the model's device;
-    ``step`` is the number of steps taken so far and picks the LR.  The
-    parameters must be f32 (a bf16 model computes in bf16 and keeps f32
-    parameters).  In a process group the model runs under
-    ``data_parallel`` (``train_step.ddp``; None without a group), the batch
-    is this rank's share, and the log dict holds the global batch's losses
-    (summed over the ranks)."""
+    ``step`` is the number of steps taken so far and picks the LR and the
+    generator of the step's draws (``step_generator(device, seed, step)``,
+    ``ioudet``'s ``fold_in(key, step)``).  The parameters must be f32 (a
+    bf16 model computes in bf16 and keeps f32 parameters).  In a process
+    group the model runs under ``data_parallel`` (``train_step.ddp``; None
+    without a group), the batch is this rank's share, and the log dict
+    holds the global batch's losses (summed over the ranks)."""
     assert_dtype_policy(model)
     params = [p for group in optimizer.param_groups for p in group["params"]]
     ddp = data_parallel(model) if is_initialized() else None
     forward = model.forward_train if ddp is None else ddp
+    device = next(model.parameters()).device
 
     def train_step(batch: dict, step: int) -> Dict[str, torch.Tensor]:
         lr = lr_schedule(step)
         for group in optimizer.param_groups:
             group["lr"] = lr
-        kw = {}
+        kw = dict(generator=step_generator(device, seed, step))
         if "gt_bboxes_ignore" in batch:
-            kw = dict(gt_bboxes_ignore=batch["gt_bboxes_ignore"],
+            kw.update(gt_bboxes_ignore=batch["gt_bboxes_ignore"],
                       gt_ignore_valid=batch["gt_ignore_valid"])
         losses = forward(
             batch["img"], batch["gt_bboxes"], batch["gt_labels"], batch["gt_valid"],
@@ -386,7 +397,8 @@ def train_detector(model, data, cfg, work_dir: str,
     shuffled from ``seed``, ragged tail dropped, this rank's shard of the
     batches), or any sized iterable of batch dicts with the keys of
     ``BATCH_KEYS`` (in a process group: this rank's share of each global
-    batch).  With ``validate`` and a ``val_dataset``, each epoch ends with
+    batch).  ``seed`` seeds the loader's shuffle and each step's draws.
+    With ``validate`` and a ``val_dataset``, each epoch ends with
     ``multi_host_test`` and ``evaluate`` on it.
 
     Runs on ``device``; a CUDA device that is not there raises.  In a
@@ -426,7 +438,7 @@ def train_detector(model, data, cfg, work_dir: str,
     make_trainable_mask(model)
     optimizer = build_optimizer(model, dict(cfg["optimizer"]))
     grad_clip = dict(cfg.get("optimizer_config") or {}).get("grad_clip")
-    step_fn = make_train_step(model, optimizer, sched, grad_clip)
+    step_fn = make_train_step(model, optimizer, sched, grad_clip, seed)
     eval_hook = None
     if validate and val_dataset is not None:
         from .test import make_eval_hook

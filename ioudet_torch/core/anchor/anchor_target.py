@@ -5,6 +5,8 @@ Every anchor keeps its slot and exclusion is expressed with weights, so one
 shape covers every image.  Per image:
   inside = valid_flags [& border check]
   assign = MaxIoUAssigner over the masked (G, A) IoU
+  pos / neg = every assigned anchor, or the sampler's subset of them (the
+  RPN's RandomSampler 256 at 0.5: only the sampled anchors carry weight)
   bbox_targets = bbox2delta(anchors, gt[assigned]) on positives
   labels[pos] = gt label (1-based); label_weights = pos_weight on positives,
   1 on negatives, 0 on ignored anchors.
@@ -57,17 +59,19 @@ def anchor_target_single(flat_anchors: torch.Tensor, valid_flags: torch.Tensor,
                          allowed_border: int = -1, pos_weight: float = -1.0,
                          gt_bboxes_ignore: Optional[torch.Tensor] = None,
                          gt_ignore_valid: Optional[torch.Tensor] = None,
-                         sampler=None):
+                         sampler=None, generator: Optional[torch.Generator] = None):
     """The general path in plain torch, for a batch: valid_flags (B, A),
-    gt_* (B, G, ...), img_shapes (B, 2).  Returns (labels, label_weights,
-    bbox_targets, bbox_weights, pos_gt_boxes, num_pos (B,), num_neg (B,))."""
-    if sampler is not None:
-        raise NotImplementedError("anchor samplers are not ported yet")
+    gt_* (B, G, ...), img_shapes (B, 2); ``sampler`` draws from
+    ``generator``.  Returns (labels, label_weights, bbox_targets,
+    bbox_weights, pos_gt_boxes, num_pos (B,), num_neg (B,))."""
     inside = anchor_inside_flags(flat_anchors, valid_flags, img_shapes, allowed_border)
     assign = assigner.assign(flat_anchors, gt_bboxes, gt_valid, inside, None,
                              gt_bboxes_ignore, gt_ignore_valid)
-    pos = assign.gt_inds > 0
-    neg = assign.gt_inds == 0
+    if sampler is not None:
+        pos, neg = sampler.sample(assign, generator)
+    else:
+        pos = assign.gt_inds > 0
+        neg = assign.gt_inds == 0
     G = gt_bboxes.shape[-2]
     safe_gt = (assign.gt_inds - 1).clamp(0, G - 1).long()
     table = torch.cat([gt_bboxes.float(), gt_labels.float()[..., None]], dim=-1)
@@ -92,19 +96,19 @@ def anchor_target(flat_anchors: torch.Tensor, valid_flags: torch.Tensor,
                   target_means: Sequence[float] = (0., 0., 0., 0.),
                   target_stds: Sequence[float] = (1., 1., 1., 1.),
                   allowed_border: int = -1, pos_weight: float = -1.0,
-                  sampler=None, gt_bboxes_ignore=None,
-                  gt_ignore_valid=None) -> AnchorTargets:
+                  sampler=None, generator: Optional[torch.Generator] = None,
+                  gt_bboxes_ignore=None, gt_ignore_valid=None) -> AnchorTargets:
     """Batched targets.
 
     flat_anchors (A, 4), all levels, shared by the images; valid_flags (B, A)
     bool; gt_bboxes (B, G, 4); gt_valid (B, G); gt_labels (B, G) 1-based;
     img_shapes (B, 2) content (h, w); gt_bboxes_ignore / gt_ignore_valid
     (B, I, 4) / (B, I): anchors overlapping these regions above the
-    assigner's ``ignore_iof_thr`` are left out of the loss.
+    assigner's ``ignore_iof_thr`` are left out of the loss; ``sampler``
+    (drawing from ``generator``) subsamples each image's anchors, which
+    always takes the general path.
     """
-    if sampler is not None:
-        raise NotImplementedError("anchor samplers are not ported yet")
-    if (gt_bboxes_ignore is None and allowed_border < 0
+    if (sampler is None and gt_bboxes_ignore is None and allowed_border < 0
             and type(assigner) is MaxIoUAssigner
             and assigner.gt_max_assign_all
             and assigner.ignore_iof_thr <= 0
@@ -126,7 +130,7 @@ def anchor_target(flat_anchors: torch.Tensor, valid_flags: torch.Tensor,
     labels, lw, bt, bw, pgb, npos, nneg = anchor_target_single(
         flat_anchors, valid_flags, gt_bboxes, gt_valid, gt_labels, img_shapes,
         assigner, target_means, target_stds, allowed_border, pos_weight,
-        gt_bboxes_ignore, gt_ignore_valid)
+        gt_bboxes_ignore, gt_ignore_valid, sampler, generator)
     return AnchorTargets(labels, lw, bt, bw, pgb, npos.sum().to(torch.int32),
                          nneg.sum().to(torch.int32))
 

@@ -2,28 +2,40 @@
 the same nested config dicts ``ioudet`` takes (``type`` keys).
 
 Only the components of the ported slice are known; any other ``type``
-raises ``KeyError`` naming what is available.
+raises ``KeyError`` naming what is available.  A config with ``rpn_head``
+or ``bbox_roi_extractor`` builds a two-stage detector (``FasterRCNN``,
+``RPN``), in f32 only.
 """
 
 from __future__ import annotations
 
 from typing import Optional
 
+import torch
+
 from .backbones.resnet import ResNet
 from .backbones.resnext import ResNeXt
+from .bbox_heads.bbox_head import BBoxHead, ConvFCBBoxHead, SharedFCBBoxHead
 from .detectors.single_stage import (IoUAwareRetinaNet, RetinaNet,
                                      SingleStageDetector)
+from .detectors.two_stage import RPN, FasterRCNN, TwoStageDetector
 from .heads.iou_aware_retina_head import IoUAwareRetinaHead
 from .heads.retina_head import RetinaHead
+from .heads.rpn_head import RPNHead
 from .losses import CrossEntropyLoss, FocalLoss, L1Loss, SmoothL1Loss
 from .necks.fpn import FPN
+from .roi_extractors.single_level import SingleRoIExtractor
 from .utils.layers import compute_dtype
 
 BACKBONES = {"ResNet": ResNet, "ResNeXt": ResNeXt}
 NECKS = {"FPN": FPN}
-HEADS = {"RetinaHead": RetinaHead, "IoUAwareRetinaHead": IoUAwareRetinaHead}
+HEADS = {"RetinaHead": RetinaHead, "IoUAwareRetinaHead": IoUAwareRetinaHead,
+         "RPNHead": RPNHead, "BBoxHead": BBoxHead, "ConvFCBBoxHead": ConvFCBBoxHead,
+         "SharedFCBBoxHead": SharedFCBBoxHead}
+ROI_EXTRACTORS = {"SingleRoIExtractor": SingleRoIExtractor}
 DETECTORS = {"SingleStageDetector": SingleStageDetector,
-             "RetinaNet": RetinaNet, "IoUAwareRetinaNet": IoUAwareRetinaNet}
+             "RetinaNet": RetinaNet, "IoUAwareRetinaNet": IoUAwareRetinaNet,
+             "TwoStageDetector": TwoStageDetector, "FasterRCNN": FasterRCNN, "RPN": RPN}
 LOSSES = {"FocalLoss": FocalLoss, "SmoothL1Loss": SmoothL1Loss, "L1Loss": L1Loss,
           "CrossEntropyLoss": CrossEntropyLoss}
 
@@ -61,10 +73,22 @@ def build_detector(cfg: dict, train_cfg: Optional[dict] = None,
     if det_type not in DETECTORS:
         raise KeyError(f"detector {det_type!r} is not ported; "
                        f"available: {sorted(DETECTORS)}")
-    parts = dict(backbone=_build(with_dtype(cfg.pop("backbone")), BACKBONES, "backbone"),
-                 bbox_head=_build(with_dtype(cfg.pop("bbox_head")), HEADS, "head"))
+    parts = dict(backbone=_build(with_dtype(cfg.pop("backbone")), BACKBONES, "backbone"))
     if "neck" in cfg:
         parts["neck"] = _build(with_dtype(cfg.pop("neck")), NECKS, "neck")
+    if "rpn_head" in cfg or "bbox_roi_extractor" in cfg:
+        # the two-stage family (ioudet's config keys), f32 only for now
+        if dtype != torch.float32:
+            raise NotImplementedError(f"{det_type} in {dtype} is not ported yet")
+        if "shared_head" in cfg:
+            raise NotImplementedError("shared_head (the C4 RoI trunk) is not ported yet")
+        if "rpn_head" in cfg:
+            parts["rpn_head"] = _build(cfg.pop("rpn_head"), HEADS, "head")
+        if "bbox_roi_extractor" in cfg:
+            parts["bbox_roi_extractor"] = _build(cfg.pop("bbox_roi_extractor"),
+                                                 ROI_EXTRACTORS, "roi extractor")
+    if "bbox_head" in cfg:
+        parts["bbox_head"] = _build(with_dtype(cfg.pop("bbox_head")), HEADS, "head")
     if cfg:
         raise KeyError(f"unsupported detector keys: {sorted(cfg)}")
     return DETECTORS[det_type](train_cfg=train_cfg, test_cfg=test_cfg, **parts)

@@ -27,6 +27,12 @@ class SingleStageDetector(nn.Module):
         self.train_cfg = train_cfg
         self.test_cfg = test_cfg
 
+    @property
+    def num_result_classes(self) -> int:
+        """``num_classes`` (background included) of the detections that
+        ``simple_test`` returns."""
+        return self.bbox_head.num_classes
+
     def init_weights(self, generator: torch.Generator) -> None:
         for part in (self.backbone, self.neck, self.bbox_head):
             if part is not None:
@@ -43,14 +49,16 @@ class SingleStageDetector(nn.Module):
                       gt_labels: torch.Tensor, gt_valid: torch.Tensor,
                       img_shapes: torch.Tensor, pad_shapes: torch.Tensor,
                       gt_bboxes_ignore: Optional[torch.Tensor] = None,
-                      gt_ignore_valid: Optional[torch.Tensor] = None):
+                      gt_ignore_valid: Optional[torch.Tensor] = None,
+                      generator: Optional[torch.Generator] = None):
         """img (B, H, W, 3) f32 canvas; gt_bboxes (B, G, 4), gt_labels (B, G)
         1-based, gt_valid (B, G) bool; img_shapes / pad_shapes (B, 2) int;
-        optional ignore regions (B, I, 4) / (B, I).  Returns the loss dict."""
+        optional ignore regions (B, I, 4) / (B, I); ``generator`` draws the
+        anchor subsampling of a head that samples.  Returns the loss dict."""
         outs = self(img)
-        kw = {}
+        kw = dict(generator=generator)
         if gt_bboxes_ignore is not None:
-            kw = dict(gt_bboxes_ignore=gt_bboxes_ignore,
+            kw.update(gt_bboxes_ignore=gt_bboxes_ignore,
                       gt_ignore_valid=gt_ignore_valid)
         return self.bbox_head.loss(*outs, gt_bboxes, gt_labels, gt_valid,
                                    img_shapes, pad_shapes,

@@ -1,0 +1,297 @@
+"""Two-stage detectors (counterpart of
+``ioudet/models/detectors/two_stage.py``): ``TwoStageDetector`` /
+``FasterRCNN`` (backbone -> FPN -> RPN proposals -> RoIAlign -> box head)
+and the proposal-only ``RPN``.
+
+Fixed shapes throughout, as in ``ioudet``:
+  * the RPN's proposals are its ``get_bboxes`` output, (B, P, 5), zero rows
+    where there are fewer than P; at test time those rows stay in as
+    (0, 0, 0, 0) rois and the final NMS masks them out by ``valid``;
+  * the R-CNN's training rois are a rank-based fixed-k selection
+    (``sample_rois_batch``): every candidate (proposals + gts) is assigned,
+    the sampler picks positives and negatives by rank, and one top-k of
+    (picked * 10 + noise) takes ``num`` of them an image;
+  * the two NMS of ``simple_test`` (proposals: one class at ``nms_thr``;
+    detections: the class-offset ``multiclass_nms`` over the proposals'
+    class-specific boxes) each run K1 once for the whole batch.
+
+The draws of a training step come from a ``torch.Generator`` the caller
+passes (``make_train_step`` seeds one a step); without one, a generator
+seeded 0 on the device.  In a process group of more than one rank, the
+R-CNN loss's two denominators are the global batch's, as the RPN's are.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from ...core.bbox import MaxIoUAssigner, delta2bbox
+from ...core.bbox.samplers import build_sampler, uniform
+from ...core.post_processing import multiclass_nms
+from ...core.post_processing.bbox_nms import topk_stable
+from ..bbox_heads.bbox_head import bbox_target_single
+from ..heads.anchor_head import clip_boxes, global_count, take
+
+
+def sample_rois_batch(generator, proposals, prop_valid, gt_bboxes, gt_valid, gt_labels,
+                      assigner, num_samples: int, pos_fraction: float,
+                      add_gt: bool = True, sampler_cfg: Optional[dict] = None,
+                      hardness_fn=None):
+    """Fixed-shape R-CNN roi sampling over a batch: proposals (B, P, 4),
+    prop_valid (B, P), gt_* (B, G, ...).
+
+    Every candidate (the proposals, then the gts with ``add_gt``) is
+    assigned; the configured sampler picks positives (at most
+    ``num * pos_fraction``) and negatives by rank over its priorities, or,
+    for OHEM with a ``hardness_fn(boxes (B, N, 4), labels (B, N)) -> (B, N)``,
+    by that loss (an OHEM or pseudo sampler without one samples at random,
+    as ``ioudet`` does).  Then one top-k of (picked * 10 + noise) takes
+    ``num_samples`` candidates an image.  Draws, in order: the sampler's,
+    then the top-k's noise.
+
+    Returns (sel_boxes (B, N, 4), sel_pos (B, N) bool, sel_valid (B, N)
+    bool, matched_gt (B, N, 4), labels (B, N) int (0 for negatives),
+    gt_idx (B, N)), N = ``num_samples``."""
+    G = gt_bboxes.shape[1]
+    cfg = dict(sampler_cfg or {})
+    styp = cfg.get("type", "RandomSampler")
+    scfg = {k: v for k, v in cfg.items()
+            if k not in ("type", "num", "pos_fraction", "add_gt_as_proposals")}
+    use_ohem = styp == "OHEMSampler" and hardness_fn is not None
+    if styp in ("OHEMSampler", "PseudoSampler") and not use_ohem:
+        styp, scfg = "RandomSampler", {}
+    sampler = build_sampler(dict(scfg, type=styp, num=num_samples, pos_fraction=pos_fraction))
+
+    if add_gt:
+        boxes = torch.cat([proposals, gt_bboxes.to(proposals.dtype)], dim=1)
+        valid = torch.cat([prop_valid, gt_valid], dim=1)
+    else:
+        boxes, valid = proposals, prop_valid
+    res = assigner.assign(boxes, gt_bboxes, gt_valid, valid, gt_labels)
+    if use_ohem:
+        pos, neg = sampler.sample_with_losses(res, hardness_fn(boxes, res.labels))
+    else:
+        pos, neg = sampler.sample(res, generator)
+    sel = pos | neg
+    prio = sel.float() * 10.0 + uniform(sel.shape, generator, sel.device)
+    _, idx = topk_stable(prio, num_samples)
+    safe_gt = (take(res.gt_inds, idx) - 1).clamp(0, G - 1).long()
+    sel_pos = take(pos, idx)
+    labels = torch.where(sel_pos, torch.gather(gt_labels, 1, safe_gt), 0)
+    return (take(boxes, idx), sel_pos, take(sel, idx),
+            take(gt_bboxes, safe_gt), labels, safe_gt)
+
+
+def to_rois(boxes: torch.Tensor) -> torch.Tensor:
+    """(B, N, 4) -> (B * N, 5) with the image index in column 0."""
+    bsz, n = boxes.shape[:2]
+    bidx = torch.arange(bsz, dtype=boxes.dtype, device=boxes.device).repeat_interleave(n)
+    return torch.cat([bidx[:, None], boxes.reshape(bsz * n, 4)], dim=-1)
+
+
+def proposal_cfg(cfg: dict, nms_pre: int, max_num: int) -> dict:
+    """A ``get_bboxes`` test config from an RPN config (``nms_pre``,
+    ``max_num``, ``nms_thr``): score threshold 0, one class."""
+    return dict(nms_pre=cfg.get("nms_pre", nms_pre), score_thr=0.0,
+                nms=dict(iou_thr=cfg.get("nms_thr", 0.7)),
+                max_per_img=cfg.get("max_num", max_num))
+
+
+class _Extract(nn.Module):
+    """backbone (+ neck) on NHWC images; init of every part."""
+
+    parts = ("backbone", "neck")
+
+    def init_weights(self, generator: torch.Generator) -> None:
+        for name in self.parts:
+            part = getattr(self, name, None)
+            if part is not None:
+                part.init_weights(generator)
+
+    def extract_feat(self, img: torch.Tensor):
+        x = self.backbone(img.permute(0, 3, 1, 2).contiguous())
+        return self.neck(x) if self.neck is not None else x
+
+    def proposals(self, rpn_outs, img_shapes, pad_shapes, cfg: dict):
+        """The RPN's (B, max_num, 5) proposals of its outputs ``rpn_outs``,
+        in canvas coordinates, without gradient."""
+        with torch.no_grad():
+            outs = [[o.detach() for o in level] for level in rpn_outs]
+            ones = torch.ones(img_shapes.shape[0], device=img_shapes.device)
+            dets, _ = self.rpn_head.get_bboxes(*outs, img_shapes, ones, pad_shapes, cfg,
+                                               rescale=False)
+        return dets
+
+
+class TwoStageDetector(_Extract):
+    parts = ("backbone", "neck", "rpn_head", "bbox_roi_extractor", "bbox_head")
+
+    def __init__(self, backbone: nn.Module, rpn_head: nn.Module,
+                 bbox_roi_extractor: nn.Module, bbox_head: nn.Module,
+                 neck: Optional[nn.Module] = None,
+                 train_cfg: Optional[dict] = None, test_cfg: Optional[dict] = None):
+        super().__init__()
+        self.backbone = backbone
+        self.neck = neck
+        self.rpn_head = rpn_head
+        self.bbox_roi_extractor = bbox_roi_extractor
+        self.bbox_head = bbox_head
+        self.train_cfg = train_cfg
+        self.test_cfg = test_cfg
+
+    @property
+    def num_result_classes(self) -> int:
+        """``num_classes`` (background included) of the detections that
+        ``simple_test`` returns."""
+        return self.bbox_head.num_classes
+
+    def forward(self, img: torch.Tensor):
+        """Raw RPN outputs, NHWC per level."""
+        return self.rpn_head(self.extract_feat(img))
+
+    def roi_head(self, feats, rois: torch.Tensor):
+        """(cls_score, bbox_pred) of rois (R, 5)."""
+        return self.bbox_head(self.bbox_roi_extractor(feats, rois))
+
+    # ------------------------------------------------------------- train
+
+    def forward_train(self, img, gt_bboxes, gt_labels, gt_valid, img_shapes, pad_shapes,
+                      gt_bboxes_ignore=None, gt_ignore_valid=None,
+                      generator: Optional[torch.Generator] = None):
+        """img (B, H, W, 3) f32 canvas; gt_bboxes (B, G, 4), gt_labels (B, G)
+        1-based, gt_valid (B, G) bool; img_shapes / pad_shapes (B, 2) int.
+        Returns {loss_cls, loss_bbox, rpn_loss_cls, rpn_loss_bbox}."""
+        tcfg = dict(self.train_cfg or {})
+        rpn_cfg, rcnn_cfg = dict(tcfg.get("rpn", {})), dict(tcfg.get("rcnn", {}))
+        if generator is None:
+            generator = torch.Generator(img.device).manual_seed(0)
+        feats = self.extract_feat(img)
+        rpn_outs = self.rpn_head(feats)
+        ig_kw = {} if gt_bboxes_ignore is None else dict(
+            gt_bboxes_ignore=gt_bboxes_ignore, gt_ignore_valid=gt_ignore_valid)
+        # the RPN is class-agnostic: every gt is class 1
+        rpn_losses = self.rpn_head.loss(*rpn_outs, gt_bboxes, torch.ones_like(gt_labels),
+                                        gt_valid, img_shapes, pad_shapes, rpn_cfg,
+                                        generator=generator, **ig_kw)
+
+        dets = self.proposals(rpn_outs, img_shapes, pad_shapes,
+                              proposal_cfg(dict(tcfg.get("rpn_proposal", {})), 2000, 2000))
+
+        sampler_cfg = dict(rcnn_cfg.get("sampler", {}))
+        num_samples = sampler_cfg.get("num", 512)
+        assigner = MaxIoUAssigner(**{k: v for k, v in dict(rcnn_cfg.get(
+            "assigner", dict(pos_iou_thr=0.5, neg_iou_thr=0.5, min_pos_iou=0.5))).items()
+            if k != "type"})
+        hardness_fn = None
+        if sampler_cfg.get("type") == "OHEMSampler":
+            def hardness_fn(boxes_all, labels_all):
+                return self.hardness(feats, boxes_all, labels_all)
+
+        sel_boxes, sel_pos, sel_valid, matched_gt, labels, _ = sample_rois_batch(
+            generator, dets[..., :4], dets[..., 4] > 0, gt_bboxes, gt_valid, gt_labels,
+            assigner, num_samples, sampler_cfg.get("pos_fraction", 0.25),
+            sampler_cfg=sampler_cfg, hardness_fn=hardness_fn)
+
+        cls_score, bbox_pred = self.roi_head(feats, to_rois(sel_boxes))
+        head = self.bbox_head
+        labels_f, bbox_t, bbox_w = bbox_target_single(
+            sel_boxes.flatten(0, 1), sel_pos.flatten(), matched_gt.flatten(0, 1),
+            labels.flatten(), head.target_means, head.target_stds)
+        label_w = sel_valid.flatten().float()
+        losses = head.loss(cls_score, bbox_pred, labels_f, label_w, bbox_t, bbox_w,
+                           label_count=global_count(label_w.sum()),
+                           pos_count=global_count((bbox_w[:, 0] > 0).sum().float()))
+        losses.update({f"rpn_{k}": v for k, v in rpn_losses.items()})
+        return losses
+
+    def hardness(self, feats, boxes_all: torch.Tensor, labels_all: torch.Tensor):
+        """OHEM's per-candidate loss: the box head's CE of every candidate
+        (B, N, 4) against its assigned label (background for the rest),
+        without gradient."""
+        with torch.no_grad():
+            cls, _ = self.roi_head([f.detach() for f in feats], to_rois(boxes_all))
+            tgt = labels_all.reshape(-1).clamp(min=0).long()
+            logp = F.log_softmax(cls.float(), dim=-1)
+            return -torch.gather(logp, 1, tgt[:, None])[:, 0].reshape(labels_all.shape)
+
+    # -------------------------------------------------------------- test
+
+    def simple_test(self, img, img_shapes, scale_factors, pad_shapes, rescale: bool = True):
+        """img (B, H, W, 3) f32 canvas; img_shapes / pad_shapes (B, 2) int;
+        scale_factors (B,) f32.  Returns (dets (B, max_per_img, 5), labels
+        (B, max_per_img)), label -1 padding."""
+        cfg = dict(self.test_cfg or {})
+        rcnn_cfg = dict(cfg.get("rcnn", dict(score_thr=0.05, nms=dict(iou_thr=0.5),
+                                             max_per_img=100)))
+        feats = self.extract_feat(img)
+        props = self.proposals(self.rpn_head(feats), img_shapes, pad_shapes,
+                               proposal_cfg(dict(cfg.get("rpn", {})), 1000, 1000))
+        bsz, num = props.shape[:2]
+        rois = to_rois(props[..., :4])
+        cls_score, bbox_pred = self.roi_head(feats, rois)
+        nc = self.bbox_head.num_classes
+        scores = F.softmax(cls_score, dim=-1)[:, 1:].reshape(bsz, num, nc - 1)
+        boxes = self.decode_rcnn(rois, bbox_pred).reshape(bsz, num * nc, 4)
+        boxes = clip_boxes(boxes, img_shapes).reshape(bsz, num, nc, 4)[:, :, 1:]
+        if rescale:
+            boxes = boxes / scale_factors.float()[:, None, None, None]
+        return multiclass_nms(
+            boxes.reshape(bsz, num, (nc - 1) * 4), scores,
+            score_thr=rcnn_cfg.get("score_thr", 0.05),
+            iou_thr=rcnn_cfg.get("nms", {}).get("iou_thr", 0.5),
+            max_per_img=rcnn_cfg.get("max_per_img", 100), valid=props[..., 4] > 0)
+
+    def decode_rcnn(self, rois: torch.Tensor, bbox_pred: torch.Tensor) -> torch.Tensor:
+        """Class-specific decode: (R, 4C) deltas on the rois' boxes."""
+        if self.bbox_head.reg_class_agnostic:
+            bbox_pred = bbox_pred.repeat(1, self.bbox_head.num_classes)
+        return delta2bbox(rois[:, 1:], bbox_pred, self.bbox_head.target_means,
+                          self.bbox_head.target_stds)
+
+
+class FasterRCNN(TwoStageDetector):
+    """Registration name of the reference's Faster R-CNN."""
+
+
+class RPN(_Extract):
+    """Proposal-only detector: its ``simple_test`` returns the proposals as
+    (B, max_num, 5) dets of one class."""
+
+    parts = ("backbone", "neck", "rpn_head")
+
+    def __init__(self, backbone: nn.Module, rpn_head: nn.Module,
+                 neck: Optional[nn.Module] = None, train_cfg: Optional[dict] = None,
+                 test_cfg: Optional[dict] = None):
+        super().__init__()
+        self.backbone = backbone
+        self.neck = neck
+        self.rpn_head = rpn_head
+        self.train_cfg = train_cfg
+        self.test_cfg = test_cfg
+
+    @property
+    def num_result_classes(self) -> int:
+        """``num_classes`` (background included) of the detections that
+        ``simple_test`` returns."""
+        return self.rpn_head.num_classes
+
+    def forward(self, img: torch.Tensor):
+        return self.rpn_head(self.extract_feat(img))
+
+    def forward_train(self, img, gt_bboxes, gt_labels, gt_valid, img_shapes, pad_shapes,
+                      gt_bboxes_ignore=None, gt_ignore_valid=None,
+                      generator: Optional[torch.Generator] = None):
+        ig_kw = {} if gt_bboxes_ignore is None else dict(
+            gt_bboxes_ignore=gt_bboxes_ignore, gt_ignore_valid=gt_ignore_valid)
+        return self.rpn_head.loss(*self(img), gt_bboxes, torch.ones_like(gt_labels),
+                                  gt_valid, img_shapes, pad_shapes,
+                                  dict(self.train_cfg or {}), generator=generator, **ig_kw)
+
+    def simple_test(self, img, img_shapes, scale_factors, pad_shapes, rescale: bool = True):
+        return self.rpn_head.get_bboxes(*self(img), img_shapes, scale_factors, pad_shapes,
+                                        proposal_cfg(dict(self.test_cfg or {}), 1000, 1000),
+                                        rescale=rescale)

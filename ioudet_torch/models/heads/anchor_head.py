@@ -1,6 +1,7 @@
 """Anchor-based head base (counterpart of ``ioudet/models/heads/anchor_head.py``):
-configuration, anchors, the training loss, box clipping and the batched
-multiclass NMS tail.
+configuration, anchors, the training loss (with the RPN's anchor
+subsampling where the classification loss is not the focal family's), the
+sigmoid decode, box clipping and the batched multiclass NMS tail.
 
 Head outputs are NHWC per level at the public functions, with the
 anchor-major channel layout ``a*C + c``, so that flattening a level gives the
@@ -16,8 +17,10 @@ import torch.distributed as dist
 from torch import nn
 
 from ...core.anchor import AnchorGenerator, anchor_target
-from ...core.bbox import MaxIoUAssigner
+from ...core.bbox import MaxIoUAssigner, delta2bbox
+from ...core.bbox.samplers import build_sampler
 from ...core.post_processing import multiclass_nms
+from ...core.post_processing.bbox_nms import topk_stable
 from ..losses import fused_level_focal_sum
 from ...parallel.mesh import world_size
 from ..utils.layers import compute_dtype
@@ -25,6 +28,7 @@ from ..utils.layers import compute_dtype
 DEFAULT_LOSS_CLS = dict(type="FocalLoss", use_sigmoid=True, gamma=2.0, alpha=0.25,
                         loss_weight=1.0)
 DEFAULT_LOSS_BBOX = dict(type="SmoothL1Loss", beta=1.0 / 9.0, loss_weight=1.0)
+DEFAULT_SAMPLER = dict(type="RandomSampler", num=256, pos_fraction=0.5, neg_pos_ub=-1)
 
 
 class AnchorHead(nn.Module):
@@ -145,41 +149,50 @@ class AnchorHead(nn.Module):
         return self.loss_cls.get("type") not in ("FocalLoss", "GHMC")
 
     def _targets(self, featmap_sizes, gt_bboxes, gt_labels, gt_valid, img_shapes,
-                 pad_shapes, train_cfg, gt_bboxes_ignore, gt_ignore_valid):
-        """(flat anchors, AnchorTargets, num_pos as an f32 device scalar >= 1).
+                 pad_shapes, train_cfg, gt_bboxes_ignore, gt_ignore_valid,
+                 generator: Optional[torch.Generator] = None):
+        """(flat anchors, AnchorTargets, the loss denominator as an f32
+        device scalar >= 1).
 
-        In a process group of more than one rank (data-parallel training)
-        num_pos is the positives of every rank's images, all-reduced before
-        the floor of 1: ``ioudet`` divides each loss by the global batch's
-        count, not by this rank's share of it."""
-        if self.sampling:
-            raise NotImplementedError("anchor subsampling (non-focal classification "
-                                      "losses) is not ported yet")
+        The denominator is the number of positives, or with anchor
+        subsampling (``sampling``: the config's ``sampler``, drawing from
+        ``generator``; a generator seeded 0 on the device where none is
+        given) the sampled positives and negatives.  In a process group of
+        more than one rank (data-parallel training) it is the count of every
+        rank's images, all-reduced before the floor of 1: ``ioudet`` divides
+        each loss by the global batch's count, not by this rank's share."""
         anchors, valid = self.get_anchors(featmap_sizes, pad_shapes)
         assigner = MaxIoUAssigner(**{k: v for k, v in train_cfg["assigner"].items()
                                      if k != "type"})
+        sampler = None
+        if self.sampling:
+            sampler = build_sampler(train_cfg.get("sampler", DEFAULT_SAMPLER))
+            if generator is None:
+                generator = torch.Generator(anchors.device).manual_seed(0)
         targets = anchor_target(
             anchors, valid, gt_bboxes, gt_valid, gt_labels, img_shapes, assigner,
             self.target_means, self.target_stds,
             allowed_border=train_cfg.get("allowed_border", -1),
             pos_weight=train_cfg.get("pos_weight", -1),
+            sampler=sampler, generator=generator,
             gt_bboxes_ignore=gt_bboxes_ignore, gt_ignore_valid=gt_ignore_valid)
-        num_pos = targets.num_total_pos.float()
-        if world_size() > 1:
-            num_pos = num_pos.clone()
-            dist.all_reduce(num_pos)
-        return anchors, targets, num_pos.clamp(min=1)
+        num = targets.num_total_pos.float()
+        if self.sampling:
+            num = num + targets.num_total_neg.float()
+        return anchors, targets, global_count(num).clamp(min=1)
 
     def loss(self, cls_scores, bbox_preds, gt_bboxes, gt_labels, gt_valid,
              img_shapes, pad_shapes, train_cfg, gt_bboxes_ignore=None,
-             gt_ignore_valid=None) -> Dict[str, torch.Tensor]:
+             gt_ignore_valid=None, generator: Optional[torch.Generator] = None
+             ) -> Dict[str, torch.Tensor]:
         """gt_bboxes (B, G, 4), gt_labels (B, G) 1-based, gt_valid (B, G)
         bool, img_shapes / pad_shapes (B, 2).  Every term is divided by the
-        number of positives, which stays on the device."""
+        number of positives (with subsampling: of sampled anchors), which
+        stays on the device."""
         featmap_sizes = [tuple(p.shape[1:3]) for p in cls_scores]
         _, targets, num_pos = self._targets(
             featmap_sizes, gt_bboxes, gt_labels, gt_valid, img_shapes, pad_shapes,
-            train_cfg, gt_bboxes_ignore, gt_ignore_valid)
+            train_cfg, gt_bboxes_ignore, gt_ignore_valid, generator)
         loss_cls = self._cls_loss_from_levels(
             cls_scores, targets.labels, targets.label_weights, avg_factor=num_pos)
         loss_bbox = self.loss_bbox_fn(
@@ -187,6 +200,64 @@ class AnchorHead(nn.Module):
             targets.bbox_targets.reshape(-1, 4),
             weight=targets.bbox_weights.reshape(-1, 4), avg_factor=num_pos)
         return dict(loss_cls=loss_cls, loss_bbox=loss_bbox)
+
+    # ------------------------------------------------------------ inference
+
+    def decode_candidates(self, cls_scores, bbox_preds, img_shapes: torch.Tensor,
+                          test_cfg: dict):
+        """Batched pre-NMS candidates of a sigmoid head: per level the top
+        ``nms_pre`` anchors by max class logit (the ranking of max_c
+        sigmoid), their sigmoid scores, ``delta2bbox`` and clipping.
+        Returns boxes (B, N, 4), scores (B, N, C)."""
+        nms_pre = test_cfg.get("nms_pre", 1000)
+        sizes = [tuple(s.shape[1:3]) for s in cls_scores]
+        anchors = self.level_anchors(sizes, cls_scores[0].device)
+        C = self.cls_out_channels
+        cand_boxes, cand_scores = [], []
+        for lvl, (s, bp) in enumerate(zip(cls_scores, bbox_preds)):
+            bsz, h, w, _ = s.shape
+            n = h * w * self.num_anchors
+            logits = s.reshape(bsz, n, C)
+            _, idx = topk_stable(logits.amax(dim=-1).float(), min(nms_pre, n))
+            cand_scores.append(sigmoid(take(logits, idx)))
+            boxes = delta2bbox(anchors[lvl][idx], take(bp.reshape(bsz, n, 4), idx),
+                               self.target_means, self.target_stds)
+            cand_boxes.append(clip_boxes(boxes, img_shapes))
+        return torch.cat(cand_boxes, dim=1), torch.cat(cand_scores, dim=1)
+
+    def get_bboxes(self, cls_scores, bbox_preds, img_shapes, scale_factors,
+                   pad_shapes, test_cfg: dict, rescale: bool = False):
+        """(dets (B, max_per_img, 5), labels (B, max_per_img)), label -1
+        padding."""
+        boxes, scores = self.decode_candidates(cls_scores, bbox_preds, img_shapes,
+                                               test_cfg)
+        return batched_nms(boxes, scores, scale_factors, test_cfg, rescale)
+
+
+def global_count(count: torch.Tensor) -> torch.Tensor:
+    """``count`` summed over the ranks of a process group of more than one
+    rank (data-parallel training), else as it is."""
+    if world_size() > 1:
+        count = count.clone()
+        dist.all_reduce(count)
+    return count
+
+
+def take(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """x (B, N, ...) gathered at idx (B, k) along N."""
+    return torch.gather(x, 1, idx.view(idx.shape + (1,) * (x.dim() - 2))
+                        .expand(idx.shape + x.shape[2:]))
+
+
+def sigmoid(x: torch.Tensor) -> torch.Tensor:
+    """Sigmoid in x's dtype.  Below f32 it is written out as XLA expands it
+    in ``ioudet``, 1 / (1 + exp(-x)) with every step rounded to the dtype:
+    bf16 scores tie often, ties decide the selection, and so the scores have
+    to be ``ioudet``'s bit for bit (``torch.sigmoid`` rounds once and differs
+    in the last bit for about 2% of the bf16 values)."""
+    if x.dtype == torch.float32:
+        return torch.sigmoid(x)
+    return 1.0 / (1.0 + torch.exp(-x))
 
 
 def batched_nms(boxes: torch.Tensor, scores: torch.Tensor,

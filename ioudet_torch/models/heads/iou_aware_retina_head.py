@@ -21,31 +21,13 @@ from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
-from torch import nn
 
 from ...core.bbox import bbox_overlaps, delta2bbox
 from ...core.post_processing.bbox_nms import topk_stable
 from ..losses import binary_cross_entropy_with_logits
 from ..utils.layers import Conv2d
-from .anchor_head import batched_nms, clip_boxes
+from .anchor_head import batched_nms, clip_boxes, sigmoid, take
 from .retina_head import RetinaHead, nhwc
-
-
-def _take(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
-    """x (B, N, ...) gathered at idx (B, k) along N."""
-    return torch.gather(x, 1, idx.view(idx.shape + (1,) * (x.dim() - 2))
-                        .expand(idx.shape + x.shape[2:]))
-
-
-def _sigmoid(x: torch.Tensor) -> torch.Tensor:
-    """Sigmoid in x's dtype.  Below f32 it is written out as XLA expands it
-    in ``ioudet``, 1 / (1 + exp(-x)) with every step rounded to the dtype:
-    bf16 scores tie often, ties decide the selection, and so the scores have
-    to be ``ioudet``'s bit for bit (``torch.sigmoid`` rounds once and differs
-    in the last bit for about 2% of the bf16 values)."""
-    if x.dtype == torch.float32:
-        return torch.sigmoid(x)
-    return 1.0 / (1.0 + torch.exp(-x))
 
 
 class IoUAwareRetinaHead(RetinaHead):
@@ -67,11 +49,11 @@ class IoUAwareRetinaHead(RetinaHead):
 
     def loss(self, cls_scores, bbox_preds, iou_preds, gt_bboxes, gt_labels,
              gt_valid, img_shapes, pad_shapes, train_cfg, gt_bboxes_ignore=None,
-             gt_ignore_valid=None):
+             gt_ignore_valid=None, generator=None):
         featmap_sizes = [tuple(p.shape[1:3]) for p in cls_scores]
         anchors, targets, num_pos = self._targets(
             featmap_sizes, gt_bboxes, gt_labels, gt_valid, img_shapes, pad_shapes,
-            train_cfg, gt_bboxes_ignore, gt_ignore_valid)
+            train_cfg, gt_bboxes_ignore, gt_ignore_valid, generator)
         box_flat = self._flatten_levels(bbox_preds, 4)
         iou_flat = self._flatten_levels(iou_preds, 1)[..., 0]  # (B, A_tot)
 
@@ -112,11 +94,11 @@ class IoUAwareRetinaHead(RetinaHead):
                 proxy = alpha * F.logsigmoid(proxy) + \
                     (1.0 - alpha) * F.logsigmoid(iou_logit.float())
             _, idx = topk_stable(proxy, min(nms_pre, n))
-            cls_p = _sigmoid(_take(logits, idx))
-            iou_p = _sigmoid(_take(iou_logit, idx))
+            cls_p = sigmoid(take(logits, idx))
+            iou_p = sigmoid(take(iou_logit, idx))
             rescored = cls_p.clamp(min=eps).pow(alpha) * \
                 iou_p.clamp(min=eps).pow(1.0 - alpha)[..., None]
-            boxes = delta2bbox(anchors[lvl][idx], _take(bp.reshape(bsz, n, 4), idx),
+            boxes = delta2bbox(anchors[lvl][idx], take(bp.reshape(bsz, n, 4), idx),
                                self.target_means, self.target_stds)
             cand_scores.append(rescored)
             cand_boxes.append(clip_boxes(boxes, img_shapes))

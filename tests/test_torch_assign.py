@@ -168,6 +168,31 @@ def test_general_route_equals_fused_route():
 
 
 def test_sampler_is_not_ported():
-    case = t(*assign_case(1, 10, 2, seed=0), np.array([[100, 100]], np.int32))
-    with pytest.raises(NotImplementedError):
-        anchor_target(*case, MaxIoUAssigner(0.5, 0.4), sampler=object())
+    """Anchor subsampling (the RPN's sampling=True path, ported since the
+    two-stage detectors): a sampler takes the general path, and one whose
+    ``num`` exceeds the anchors samples every assigned anchor, as ioudet's
+    does whatever its draw; a small one caps the sampled set."""
+    from ioudet.core.bbox.samplers import RandomSampler as JaxRandomSampler
+    from ioudet_torch.core.bbox.samplers import RandomSampler
+
+    case = assign_case(2, 1500, 9, seed=7)
+    shapes = np.array([[1000, 1000]] * 2, np.int32)
+    kw = dict(pos_iou_thr=0.5, neg_iou_thr=0.4, min_pos_iou=0.0)
+    ours = anchor_target(*t(*case, shapes), MaxIoUAssigner(**kw), MEANS, STDS,
+                         sampler=RandomSampler(4000, 0.5),
+                         generator=torch.Generator().manual_seed(0))
+    ref = jax.jit(lambda *a: jax_anchor_target(
+        *a, JaxAssigner(**kw), MEANS, STDS, sampler=JaxRandomSampler(4000, 0.5),
+        rng=jax.random.PRNGKey(0)))(*j(*case, shapes))
+    assert_outputs((ours.labels, ours.label_weights, ours.bbox_weights[..., 0],
+                    ours.bbox_targets, ours.pos_gt_boxes),
+                   (ref.labels, ref.label_weights, ref.bbox_weights[..., 0],
+                    ref.bbox_targets, ref.pos_gt_boxes))
+    assert int(ours.num_total_pos) == int(ref.num_total_pos) > 0
+    assert int(ours.num_total_neg) == int(ref.num_total_neg) > 0
+    small = anchor_target(*t(*case, shapes), MaxIoUAssigner(**kw), MEANS, STDS,
+                          sampler=RandomSampler(64, 0.25),
+                          generator=torch.Generator().manual_seed(0))
+    per_image = small.label_weights.gt(0).sum(-1)
+    assert per_image.tolist() == [64, 64]
+    assert int(small.num_total_pos) <= 32 and int(small.num_total_pos + small.num_total_neg) == 128

@@ -2,8 +2,15 @@
 the CPU: scales calibrated on either side and carried across the bridge,
 static and dynamic int8 head outputs, bf16 + static int8, and ``predict``
 inside ``quantize_calls`` (tolerances as stated there).  Kept apart from the
-module-level tests so that they run on another test worker."""
+module-level tests so that they run on another test worker.  ``ioudet``'s
+quantized forwards run jitted (``heads_jit``): traced inside
+``quantize_calls``, so the interceptor quantizes the compiled program, one
+compile each, where an eager forward compiles every primitive anew; the
+calibration passes stay eager, as ``calibrate`` requires.  One intra-op
+thread for torch, so that the test workers beside this one are not
+slowed."""
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -16,8 +23,22 @@ from ioudet_torch.ops import quant
 from tests.test_torch_dtype import MODEL, META, TEST_CFG, as_np, images, pair  # noqa: F401
 
 
+@pytest.fixture(autouse=True, scope="module")
+def one_thread():
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def heads_flax(det, params, x):
     return det.apply({"params": params}, jnp.asarray(x))
+
+
+def heads_jit(det, params, x):
+    """``heads_flax`` compiled where it is called (inside a
+    ``quantize_calls`` block, the quantized program)."""
+    return jax.jit(lambda p, img: det.apply({"params": p}, img))(params, jnp.asarray(x))
 
 
 def test_scale_keys_cross_the_bridge(pair):
@@ -42,7 +63,7 @@ def test_detector_int8_static_matches_ioudet(pair):
     x = images(seed=3, batch=1)
     jscales = jquant.calibrate(lambda b: heads_flax(det, params, b), [images(seed=4, batch=1)])
     with jquant.quantize_calls(act_scale=jscales):
-        want = heads_flax(det, params, x)
+        want = heads_jit(det, params, x)
     with torch.no_grad():
         f32 = model(torch.from_numpy(x))
         with quant.quantize_calls(model, act_scale=ckpt.act_scales_from_flax(jscales)):
@@ -58,7 +79,7 @@ def test_detector_int8_dynamic_matches_ioudet(pair):
     model, _, params, det, _ = pair
     x = images(seed=5, batch=1)
     with jquant.quantize_calls():
-        want = heads_flax(det, params, x)
+        want = heads_jit(det, params, x)
     with torch.no_grad():
         f32 = model(torch.from_numpy(x))
         with quant.quantize_calls(model):
@@ -80,7 +101,7 @@ def test_detector_bf16_int8_drift(pair):
         with quant.quantize_calls(twin, act_scale=scales):
             got = twin(torch.from_numpy(x))
     with jquant.quantize_calls(act_scale=ckpt.act_scales_to_flax(scales)):
-        want = det_bf16.apply({"params": params}, jnp.asarray(x))
+        want = heads_jit(det_bf16, params, x)
     for bg, bw, bf in zip(got, want, f32):
         for g, w, f in zip(bg, bw, bf):
             assert g.dtype == torch.bfloat16 and bool(torch.isfinite(g).all())

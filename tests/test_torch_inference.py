@@ -113,16 +113,42 @@ def test_rejects_paths_and_bad_images(handle, tmp_path):
         inference_detector(handle, np.zeros((10, 10), np.uint8))
 
 
+TWO_STAGE_RUN = """
+from ioudet_torch.apis.inference import predict
+from ioudet_torch.apis import train as ttrain
+torch.set_num_threads(2)
+x = torch.randn(1, 64, 96, 3)
+meta = (torch.tensor([[64, 96]], dtype=torch.int32), torch.ones(1),
+        torch.tensor([[64, 96]], dtype=torch.int32))
+h = init_detector(os.path.join('configs', 'rpn_r50_fpn_1x.py'), device='cpu')
+assert tuple(predict(h, x, *meta)[0].shape) == (1, 2000, 5)
+model = init_detector(os.path.join('configs', 'faster_rcnn_r50_fpn_1x.py'),
+                      device='cpu').model.train()
+ttrain.make_trainable_mask(model)
+step = ttrain.make_train_step(model, ttrain.build_optimizer(model, dict(type='SGD', lr=0.01)),
+                              lambda s: 0.01)
+gts = torch.tensor([[[10., 8., 40., 50.], [50., 5., 90., 30.]]])
+logs = step(dict(img=x, gt_bboxes=gts, gt_labels=torch.tensor([[3, 7]], dtype=torch.int32),
+                 gt_valid=torch.ones(1, 2, dtype=torch.bool), img_shape=meta[0],
+                 pad_shape=meta[2]), 0)
+assert sorted(logs) == ['loss', 'loss_bbox', 'loss_cls', 'rpn_loss_bbox', 'rpn_loss_cls']
+assert all(bool(torch.isfinite(v)) for v in logs.values())
+"""
+
+
 def test_port_runs_without_jax():
     """import ioudet_torch and a CPU run of the slice leave jax (and flax,
-    cv2) out of sys.modules."""
+    cv2) out of sys.modules: the IoU-aware RetinaNet's serving, and the RPN
+    and Faster R-CNN from their config files through init_detector, the
+    RPN's predict and one make_train_step step of the Faster R-CNN."""
     code = (
-        "import sys, numpy as np, torch\n"
+        "import os, sys, numpy as np, torch\n"
         "import ioudet_torch\n"
         "from ioudet_torch.apis.inference import init_detector, inference_detector\n"
-        "from tests.test_torch_inference import CFG\n"
+        "from tests.test_torch_inference import CFG, TWO_STAGE_RUN\n"
         "h = init_detector(CFG, device='cpu')\n"
         "inference_detector(h, np.zeros((40, 60, 3), np.uint8))\n"
+        "exec(TWO_STAGE_RUN)\n"
         "bad = [m for m in ('jax', 'flax', 'cv2', 'PIL') if m in sys.modules]\n"
         "ours = [m for m in sys.modules if m == 'ioudet' or m.startswith('ioudet.')]\n"
         "print(bad, ours)\n"
