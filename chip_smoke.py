@@ -1,6 +1,6 @@
 """Drive the PyTorch port's serving, low-precision serving, training
-(f32, bf16 and data parallel) and evaluation paths, and Faster R-CNN's,
-once on one NVIDIA GPU and check them.
+(f32, bf16 and data parallel) and evaluation paths, and Faster R-CNN's and
+Mask R-CNN's, once on one NVIDIA GPU and check them.
 
     python3 chip_smoke.py                  # everything, as below
     python3 chip_smoke.py --kernels-only   # phases 1-2: a short first run
@@ -151,7 +151,24 @@ Phases (any failure exits non-zero):
      TF32 off and on; (9c) ``single_device_test`` and ``evaluate`` on phase
      6's dataset, bit-equal to a ``predict`` replay, K1 twice a predict, and
      the RPN config's ``predict`` and AR@100/300/1000 by
-     ``make_proposal_recall_hook``.
+     ``make_proposal_recall_hook``;
+  10. Mask R-CNN R-50-FPN (configs/mask_rcnn_r50_fpn_1x.py) at full width
+     and depth, as phase 9: (10a) ``predict`` at batch 8 and 1 with host
+     syncs made errors, (dets, labels, masks (B, 100, 28, 28) in [0, 1]),
+     K1a and K1b twice a predict, the three outputs bit-equal to the
+     plain-NMS replay; (10b) step 1 against its plain-NMS replay (losses
+     rtol 1e-5; the mask head's, RPN's and box head's gradients to 1e-3 of
+     their largest |value|), then three ``train_detector`` steps at batch 2
+     with 100 gt slots carrying planted box-frame masks, the five losses
+     finite, K1 once a step, K2 and K3 never; (10c) the first MASK_EVAL
+     images of phase 6's set with a polygon in each box through
+     ``build_dataset``, ``single_device_test`` and ``evaluate(["bbox",
+     "segm"])``, every image's (bbox, segm) result bit-equal to a
+     ``predict`` replay and the host paste, and each gt's own polygon as a
+     detection of score 1 at segm AP = 1; (10d) timings, TF32 off and on:
+     ``predict`` at batch 8 and 1 with peak memory and its parts by CUDA
+     events, K1 at each stage, ``masks_to_segm_result``'s host ms an image,
+     the train step with peak memory.
 The last two lines are the card's name and power limit, then
 ``{"ok": true, "device": {...}}``; the line before them lists the kernels.
 """
@@ -3414,10 +3431,13 @@ def two_stage_cfg(name: str = TWO_STAGE) -> dict:
                 optimizer_config=dict(grad_clip=dict(max_norm=35, norm_type=2)))
 
 
-def two_stage_serving(B, K, handle, inputs) -> dict:
-    """9a: ``predict`` at batch 8 and 1 with host syncs made errors: K1a and
-    K1b twice a predict (proposals, detections), each stage's candidates,
-    outputs bit-equal to a plain-NMS replay.  Returns the launch counts."""
+def two_stage_serving(B, K, handle, inputs, what: str = "Faster R-CNN",
+                      tag: str = "9a") -> dict:
+    """9a / 10a: ``predict`` at batch 8 and 1 with host syncs made errors: K1a
+    and K1b twice a predict (proposals, detections), each stage's
+    candidates, every output (a mask detector's masks (B, 100, 28, 28) in
+    [0, 1] too) bit-equal to a plain-NMS replay.  Returns the launch
+    counts."""
     from ioudet_torch.apis.inference import predict
 
     counts = {}
@@ -3426,55 +3446,65 @@ def two_stage_serving(B, K, handle, inputs) -> dict:
         predict(handle, *args)   # warm-up: anchors reach the device here
         torch.cuda.synchronize()
         B.reset_launches()
-        dets, labels = set_sync_errors(lambda: predict(handle, *args))
+        outs = set_sync_errors(lambda: predict(handle, *args))
         torch.cuda.synchronize()
         seen = dict(B.launches)
         counts = add_counts(counts, seen)
+        dets, labels = outs[:2]
         check(seen["nms_mask_kernel"] == 2 and seen["nms_reduce_kernel"] == 2,
-              f"Faster R-CNN predict at batch {bsz}: K1a and K1b launched twice (the RPN's "
+              f"{what} predict at batch {bsz}: K1a and K1b launched twice (the RPN's "
               f"proposals, the R-CNN's detections), host syncs made errors: {seen}")
         check_predict_outputs(dets, labels, bsz, handle.model.bbox_head.num_classes - 1,
-                              f"Faster R-CNN predict at batch {bsz}")
+                              f"{what} predict at batch {bsz}")
+        if len(outs) > 2:
+            masks = outs[2]
+            check(tuple(masks.shape) == (bsz, 100, 28, 28) and masks.dtype == torch.float32
+                  and bool(((masks >= 0) & (masks <= 1)).all()),
+                  f"batch {bsz}: masks {tuple(masks.shape)} in [0, 1]; valid detections' "
+                  f"pixels above 0.5: {float((masks[labels >= 0] > 0.5).float().mean()):.4f}")
         stages = []
         with nms_calls(K, stages):
             predict(handle, *args)
         check(len(stages) == 2 and [s[0].shape[1] for s in stages] == [2000, 2000],
               f"batch {bsz}: two NMS stages of N = 2000 candidates an image")
-        print(f"9a batch {bsz}: valid NMS candidates an image, proposals (IoU "
+        print(f"{tag} batch {bsz}: valid NMS candidates an image, proposals (IoU "
               f"{stages[0][2]}): {stages[0][1].sum(1).tolist()}; detections (IoU "
               f"{stages[1][2]}, 80 classes): {stages[1][1].sum(1).tolist()}; valid "
               f"detections {int((labels >= 0).sum())}", flush=True)
         with plain_nms(K):
             plain = predict(handle, *args)
-        check(torch.equal(plain[0], dets) and torch.equal(plain[1], labels),
-              f"batch {bsz}: dets and labels through the kernels bit-equal to a replay "
-              "with the plain NMS at both stages")
+        check(all(torch.equal(a, b) for a, b in zip(plain, outs)),
+              f"batch {bsz}: all {len(outs)} outputs through the kernels bit-equal to a "
+              "replay with the plain NMS at both stages")
     return counts
 
 
 def two_stage_losses(model, batch, names=TWO_STAGE_NAMES) -> tuple:
     """Step 1's forward and backward without an update, with the draws of
     step 0 (``step_generator(device, 0, 0)``): the detached losses and the
-    gradients of ``names``."""
+    gradients of ``names``; the batch's ``gt_masks`` go to a mask detector."""
     from ioudet_torch.apis.train import step_generator
 
+    kw = {"gt_masks": batch["gt_masks"]} if "gt_masks" in batch else {}
     return loss_and_grads(model, batch, names,
-                          generator=step_generator(batch["img"].device, 0, 0))
+                          generator=step_generator(batch["img"].device, 0, 0), **kw)
 
 
-def two_stage_training(B, K, handle, cfg) -> tuple:
-    """9b: step 1 against its plain-NMS replay, then ``train_detector`` for
-    TWO_STAGE_STEPS steps at batch 2 with 100 gt slots: K1 once a step, K2
-    and K3 never, the four losses finite.  Returns (launch counts, runner,
-    batch)."""
+def two_stage_training(B, K, handle, cfg, batch=None, names=TWO_STAGE_NAMES,
+                       what: str = "Faster R-CNN", tag: str = "9b") -> tuple:
+    """9b / 10b: step 1 against its plain-NMS replay, then ``train_detector``
+    for TWO_STAGE_STEPS steps at batch 2 with 100 gt slots (by default
+    ``train_batch``'s; 10b's carry box-frame masks): K1 once a step, K2 and
+    K3 never, every loss finite.  Returns (launch counts, runner, batch)."""
     from ioudet_torch.apis.train import train_detector
 
     model = handle.model.train()
-    batch = {k: torch.from_numpy(v).cuda()
-             for k, v in train_batch(TWO_STAGE_TRAIN_BATCH, NUM_GTS).items()}
-    kernel_losses, kernel_grads = two_stage_losses(model, batch)
+    if batch is None:
+        batch = train_batch(TWO_STAGE_TRAIN_BATCH, NUM_GTS)
+    batch = {k: torch.from_numpy(v).cuda() for k, v in batch.items()}
+    kernel_losses, kernel_grads = two_stage_losses(model, batch, names)
     with plain_nms(K):
-        plain_losses, plain_grads = two_stage_losses(model, batch)
+        plain_losses, plain_grads = two_stage_losses(model, batch, names)
     for k in kernel_losses:
         torch.testing.assert_close(kernel_losses[k], plain_losses[k], rtol=1e-5, atol=0.0)
     for k in kernel_grads:
@@ -3500,13 +3530,14 @@ def two_stage_training(B, K, handle, cfg) -> tuple:
     want = {"nms_mask_kernel": 1, "nms_reduce_kernel": 1, "assign_gtmax_kernel": 0,
             "assign_targets_kernel": 0, "focal_sum_kernel": 0, "focal_dx_kernel": 0}
     check(all(all(c[k] == n for k, n in want.items()) for c in per_step),
-          f"each of {TWO_STAGE_STEPS} Faster R-CNN steps launched K1a and K1b once, K2 and K3 "
+          f"each of {TWO_STAGE_STEPS} {what} steps launched K1a and K1b once, K2 and K3 "
           f"never: {per_step}")
     for i, rec in enumerate(history):
-        print(f"9b step {i + 1}: " + ", ".join(f"{k} {v:.6f}" for k, v in rec.items()))
-    check(all(sorted(r) == ["loss", "loss_bbox", "loss_cls", "rpn_loss_bbox", "rpn_loss_cls"]
-              and all(np.isfinite(v) for v in r.values()) for r in history),
-          "every step's four losses (and their sum) finite")
+        print(f"{tag} step {i + 1}: " + ", ".join(f"{k} {v:.6f}" for k, v in rec.items()))
+    keys = sorted(["loss"] + list(kernel_losses))
+    check(all(sorted(r) == keys and all(np.isfinite(v) for v in r.values()) for r in history),
+          f"every step's {len(kernel_losses)} losses ({', '.join(kernel_losses)}) and their "
+          "sum finite")
     for k, v in kernel_losses.items():
         check(abs(history[0][k] - float(v)) <= 1e-5 * abs(float(v)),
               f"step 1 {k} of train_detector equals the replay's")
@@ -3575,7 +3606,8 @@ def two_stage_split(handle, inputs, reps: int = 5) -> dict:
     """Medians by CUDA events of a ``predict``'s parts, by hooks on the
     detector's modules: backbone + FPN, RPN head + proposal NMS (to the
     extractor), RoIAlign (the extractor), the box head, the final decode
-    and NMS (to the end)."""
+    and NMS (to the end, or to the mask extractor), and for a mask detector
+    the mask RoIAlign, the mask head and the class pick with its sigmoid."""
     from ioudet_torch.apis.inference import predict
 
     model = handle.model
@@ -3593,6 +3625,11 @@ def two_stage_split(handle, inputs, reps: int = 5) -> dict:
              model.bbox_head.register_forward_hook(mark)]
     names = ("backbone + FPN", "RPN head + proposal NMS", "RoIAlign", "box head",
              "decode + final NMS")
+    if getattr(model, "mask_head", None) is not None:
+        hooks += [model.mask_roi_extractor.register_forward_pre_hook(mark),
+                  model.mask_roi_extractor.register_forward_hook(mark),
+                  model.mask_head.register_forward_hook(mark)]
+        names += ("mask RoIAlign", "mask head", "class pick + sigmoid")
     parts = {k: [] for k in names}
     try:
         for _ in range(reps + 1):
@@ -3608,10 +3645,14 @@ def two_stage_split(handle, inputs, reps: int = 5) -> dict:
     return {k: statistics.median(v[1:]) for k, v in parts.items()}
 
 
-def two_stage_timing(K, handle, runner, batch, inputs, card: str) -> None:
-    """9d: ``predict`` at batch 8 and 1 and its parts, K1 at each stage's own
-    candidates, the train step at batch 2 with peak memory; TF32 off and on."""
+def two_stage_timing(K, handle, runner, batch, inputs, card: str,
+                     what: str = "Faster R-CNN") -> None:
+    """9d / 10d: ``predict`` at batch 8 and 1 and its parts, K1 at each
+    stage's own candidates, for a mask detector ``masks_to_segm_result``'s
+    host ms an image, the train step at batch 2 with peak memory; TF32 off
+    and on."""
     from ioudet_torch.apis.inference import predict
+    from ioudet_torch.apis.test import masks_to_segm_result
 
     for tf32 in (False, True):
         set_tf32(tf32)
@@ -3621,34 +3662,43 @@ def two_stage_timing(K, handle, runner, batch, inputs, card: str) -> None:
             torch.cuda.reset_peak_memory_stats()
             ms = host_ms(lambda: predict(handle, *args), reps=10)
             peak = torch.cuda.max_memory_allocated() / 2 ** 30
-            print(f"Faster R-CNN predict batch {bsz}: median of 10 {ms:.3f} ms, "
+            print(f"{what} predict batch {bsz}: median of 10 {ms:.3f} ms, "
                   f"{bsz * 1e3 / ms:.2f} img/s, peak memory {peak:.2f} GiB {tag}", flush=True)
         parts = two_stage_split(handle, inputs)
-        print(f"Faster R-CNN predict batch {TWO_STAGE_BATCH} by CUDA events (median of 5), ms: "
+        print(f"{what} predict batch {TWO_STAGE_BATCH} by CUDA events (median of 5), ms: "
               + ", ".join(f"{k} {v:.3f}" for k, v in parts.items()) + f" {tag}", flush=True)
     set_tf32(False)
     stages = []
     with nms_calls(K, stages):
-        predict(handle, *inputs)
-    for (boxes, valid, thr), what in zip(stages, ("proposals", "detections")):
+        outs = [o.cpu().numpy() for o in predict(handle, *inputs)]
+    for (boxes, valid, thr), stage in zip(stages, ("proposals", "detections")):
         words = K.nms_mask(boxes, thr)
         keep = K.nms_reduce(words, valid)
         check(torch.equal(words, K.nms_mask_plain(boxes, thr)) and
               torch.equal(keep, K.nms_reduce_plain(words, valid)),
-              f"K1 on the {what} stage's own candidates: bit-equal to plain")
+              f"K1 on the {what} {stage} stage's own candidates: bit-equal to plain")
         plain = (cuda_ms(lambda: K.nms_mask_plain(boxes, thr), 5),
                  cuda_ms(lambda: K.nms_reduce_plain(words, valid), 1, 1))
-        print(k1_line(K, f"Faster R-CNN {what}, IoU {thr}, batch {TWO_STAGE_BATCH}", boxes, keep,
+        print(k1_line(K, f"{what} {stage}, IoU {thr}, batch {TWO_STAGE_BATCH}", boxes, keep,
                       cuda_ms(lambda: K.nms_mask(boxes, thr), 50),
                       cuda_ms(lambda: K.nms_reduce(words, valid), 50), *k1_bounds(boxes, words, keep),
                       f"plain {plain[0]:.4f} / {plain[1]:.4f} ms [{card}; f32"), flush=True)
+    if len(outs) > 2:
+        dets, labels, masks = outs
+        t = time.perf_counter()
+        for b in range(len(dets)):
+            masks_to_segm_result(dets[b], labels[b], masks[b],
+                                 handle.model.num_result_classes, 800, 1333)
+        print(f"masks_to_segm_result: {(time.perf_counter() - t) * 1e3 / len(dets):.3f} ms an "
+              f"image on the host, {int((labels >= 0).sum()) / len(dets):.1f} detections an "
+              f"image pasted into 800x1333 and encoded [{card}]", flush=True)
     runner.model.train()
     for tf32 in (False, True):
         set_tf32(tf32)
         torch.cuda.reset_peak_memory_stats()
         ms = host_ms(lambda: runner.train_step(batch, TWO_STAGE_STEPS), reps=10, warmup=2)
         peak = torch.cuda.max_memory_allocated() / 2 ** 30
-        print(f"Faster R-CNN train step batch {TWO_STAGE_TRAIN_BATCH}: median of 10 {ms:.3f} ms, "
+        print(f"{what} train step batch {TWO_STAGE_TRAIN_BATCH}: median of 10 {ms:.3f} ms, "
               f"{TWO_STAGE_TRAIN_BATCH * 1e3 / ms:.2f} img/s, peak memory {peak:.2f} GiB "
               f"[{card}; f32, TF32 {'on' if tf32 else 'off'}]", flush=True)
     set_tf32(False)
@@ -3683,6 +3733,154 @@ def phase_two_stage(B, K, dataset, rng, card: str) -> dict:
     t = time.perf_counter()
     counts = add_counts(counts, two_stage_eval(B, dataset))
     print(f"9c: {time.perf_counter() - t:.2f} s", flush=True)
+    torch.cuda.empty_cache()
+    return counts
+
+
+MASK_RCNN = "mask_rcnn_r50_fpn_1x.py"
+MASK_EVAL = 16        # 10c: phase 6's first images (the host paste costs ~0.3 s an image)
+MASK_NAMES = TWO_STAGE_NAMES + ("mask_head.convs.0.conv.weight",
+                                "mask_head.upsample.weight", "mask_head.conv_logits.weight")
+
+
+def mask_train_batch(batch: int, num_gts: int) -> dict:
+    """``train_batch`` with a planted box-frame mask for every gt slot: an
+    ellipse of random half-axes and centre in the 112x112 crop."""
+    out = train_batch(batch, num_gts)
+    rng = np.random.default_rng(5)
+    yy, xx = np.mgrid[0:112, 0:112] + 0.5
+    c = rng.uniform(30, 82, (batch, num_gts, 2, 1, 1))
+    r = rng.uniform(15, 56, (batch, num_gts, 2, 1, 1))
+    inside = ((xx - c[:, :, 0]) / r[:, :, 0]) ** 2 + ((yy - c[:, :, 1]) / r[:, :, 1]) ** 2
+    out["gt_masks"] = (inside <= 1).astype(np.uint8)
+    return out
+
+
+def plant_polygons(ann_file: str, out_file: str, count: int, seed: int = 10) -> None:
+    """``ann_file``'s first ``count`` images with a polygon in each box: a
+    star of 5-12 vertices around its centre, radii 0.2-0.5 of the box,
+    sub-pixel coordinates (written to ``out_file``)."""
+    with open(ann_file) as f:
+        coco = json.load(f)
+    rng = np.random.default_rng(seed)
+    keep = {im["id"] for im in coco["images"][:count]}
+    coco["images"] = coco["images"][:count]
+    coco["annotations"] = [a for a in coco["annotations"] if a["image_id"] in keep]
+    for ann in coco["annotations"]:
+        x, y, w, h = ann["bbox"]
+        n = int(rng.integers(5, 13))
+        ang = np.sort(rng.uniform(0, 2 * np.pi, n))
+        r = rng.uniform(0.2, 0.5, n)
+        pts = np.stack([x + w / 2 + r * w * np.cos(ang), y + h / 2 + r * h * np.sin(ang)], 1)
+        ann["segmentation"] = [[float(v) for v in pts.reshape(-1)]]
+    with open(out_file, "w") as f:
+        json.dump(coco, f)
+
+
+def segm_oracle(dataset) -> list:
+    """Each gt's own box and polygon as a detection of score 1, in the
+    (bbox, segm) result format."""
+    from ioudet_torch.core.mask import rle
+
+    out = []
+    for idx in range(len(dataset)):
+        info = dataset.img_infos[idx]
+        boxes = [[] for _ in dataset.cat_ids]
+        segms = [[] for _ in dataset.cat_ids]
+        for ann in dataset.gt_for_eval(idx, with_segm=True):
+            ci = dataset.cat_ids.index(ann["category_id"])
+            x, y, w, h = ann["bbox"]
+            boxes[ci].append([x, y, x + w - 1, y + h - 1, 1.0])
+            segms[ci].append(rle.ann_to_rle(ann["segmentation"], info["height"],
+                                            info["width"]))
+        out.append(([np.asarray(b, np.float32).reshape(-1, 5) for b in boxes], segms))
+    return out
+
+
+def mask_eval(B, handle, dataset6) -> dict:
+    """10c: the first MASK_EVAL images of phase 6's set with polygons,
+    through ``single_device_test`` and ``evaluate(["bbox", "segm"])``; each
+    result bit-equal to a ``predict`` replay and the host paste, K1 twice a
+    predict, the gts' own polygons at segm AP = 1.  Returns the launch
+    counts."""
+    from ioudet_torch.apis.inference import predict
+    from ioudet_torch.apis.test import eval_batches, single_device_test, to_results
+    from ioudet_torch.data import build_dataset
+
+    ann_file = os.path.join(os.path.dirname(dataset6.ann_file), "polygons.json")
+    plant_polygons(dataset6.ann_file, ann_file, MASK_EVAL)
+    test = dict(two_stage_cfg(MASK_RCNN)["data"]["test"], ann_file=ann_file,
+                img_prefix=dataset6.img_prefix)
+    dataset = build_dataset(test)
+    torch.cuda.synchronize()
+    B.reset_launches()
+    t = time.perf_counter()
+    results = single_device_test(handle, dataset, EVAL_BATCH, EVAL_WORKERS, progress=False)
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t
+    counts = dict(B.launches)
+    nc = handle.model.num_result_classes
+    bad, batches = [], 0
+    for idxs, inputs, ori in eval_batches(dataset, "cuda", EVAL_BATCH, EVAL_WORKERS,
+                                          with_ori_shape=True):
+        outs = [o.cpu().numpy() for o in predict(handle, *inputs)]
+        batches += 1
+        for b, i in enumerate(idxs):
+            want = to_results(tuple(o[b] for o in outs) + (ori[b],), nc)
+            got = results[i]
+            if not (isinstance(got, tuple) and got[1] == want[1] and
+                    all(np.array_equal(x, y) for x, y in zip(got[0], want[0]))):
+                bad.append(i)
+    check(not bad, f"single_device_test of {len(dataset)} images: each (bbox, segm) result "
+          f"bit-equal to a predict replay and its host paste (differing: {bad})")
+    check(counts["nms_mask_kernel"] == 2 * batches and counts["nms_reduce_kernel"] == 2 * batches,
+          f"K1a and K1b launched twice for each of the loop's {batches} predicts")
+    t = time.perf_counter()
+    metrics = dataset.evaluate(results, metric=["bbox", "segm"])
+    check(all(np.isfinite(v) and -1 <= v <= 1 for v in metrics.values()),
+          f"Mask R-CNN on {len(dataset)} planted images with polygons: loop {run_s:.2f} s, "
+          f"evaluate {time.perf_counter() - t:.2f} s; random weights: bbox AP "
+          f"{metrics['bbox_AP']:.4f}, segm AP {metrics['segm_AP']:.4f}, segm AR100 "
+          f"{metrics['segm_AR100']:.4f}")
+    oracle = dataset.evaluate(segm_oracle(dataset), metric="segm")
+    check(oracle["AP"] == 1.0, f"each gt's own polygon as a detection of score 1: segm AP "
+          f"{oracle['AP']!r}, exactly 1")
+    return counts
+
+
+def phase_mask_rcnn(B, K, dataset6, rng, card: str) -> dict:
+    """Phase 10: Mask R-CNN R-50-FPN (configs/mask_rcnn_r50_fpn_1x.py) at
+    full width and depth, seeded random weights, f32, TF32 off for the
+    checks.  Returns the kernels' launch counts of its main-path runs."""
+    from ioudet_torch.apis.inference import init_detector
+
+    set_tf32(False)
+    cfg = two_stage_cfg(MASK_RCNN)
+    handle = init_detector(cfg, device="cuda", seed=0)
+    nparams = sum(p.numel() for p in handle.model.parameters())
+    inputs = canvases(TWO_STAGE_BATCH, rng)
+    print(f"10a: Mask R-CNN ({MASK_RCNN}, {nparams:,} parameters), rcnn score_thr 0",
+          flush=True)
+    t = time.perf_counter()
+    counts = two_stage_serving(B, K, handle, inputs, "Mask R-CNN", "10a")
+    print(f"10a: {time.perf_counter() - t:.2f} s", flush=True)
+    t = time.perf_counter()
+    train_counts, runner, batch = two_stage_training(
+        B, K, handle, cfg, mask_train_batch(TWO_STAGE_TRAIN_BATCH, NUM_GTS), MASK_NAMES,
+        "Mask R-CNN", "10b")
+    counts = add_counts(counts, train_counts)
+    print(f"10b: {time.perf_counter() - t:.2f} s", flush=True)
+    t = time.perf_counter()
+    handle.model.eval()
+    two_stage_timing(K, handle, runner, batch, inputs, card, "Mask R-CNN")
+    print(f"10d: {time.perf_counter() - t:.2f} s", flush=True)
+    del runner, batch, inputs
+    torch.cuda.empty_cache()
+    t = time.perf_counter()
+    handle.model.eval()
+    counts = add_counts(counts, mask_eval(B, handle, dataset6))
+    print(f"10c: {time.perf_counter() - t:.2f} s", flush=True)
+    del handle
     torch.cuda.empty_cache()
     return counts
 
@@ -3837,8 +4035,18 @@ def main() -> int:
     t = time.perf_counter()
     two_stage_launches = phase_two_stage(B, K, eval_dataset, rng, card)
     launches = {k: launches[k] + two_stage_launches.get(k, 0) for k in launches}
-    eval_dir.cleanup()
     print(f"phase 9: {time.perf_counter() - t:.2f} s", flush=True)
+
+    print("phase 10: Mask R-CNN R-50-FPN at full width; TF32 off for the checks: 10a predict "
+          "at batch 8 and 1 (K1 at both NMS stages, masks), 10b three train steps at batch 2 "
+          f"with box-frame gt masks, 10c single_device_test and evaluate bbox + segm on "
+          f"{MASK_EVAL} of phase 6's images with polygons, 10d timings" + since(start),
+          flush=True)
+    t = time.perf_counter()
+    mask_launches = phase_mask_rcnn(B, K, eval_dataset, rng, card)
+    launches = {k: launches[k] + mask_launches.get(k, 0) for k in launches}
+    eval_dir.cleanup()
+    print(f"phase 10: {time.perf_counter() - t:.2f} s", flush=True)
     check(all(launches[name] > 0 for name in KERNELS if name not in REPLACED) and
           all(launches[name] == 0 for name in REPLACED),
           "every kernel was launched on a main path, and none of those the wgmma kernels "

@@ -3,10 +3,11 @@
 
 The port's modules use the mmdet state_dict key layout, so a reference
 ``.pth`` loads as it is.  ``state_dict_from_flax`` turns ``ioudet``'s
-parameter tree for the RetinaNet family and for Faster R-CNN / RPN (nested
-dicts of arrays, HWIO conv kernels, (in, out) dense kernels) into that
-layout: it is the inverse of ``ioudet``'s ``convert_torch_retinanet`` and
-``convert_torch_faster_rcnn`` and their parts.  Any
+parameter tree for the RetinaNet family and for Faster R-CNN / RPN / Mask
+R-CNN (nested dicts of arrays, HWIO conv kernels, (in, out) dense kernels)
+into that layout: it is the inverse of ``ioudet``'s
+``convert_torch_retinanet``, ``convert_torch_faster_rcnn`` and
+``convert_torch_fcn_mask_head`` and their parts.  Any
 tree of that structure goes through it, so gradients and momentum buffers of
 ``ioudet`` can be laid beside the port's as well.
 
@@ -171,13 +172,35 @@ def _head(sd: dict, tree: dict, prefix: str = "bbox_head") -> None:
             raise KeyError(f"unknown head param {name}")
 
 
+def _mask_head(sd: dict, tree: dict, prefix: str = "mask_head") -> None:
+    """FCNMaskHead's tree {conv<i>, upsample, conv_logits} -> mmdet's
+    convs.<i>.conv, upsample, conv_logits (the inverse of ``ioudet``'s
+    ``convert_torch_fcn_mask_head``).  flax's ``ConvTranspose`` kernel
+    (kh, kw, in, out) is a forward conv of the dilated input, torch's
+    ``ConvTranspose2d`` weight (in, out, kh, kw) the gradient of one: the
+    kernel is flipped in both spatial axes on the way.  ``conv_logits``
+    crosses as it is (no background channel on either side)."""
+    for name, leaf in tree.items():
+        m = re.fullmatch(r"conv(\d+)", name)
+        if m:
+            _conv(sd, f"{prefix}.convs.{m.group(1)}.conv", leaf)
+        elif name == "upsample":
+            sd[f"{prefix}.upsample.weight"] = _tensor(leaf["kernel"]).flip(0, 1) \
+                .permute(2, 3, 0, 1).contiguous()
+            sd[f"{prefix}.upsample.bias"] = _tensor(leaf["bias"])
+        elif name == "conv_logits":
+            _conv(sd, f"{prefix}.conv_logits", leaf)
+        else:
+            raise KeyError(f"unknown mask head param {name}")
+
+
 def state_dict_from_flax(params: dict) -> Dict[str, torch.Tensor]:
     """``ioudet`` params of the RetinaNet family {backbone, neck, bbox_head}
-    or of Faster R-CNN / RPN {backbone, neck, rpn_head, bbox_head} -> a
-    state_dict for the port's detector (mmdet key layout).  A partial tree (a
-    pretrained backbone alone, or the trainable leaves of an optimizer
-    state) gives the entries it holds."""
-    unknown = set(params) - {"backbone", "neck", "rpn_head", "bbox_head"}
+    or of Faster R-CNN / RPN / Mask R-CNN {backbone, neck, rpn_head,
+    bbox_head[, mask_head]} -> a state_dict for the port's detector (mmdet
+    key layout).  A partial tree (a pretrained backbone alone, or the
+    trainable leaves of an optimizer state) gives the entries it holds."""
+    unknown = set(params) - {"backbone", "neck", "rpn_head", "bbox_head", "mask_head"}
     if unknown:
         raise KeyError(f"unsupported parameter groups: {sorted(unknown)}")
     sd: Dict[str, torch.Tensor] = {}
@@ -192,6 +215,8 @@ def state_dict_from_flax(params: dict) -> Dict[str, torch.Tensor]:
         _roi_head(sd, head)
     elif head:
         _head(sd, head)
+    if "mask_head" in params:
+        _mask_head(sd, params["mask_head"])
     return sd
 
 

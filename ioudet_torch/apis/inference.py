@@ -6,7 +6,8 @@ fixed-shape ``simple_test``; ``inference_detector`` takes one HWC uint8
 image (BGR, the cv2 contract) or a path, read as the data pipeline reads it
 (``data/pipelines/loading.py``: netpbm without an image library),
 preprocesses it on the model's device and returns the per-class list of
-(k, 5) arrays.
+(k, 5) arrays (a mask detector's with the per-class lists of RLE masks in
+the image's frame).
 """
 
 from __future__ import annotations
@@ -17,12 +18,12 @@ from typing import List, Optional, Tuple, Union
 import numpy as np
 import torch
 
-from ..core.bbox.transforms import bbox2result
 from ..data.pipelines.loading import imread
 from ..models import build_detector
 from ..ops.preprocess import IMAGENET_MEAN, IMAGENET_STD, preprocess
 from ..utils.config import Config
 from .checkpoint import load_checkpoint
+from .test import to_results
 
 DEFAULT_CANVAS = (832, 1344)
 DEFAULT_SCALE = (1333, 800)
@@ -69,10 +70,12 @@ def init_detector(config, checkpoint: Optional[str] = None,
 @torch.inference_mode()
 def predict(handle: DetectorHandle, imgs: torch.Tensor, img_shapes: torch.Tensor,
             scale_factors: torch.Tensor, pad_shapes: torch.Tensor,
-            rescale: bool = True) -> Tuple[torch.Tensor, torch.Tensor]:
+            rescale: bool = True) -> Tuple[torch.Tensor, ...]:
     """Batched ``simple_test`` on device tensors: imgs (B, H, W, 3) f32
     canvas, img_shapes / pad_shapes (B, 2) int, scale_factors (B,) f32 ->
-    (dets (B, max_per_img, 5), labels (B, max_per_img)), label -1 padding."""
+    (dets (B, max_per_img, 5), labels (B, max_per_img)), label -1 padding;
+    a mask detector adds masks (B, max_per_img, 28, 28), each detection's
+    class probabilities in its box's frame."""
     return handle.model.simple_test(imgs, img_shapes, scale_factors,
                                     pad_shapes, rescale=rescale)
 
@@ -97,11 +100,11 @@ def pipeline_settings(cfg: dict):
     return canvas, scale, mean, std, to_rgb
 
 
-def inference_detector(handle: DetectorHandle,
-                       img: Union[str, np.ndarray, torch.Tensor]) -> List[np.ndarray]:
+def inference_detector(handle: DetectorHandle, img: Union[str, np.ndarray, torch.Tensor]):
     """img: (H, W, 3) uint8, BGR, or the path of an image file.  Returns
     ``num_classes - 1`` float32 (k, 5) arrays in original-image
-    coordinates."""
+    coordinates; for a mask detector (those arrays, per-class lists of RLE
+    dicts of the (H, W) image), row for row (``apis.test.to_results``)."""
     if isinstance(img, str):
         img = imread(img)
     arr = img if isinstance(img, torch.Tensor) else torch.from_numpy(
@@ -117,6 +120,7 @@ def inference_detector(handle: DetectorHandle,
         arr.to(dev), torch.tensor([h, w], dtype=torch.int32, device=dev),
         canvas=canvas, max_scale=scale, mean=mean, std=std, flip_channels=to_rgb)
     pad_shape = torch.tensor([canvas], dtype=torch.int32, device=dev)
-    dets, labels = predict(handle, canvas_img[None], img_shape[None],
-                           factor[None], pad_shape)
-    return bbox2result(dets[0], labels[0], handle.model.num_result_classes)
+    outs = predict(handle, canvas_img[None], img_shape[None], factor[None], pad_shape)
+    raw = tuple(o[0].cpu().numpy() for o in outs)
+    return to_results(raw + ((np.array([h, w]),) if len(raw) > 2 else ()),
+                      handle.model.num_result_classes)

@@ -24,8 +24,10 @@ loader's padding repeats are dropped before the device sees them.
 ``torch.distributed`` group runs its shard of the batches, the fixed-shape
 per-image outputs go through ``allgather_pytrees``, and every rank gets the
 whole list.  A two-stage detector serves through the same functions, and
-a proposal model's recall is ``make_proposal_recall_hook``'s.  The
-two-stage TTA merge and the mask route are not ported yet.
+a proposal model's recall is ``make_proposal_recall_hook``'s.  A mask
+detector's results are (bbox list, segm list) pairs: each detection's
+box-frame mask pasted into the original image and RLE-encoded on the host
+(``masks_to_segm_result``).  The two-stage TTA merge is not ported yet.
 """
 
 from __future__ import annotations
@@ -87,8 +89,9 @@ def _host_batches(dataset, device, imgs_per_batch, workers, num_shards, shard_in
             continue
         seen.update(idx[b] for b in keep)
         sel = slice(None) if len(keep) == len(idx) else np.asarray(keep)
+        ori = batch.get("ori_shape", batch["img_shape"])[sel]
         yield [idx[b] for b in keep], tuple(to_device(batch[k][sel], device)
-                                            for k in INPUT_KEYS)
+                                            for k in INPUT_KEYS), ori
 
 
 def _device_batches(dataset, device, imgs_per_batch, workers, num_shards, shard_index):
@@ -126,20 +129,53 @@ def _device_batches(dataset, device, imgs_per_batch, workers, num_shards, shard_
                 raw.to(device, non_blocking=True), to_device(shapes, device),
                 canvas=cv, max_scale=max_scale, mean=mean, std=std, flip_channels=to_rgb)
             pad_shapes = np.tile(np.asarray([cv], np.int32), (len(idxs), 1))
-            yield idxs, (imgs, img_shapes, factors, to_device(pad_shapes, device))
+            yield idxs, (imgs, img_shapes, factors, to_device(pad_shapes, device)), shapes
 
 
 def eval_batches(dataset, device, imgs_per_batch: int = 8, workers: int = 4,
-                 device_preprocess: bool = False, num_shards: int = 1, shard_index: int = 0
+                 device_preprocess: bool = False, num_shards: int = 1, shard_index: int = 0,
+                 with_ori_shape: bool = False
                  ) -> Iterator[Tuple[List[int], Tuple[torch.Tensor, ...]]]:
     """The evaluation loop's batches on ``device``: (dataset indices, (imgs
     (B, H, W, 3) f32 canvas, img_shapes (B, 2), scale_factors (B,),
     pad_shapes (B, 2))), one orientation a batch; every image once, or with
     ``num_shards`` > 1 the ``shard_index``-th share of the batches (an image
-    may then come again in another shard)."""
+    may then come again in another shard).  ``with_ori_shape`` adds the
+    images' decoded (h, w), (B, 2) int32 numpy, as a third item."""
     device = torch.device(device)
     route = _device_batches if device_preprocess else _host_batches
-    return route(dataset, device, imgs_per_batch, workers, num_shards, shard_index)
+    batches = route(dataset, device, imgs_per_batch, workers, num_shards, shard_index)
+    if with_ori_shape:
+        return ((idxs, inputs, np.asarray(ori, np.int32)) for idxs, inputs, ori in batches)
+    return ((idxs, inputs) for idxs, inputs, _ in batches)
+
+
+def masks_to_segm_result(dets: np.ndarray, labels: np.ndarray, mask_probs: np.ndarray,
+                         num_classes: int, ori_h: int, ori_w: int) -> List[list]:
+    """One image's per-class lists of RLE dicts: each detection's box-frame
+    mask probabilities (dets in original-image coordinates) pasted into the
+    (ori_h, ori_w) image and encoded (``rle.encode_pasted``).  Rows with label
+    >= 0 are kept, in order, as ``bbox2result`` keeps them, so that segm
+    row i of a class is bbox row i."""
+    from ..core.mask import rle
+
+    segm: List[list] = [[] for _ in range(num_classes - 1)]
+    for i in range(dets.shape[0]):
+        lab = int(labels[i])
+        if lab >= 0:
+            segm[lab].append(rle.encode_pasted(dets[i, :4], mask_probs[i], ori_h, ori_w))
+    return segm
+
+
+def to_results(raw: tuple, num_classes: int):
+    """One image's fixed-shape outputs (dets, labels[, mask probs, ori
+    shape]) -> its ``bbox2result`` list, or (bbox list, segm list)."""
+    bbox_res = bbox2result(raw[0], raw[1], num_classes)
+    if len(raw) == 2:
+        return bbox_res
+    ori = raw[3]
+    return bbox_res, masks_to_segm_result(raw[0], raw[1], raw[2], num_classes,
+                                          int(ori[0]), int(ori[1]))
 
 
 @torch.inference_mode()
@@ -149,25 +185,26 @@ def single_device_test(handle, dataset, imgs_per_batch: int = 8, workers: int = 
                        shard_index: int = 0):
     """handle: a ``DetectorHandle`` or a detector; runs on its device.
     Returns one list of ``num_classes - 1`` (k, 5) float32 arrays an image,
-    in dataset order.
+    in dataset order; for a mask detector one (that list, the per-class
+    lists of RLE dicts) pair an image.
 
     ``return_raw=True`` returns ``{dataset index: (dets (max_per_img, 5),
-    labels (max_per_img,))}`` numpy arrays instead, for the images of shard
-    ``shard_index`` of ``num_shards`` (the whole dataset by default): the
-    fixed shapes that ``multi_host_test`` gathers."""
+    labels (max_per_img,)[, mask probs (max_per_img, 28, 28), ori_shape
+    (2,)])}`` numpy arrays instead, for the images of shard ``shard_index``
+    of ``num_shards`` (the whole dataset by default): the fixed shapes that
+    ``multi_host_test`` gathers."""
     model = getattr(handle, "model", handle)
     device = next(model.parameters()).device
     num_classes = model.num_result_classes
     results: dict = {}
     t0 = time.perf_counter()
-    for n, (idxs, inputs) in enumerate(eval_batches(dataset, device, imgs_per_batch,
-                                                    workers, device_preprocess,
-                                                    num_shards, shard_index)):
-        dets, labels = model.simple_test(*inputs)
-        dets, labels = dets.cpu().numpy(), labels.cpu().numpy()
+    for n, (idxs, inputs, ori) in enumerate(eval_batches(
+            dataset, device, imgs_per_batch, workers, device_preprocess, num_shards,
+            shard_index, with_ori_shape=True)):
+        outs = [o.cpu().numpy() for o in model.simple_test(*inputs)]
         for b, i in enumerate(idxs):
-            results[i] = (dets[b], labels[b]) if return_raw else \
-                bbox2result(dets[b], labels[b], num_classes)
+            raw = tuple(o[b] for o in outs) + ((ori[b],) if len(outs) > 2 else ())
+            results[i] = raw if return_raw else to_results(raw, num_classes)
         if progress and (n + 1) % 20 == 0:
             logger.info("eval %d/%d (%.1f img/s%s)", len(results), len(dataset),
                         len(results) / (time.perf_counter() - t0),
@@ -183,10 +220,12 @@ def multi_host_test(handle, dataset, imgs_per_batch: int = 8, workers: int = 4,
                     progress: bool = True, device_preprocess: bool = False) -> list:
     """``single_device_test`` over the ranks of a ``torch.distributed``
     group: each rank runs its shard of the batches, the per-image
-    ``(dets (max_per_img, 5), labels (max_per_img,))`` and the image indices
+    ``(dets (max_per_img, 5), labels (max_per_img,))`` (a mask detector's
+    with the mask probabilities and original shapes) and the image indices
     go through ``allgather_pytrees``, the loader's repeats are dropped (the
-    first copy is kept), and every rank returns the whole list in dataset
-    order.  One rank: ``single_device_test``."""
+    first copy is kept), then the results are made (the masks pasted and
+    encoded), and every rank returns the whole list in dataset order.  One
+    rank: ``single_device_test``."""
     n = world_size()
     if n == 1:
         return single_device_test(handle, dataset, imgs_per_batch, workers, progress,
@@ -194,18 +233,21 @@ def multi_host_test(handle, dataset, imgs_per_batch: int = 8, workers: int = 4,
     raw = single_device_test(handle, dataset, imgs_per_batch, workers, progress,
                              device_preprocess, return_raw=True, num_shards=n,
                              shard_index=rank())
+    model = getattr(handle, "model", handle)
+    dtypes = (np.float32, np.int64) + \
+        ((np.float32, np.int32) if getattr(model, "mask_head", None) is not None else ())
     idxs = np.asarray(sorted(raw), np.int64)
     if len(idxs):
-        fields = (np.stack([raw[i][0] for i in idxs]).astype(np.float32),
-                  np.stack([raw[i][1] for i in idxs]).astype(np.int64))
+        fields = tuple(np.stack([raw[i][f] for i in idxs]).astype(dt)
+                       for f, dt in enumerate(dtypes))
     else:   # an empty shard: the trailing shapes come from a peer
-        fields = (np.zeros((0,), np.float32), np.zeros((0,), np.int64))
-    num_classes = getattr(handle, "model", handle).num_result_classes
+        fields = tuple(np.zeros((0,), dt) for dt in dtypes)
+    num_classes = model.num_result_classes
     merged: dict = {}
-    for s_idx, s_dets, s_labels in allgather_pytrees((idxs,) + fields):
-        for j, i in enumerate(s_idx.tolist()):
+    for shard in allgather_pytrees((idxs,) + fields):
+        for j, i in enumerate(shard[0].tolist()):
             if i not in merged:
-                merged[i] = bbox2result(s_dets[j], s_labels[j], num_classes)
+                merged[i] = to_results(tuple(f[j] for f in shard[1:]), num_classes)
     if sorted(merged) != list(range(len(dataset))):
         raise RuntimeError(f"the ranks evaluated {len(merged)} of {len(dataset)} images")
     return [merged[i] for i in range(len(dataset))]

@@ -52,7 +52,7 @@ from ..utils.logging import get_root_logger
 from .checkpoint import latest_checkpoint, load_checkpoint, merge_weights, save_checkpoint
 
 BATCH_KEYS = ("img", "gt_bboxes", "gt_labels", "gt_valid", "img_shape", "pad_shape",
-              "gt_bboxes_ignore", "gt_ignore_valid")
+              "gt_bboxes_ignore", "gt_ignore_valid", "gt_masks")
 
 
 # --------------------------------------------------------------------------
@@ -210,7 +210,8 @@ def make_train_step(model: torch.nn.Module, optimizer: torch.optim.Optimizer,
     """``train_step(batch, step) -> log dict`` of detached device tensors.
 
     batch keys: img, gt_bboxes, gt_labels, gt_valid, img_shape, pad_shape
-    (+ gt_bboxes_ignore, gt_ignore_valid), tensors on the model's device;
+    (+ gt_bboxes_ignore, gt_ignore_valid; + gt_masks, (B, G, S, S) uint8
+    box-frame crops, for a mask detector), tensors on the model's device;
     ``step`` is the number of steps taken so far and picks the LR and the
     generator of the step's draws (``step_generator(device, seed, step)``,
     ``ioudet``'s ``fold_in(key, step)``).  The parameters must be f32 (a
@@ -223,6 +224,7 @@ def make_train_step(model: torch.nn.Module, optimizer: torch.optim.Optimizer,
     ddp = data_parallel(model) if is_initialized() else None
     forward = model.forward_train if ddp is None else ddp
     device = next(model.parameters()).device
+    with_masks = getattr(model, "mask_head", None) is not None
 
     def train_step(batch: dict, step: int) -> Dict[str, torch.Tensor]:
         lr = lr_schedule(step)
@@ -232,6 +234,8 @@ def make_train_step(model: torch.nn.Module, optimizer: torch.optim.Optimizer,
         if "gt_bboxes_ignore" in batch:
             kw.update(gt_bboxes_ignore=batch["gt_bboxes_ignore"],
                       gt_ignore_valid=batch["gt_ignore_valid"])
+        if with_masks and "gt_masks" in batch:
+            kw["gt_masks"] = batch["gt_masks"]
         losses = forward(
             batch["img"], batch["gt_bboxes"], batch["gt_labels"], batch["gt_valid"],
             batch["img_shape"], batch["pad_shape"], **kw)

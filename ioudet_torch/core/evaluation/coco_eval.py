@@ -1,9 +1,11 @@
-"""COCO-protocol bbox evaluation in numpy (counterpart of
-``ioudet/core/evaluation/coco_eval.py``; pycocotools is not a dependency).
+"""COCO-protocol evaluation in numpy, boxes (``bbox``) and instance masks
+(``segm``) (counterpart of ``ioudet/core/evaluation/coco_eval.py``;
+pycocotools is not a dependency).
 
   * IoU thresholds 0.50:0.05:0.95 (10), recall points 0:0.01:1 (101);
   * area ranges all / small (< 32^2) / medium / large (> 96^2) on the gt's
-    ``area`` (bbox w * h where it has none);
+    ``area`` (bbox w * h where it has none), and for an unmatched det on
+    its box's area, or in ``segm`` its mask's;
   * maxDets (1, 10, 100); crowd and ``ignore`` gts are ignored, and a det
     on a crowd gt is matched by intersection over the det's area;
   * greedy matching per (image, category): dets by descending score, each
@@ -11,21 +13,25 @@
   * -1 where a (class, area) cell has no ground truth; stable sorts.
 
 IoU follows pycocotools (xywh, no +1); ``xyxy2xywh`` uses the reference's
-+1.  ``ioudet`` matches on IoUs rounded to float32 (its native matcher,
-``csrc/host_ops.cpp`` ``coco_match_cpu``), so ``match_dets`` rounds them
-the same way: a det whose f64 IoU sits within an f32 ulp of a threshold
-lands on the side ``ioudet`` puts it.  The per-image match runs once at
-the largest maxDet and is cut for the smaller ones (greedy matching in
-score order makes the match of the first m dets a prefix of the match of
-all of them).  The ``segm`` protocol is not ported yet.
++1.  In ``segm`` the gts' polygons are rasterized at the image size
+(``core/mask/rle.ann_to_rle``), the dets carry RLEs, and IoUs are mask
+IoUs from the runs.  ``ioudet`` matches on IoUs rounded to float32 (its
+native matcher, ``csrc/host_ops.cpp`` ``coco_match_cpu``), so
+``match_dets`` rounds them the same way: a det whose f64 IoU sits within
+an f32 ulp of a threshold lands on the side ``ioudet`` puts it.  A cell's
+IoUs are computed once, and its match once at the largest maxDet and cut
+for the smaller ones (greedy matching in score order makes the match of
+the first m dets a prefix of the match of all of them).
 """
 
 from __future__ import annotations
 
 from collections import defaultdict
-from typing import Dict, List, Sequence, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
+
+from ..mask import rle
 
 IOU_THRS = np.linspace(0.5, 0.95, 10)
 RECALL_THRS = np.linspace(0.0, 1.0, 101)
@@ -103,82 +109,106 @@ def match_dets(ious: np.ndarray, gt_ignore: np.ndarray,
     return dtm, dt_ignore
 
 
-def _evaluate_img(dets: np.ndarray, det_scores: np.ndarray, gts: np.ndarray,
-                  gt_ignore: np.ndarray, iscrowd: np.ndarray,
-                  area_rng: Tuple[float, float], max_det: int,
-                  gt_areas: np.ndarray) -> dict:
-    """Match one (image, category) cell within one area range."""
+def _evaluate_img(ious: np.ndarray, det_scores: np.ndarray, det_areas: np.ndarray,
+                  gt_ignore: np.ndarray, iscrowd: np.ndarray, gt_areas: np.ndarray,
+                  area_rng: Tuple[float, float]) -> dict:
+    """Match one (image, category) cell within one area range: ``ious``
+    (D, G) of the dets in score order (at most the largest maxDet) against
+    the gts in their own order."""
     gIg = gt_ignore | (gt_areas < area_rng[0]) | (gt_areas > area_rng[1])
     gt_order = np.argsort(gIg, kind="mergesort")
     gIg_s = gIg[gt_order]
-    det_order = np.argsort(-det_scores, kind="mergesort")[:max_det]
-    dets_s = dets[det_order]
-    ious = iou_xywh(dets_s, gts[gt_order], iscrowd[gt_order])
-    dtm, dtIg = match_dets(ious, gIg_s, iscrowd[gt_order])
+    dtm, dtIg = match_dets(ious[:, gt_order], gIg_s, iscrowd[gt_order])
     # unmatched dets outside the area range are ignored
-    d_area = dets_s[:, 2] * dets_s[:, 3]
-    out_of_rng = (d_area < area_rng[0]) | (d_area > area_rng[1])
+    out_of_rng = (det_areas < area_rng[0]) | (det_areas > area_rng[1])
     dtIg = dtIg | ((dtm == 0) & out_of_rng[None, :])
-    return dict(dtm=dtm, dtIg=dtIg, scores=det_scores[det_order],
-                num_gt=int((~gIg_s).sum()))
+    return dict(dtm=dtm, dtIg=dtIg, scores=det_scores, num_gt=int((~gIg_s).sum()))
 
 
 class CocoEvaluator:
     """Accumulates per-image gts and detections, then computes the 12 COCO
-    metrics.
+    metrics of ``mode`` ("bbox" or "segm").
 
-    ``add_gt(image_id, anns)``: dicts with bbox (xywh), category_id, and
-    optionally iscrowd, area, ignore.  ``add_det_per_class(image_id,
-    result)``: per-class xyxy (n, 5) arrays (the ``bbox2result`` format),
-    class index i -> ``cat_ids[i]``.
+    ``add_gt(image_id, anns, img_size)``: dicts with bbox (xywh), and
+    optionally iscrowd, area, ignore; in ``segm`` each with its
+    ``segmentation`` (polygons or RLE), rasterized at ``img_size`` (h, w).
+    ``add_det_per_class(image_id, result, segms)``: per-class xyxy (n, 5)
+    arrays (the ``bbox2result`` format), class index i -> ``cat_ids[i]``;
+    in ``segm`` also per-class lists of RLE dicts aligned with their rows.
     """
 
-    def __init__(self, cat_ids: Sequence[int]):
+    def __init__(self, cat_ids: Sequence[int], mode: str = "bbox"):
+        if mode not in ("bbox", "segm"):
+            raise KeyError(f"mode {mode!r} is not one of 'bbox', 'segm'")
         self.cat_ids = list(cat_ids)
+        self.mode = mode
         self._gts: Dict[Tuple[int, int], list] = defaultdict(list)
         self._dts: Dict[Tuple[int, int], list] = defaultdict(list)
         self.img_ids: List[int] = []
 
-    def add_gt(self, image_id: int, anns: Sequence[dict]) -> None:
+    def add_gt(self, image_id: int, anns: Sequence[dict],
+               img_size: Optional[Tuple[int, int]] = None) -> None:
         if image_id not in self.img_ids:
             self.img_ids.append(image_id)
         for ann in anns:
             ig = bool(ann.get("ignore", False)) or bool(ann.get("iscrowd", 0))
             bbox = np.asarray(ann["bbox"], np.float64)
             area = float(ann.get("area", bbox[2] * bbox[3]))
+            g_rle = None
+            if self.mode == "segm":
+                segm = ann.get("segmentation")
+                if segm is None:
+                    raise ValueError("segm evaluation needs a 'segmentation' on every gt")
+                h, w = img_size if img_size is not None else ann["size"]
+                g_rle = rle.ann_to_rle(segm, h, w)
             self._gts[(image_id, ann["category_id"])].append(
-                (bbox, ig, bool(ann.get("iscrowd", 0)), area))
+                (bbox, ig, bool(ann.get("iscrowd", 0)), area, g_rle))
 
-    def add_det_per_class(self, image_id: int, result: Sequence[np.ndarray]) -> None:
+    def add_det_per_class(self, image_id: int, result: Sequence[np.ndarray],
+                          segms: Optional[Sequence[list]] = None) -> None:
         if len(result) > len(self.cat_ids):
             raise ValueError(
                 f"model predicts {len(result)} foreground classes but the "
                 f"dataset has {len(self.cat_ids)} categories: check the "
                 f"config's num_classes against the annotation file")
+        if self.mode == "segm" and segms is None:
+            raise ValueError("segm evaluation needs the dets' RLE masks")
         if image_id not in self.img_ids:
             self.img_ids.append(image_id)
         for ci, dets in enumerate(result):
             if len(dets) == 0:
                 continue
             xywh = xyxy2xywh(dets[:, :4])
+            rles = segms[ci] if self.mode == "segm" else [None] * len(dets)
             self._dts[(image_id, self.cat_ids[ci])].extend(
-                zip(xywh, dets[:, 4].astype(np.float64).tolist()))
+                zip(xywh, dets[:, 4].astype(np.float64).tolist(), rles))
 
     def _cells(self, cat: int) -> list:
-        """The images with a gt or a det of ``cat``, as arrays."""
+        """The images with a gt or a det of ``cat``: their IoUs (dets in
+        score order, the first MAX_DETS[-1]), det areas and gt arrays."""
         cells = []
         for img in self.img_ids:
             gt = self._gts.get((img, cat), [])
             dt = self._dts.get((img, cat), [])
             if not gt and not dt:
                 continue
-            cells.append(dict(
-                gts=np.array([g[0] for g in gt]).reshape(-1, 4),
-                gt_ignore=np.array([g[1] for g in gt], bool),
-                iscrowd=np.array([g[2] for g in gt], bool),
-                gt_areas=np.array([g[3] for g in gt], np.float64),
-                dets=np.array([d[0] for d in dt]).reshape(-1, 4),
-                det_scores=np.array([d[1] for d in dt], np.float64)))
+            gts = np.array([g[0] for g in gt]).reshape(-1, 4)
+            iscrowd = np.array([g[2] for g in gt], bool)
+            scores = np.array([d[1] for d in dt], np.float64)
+            order = np.argsort(-scores, kind="mergesort")[:MAX_DETS[-1]]
+            dt = [dt[i] for i in order]
+            if self.mode == "segm":
+                d_rles = [d[2] for d in dt]
+                ious = rle.iou(d_rles, [g[4] for g in gt], iscrowd.astype(int))
+                det_areas = np.array([rle.area(r) for r in d_rles], np.float64)
+            else:
+                dets = np.array([d[0] for d in dt]).reshape(-1, 4)
+                ious = iou_xywh(dets, gts, iscrowd)
+                det_areas = dets[:, 2] * dets[:, 3]
+            cells.append(dict(ious=ious.reshape(len(dt), len(gt)), det_scores=scores[order],
+                              det_areas=det_areas,
+                              gt_ignore=np.array([g[1] for g in gt], bool), iscrowd=iscrowd,
+                              gt_areas=np.array([g[3] for g in gt], np.float64)))
         return cells
 
     def evaluate(self) -> Dict[str, float]:
@@ -192,8 +222,7 @@ class CocoEvaluator:
             if not cells:
                 continue
             for a, rng in enumerate(AREA_RANGES.values()):
-                evals = [_evaluate_img(area_rng=rng, max_det=MAX_DETS[-1], **c)
-                         for c in cells]
+                evals = [_evaluate_img(area_rng=rng, **c) for c in cells]
                 npig = sum(e["num_gt"] for e in evals)
                 if npig == 0:
                     continue

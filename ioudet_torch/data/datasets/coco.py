@@ -5,9 +5,12 @@ The annotation file is read as plain JSON (no pycocotools):
   * crowd annotations go to ``bboxes_ignore``; ``ignore`` ones are dropped;
   * xywh -> xyxy with the +1 convention (x2 = x + w - 1), clipped to the
     image, degenerate boxes dropped;
-  * in train mode images without annotations are dropped.
-``evaluate`` runs the port's COCOeval on ``bbox2result`` lists in dataset
-order; the ``segm`` metric is not ported yet.
+  * in train mode images without annotations are dropped;
+  * each kept annotation's polygons ride along as ``masks`` (an RLE
+    segmentation, a crowd's, gives none).
+``evaluate`` runs the port's COCOeval on the results in dataset order:
+``bbox2result`` lists, or (bbox, segm) pairs of a mask detector for the
+``segm`` metric.
 """
 
 from __future__ import annotations
@@ -40,7 +43,7 @@ class CocoDataset(CustomDataset):
 
     def get_ann_info(self, idx: int) -> dict:
         info = self.img_infos[idx]
-        bboxes, labels, ignore = [], [], []
+        bboxes, labels, ignore, masks = [], [], [], []
         for ann in self._anns_by_img.get(info["id"], []):
             if ann.get("ignore", False):
                 continue
@@ -56,9 +59,12 @@ class CocoDataset(CustomDataset):
             else:
                 bboxes.append(box)
                 labels.append(self.cat2label[ann["category_id"]])
+                seg = ann.get("segmentation")
+                masks.append(seg if isinstance(seg, list) else [])
         return dict(bboxes=np.asarray(bboxes, np.float32).reshape(-1, 4),
                     labels=np.asarray(labels, np.int64),
-                    bboxes_ignore=np.asarray(ignore, np.float32).reshape(-1, 4))
+                    bboxes_ignore=np.asarray(ignore, np.float32).reshape(-1, 4),
+                    masks=masks)
 
     def _filter_imgs(self, min_size: int = 32) -> List[int]:
         valid = []
@@ -72,46 +78,66 @@ class CocoDataset(CustomDataset):
 
     # ---- evaluation --------------------------------------------------------
 
-    def gt_for_eval(self, idx: int) -> List[dict]:
+    def gt_for_eval(self, idx: int, with_segm: bool = False) -> List[dict]:
         """COCO-protocol gt dicts of one image (xywh, no +1; ``area`` as the
-        annotation gives it, since pycocotools gates area ranges on it)."""
+        annotation gives it, since pycocotools gates area ranges on it);
+        ``with_segm`` adds each annotation's ``segmentation``."""
         out = []
         for ann in self._anns_by_img.get(self.img_infos[idx]["id"], []):
             w, h = float(ann["bbox"][2]), float(ann["bbox"][3])
-            out.append(dict(bbox=list(map(float, ann["bbox"])),
-                            category_id=ann["category_id"],
-                            iscrowd=ann.get("iscrowd", 0),
-                            ignore=ann.get("ignore", False),
-                            area=float(ann.get("area", w * h))))
+            d = dict(bbox=list(map(float, ann["bbox"])), category_id=ann["category_id"],
+                     iscrowd=ann.get("iscrowd", 0), ignore=ann.get("ignore", False),
+                     area=float(ann.get("area", w * h)))
+            if with_segm:
+                d["segmentation"] = ann.get("segmentation")
+            out.append(d)
         return out
 
     def evaluate(self, results, metric="bbox", logger=None) -> dict:
-        """results: one ``bbox2result`` list an image, in dataset order.
-        Returns the 12 COCO metrics (AP, AP50, ..., ARl)."""
+        """results: one ``bbox2result`` list an image, or one (bbox list,
+        segm list) pair of a mask detector, in dataset order.  ``metric``:
+        "bbox", "segm" or a list of both.  Returns the 12 COCO metrics (AP,
+        AP50, ..., ARl) of the one metric, or of each with a ``bbox_`` /
+        ``segm_`` prefix."""
         metrics = [metric] if isinstance(metric, str) else list(metric)
-        if metrics != ["bbox"]:
-            raise NotImplementedError(f"metric {metric!r}: only 'bbox' is ported")
+        unknown = [m for m in metrics if m not in ("bbox", "segm")]
+        if unknown:
+            raise KeyError(f"metric {unknown[0]!r} is not one of 'bbox', 'segm'")
         if len(results) != len(self):
             raise ValueError(f"{len(results)} results for {len(self)} images")
-        ev = CocoEvaluator(self.cat_ids)
-        for idx, res in enumerate(results):
-            img_id = self.img_infos[idx]["id"]
-            ev.add_gt(img_id, self.gt_for_eval(idx))
-            ev.add_det_per_class(img_id, res)
-        out = ev.evaluate()
         log = logger.info if logger else print
-        log("--- bbox ---")
-        log(print_coco_summary(out))
+        out: dict = {}
+        for m in metrics:
+            ev = CocoEvaluator(self.cat_ids, mode=m)
+            for idx, res in enumerate(results):
+                info = self.img_infos[idx]
+                bbox_res, segm_res = res if isinstance(res, tuple) else (res, None)
+                ev.add_gt(info["id"], self.gt_for_eval(idx, with_segm=m == "segm"),
+                          img_size=(info["height"], info["width"]))
+                if m == "segm" and segm_res is None:
+                    raise ValueError("the segm metric needs (bbox, segm) results: is the "
+                                     "model a mask detector?")
+                ev.add_det_per_class(info["id"], bbox_res,
+                                     segms=segm_res if m == "segm" else None)
+            mm = ev.evaluate()
+            log(f"--- {m} ---")
+            log(print_coco_summary(mm))
+            out.update(mm if len(metrics) == 1 else {f"{m}_{k}": v for k, v in mm.items()})
         return out
 
     def results2json(self, results) -> List[dict]:
-        """COCO result records (image_id, xywh bbox, score, category_id)."""
+        """COCO result records (image_id, xywh bbox, score, category_id),
+        with its RLE ``segmentation`` where the results carry masks."""
         out = []
-        for idx, per_cls in enumerate(results):
+        for idx, res in enumerate(results):
             img_id = self.img_infos[idx]["id"]
+            per_cls, segms = res if isinstance(res, tuple) else (res, None)
             for ci, dets in enumerate(per_cls):
-                for det in dets:
-                    out.append(dict(image_id=img_id,
-                                    bbox=[float(v) for v in xyxy2xywh(det[None, :4])[0]],
-                                    score=float(det[4]), category_id=self.cat_ids[ci]))
+                for di, det in enumerate(dets):
+                    rec = dict(image_id=img_id,
+                               bbox=[float(v) for v in xyxy2xywh(det[None, :4])[0]],
+                               score=float(det[4]), category_id=self.cat_ids[ci])
+                    if segms is not None:
+                        rec["segmentation"] = segms[ci][di]
+                    out.append(rec)
         return out

@@ -1,7 +1,8 @@
 """Formatting transforms (counterpart of
 ``ioudet/data/pipelines/formatting.py``): fixed-shape numpy samples.
 
-  * gt boxes and labels padded to ``max_gt`` slots with a validity mask;
+  * gt boxes and labels padded to ``max_gt`` slots with a validity mask,
+    the box-frame gt masks to as many (S, S) crops;
   * shape metas (img_shape, pad_shape, ori_shape), scale_factor and flip as
     arrays, so that a batch stacks into rectangular arrays.
 
@@ -47,6 +48,12 @@ class DefaultFormatBundle:
             ig_valid[:ni] = True
             results["gt_bboxes_ignore"] = gt_ig
             results["gt_ignore_valid"] = ig_valid
+        if "gt_masks" in results:
+            m = results["gt_masks"]
+            s = m.shape[-1] if m.size else 112
+            gt_masks = np.zeros((self.max_gt, s, s), np.uint8)
+            gt_masks[:n] = m[:n]
+            results["gt_masks"] = gt_masks
         results["img"] = np.ascontiguousarray(results["img"], np.float32)
         return results
 

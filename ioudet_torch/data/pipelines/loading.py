@@ -111,14 +111,19 @@ class LoadImageFromFile:
 
 class LoadAnnotations:
     """Boxes (f32) and 1-based labels (int64) from ``ann_info``; the
-    ignored boxes ride along as ``gt_bboxes_ignore``."""
+    ignored boxes ride along as ``gt_bboxes_ignore``.  ``with_mask``
+    rasterizes each instance's polygons into its box's frame as a
+    (mask_size, mask_size) uint8 crop, ``gt_masks`` (G, S, S)
+    (``core/mask/mask_target.rasterize_polygons``)."""
 
     def __init__(self, with_bbox: bool = True, with_label: bool = True,
-                 with_mask: bool = False, with_seg: bool = False):
-        if with_mask or with_seg:
-            raise NotImplementedError("LoadAnnotations with_mask / with_seg is not ported yet")
+                 with_mask: bool = False, with_seg: bool = False, mask_size: int = 112):
+        if with_seg:
+            raise NotImplementedError("LoadAnnotations with_seg is not ported yet")
         self.with_bbox = with_bbox
         self.with_label = with_label
+        self.with_mask = with_mask
+        self.mask_size = mask_size
 
     def __call__(self, results: dict) -> dict:
         ann = results["ann_info"]
@@ -128,4 +133,10 @@ class LoadAnnotations:
                 "bboxes_ignore", np.zeros((0, 4), np.float32)).astype(np.float32)
         if self.with_label:
             results["gt_labels"] = ann["labels"].astype(np.int64)
+        if self.with_mask:
+            from ...core.mask.mask_target import rasterize_polygons
+            crops = [rasterize_polygons(poly, box, self.mask_size)
+                     for box, poly in zip(ann["bboxes"], ann.get("masks", []))]
+            results["gt_masks"] = np.stack(crops) if crops else \
+                np.zeros((0, self.mask_size, self.mask_size), np.uint8)
         return results

@@ -7,7 +7,8 @@ Pad).
   * ``imresize`` is the port's own bilinear resize in numpy, bit-exact
     with ``cv2.resize(..., INTER_LINEAR)`` on uint8 (see its docstring); it
     is used on every machine, whether cv2 is there or not;
-  * flip mirrors boxes with the +1 convention (x2' = w - x1 - 1);
+  * flip mirrors boxes with the +1 convention (x2' = w - x1 - 1) and the
+    box-frame gt masks with them; Resize leaves those masks alone;
   * Normalize: (img - mean) / std in f32 after BGR -> RGB when to_rgb;
   * Pad: to ``size_divisor`` (``pad_shape``) and onto a fixed canvas, one
     per orientation;
@@ -162,6 +163,9 @@ class RandomFlip:
                     b[:, 0] = w - results[key][:, 2] - 1
                     b[:, 2] = w - results[key][:, 0] - 1
                     results[key] = b
+            if "gt_masks" in results and len(results["gt_masks"]):
+                # a box-frame mask mirrors with its box
+                results["gt_masks"] = np.ascontiguousarray(results["gt_masks"][:, :, ::-1])
         return results
 
 

@@ -2,9 +2,12 @@
 the same nested config dicts ``ioudet`` takes (``type`` keys).
 
 Only the components of the ported slice are known; any other ``type``
-raises ``KeyError`` naming what is available.  A config with ``rpn_head``
-or ``bbox_roi_extractor`` builds a two-stage detector (``FasterRCNN``,
-``RPN``), in f32 only.
+raises ``KeyError`` naming what is available, and a structure the port
+does not build yet (a chain of necks, one mask head a stage) raises
+``NotImplementedError``.  A config with ``rpn_head`` or
+``bbox_roi_extractor`` builds a two-stage detector (``FasterRCNN``,
+``RPN``, ``MaskRCNN`` with ``mask_roi_extractor`` and ``mask_head``), in
+f32 only.
 """
 
 from __future__ import annotations
@@ -18,11 +21,13 @@ from .backbones.resnext import ResNeXt
 from .bbox_heads.bbox_head import BBoxHead, ConvFCBBoxHead, SharedFCBBoxHead
 from .detectors.single_stage import (IoUAwareRetinaNet, RetinaNet,
                                      SingleStageDetector)
+from .detectors.mask_rcnn import MaskRCNN
 from .detectors.two_stage import RPN, FasterRCNN, TwoStageDetector
 from .heads.iou_aware_retina_head import IoUAwareRetinaHead
 from .heads.retina_head import RetinaHead
 from .heads.rpn_head import RPNHead
 from .losses import CrossEntropyLoss, FocalLoss, L1Loss, SmoothL1Loss
+from .mask_heads.fcn_mask_head import FCNMaskHead
 from .necks.fpn import FPN
 from .roi_extractors.single_level import SingleRoIExtractor
 from .utils.layers import compute_dtype
@@ -31,11 +36,12 @@ BACKBONES = {"ResNet": ResNet, "ResNeXt": ResNeXt}
 NECKS = {"FPN": FPN}
 HEADS = {"RetinaHead": RetinaHead, "IoUAwareRetinaHead": IoUAwareRetinaHead,
          "RPNHead": RPNHead, "BBoxHead": BBoxHead, "ConvFCBBoxHead": ConvFCBBoxHead,
-         "SharedFCBBoxHead": SharedFCBBoxHead}
+         "SharedFCBBoxHead": SharedFCBBoxHead, "FCNMaskHead": FCNMaskHead}
 ROI_EXTRACTORS = {"SingleRoIExtractor": SingleRoIExtractor}
 DETECTORS = {"SingleStageDetector": SingleStageDetector,
              "RetinaNet": RetinaNet, "IoUAwareRetinaNet": IoUAwareRetinaNet,
-             "TwoStageDetector": TwoStageDetector, "FasterRCNN": FasterRCNN, "RPN": RPN}
+             "TwoStageDetector": TwoStageDetector, "FasterRCNN": FasterRCNN, "RPN": RPN,
+             "MaskRCNN": MaskRCNN}
 LOSSES = {"FocalLoss": FocalLoss, "SmoothL1Loss": SmoothL1Loss, "L1Loss": L1Loss,
           "CrossEntropyLoss": CrossEntropyLoss}
 
@@ -70,6 +76,9 @@ def build_detector(cfg: dict, train_cfg: Optional[dict] = None,
         return part
 
     det_type = cfg.pop("type")
+    if isinstance(cfg.get("neck"), (list, tuple)):
+        raise NotImplementedError("a chain of necks (ioudet's NeckSequence, e.g. FPN -> "
+                                  "BFP) is not ported yet")
     if det_type not in DETECTORS:
         raise KeyError(f"detector {det_type!r} is not ported; "
                        f"available: {sorted(DETECTORS)}")
@@ -87,6 +96,14 @@ def build_detector(cfg: dict, train_cfg: Optional[dict] = None,
         if "bbox_roi_extractor" in cfg:
             parts["bbox_roi_extractor"] = _build(cfg.pop("bbox_roi_extractor"),
                                                  ROI_EXTRACTORS, "roi extractor")
+        if "mask_roi_extractor" in cfg:
+            parts["mask_roi_extractor"] = _build(cfg.pop("mask_roi_extractor"),
+                                                 ROI_EXTRACTORS, "roi extractor")
+        if "mask_head" in cfg:
+            mask_head = cfg.pop("mask_head")
+            if isinstance(mask_head, (list, tuple)):
+                raise NotImplementedError("one mask head a stage (HTC) is not ported yet")
+            parts["mask_head"] = _build(with_dtype(mask_head), HEADS, "head")
     if "bbox_head" in cfg:
         parts["bbox_head"] = _build(with_dtype(cfg.pop("bbox_head")), HEADS, "head")
     if cfg:

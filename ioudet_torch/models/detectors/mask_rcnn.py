@@ -1,0 +1,69 @@
+"""Mask R-CNN (counterpart of ``ioudet/models/detectors/mask_rcnn.py``):
+Faster R-CNN with an FCN mask branch on the same features.
+
+  * training: the gt masks come as fixed (B, G, 112, 112) uint8 crops in
+    their boxes' frames (``core/mask/mask_target.py``); the mask branch runs
+    on every roi that ``sample_rois_batch`` selected (RoIAlign at 14x14, the
+    mask head), each roi's target is its assigned gt's crop resampled into
+    the roi at 28x28, and the loss counts the positives only, as
+    ``ioudet``'s does;
+  * test: ``simple_test`` returns (dets, labels, masks (B, max_per_img, 28,
+    28)): the sigmoid of each detection's own class channel, in its box's
+    frame, the boxes scaled back to the canvas for the RoIAlign.  The
+    backbone and FPN run once (``ioudet`` runs them twice, to the same
+    result); the paste into the image is the host's (``apis/test.py``).
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+from torch import nn
+
+from ...core.mask import mask_target
+from .two_stage import TwoStageDetector, to_rois
+
+
+class MaskRCNN(TwoStageDetector):
+    parts = TwoStageDetector.parts + ("mask_roi_extractor", "mask_head")
+
+    def __init__(self, backbone: nn.Module, rpn_head: nn.Module,
+                 bbox_roi_extractor: nn.Module, bbox_head: nn.Module,
+                 mask_roi_extractor: nn.Module, mask_head: nn.Module,
+                 neck: Optional[nn.Module] = None,
+                 train_cfg: Optional[dict] = None, test_cfg: Optional[dict] = None):
+        super().__init__(backbone, rpn_head, bbox_roi_extractor, bbox_head, neck=neck,
+                         train_cfg=train_cfg, test_cfg=test_cfg)
+        self.mask_roi_extractor = mask_roi_extractor
+        self.mask_head = mask_head
+
+    def forward_train(self, img, gt_bboxes, gt_labels, gt_valid, img_shapes, pad_shapes,
+                      gt_masks: Optional[torch.Tensor] = None, gt_bboxes_ignore=None,
+                      gt_ignore_valid=None, generator: Optional[torch.Generator] = None):
+        """``TwoStageDetector.forward_train`` plus, with ``gt_masks`` (B, G,
+        S, S) uint8 box-frame crops, ``loss_mask``."""
+        losses, aux = self.train_core(img, gt_bboxes, gt_labels, gt_valid, img_shapes,
+                                      pad_shapes, gt_bboxes_ignore, gt_ignore_valid, generator)
+        if gt_masks is None:
+            return losses
+        mask_pred = self.mask_head(self.mask_roi_extractor(aux["feats"], aux["rois"]))
+        targets = mask_target(gt_masks, gt_bboxes, aux["sel_boxes"], aux["gt_idx"],
+                              aux["sel_pos"], out_size=mask_pred.shape[-1])
+        losses["loss_mask"] = self.mask_head.loss(mask_pred, targets.flatten(0, 1),
+                                                  aux["labels"], aux["sel_pos"].flatten())
+        return losses
+
+    def simple_test(self, img, img_shapes, scale_factors, pad_shapes, rescale: bool = True):
+        """(dets (B, max_per_img, 5), labels (B, max_per_img), masks (B,
+        max_per_img, 28, 28) probabilities of each detection's class)."""
+        feats = self.extract_feat(img)
+        dets, labels = self.simple_test_bboxes(feats, img_shapes, scale_factors, pad_shapes,
+                                               rescale)
+        boxes = dets[..., :4]
+        if rescale:
+            boxes = boxes * scale_factors.float()[:, None, None]
+        mask_pred = self.mask_head(self.mask_roi_extractor(feats, to_rois(boxes)))
+        bsz, n = labels.shape
+        own = self.mask_head.own_class(mask_pred, labels.reshape(-1).clamp(min=0) + 1)
+        return dets, labels, torch.sigmoid(own).reshape(bsz, n, *own.shape[1:])

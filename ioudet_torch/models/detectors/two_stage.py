@@ -165,6 +165,15 @@ class TwoStageDetector(_Extract):
         """img (B, H, W, 3) f32 canvas; gt_bboxes (B, G, 4), gt_labels (B, G)
         1-based, gt_valid (B, G) bool; img_shapes / pad_shapes (B, 2) int.
         Returns {loss_cls, loss_bbox, rpn_loss_cls, rpn_loss_bbox}."""
+        return self.train_core(img, gt_bboxes, gt_labels, gt_valid, img_shapes, pad_shapes,
+                               gt_bboxes_ignore, gt_ignore_valid, generator)[0]
+
+    def train_core(self, img, gt_bboxes, gt_labels, gt_valid, img_shapes, pad_shapes,
+                   gt_bboxes_ignore=None, gt_ignore_valid=None,
+                   generator: Optional[torch.Generator] = None) -> tuple:
+        """``forward_train``'s losses, and what a mask branch extends them
+        with: the features, the sampled rois (B * N, 5) and their boxes,
+        positives, flat labels and assigned gt indices."""
         tcfg = dict(self.train_cfg or {})
         rpn_cfg, rcnn_cfg = dict(tcfg.get("rpn", {})), dict(tcfg.get("rcnn", {}))
         if generator is None:
@@ -191,12 +200,13 @@ class TwoStageDetector(_Extract):
             def hardness_fn(boxes_all, labels_all):
                 return self.hardness(feats, boxes_all, labels_all)
 
-        sel_boxes, sel_pos, sel_valid, matched_gt, labels, _ = sample_rois_batch(
+        sel_boxes, sel_pos, sel_valid, matched_gt, labels, gt_idx = sample_rois_batch(
             generator, dets[..., :4], dets[..., 4] > 0, gt_bboxes, gt_valid, gt_labels,
             assigner, num_samples, sampler_cfg.get("pos_fraction", 0.25),
             sampler_cfg=sampler_cfg, hardness_fn=hardness_fn)
 
-        cls_score, bbox_pred = self.roi_head(feats, to_rois(sel_boxes))
+        rois = to_rois(sel_boxes)
+        cls_score, bbox_pred = self.roi_head(feats, rois)
         head = self.bbox_head
         labels_f, bbox_t, bbox_w = bbox_target_single(
             sel_boxes.flatten(0, 1), sel_pos.flatten(), matched_gt.flatten(0, 1),
@@ -206,7 +216,8 @@ class TwoStageDetector(_Extract):
                            label_count=global_count(label_w.sum()),
                            pos_count=global_count((bbox_w[:, 0] > 0).sum().float()))
         losses.update({f"rpn_{k}": v for k, v in rpn_losses.items()})
-        return losses
+        return losses, dict(feats=feats, rois=rois, sel_boxes=sel_boxes, sel_pos=sel_pos,
+                            labels=labels_f, gt_idx=gt_idx)
 
     def hardness(self, feats, boxes_all: torch.Tensor, labels_all: torch.Tensor):
         """OHEM's per-candidate loss: the box head's CE of every candidate
@@ -224,10 +235,15 @@ class TwoStageDetector(_Extract):
         """img (B, H, W, 3) f32 canvas; img_shapes / pad_shapes (B, 2) int;
         scale_factors (B,) f32.  Returns (dets (B, max_per_img, 5), labels
         (B, max_per_img)), label -1 padding."""
+        return self.simple_test_bboxes(self.extract_feat(img), img_shapes, scale_factors,
+                                       pad_shapes, rescale)
+
+    def simple_test_bboxes(self, feats, img_shapes, scale_factors, pad_shapes,
+                           rescale: bool = True):
+        """``simple_test`` on the features of its images."""
         cfg = dict(self.test_cfg or {})
         rcnn_cfg = dict(cfg.get("rcnn", dict(score_thr=0.05, nms=dict(iou_thr=0.5),
                                              max_per_img=100)))
-        feats = self.extract_feat(img)
         props = self.proposals(self.rpn_head(feats), img_shapes, pad_shapes,
                                proposal_cfg(dict(cfg.get("rpn", {})), 1000, 1000))
         bsz, num = props.shape[:2]

@@ -55,7 +55,8 @@ class CrossEntropyLoss(nn.Module):
                  reduction: str = "mean", loss_weight: float = 1.0):
         super().__init__()
         if use_mask:
-            raise NotImplementedError("mask cross-entropy belongs to the two-stage heads")
+            raise NotImplementedError("CrossEntropyLoss(use_mask=True) is not a loss of its "
+                                      "own: the mask loss is FCNMaskHead.loss, as in ioudet")
         self.use_sigmoid = use_sigmoid
         self.reduction = reduction
         self.loss_weight = loss_weight

@@ -1,7 +1,7 @@
 """Evaluate a detector on a config's test dataset (counterpart of the
 repo's ``tools/test.py``).
 
-    python -m ioudet_torch.tools.test CONFIG [CHECKPOINT] --eval bbox \\
+    python -m ioudet_torch.tools.test CONFIG [CHECKPOINT] --eval bbox [segm] \\
         [--out results.pkl] [--json_out results.json] [--batch 8] \\
         [--device-preprocess] [--device cuda] [--n-devices N]
 
@@ -14,7 +14,8 @@ N`` (N ranks on ``cuda:0..N-1``), each rank evaluates its shard and
 and prints the metrics.  A test pipeline
 that holds ``MultiScaleFlipAug`` runs through ``tta_test`` (one image at a
 time, ``--batch`` and ``--device-preprocess`` unused).  ``--eval bbox`` is
-COCO's metric, ``--eval mAP`` VOC's.  Drawing results (``--show``) is not
+COCO's box metric, ``--eval segm`` its mask metric (a mask detector's
+results), ``--eval mAP`` VOC's.  Drawing results (``--show``) is not
 ported yet.
 """
 
@@ -32,7 +33,7 @@ def parse_args(argv=None):
     p.add_argument("checkpoint", nargs="?", default=None)
     p.add_argument("--out", default=None, help="pickle of the per-image results")
     p.add_argument("--json_out", default=None, help="COCO result records as JSON")
-    p.add_argument("--eval", nargs="*", default=[], help="metrics: bbox (COCO) / mAP (VOC)")
+    p.add_argument("--eval", nargs="*", default=[], help="metrics: bbox, segm (COCO) / mAP (VOC)")
     p.add_argument("--batch", type=int, default=8)
     p.add_argument("--device-preprocess", action="store_true",
                    help="decode on the host; resize, normalize and pad on the device")

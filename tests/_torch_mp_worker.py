@@ -75,6 +75,19 @@ def faster_rcnn_cfgs(num_gts: int = 4, max_num: int = 64) -> tuple:
     return model, train, test
 
 
+def mask_rcnn_cfgs(num_gts: int = 4, max_num: int = 64) -> tuple:
+    """``faster_rcnn_cfgs`` as a Mask R-CNN: the mask branch of
+    tests/test_mask_rcnn.py (RoIAlign at 14x14, two 64-wide mask convs)."""
+    model, train, test = faster_rcnn_cfgs(num_gts, max_num)
+    model = dict(model, type="MaskRCNN",
+                 mask_roi_extractor=dict(type="SingleRoIExtractor", out_channels=64,
+                                         featmap_strides=(4, 8, 16, 32),
+                                         roi_layer=dict(out_size=14, sample_num=2)),
+                 mask_head=dict(type="FCNMaskHead", num_convs=2, in_channels=64,
+                                conv_out_channels=64, num_classes=5))
+    return model, train, test
+
+
 TWO_STAGE_STEPS = 2
 
 

@@ -1,12 +1,14 @@
 """The configs the port builds, at full width: every config of ``configs/``
-in ``BUILDS`` builds on the ``meta`` device (no weight allocated), and the
-paper's family (the 11 ``configs/*iou_aware_*.py``,
-``retinanet_x101_64x4d_fpn_1x.py``) and the two-stage pair
-(``faster_rcnn_r50_fpn_1x.py``, ``rpn_r50_fpn_1x.py``) also go through the
-weight bridge: ``ioudet`` builds under ``jax.eval_shape``, its parameter
-tree (of ``simple_test`` for a two-stage detector, whose ``__call__`` runs
-the RPN alone) goes through ``state_dict_from_flax`` as meta tensors, and
-the bridged names and shapes must be the port's state_dict, one for one."""
+in ``BUILDS`` builds on the ``meta`` device (no weight allocated), every
+other one raises ``NotImplementedError`` or a "not ported" ``KeyError``,
+and the paper's family (the 11 ``configs/*iou_aware_*.py``,
+``retinanet_x101_64x4d_fpn_1x.py``) and the two-stage configs
+(``faster_rcnn_r50_fpn_1x.py``, ``rpn_r50_fpn_1x.py``,
+``mask_rcnn_r50_fpn_1x.py``) also go through the weight bridge: ``ioudet``
+builds under ``jax.eval_shape``, its parameter tree (of ``simple_test`` for
+a two-stage detector, whose ``__call__`` runs the RPN alone) goes through
+``state_dict_from_flax`` as meta tensors, and the bridged names and shapes
+must be the port's state_dict, one for one."""
 
 import glob
 import os
@@ -27,7 +29,7 @@ FAMILY = sorted(os.path.basename(f) for f in glob.glob(
     os.path.join(ROOT, "configs", "*iou_aware_*.py")))
 
 
-# every config the port builds (30 of 109); what stops the rest is in
+# every config the port builds (37 of 109); what stops the rest is in
 # ROADMAP.md ("Configs")
 BUILDS = FAMILY + [
     "retinanet_r50_fpn_1x.py", "retinanet_r50_fpn_2x.py", "retinanet_r101_fpn_1x.py",
@@ -38,7 +40,13 @@ BUILDS = FAMILY + [
     "ohem_faster_rcnn_r50_fpn_1x.py", "dcn_faster_rcnn_dconv_c3-c5_r50_fpn_1x.py",
     "dcn_faster_rcnn_mdconv_c3-c5_r50_fpn_1x.py",
     "dcn_faster_rcnn_dconv_c3-c5_x101_32x4d_fpn_1x.py",
-    "rpn_r50_fpn_1x.py", "rpn_r101_fpn_1x.py", "rpn_x101_64x4d_fpn_1x.py"]
+    "rpn_r50_fpn_1x.py", "rpn_r101_fpn_1x.py", "rpn_x101_64x4d_fpn_1x.py",
+    "mask_rcnn_r50_fpn_1x.py", "mask_rcnn_r50_fpn_2x.py", "mask_rcnn_r101_fpn_1x.py",
+    "mask_rcnn_x101_32x4d_fpn_1x.py", "mask_rcnn_x101_64x4d_fpn_1x.py",
+    "mask_rcnn_r50_fpn_1x_cityscapes.py", "dcn_mask_rcnn_dconv_c3-c5_r50_fpn_1x.py"]
+ALL = sorted(os.path.basename(f) for f in glob.glob(os.path.join(ROOT, "configs", "*.py")))
+LIBRA = ("libra_fast_rcnn_r50_fpn_1x.py", "libra_faster_rcnn_r50_fpn_1x.py",
+         "libra_retinanet_r50_fpn_1x.py")
 
 
 def build(name: str):
@@ -54,6 +62,26 @@ def test_config_builds_on_meta(name):
     assert all(p.device.type == "meta" for p in model.parameters())
 
 
+@pytest.mark.parametrize("name", [n for n in ALL if n not in BUILDS])
+def test_other_configs_raise_not_ported(name):
+    """A config outside BUILDS stops with NotImplementedError or a KeyError
+    that says what is not ported, and with nothing else."""
+    try:
+        build(name)
+    except NotImplementedError:
+        return
+    except KeyError as e:
+        assert "not ported" in str(e), e
+        return
+    pytest.fail(f"{name} builds: add it to BUILDS")
+
+
+@pytest.mark.parametrize("name", LIBRA)
+def test_neck_chains_raise_naming_neck_sequence(name):
+    with pytest.raises(NotImplementedError, match="NeckSequence"):
+        build(name)
+
+
 def test_the_family_is_all_there():
     assert len(FAMILY) == 11
     assert {"dcn_iou_aware_retinanet_r50_fpn_1x.py", "gcb_iou_aware_retinanet_r50_fpn_1x.py",
@@ -61,7 +89,8 @@ def test_the_family_is_all_there():
 
 
 @pytest.mark.parametrize("name", FAMILY + ["retinanet_x101_64x4d_fpn_1x.py",
-                                  "faster_rcnn_r50_fpn_1x.py", "rpn_r50_fpn_1x.py"])
+                                  "faster_rcnn_r50_fpn_1x.py", "rpn_r50_fpn_1x.py",
+                                  "mask_rcnn_r50_fpn_1x.py"])
 def test_config_builds_and_bridges_one_for_one(name):
     model = build(name)
     ours = {k: tuple(v.shape) for k, v in model.state_dict().items()}
@@ -69,7 +98,7 @@ def test_config_builds_and_bridges_one_for_one(name):
     jcfg = JaxConfig.fromfile(os.path.join(ROOT, "configs", name)).todict()
     det = jax_build_detector(jcfg["model"], jcfg.get("train_cfg"), jcfg.get("test_cfg"))
     img = jax.ShapeDtypeStruct((1, 64, 64, 3), jnp.float32)
-    if jcfg["model"]["type"] == "FasterRCNN":
+    if jcfg["model"]["type"] in ("FasterRCNN", "MaskRCNN"):
         meta = (jax.ShapeDtypeStruct((1, 2), jnp.int32), jax.ShapeDtypeStruct((1,), jnp.float32),
                 jax.ShapeDtypeStruct((1, 2), jnp.int32))
         shapes = jax.eval_shape(lambda x, *m: det.init(jax.random.PRNGKey(0), x, *m,

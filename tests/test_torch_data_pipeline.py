@@ -210,4 +210,4 @@ def test_unported_steps_raise():
     with pytest.raises(KeyError, match="not ported"):
         Compose([dict(type="PhotoMetricDistortion")])
     with pytest.raises(NotImplementedError):
-        LoadAnnotations(with_mask=True)
+        LoadAnnotations(with_seg=True)

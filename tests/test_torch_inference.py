@@ -116,31 +116,44 @@ def test_rejects_paths_and_bad_images(handle, tmp_path):
 TWO_STAGE_RUN = """
 from ioudet_torch.apis.inference import predict
 from ioudet_torch.apis import train as ttrain
+from ioudet_torch.apis.test import masks_to_segm_result
+from tests._torch_mp_worker import mask_rcnn_cfgs
 torch.set_num_threads(2)
 x = torch.randn(1, 64, 96, 3)
 meta = (torch.tensor([[64, 96]], dtype=torch.int32), torch.ones(1),
         torch.tensor([[64, 96]], dtype=torch.int32))
 h = init_detector(os.path.join('configs', 'rpn_r50_fpn_1x.py'), device='cpu')
 assert tuple(predict(h, x, *meta)[0].shape) == (1, 2000, 5)
-model = init_detector(os.path.join('configs', 'faster_rcnn_r50_fpn_1x.py'),
-                      device='cpu').model.train()
+model_cfg, train_cfg, test_cfg = mask_rcnn_cfgs()
+test_cfg['rcnn']['score_thr'] = 0.0
+h = init_detector(dict(model=model_cfg, train_cfg=train_cfg, test_cfg=test_cfg), device='cpu')
+dets, labels, masks = predict(h, x, *meta)
+assert tuple(masks.shape) == (1, 20, 28, 28) and int((labels >= 0).sum()) > 0
+segm = masks_to_segm_result(dets[0].numpy(), labels[0].numpy(), masks[0].numpy(), 5, 64, 96)
+assert sum(map(len, segm)) == int((labels >= 0).sum())
+bbox_res, segm_res = inference_detector(h, np.zeros((48, 80, 3), np.uint8))
+assert [len(b) for b in bbox_res] == [len(s) for s in segm_res]
+assert all(r['size'] == [48, 80] for s in segm_res for r in s)
+model = h.model.train()
 ttrain.make_trainable_mask(model)
 step = ttrain.make_train_step(model, ttrain.build_optimizer(model, dict(type='SGD', lr=0.01)),
                               lambda s: 0.01)
 gts = torch.tensor([[[10., 8., 40., 50.], [50., 5., 90., 30.]]])
-logs = step(dict(img=x, gt_bboxes=gts, gt_labels=torch.tensor([[3, 7]], dtype=torch.int32),
+logs = step(dict(img=x, gt_bboxes=gts, gt_labels=torch.tensor([[3, 4]], dtype=torch.int32),
                  gt_valid=torch.ones(1, 2, dtype=torch.bool), img_shape=meta[0],
-                 pad_shape=meta[2]), 0)
-assert sorted(logs) == ['loss', 'loss_bbox', 'loss_cls', 'rpn_loss_bbox', 'rpn_loss_cls']
+                 pad_shape=meta[2], gt_masks=torch.ones(1, 2, 112, 112, dtype=torch.uint8)), 0)
+assert sorted(logs) == ['loss', 'loss_bbox', 'loss_cls', 'loss_mask', 'rpn_loss_bbox',
+                        'rpn_loss_cls']
 assert all(bool(torch.isfinite(v)) for v in logs.values())
 """
 
 
 def test_port_runs_without_jax():
     """import ioudet_torch and a CPU run of the slice leave jax (and flax,
-    cv2) out of sys.modules: the IoU-aware RetinaNet's serving, and the RPN
-    and Faster R-CNN from their config files through init_detector, the
-    RPN's predict and one make_train_step step of the Faster R-CNN."""
+    cv2, PIL) out of sys.modules: the IoU-aware RetinaNet's serving, the
+    RPN from its config file through init_detector and predict, and a tiny
+    Mask R-CNN's predict, its masks pasted and encoded, inference_detector
+    and one make_train_step step."""
     code = (
         "import os, sys, numpy as np, torch\n"
         "import ioudet_torch\n"
