@@ -1,6 +1,7 @@
 """Drive the PyTorch port's serving, low-precision serving, training
-(f32, bf16 and data parallel) and evaluation paths, and Faster R-CNN's and
-Mask R-CNN's, once on one NVIDIA GPU and check them.
+(f32, bf16 and data parallel) and evaluation paths, and Faster R-CNN's,
+Mask R-CNN's and the cascade family's (HTC, Cascade R-CNN, GN + WS), once
+on one NVIDIA GPU and check them.
 
     python3 chip_smoke.py                  # everything, as below
     python3 chip_smoke.py --kernels-only   # phases 1-2: a short first run
@@ -168,7 +169,28 @@ Phases (any failure exits non-zero):
      detection of score 1 at segm AP = 1; (10d) timings, TF32 off and on:
      ``predict`` at batch 8 and 1 with peak memory and its parts by CUDA
      events, K1 at each stage, ``masks_to_segm_result``'s host ms an image,
-     the train step with peak memory.
+     the train step with peak memory;
+  11. the cascade family at full width and depth, as phase 10: (11a) HTC
+     R-50-FPN (configs/htc_r50_fpn_1x.py: three stages, interleaved,
+     mask information flow, the semantic branch over 183 classes)
+     ``predict`` at batch 8 and 1, host syncs made errors, K1 twice a
+     predict, (dets, labels, masks) bit-equal to the plain-NMS replay;
+     (11b) step 1 against its plain-NMS replay and three ``train_detector``
+     steps at batch 2 with planted box-frame masks and a planted 183-class
+     map at 104x168 with ignored regions: the rpn, s0-s2 cls / bbox / mask
+     and semantic losses finite, the semantic one > 0; (11c) a planted
+     label map a PNG (written here with zlib, five row filters in turn) for
+     each of the first MASK_EVAL images of phase 6's set: the config's own
+     train_pipeline reads them (each sample's map equal to the planted one
+     after Resize, flip, Pad and SegRescale), one ``train_detector`` step
+     from that dataset, then 10c's ``single_device_test`` and ``evaluate``
+     with HTC; (11d) configs/cascade_rcnn_r50_fpn_1x.py and
+     configs/mask_rcnn_r50_fpn_gn_ws_2x.py: ``predict`` at batch 8 against
+     the plain-NMS replay, step 1 against its replay (the GN scales'
+     gradients nonzero) and two train steps; (11e) timings: HTC ``predict``
+     at batch 8 and 1 and its parts by CUDA events, TF32 off and on, K1 at
+     each stage, the train step, the other two configs' ``predict``, the
+     PNG decode of an 800x1333 map on the host.
 The last two lines are the card's name and power limit, then
 ``{"ok": true, "device": {...}}``; the line before them lists the kernels.
 """
@@ -3432,16 +3454,16 @@ def two_stage_cfg(name: str = TWO_STAGE) -> dict:
 
 
 def two_stage_serving(B, K, handle, inputs, what: str = "Faster R-CNN",
-                      tag: str = "9a") -> dict:
-    """9a / 10a: ``predict`` at batch 8 and 1 with host syncs made errors: K1a
-    and K1b twice a predict (proposals, detections), each stage's
-    candidates, every output (a mask detector's masks (B, 100, 28, 28) in
-    [0, 1] too) bit-equal to a plain-NMS replay.  Returns the launch
-    counts."""
+                      tag: str = "9a", batches=(TWO_STAGE_BATCH, 1)) -> dict:
+    """9a / 10a / 11a / 11d: ``predict`` at batch 8 and 1 (``batches``) with
+    host syncs made errors: K1a and K1b twice a predict (proposals,
+    detections), each stage's candidates, every output (a mask detector's
+    masks (B, 100, 28, 28) in [0, 1] too) bit-equal to a plain-NMS replay.
+    Returns the launch counts."""
     from ioudet_torch.apis.inference import predict
 
     counts = {}
-    for bsz in (TWO_STAGE_BATCH, 1):
+    for bsz in batches:
         args = tuple(x[:bsz] for x in inputs)
         predict(handle, *args)   # warm-up: anchors reach the device here
         torch.cuda.synchronize()
@@ -3454,7 +3476,7 @@ def two_stage_serving(B, K, handle, inputs, what: str = "Faster R-CNN",
         check(seen["nms_mask_kernel"] == 2 and seen["nms_reduce_kernel"] == 2,
               f"{what} predict at batch {bsz}: K1a and K1b launched twice (the RPN's "
               f"proposals, the R-CNN's detections), host syncs made errors: {seen}")
-        check_predict_outputs(dets, labels, bsz, handle.model.bbox_head.num_classes - 1,
+        check_predict_outputs(dets, labels, bsz, handle.model.num_result_classes - 1,
                               f"{what} predict at batch {bsz}")
         if len(outs) > 2:
             masks = outs[2]
@@ -3482,20 +3504,26 @@ def two_stage_serving(B, K, handle, inputs, what: str = "Faster R-CNN",
 def two_stage_losses(model, batch, names=TWO_STAGE_NAMES) -> tuple:
     """Step 1's forward and backward without an update, with the draws of
     step 0 (``step_generator(device, 0, 0)``): the detached losses and the
-    gradients of ``names``; the batch's ``gt_masks`` go to a mask detector."""
+    gradients of ``names``; the batch's ``gt_masks`` go to a mask detector,
+    its ``gt_semantic_seg`` to HTC."""
     from ioudet_torch.apis.train import step_generator
 
-    kw = {"gt_masks": batch["gt_masks"]} if "gt_masks" in batch else {}
+    kw = {k: batch[k] for k in ("gt_masks", "gt_semantic_seg") if k in batch}
     return loss_and_grads(model, batch, names,
                           generator=step_generator(batch["img"].device, 0, 0), **kw)
 
 
 def two_stage_training(B, K, handle, cfg, batch=None, names=TWO_STAGE_NAMES,
-                       what: str = "Faster R-CNN", tag: str = "9b") -> tuple:
-    """9b / 10b: step 1 against its plain-NMS replay, then ``train_detector``
-    for TWO_STAGE_STEPS steps at batch 2 with 100 gt slots (by default
-    ``train_batch``'s; 10b's carry box-frame masks): K1 once a step, K2 and
-    K3 never, every loss finite.  Returns (launch counts, runner, batch)."""
+                       what: str = "Faster R-CNN", tag: str = "9b",
+                       steps: int = TWO_STAGE_STEPS, nonzero=(), loss_keys=None,
+                       positive=()) -> tuple:
+    """9b / 10b / 11b / 11d: step 1 against its plain-NMS replay (the
+    gradients of ``names``; those of ``nonzero`` must not be all zero; the
+    losses must be ``loss_keys`` where given, those of ``positive`` > 0), then
+    ``train_detector`` for ``steps`` steps at batch 2 with 100 gt slots (by
+    default ``train_batch``'s; 10b's carry box-frame masks, 11b's semantic
+    maps too): K1 once a step, K2 and K3 never, every loss finite.  Returns
+    (launch counts, runner, batch)."""
     from ioudet_torch.apis.train import train_detector
 
     model = handle.model.train()
@@ -3514,6 +3542,13 @@ def two_stage_training(B, K, handle, cfg, batch=None, names=TWO_STAGE_NAMES,
               f"replay, max abs diff {diff:.2e} of max {scale:.2e} (limit 1e-3)")
     check(True, "step 1 losses through K1 within 1e-5 of the plain-NMS replay: " +
           ", ".join(f"{k} {float(v):.6f}" for k, v in kernel_losses.items()))
+    if nonzero:
+        check(all(float(kernel_grads[k].abs().max()) > 0 for k in nonzero),
+              f"step 1: nonzero gradients of {', '.join(nonzero)}")
+    if loss_keys is not None:
+        check(sorted(kernel_losses) == sorted(loss_keys) and
+              all(float(kernel_losses[k]) > 0 for k in positive),
+              f"{what}'s {len(loss_keys)} losses, {', '.join(positive)} > 0")
 
     per_step, history = [], []
 
@@ -3525,12 +3560,13 @@ def two_stage_training(B, K, handle, cfg, batch=None, names=TWO_STAGE_NAMES,
     torch.cuda.synchronize()
     B.reset_launches()
     with tempfile.TemporaryDirectory() as work_dir:
-        runner = train_detector(handle, [batch] * TWO_STAGE_STEPS, cfg, work_dir,
+        runner = train_detector(handle, [batch] * steps, cfg, work_dir,
                                 device="cuda", step_hook=hook)
     want = {"nms_mask_kernel": 1, "nms_reduce_kernel": 1, "assign_gtmax_kernel": 0,
             "assign_targets_kernel": 0, "focal_sum_kernel": 0, "focal_dx_kernel": 0}
-    check(all(all(c[k] == n for k, n in want.items()) for c in per_step),
-          f"each of {TWO_STAGE_STEPS} {what} steps launched K1a and K1b once, K2 and K3 "
+    check(len(per_step) == steps and
+          all(all(c[k] == n for k, n in want.items()) for c in per_step),
+          f"each of {steps} {what} steps launched K1a and K1b once, K2 and K3 "
           f"never: {per_step}")
     for i, rec in enumerate(history):
         print(f"{tag} step {i + 1}: " + ", ".join(f"{k} {v:.6f}" for k, v in rec.items()))
@@ -3797,8 +3833,8 @@ def segm_oracle(dataset) -> list:
     return out
 
 
-def mask_eval(B, handle, dataset6) -> dict:
-    """10c: the first MASK_EVAL images of phase 6's set with polygons,
+def mask_eval(B, handle, dataset6, what: str = "Mask R-CNN") -> dict:
+    """10c / 11c: the first MASK_EVAL images of phase 6's set with polygons,
     through ``single_device_test`` and ``evaluate(["bbox", "segm"])``; each
     result bit-equal to a ``predict`` replay and the host paste, K1 twice a
     predict, the gts' own polygons at segm AP = 1.  Returns the launch
@@ -3838,7 +3874,7 @@ def mask_eval(B, handle, dataset6) -> dict:
     t = time.perf_counter()
     metrics = dataset.evaluate(results, metric=["bbox", "segm"])
     check(all(np.isfinite(v) and -1 <= v <= 1 for v in metrics.values()),
-          f"Mask R-CNN on {len(dataset)} planted images with polygons: loop {run_s:.2f} s, "
+          f"{what} on {len(dataset)} planted images with polygons: loop {run_s:.2f} s, "
           f"evaluate {time.perf_counter() - t:.2f} s; random weights: bbox AP "
           f"{metrics['bbox_AP']:.4f}, segm AP {metrics['segm_AP']:.4f}, segm AR100 "
           f"{metrics['segm_AR100']:.4f}")
@@ -3881,6 +3917,331 @@ def phase_mask_rcnn(B, K, dataset6, rng, card: str) -> dict:
     counts = add_counts(counts, mask_eval(B, handle, dataset6))
     print(f"10c: {time.perf_counter() - t:.2f} s", flush=True)
     del handle
+    torch.cuda.empty_cache()
+    return counts
+
+
+# --------------------------- phase 11: the cascade family (Cascade R-CNN, GN + WS, HTC)
+
+HTC = "htc_r50_fpn_1x.py"
+CASCADE = "cascade_rcnn_r50_fpn_1x.py"
+GN_WS = "mask_rcnn_r50_fpn_gn_ws_2x.py"
+STUFF_CLASSES = 183        # COCO-stuff's, the semantic head's
+HTC_NAMES = ("rpn_head.rpn_cls.weight", "bbox_head.0.shared_fcs.0.weight",
+             "bbox_head.2.fc_reg.weight", "mask_head.0.conv_logits.weight",
+             "mask_head.2.conv_res.weight", "semantic_head.conv_logits.weight",
+             "semantic_head.lateral_convs.0.conv.weight")
+CASCADE_NAMES = ("rpn_head.rpn_cls.weight", "bbox_head.0.shared_fcs.0.weight",
+                 "bbox_head.1.fc_cls.weight", "bbox_head.2.fc_reg.weight")
+# GN scales of the backbone's trained stages, the FPN, the box head's shared
+# convs and the mask head
+GN_NAMES = ("backbone.layer2.0.gn1.weight", "backbone.layer4.2.gn3.weight",
+            "neck.lateral_convs.0.gn.weight", "neck.fpn_convs.3.gn.weight",
+            "bbox_head.shared_convs.3.gn.weight", "mask_head.convs.0.gn.weight")
+PNG_FILTERS = (1, 2, 3, 4, 0)   # the row filters of the planted maps, row by row in turn
+CASCADE_TRAIN_STEPS = 2
+
+
+def stuff_map(h: int, w: int, seed: int) -> np.ndarray:
+    """A planted (h, w) uint8 label map of STUFF_CLASSES classes: blocks of
+    a class each, with ignored (255) regions."""
+    rng = np.random.default_rng(seed)
+    gh, gw = -(-h // 40), -(-w // 40)
+    cells = rng.integers(0, STUFF_CLASSES, (gh, gw)).astype(np.uint8)
+    cells[rng.uniform(size=(gh, gw)) < 0.15] = 255
+    return np.ascontiguousarray(np.repeat(np.repeat(cells, 40, 0), 40, 1)[:h, :w])
+
+
+def png_bytes(seg: np.ndarray) -> bytes:
+    """An 8-bit greyscale PNG of ``seg``, written here with zlib; row y
+    filtered by PNG_FILTERS[y % 5] (Sub, Up, Average, Paeth, None)."""
+    import struct
+    import zlib
+
+    img = seg.astype(np.int32)
+    h, w = img.shape
+    up = np.vstack([np.zeros((1, w), np.int32), img[:-1]])
+    left = np.hstack([np.zeros((h, 1), np.int32), img[:, :-1]])
+    corner = np.hstack([np.zeros((h, 1), np.int32), up[:, :-1]])
+    p = left + up - corner
+    pa, pb, pc = np.abs(p - left), np.abs(p - up), np.abs(p - corner)
+    paeth = np.where((pa <= pb) & (pa <= pc), left, np.where(pb <= pc, up, corner))
+    preds = (np.zeros_like(img), left, up, (left + up) >> 1, paeth)
+    kinds = np.asarray(PNG_FILTERS)[np.arange(h) % len(PNG_FILTERS)]
+    rows = np.empty((h, w + 1), np.uint8)
+    rows[:, 0] = kinds
+    rows[:, 1:] = (img - np.choose(kinds[:, None], preds)) & 255
+
+    def chunk(kind: bytes, data: bytes) -> bytes:
+        return (struct.pack(">I", len(data)) + kind + data
+                + struct.pack(">I", zlib.crc32(kind + data)))
+
+    return (b"\x89PNG\r\n\x1a\n" + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, 0, 0, 0, 0))
+            + chunk(b"IDAT", zlib.compress(rows.tobytes())) + chunk(b"IEND", b""))
+
+
+def htc_train_batch(batch: int, num_gts: int, canvas=(832, 1344)) -> dict:
+    """``mask_train_batch`` with a planted label map at 1/8 of the canvas,
+    as SegRescale gives it (int32, ignored regions 255)."""
+    out = mask_train_batch(batch, num_gts)
+    out["gt_semantic_seg"] = np.stack([stuff_map(canvas[0] // 8, canvas[1] // 8, 20 + b)
+                                       for b in range(batch)]).astype(np.int32)
+    return out
+
+
+def expected_map(seg: np.ndarray, sample: dict, canvas) -> np.ndarray:
+    """A planted map as the train pipeline should give it: resized to the
+    sample's image shape (nearest), flipped with it, padded with 255 onto
+    the canvas, scaled by 1/8 (nearest)."""
+    from ioudet_torch.data.pipelines.transforms import imresize_nearest
+
+    h, w = (int(v) for v in sample["img_shape"])
+    out = imresize_nearest(seg, (h, w))
+    if bool(sample["flip"]):
+        out = out[:, ::-1]
+    padded = np.full(canvas, 255, np.uint8)
+    padded[:h, :w] = out
+    return imresize_nearest(padded, (canvas[0] // 8, canvas[1] // 8)).astype(np.int32)
+
+
+def htc_pipeline(B, K, handle, cfg, dataset6) -> dict:
+    """11c: semantic maps from PNG files through the config's own
+    train_pipeline and one ``train_detector`` step, then the eval of 10c.
+    Each of phase 6's first MASK_EVAL images gets a planted map written as a
+    PNG (``png_bytes``); the train set is its first two images with
+    polygons; every sample's map must equal the planted one after Resize,
+    flip, Pad and SegRescale (read, not the all-255 map of a missing file).
+    Returns the launch counts."""
+    from ioudet_torch.apis.train import train_detector
+    from ioudet_torch.data import build_dataset
+    from ioudet_torch.data.rng import make_sample_rng, set_sample_rng
+
+    root = os.path.dirname(dataset6.ann_file)
+    seg_dir = os.path.join(root, "stuffthingmaps")
+    os.makedirs(seg_dir, exist_ok=True)
+    maps = {}
+    for info in dataset6.img_infos[:MASK_EVAL]:
+        seg = stuff_map(info["height"], info["width"], 100 + info["id"])
+        stem = os.path.splitext(os.path.basename(info["filename"]))[0]
+        with open(os.path.join(seg_dir, stem + ".png"), "wb") as f:
+            f.write(png_bytes(seg))
+        maps[info["filename"]] = seg
+    ann_file = os.path.join(root, "htc_train.json")
+    plant_polygons(dataset6.ann_file, ann_file, 2)
+    train = dict(cfg["data"]["train"], ann_file=ann_file, img_prefix=dataset6.img_prefix,
+                 seg_prefix=seg_dir)
+    dataset = build_dataset(train)
+    canvas = next(s["size"] for s in train["pipeline"] if s["type"] == "Pad")
+    flips = []
+    for idx in range(len(dataset)):
+        set_sample_rng(make_sample_rng(0, 0, idx))
+        try:
+            sample = dataset[idx]
+        finally:
+            set_sample_rng(None)
+        want = expected_map(maps[dataset.img_infos[idx]["filename"]], sample, canvas)
+        got = sample["gt_semantic_seg"]
+        flips.append(bool(sample["flip"]))
+        check(got.dtype == np.int32 and np.array_equal(got, want) and (got != 255).any(),
+              f"train sample {idx}: the map read from its PNG ({len(PNG_FILTERS)} row "
+              f"filters) equals the planted one after Resize, flip {flips[-1]}, Pad and "
+              f"SegRescale, {got.shape}, {int((got != 255).sum())} labelled cells")
+    history = []
+
+    def hook(step, log_vars):
+        history.append((dict(B.launches), {k: float(v) for k, v in log_vars.items()}))
+        B.reset_launches()
+
+    torch.cuda.synchronize()
+    B.reset_launches()
+    with tempfile.TemporaryDirectory() as work_dir:
+        train_detector(handle, dataset, dict(cfg, log_config=dict(interval=1)), work_dir,
+                       device="cuda", step_hook=hook)
+    check(len(history) == 1 and history[0][0]["nms_mask_kernel"] == 1 and
+          history[0][0]["nms_reduce_kernel"] == 1 and
+          all(np.isfinite(v) for v in history[0][1].values()) and
+          history[0][1]["loss_semantic_seg"] > 0,
+          "one train_detector step from the config's train_pipeline: K1 once, losses "
+          "finite, " + ", ".join(f"{k} {v:.4f}" for k, v in history[0][1].items()))
+    counts = history[0][0]
+    handle.model.eval()
+    return add_counts(counts, mask_eval(B, handle, dataset6, "HTC"))
+
+
+def cascade_split(handle, inputs, reps: int = 5) -> dict:
+    """Medians by CUDA events of a cascade ``predict``'s parts, by hooks on
+    the detector's modules: backbone + FPN, the semantic head, RPN head +
+    proposal NMS, each stage's box RoIAlign, semantic RoIAlign, box head and
+    decode, the final decode + NMS, and the mask branch: RoIAlign, semantic
+    RoIAlign, each stage's mask head (each runs once: the information flow
+    hands its feature on), the class pick with the sigmoid mean."""
+    from ioudet_torch.apis.inference import predict
+
+    model = handle.model
+    marks = []
+
+    def mark(label):
+        def hook(*_):
+            ev = torch.cuda.Event(enable_timing=True)
+            ev.record()
+            marks.append((label, ev))
+        return hook
+
+    sem_calls = []
+    mask = getattr(model, "mask_head", None) is not None
+    hooks = [model.backbone.register_forward_pre_hook(mark("start")),
+             model.neck.register_forward_hook(mark("backbone + FPN")),
+             model.bbox_roi_extractor.register_forward_pre_hook(mark("pre-roi")),
+             model.bbox_roi_extractor.register_forward_hook(mark("box RoIAlign"))]
+    hooks += [h.register_forward_hook(mark(f"box head {i}"))
+              for i, h in enumerate(model.bbox_head)]
+    if getattr(model, "semantic_head", None) is not None:
+        hooks += [model.semantic_head.register_forward_hook(mark("semantic head")),
+                  model.semantic_roi_extractor.register_forward_hook(mark("semantic RoIAlign"))]
+    if mask:
+        hooks += [model.mask_roi_extractor.register_forward_pre_hook(mark("pre-mask")),
+                  model.mask_roi_extractor.register_forward_hook(mark("mask RoIAlign"))]
+        hooks += [h.register_forward_hook(mark(f"mask head {i}"))
+                  for i, h in enumerate(model.mask_head)]
+    parts: dict = {}
+    try:
+        for rep in range(reps + 1):
+            marks.clear()
+            predict(handle, *inputs)
+            mark("end")()
+            torch.cuda.synchronize()
+            stage, in_mask, seen = -1, False, {}
+            for (_, a), (label, b) in zip(marks, marks[1:]):
+                if label == "pre-roi":
+                    stage += 1
+                    label = "RPN head + proposal NMS" if stage == 0 else f"stage {stage - 1} decode"
+                elif label == "box RoIAlign":
+                    label = f"stage {stage} box RoIAlign"
+                elif label == "semantic RoIAlign":
+                    label = ("mask semantic RoIAlign" if in_mask
+                             else f"stage {stage} semantic RoIAlign")
+                elif label.startswith("box head"):
+                    label = f"stage {stage} box head"
+                elif label == "pre-mask":
+                    in_mask, label = True, "decode + final NMS"
+                elif label == "end":
+                    label = "class pick + sigmoid mean" if mask else "decode + final NMS"
+                seen[label] = seen.get(label, 0.0) + a.elapsed_time(b)
+            if rep:
+                for k, v in seen.items():
+                    parts.setdefault(k, []).append(v)
+    finally:
+        for h in hooks:
+            h.remove()
+    return {k: statistics.median(v) for k, v in parts.items()}
+
+
+def cascade_timing(K, handle, runner, batch, inputs, card: str, others) -> None:
+    """11e: HTC's ``predict`` at batch 8 and 1 and its parts, TF32 off and
+    on, K1 at each stage's own candidates, the train step at batch 2 with
+    peak memory; ``others`` (Cascade R-CNN's and GN + WS Mask R-CNN's
+    handles) ``predict`` at batch 8; the PNG decode of an 800x1333 map."""
+    from ioudet_torch.apis.inference import predict
+    from ioudet_torch.data.pipelines.png import decode_png
+
+    for tf32 in (False, True):
+        set_tf32(tf32)
+        tag = f"[{card}; f32, TF32 {'on' if tf32 else 'off'}]"
+        for bsz in (TWO_STAGE_BATCH, 1):
+            args = tuple(x[:bsz] for x in inputs)
+            torch.cuda.reset_peak_memory_stats()
+            ms = host_ms(lambda: predict(handle, *args), reps=5)
+            peak = torch.cuda.max_memory_allocated() / 2 ** 30
+            print(f"HTC predict batch {bsz}: median of 5 {ms:.3f} ms, {bsz * 1e3 / ms:.2f} "
+                  f"img/s, peak memory {peak:.2f} GiB {tag}", flush=True)
+        parts = cascade_split(handle, inputs)
+        print(f"HTC predict batch {TWO_STAGE_BATCH} by CUDA events (median of 5), ms: "
+              + ", ".join(f"{k} {v:.3f}" for k, v in parts.items()) + f" {tag}", flush=True)
+        for what, other in others:
+            ms = host_ms(lambda: predict(other, *inputs), reps=5)
+            print(f"{what} predict batch {TWO_STAGE_BATCH}: median of 5 {ms:.3f} ms, "
+                  f"{TWO_STAGE_BATCH * 1e3 / ms:.2f} img/s {tag}", flush=True)
+    set_tf32(False)
+    stages = []
+    with nms_calls(K, stages):
+        predict(handle, *inputs)
+    for (boxes, valid, thr), stage in zip(stages, ("proposals", "detections")):
+        words = K.nms_mask(boxes, thr)
+        keep = K.nms_reduce(words, valid)
+        plain = cuda_ms(lambda: K.nms_mask_plain(boxes, thr), 5)
+        print(k1_line(K, f"HTC {stage}, IoU {thr}, batch {TWO_STAGE_BATCH}", boxes, keep,
+                      cuda_ms(lambda: K.nms_mask(boxes, thr), 50),
+                      cuda_ms(lambda: K.nms_reduce(words, valid), 50),
+                      *k1_bounds(boxes, words, keep), f"plain mask {plain:.4f} ms [{card}; f32"),
+              flush=True)
+    runner.model.train()
+    for tf32 in (False, True):
+        set_tf32(tf32)
+        torch.cuda.reset_peak_memory_stats()
+        ms = host_ms(lambda: runner.train_step(batch, TWO_STAGE_STEPS), reps=5, warmup=2)
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        print(f"HTC train step batch {TWO_STAGE_TRAIN_BATCH}: median of 5 {ms:.3f} ms, "
+              f"{TWO_STAGE_TRAIN_BATCH * 1e3 / ms:.2f} img/s, peak memory {peak:.2f} GiB "
+              f"[{card}; f32, TF32 {'on' if tf32 else 'off'}]", flush=True)
+    set_tf32(False)
+    buf = png_bytes(stuff_map(800, 1333, 7))
+    t = time.perf_counter()
+    seg = decode_png(buf)
+    decode_ms = (time.perf_counter() - t) * 1e3
+    check(np.array_equal(seg, stuff_map(800, 1333, 7)),
+          f"PNG decode of an 800x1333 label map ({len(buf)} bytes, {len(PNG_FILTERS)} row "
+          f"filters): {decode_ms:.1f} ms on the host [{card}]")
+
+
+def phase_cascade(B, K, dataset6, rng, card: str) -> dict:
+    """Phase 11: HTC R-50-FPN (configs/htc_r50_fpn_1x.py) at full width and
+    depth, then Cascade R-CNN R-50-FPN and the GN + WS Mask R-CNN, seeded
+    random weights, f32, TF32 off for the checks.  Returns the kernels'
+    launch counts of its main-path runs."""
+    from ioudet_torch.apis.inference import init_detector
+
+    set_tf32(False)
+    cfg = two_stage_cfg(HTC)
+    handle = init_detector(cfg, device="cuda", seed=0)
+    nparams = sum(p.numel() for p in handle.model.parameters())
+    inputs = canvases(TWO_STAGE_BATCH, rng)
+    print(f"11a: HTC ({HTC}, {nparams:,} parameters), rcnn score_thr 0", flush=True)
+    t = time.perf_counter()
+    counts = two_stage_serving(B, K, handle, inputs, "HTC", "11a")
+    print(f"11a: {time.perf_counter() - t:.2f} s", flush=True)
+    t = time.perf_counter()
+    keys = ["rpn_loss_cls", "rpn_loss_bbox", "loss_semantic_seg"] + [
+        f"s{s}_loss_{k}" for s in range(3) for k in ("cls", "bbox", "mask")]
+    train_counts, runner, batch = two_stage_training(
+        B, K, handle, cfg, htc_train_batch(TWO_STAGE_TRAIN_BATCH, NUM_GTS), HTC_NAMES, "HTC",
+        "11b", loss_keys=keys, positive=("loss_semantic_seg",))
+    counts = add_counts(counts, train_counts)
+    print(f"11b: {time.perf_counter() - t:.2f} s", flush=True)
+    t = time.perf_counter()
+    counts = add_counts(counts, htc_pipeline(B, K, handle, cfg, dataset6))
+    print(f"11c: {time.perf_counter() - t:.2f} s", flush=True)
+    t = time.perf_counter()
+    others = []
+    for name, what, names, nonzero, train in (
+            (CASCADE, "Cascade R-CNN", CASCADE_NAMES, (), None),
+            (GN_WS, "GN + WS Mask R-CNN", MASK_NAMES[:2] + GN_NAMES, GN_NAMES,
+             mask_train_batch(TWO_STAGE_TRAIN_BATCH, NUM_GTS))):
+        other_cfg = two_stage_cfg(name)
+        other = init_detector(other_cfg, device="cuda", seed=0)
+        counts = add_counts(counts, two_stage_serving(B, K, other, inputs, what, "11d",
+                                                      batches=(TWO_STAGE_BATCH,)))
+        other_counts, other_runner, _ = two_stage_training(
+            B, K, other, other_cfg, train, names, what, "11d", CASCADE_TRAIN_STEPS, nonzero)
+        counts = add_counts(counts, other_counts)
+        other.model.eval()
+        others.append((what, other))
+        del other_runner
+    print(f"11d: {time.perf_counter() - t:.2f} s", flush=True)
+    t = time.perf_counter()
+    handle.model.eval()
+    cascade_timing(K, handle, runner, batch, inputs, card, others)
+    print(f"11e: {time.perf_counter() - t:.2f} s", flush=True)
+    del handle, runner, batch, inputs, others
     torch.cuda.empty_cache()
     return counts
 
@@ -4045,8 +4406,19 @@ def main() -> int:
     t = time.perf_counter()
     mask_launches = phase_mask_rcnn(B, K, eval_dataset, rng, card)
     launches = {k: launches[k] + mask_launches.get(k, 0) for k in launches}
-    eval_dir.cleanup()
     print(f"phase 10: {time.perf_counter() - t:.2f} s", flush=True)
+
+    print("phase 11: the cascade family at full width; TF32 off for the checks: 11a HTC "
+          "predict at batch 8 and 1 (K1 at both NMS stages, masks), 11b three HTC train "
+          "steps at batch 2 with box-frame masks and semantic maps, 11c PNG semantic maps "
+          "through the train pipeline, one train_detector step, single_device_test and "
+          f"evaluate bbox + segm on {MASK_EVAL} images, 11d Cascade R-CNN and GN + WS Mask "
+          "R-CNN predict and two train steps each, 11e timings" + since(start), flush=True)
+    t = time.perf_counter()
+    cascade_launches = phase_cascade(B, K, eval_dataset, rng, card)
+    launches = {k: launches[k] + cascade_launches.get(k, 0) for k in launches}
+    eval_dir.cleanup()
+    print(f"phase 11: {time.perf_counter() - t:.2f} s", flush=True)
     check(all(launches[name] > 0 for name in KERNELS if name not in REPLACED) and
           all(launches[name] == 0 for name in REPLACED),
           "every kernel was launched on a main path, and none of those the wgmma kernels "

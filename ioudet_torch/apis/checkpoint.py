@@ -3,11 +3,13 @@
 
 The port's modules use the mmdet state_dict key layout, so a reference
 ``.pth`` loads as it is.  ``state_dict_from_flax`` turns ``ioudet``'s
-parameter tree for the RetinaNet family and for Faster R-CNN / RPN / Mask
-R-CNN (nested dicts of arrays, HWIO conv kernels, (in, out) dense kernels)
-into that layout: it is the inverse of ``ioudet``'s
-``convert_torch_retinanet``, ``convert_torch_faster_rcnn`` and
-``convert_torch_fcn_mask_head`` and their parts.  Any
+parameter tree for the RetinaNet family, Faster R-CNN / RPN / Mask R-CNN
+and the cascades (Cascade R-CNN, HTC: a head a stage, the semantic head),
+with FrozenBN or GN and plain or weight-standardized convs (nested dicts of
+arrays, HWIO conv kernels, (in, out) dense kernels) into that layout: it is
+the inverse of ``ioudet``'s ``convert_torch_retinanet``,
+``convert_torch_faster_rcnn`` and ``convert_torch_fcn_mask_head`` and their
+parts.  Any
 tree of that structure goes through it, so gradients and momentum buffers of
 ``ioudet`` can be laid beside the port's as well.
 
@@ -62,6 +64,25 @@ def _bn(sd: dict, prefix: str, leaf: dict) -> None:
         sd[f"{prefix}.{_BN[k]}"] = _tensor(v)
 
 
+def _norm(sd: dict, parent: str, index: str, leaf: dict) -> None:
+    """A norm leaf under mmdet's name: FrozenBN (it has statistics) as
+    ``<parent>.bn<index>``, GN (``scale`` / ``bias`` only) as
+    ``<parent>.gn<index>``."""
+    _bn(sd, f"{parent}.{'bn' if 'mean' in leaf else 'gn'}{index}", leaf)
+
+
+def _conv_module(sd: dict, prefix: str, node: dict) -> None:
+    """``ioudet``'s ConvModule {conv[, norm]} -> ``<prefix>.conv``
+    [``<prefix>.bn`` / ``<prefix>.gn``]."""
+    for name, leaf in node.items():
+        if name == "conv":
+            _conv(sd, f"{prefix}.conv", leaf)
+        elif name == "norm":
+            _norm(sd, prefix, "", leaf)
+        else:
+            raise KeyError(f"unknown conv module param {prefix}/{name}")
+
+
 def _context_block(sd: dict, prefix: str, tree: dict) -> None:
     """flax ``context_block/{conv_mask, <fusion>_down, <fusion>_ln,
     <fusion>_up}`` -> mmdet's ``conv_mask``, ``<fusion>_conv.{0,1,3}`` (the
@@ -87,7 +108,7 @@ def _backbone(sd: dict, tree: dict, prefix: str = "backbone") -> None:
         if name == "conv1":
             _conv(sd, f"{prefix}.conv1", node)
         elif name == "bn1":
-            _bn(sd, f"{prefix}.bn1", node)
+            _norm(sd, prefix, "1", node)
         elif block.match(name):
             stage, idx = block.match(name).groups()
             base = f"{prefix}.layer{stage}.{idx}"
@@ -103,7 +124,7 @@ def _backbone(sd: dict, tree: dict, prefix: str = "backbone") -> None:
                 elif sub == "context_block":
                     _context_block(sd, f"{base}.context_block", leaf)
                 elif re.fullmatch(r"bn\d", sub):
-                    _bn(sd, f"{base}.{sub}", leaf)
+                    _norm(sd, base, sub[2:], leaf)
                 else:
                     raise KeyError(f"unknown backbone param {name}/{sub}")
         else:
@@ -123,7 +144,7 @@ def _neck(sd: dict, tree: dict, prefix: str = "neck") -> None:
             dst = f"fpn_convs.{num_laterals + idx}"
         else:
             raise KeyError(f"unknown neck param {name}")
-        _conv(sd, f"{prefix}.{dst}.conv", node["conv"])
+        _conv_module(sd, f"{prefix}.{dst}", node)
 
 
 ROI_FEAT_SIZE = 7   # the RoI feature's side in every box head the port builds
@@ -143,17 +164,19 @@ def _dense(sd: dict, prefix: str, leaf: dict, roi_input: bool = False) -> None:
 
 
 def _roi_head(sd: dict, tree: dict, prefix: str = "bbox_head") -> None:
-    """SharedFCBBoxHead's tree {shared_fc<i>, fc_cls, fc_reg} -> mmdet's
-    shared_fcs.<i>, fc_cls, fc_reg; shared_fc0 takes the flattened RoI
-    feature and gets its input permuted.  A box head with shared convs or
-    without shared fcs is not bridged."""
-    if "shared_fc0" not in tree or any(k.startswith("shared_conv") for k in tree):
+    """ConvFCBBoxHead's tree {shared_conv<i>, shared_fc<i>, fc_cls, fc_reg}
+    -> mmdet's shared_convs.<i>, shared_fcs.<i>, fc_cls, fc_reg; shared_fc0
+    takes the flattened RoI feature (after the shared convs) and gets its
+    input permuted.  A box head without shared fcs is not bridged."""
+    if "shared_fc0" not in tree:
         raise NotImplementedError(
-            f"box head tree {sorted(tree)}: only SharedFCBBoxHead's is bridged")
+            f"box head tree {sorted(tree)}: only ConvFCBBoxHead's with shared fcs is bridged")
     for name, leaf in tree.items():
-        m = re.fullmatch(r"shared_fc(\d+)", name)
-        if m:
-            _dense(sd, f"{prefix}.shared_fcs.{m.group(1)}", leaf, roi_input=m.group(1) == "0")
+        m = re.fullmatch(r"shared_(fc|conv)(\d+)", name)
+        if m and m.group(1) == "conv":
+            _conv_module(sd, f"{prefix}.shared_convs.{m.group(2)}", leaf)
+        elif m:
+            _dense(sd, f"{prefix}.shared_fcs.{m.group(2)}", leaf, roi_input=m.group(2) == "0")
         elif name in ("fc_cls", "fc_reg"):
             _dense(sd, f"{prefix}.{name}", leaf)
         else:
@@ -173,17 +196,23 @@ def _head(sd: dict, tree: dict, prefix: str = "bbox_head") -> None:
 
 
 def _mask_head(sd: dict, tree: dict, prefix: str = "mask_head") -> None:
-    """FCNMaskHead's tree {conv<i>, upsample, conv_logits} -> mmdet's
-    convs.<i>.conv, upsample, conv_logits (the inverse of ``ioudet``'s
-    ``convert_torch_fcn_mask_head``).  flax's ``ConvTranspose`` kernel
-    (kh, kw, in, out) is a forward conv of the dilated input, torch's
-    ``ConvTranspose2d`` weight (in, out, kh, kw) the gradient of one: the
-    kernel is flipped in both spatial axes on the way.  ``conv_logits``
-    crosses as it is (no background channel on either side)."""
+    """FCNMaskHead's or HTCMaskHead's tree {conv<i>, [conv_res,] upsample,
+    conv_logits} -> mmdet's convs.<i>.conv (a GN / WS head's conv<i> is a
+    ConvModule: convs.<i>.conv and convs.<i>.gn), conv_res, upsample,
+    conv_logits (the inverse of ``ioudet``'s ``convert_torch_fcn_mask_head``).
+    flax's ``ConvTranspose`` kernel (kh, kw, in, out) is a forward conv of
+    the dilated input, torch's ``ConvTranspose2d`` weight (in, out, kh, kw)
+    the gradient of one: the kernel is flipped in both spatial axes on the
+    way.  ``conv_logits`` crosses as it is (no background channel on either
+    side)."""
     for name, leaf in tree.items():
         m = re.fullmatch(r"conv(\d+)", name)
-        if m:
+        if m and "conv" in leaf:
+            _conv_module(sd, f"{prefix}.convs.{m.group(1)}", leaf)
+        elif m:
             _conv(sd, f"{prefix}.convs.{m.group(1)}.conv", leaf)
+        elif name == "conv_res":
+            _conv(sd, f"{prefix}.conv_res", leaf)
         elif name == "upsample":
             sd[f"{prefix}.upsample.weight"] = _tensor(leaf["kernel"]).flip(0, 1) \
                 .permute(2, 3, 0, 1).contiguous()
@@ -194,13 +223,44 @@ def _mask_head(sd: dict, tree: dict, prefix: str = "mask_head") -> None:
             raise KeyError(f"unknown mask head param {name}")
 
 
+def _semantic_head(sd: dict, tree: dict, prefix: str = "semantic_head") -> None:
+    """FusedSemanticHead's tree {lateral<i>, conv<i>, conv_embedding} (each
+    a ConvModule) and conv_logits -> mmdet's lateral_convs.<i>, convs.<i>,
+    conv_embedding, conv_logits."""
+    for name, node in tree.items():
+        m = re.fullmatch(r"(lateral|conv)(\d+)", name)
+        if m:
+            group = "lateral_convs" if m.group(1) == "lateral" else "convs"
+            _conv_module(sd, f"{prefix}.{group}.{m.group(2)}", node)
+        elif name == "conv_embedding":
+            _conv_module(sd, f"{prefix}.conv_embedding", node)
+        elif name == "conv_logits":
+            _conv(sd, f"{prefix}.conv_logits", node)
+        else:
+            raise KeyError(f"unknown semantic head param {name}")
+
+
+def _box_head(sd: dict, head: dict, prefix: str) -> None:
+    if any(k.startswith(("shared_", "fc_")) for k in head):
+        _roi_head(sd, head, prefix)
+    elif head:
+        _head(sd, head, prefix)
+
+
+_STAGE = re.compile(r"(bbox_head|mask_head)_(\d+)$")
+
+
 def state_dict_from_flax(params: dict) -> Dict[str, torch.Tensor]:
-    """``ioudet`` params of the RetinaNet family {backbone, neck, bbox_head}
-    or of Faster R-CNN / RPN / Mask R-CNN {backbone, neck, rpn_head,
-    bbox_head[, mask_head]} -> a state_dict for the port's detector (mmdet
-    key layout).  A partial tree (a pretrained backbone alone, or the
-    trainable leaves of an optimizer state) gives the entries it holds."""
-    unknown = set(params) - {"backbone", "neck", "rpn_head", "bbox_head", "mask_head"}
+    """``ioudet`` params of the RetinaNet family {backbone, neck, bbox_head},
+    of Faster R-CNN / RPN / Mask R-CNN {backbone, neck, rpn_head,
+    bbox_head[, mask_head]} or of a cascade (flax's ``bbox_head_<i>`` /
+    ``mask_head_<i>`` a stage, HTC's ``semantic_head``) -> a state_dict for
+    the port's detector (mmdet key layout, a stage's heads under
+    ``bbox_head.<i>`` / ``mask_head.<i>``).  A partial tree (a pretrained
+    backbone alone, or the trainable leaves of an optimizer state) gives the
+    entries it holds."""
+    unknown = {k for k in params if not _STAGE.match(k)} - {
+        "backbone", "neck", "rpn_head", "bbox_head", "mask_head", "semantic_head"}
     if unknown:
         raise KeyError(f"unsupported parameter groups: {sorted(unknown)}")
     sd: Dict[str, torch.Tensor] = {}
@@ -210,13 +270,17 @@ def state_dict_from_flax(params: dict) -> Dict[str, torch.Tensor]:
         _neck(sd, params["neck"])
     if "rpn_head" in params:
         _head(sd, params["rpn_head"], "rpn_head")
-    head = params.get("bbox_head", {})
-    if any(k.startswith(("shared_", "fc_")) for k in head):
-        _roi_head(sd, head)
-    elif head:
-        _head(sd, head)
+    _box_head(sd, params.get("bbox_head", {}), "bbox_head")
     if "mask_head" in params:
         _mask_head(sd, params["mask_head"])
+    for name, tree in params.items():
+        m = _STAGE.match(name)
+        if m and m.group(1) == "bbox_head":
+            _box_head(sd, tree, f"bbox_head.{m.group(2)}")
+        elif m:
+            _mask_head(sd, tree, f"mask_head.{m.group(2)}")
+    if "semantic_head" in params:
+        _semantic_head(sd, params["semantic_head"])
     return sd
 
 
@@ -266,6 +330,7 @@ def load_optax_state(model: torch.nn.Module, optimizer: torch.optim.Optimizer,
             raise TypeError(f"an Adam state needs AdamW, not {type(optimizer).__name__}")
         slots = {"exp_avg": state_dict_from_flax(_prune(leaf["mu"])),
                  "exp_avg_sq": state_dict_from_flax(_prune(leaf["nu"]))}
+    slots = {slot: _norm_names(sd, trained) for slot, sd in slots.items()}
     for slot, sd in slots.items():
         if set(sd) != set(trained):
             raise KeyError(f"optax {slot} state for {sorted(set(sd) ^ set(trained))[:8]}: "
@@ -275,6 +340,18 @@ def load_optax_state(model: torch.nn.Module, optimizer: torch.optim.Optimizer,
         if "count" in leaf:
             state["step"] = torch.tensor(float(np.asarray(leaf["count"])))
         optimizer.state[p] = state
+
+
+def _norm_names(sd: dict, names) -> dict:
+    """A bridged partial tree's norm entries under the model's names: a
+    FrozenBN's trainable leaves (scale and bias, without its statistics)
+    bridge as GN's ``gn<i>``; where the model has ``bn<i>`` there instead,
+    that name is taken."""
+    out = {}
+    for k, v in sd.items():
+        alt = re.sub(r"\.gn(\d*)\.", r".bn\1.", k)
+        out[alt if k not in names and alt in names else k] = v
+    return out
 
 
 def read_flax_checkpoint(path: str) -> Tuple[dict, dict]:

@@ -52,7 +52,7 @@ from ..utils.logging import get_root_logger
 from .checkpoint import latest_checkpoint, load_checkpoint, merge_weights, save_checkpoint
 
 BATCH_KEYS = ("img", "gt_bboxes", "gt_labels", "gt_valid", "img_shape", "pad_shape",
-              "gt_bboxes_ignore", "gt_ignore_valid", "gt_masks")
+              "gt_bboxes_ignore", "gt_ignore_valid", "gt_masks", "gt_semantic_seg")
 
 
 # --------------------------------------------------------------------------
@@ -101,7 +101,7 @@ def make_trainable_mask(model: torch.nn.Module,
     Returns name -> trainable."""
     if frozen_stages is None:
         frozen_stages = getattr(getattr(model, "backbone", None), "frozen_stages", -1)
-    frozen = ["backbone.conv1.", "backbone.bn1."] if frozen_stages >= 0 else []
+    frozen = ["backbone.conv1.", "backbone.bn1.", "backbone.gn1."] if frozen_stages >= 0 else []
     frozen += [f"backbone.layer{s}." for s in range(1, frozen_stages + 1)]
     mask = {}
     for name, p in model.named_parameters():
@@ -211,7 +211,9 @@ def make_train_step(model: torch.nn.Module, optimizer: torch.optim.Optimizer,
 
     batch keys: img, gt_bboxes, gt_labels, gt_valid, img_shape, pad_shape
     (+ gt_bboxes_ignore, gt_ignore_valid; + gt_masks, (B, G, S, S) uint8
-    box-frame crops, for a mask detector), tensors on the model's device;
+    box-frame crops, for a mask detector; + gt_semantic_seg, (B, h, w) int
+    labels at the semantic head's stride, for a detector with one), tensors
+    on the model's device;
     ``step`` is the number of steps taken so far and picks the LR and the
     generator of the step's draws (``step_generator(device, seed, step)``,
     ``ioudet``'s ``fold_in(key, step)``).  The parameters must be f32 (a
@@ -225,6 +227,7 @@ def make_train_step(model: torch.nn.Module, optimizer: torch.optim.Optimizer,
     forward = model.forward_train if ddp is None else ddp
     device = next(model.parameters()).device
     with_masks = getattr(model, "mask_head", None) is not None
+    with_semantic = getattr(model, "semantic_head", None) is not None
 
     def train_step(batch: dict, step: int) -> Dict[str, torch.Tensor]:
         lr = lr_schedule(step)
@@ -236,6 +239,8 @@ def make_train_step(model: torch.nn.Module, optimizer: torch.optim.Optimizer,
                       gt_ignore_valid=batch["gt_ignore_valid"])
         if with_masks and "gt_masks" in batch:
             kw["gt_masks"] = batch["gt_masks"]
+        if with_semantic and "gt_semantic_seg" in batch:
+            kw["gt_semantic_seg"] = batch["gt_semantic_seg"]
         losses = forward(
             batch["img"], batch["gt_bboxes"], batch["gt_labels"], batch["gt_valid"],
             batch["img_shape"], batch["pad_shape"], **kw)

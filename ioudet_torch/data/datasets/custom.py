@@ -2,7 +2,8 @@
 
 Annotation contract: ``img_infos`` is a list of dict(filename, width,
 height[, id]); ``get_ann_info(idx)`` returns dict(bboxes (n, 4) xyxy f32,
-labels (n,) 1-based, bboxes_ignore (k, 4)).  In train mode images smaller
+labels (n,) 1-based, bboxes_ignore (k, 4)); ``seg_prefix`` is where
+``LoadAnnotations(with_seg=True)`` finds the semantic maps.  In train mode images smaller
 than ``min_size`` or without annotations are dropped, and a sample whose
 pipeline leaves no valid gt is replaced by another of the same orientation
 (``_rand_another``).  ``flag`` is the
@@ -28,11 +29,12 @@ class CustomDataset:
 
     def __init__(self, ann_file: str, pipeline, img_prefix: str = "",
                  proposal_file: Optional[str] = None, test_mode: bool = False,
-                 min_size: int = 32):
+                 min_size: int = 32, seg_prefix: Optional[str] = ""):
         if proposal_file is not None:
             raise NotImplementedError("precomputed proposals (LoadProposals) are not ported yet")
         self.ann_file = ann_file
         self.img_prefix = img_prefix
+        self.seg_prefix = seg_prefix
         self.test_mode = test_mode
         self.img_infos = self.load_annotations(ann_file)
         if not test_mode:
@@ -73,7 +75,8 @@ class CustomDataset:
     def prepare_train_img(self, idx: int):
         return self.pipeline(dict(img_info=self.img_infos[idx],
                                   ann_info=self.get_ann_info(idx),
-                                  img_prefix=self.img_prefix, idx=idx))
+                                  img_prefix=self.img_prefix, seg_prefix=self.seg_prefix,
+                                  idx=idx))
 
     def prepare_test_img(self, idx: int):
         return self.pipeline(dict(img_info=self.img_infos[idx],

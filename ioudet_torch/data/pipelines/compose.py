@@ -9,11 +9,11 @@ from __future__ import annotations
 from .formatting import Collect, DefaultFormatBundle, ImageToTensor
 from .loading import LoadAnnotations, LoadImageFromFile
 from .test_aug import MultiScaleFlipAug
-from .transforms import Normalize, Pad, RandomFlip, Resize
+from .transforms import Normalize, Pad, RandomFlip, Resize, SegRescale
 
 PIPELINES = {c.__name__: c for c in (
     LoadImageFromFile, LoadAnnotations, Resize, RandomFlip, Normalize, Pad,
-    DefaultFormatBundle, ImageToTensor, Collect, MultiScaleFlipAug)}
+    SegRescale, DefaultFormatBundle, ImageToTensor, Collect, MultiScaleFlipAug)}
 
 
 def build_step(cfg: dict):

@@ -2,7 +2,8 @@
 ``ioudet/data/pipelines/formatting.py``): fixed-shape numpy samples.
 
   * gt boxes and labels padded to ``max_gt`` slots with a validity mask,
-    the box-frame gt masks to as many (S, S) crops;
+    the box-frame gt masks to as many (S, S) crops, the semantic label map
+    as int32;
   * shape metas (img_shape, pad_shape, ori_shape), scale_factor and flip as
     arrays, so that a batch stacks into rectangular arrays.
 
@@ -54,6 +55,8 @@ class DefaultFormatBundle:
             gt_masks = np.zeros((self.max_gt, s, s), np.uint8)
             gt_masks[:n] = m[:n]
             results["gt_masks"] = gt_masks
+        if "gt_semantic_seg" in results:   # on the canvas already (Pad)
+            results["gt_semantic_seg"] = np.ascontiguousarray(results["gt_semantic_seg"], np.int32)
         results["img"] = np.ascontiguousarray(results["img"], np.float32)
         return results
 

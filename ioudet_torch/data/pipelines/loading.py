@@ -114,15 +114,19 @@ class LoadAnnotations:
     ignored boxes ride along as ``gt_bboxes_ignore``.  ``with_mask``
     rasterizes each instance's polygons into its box's frame as a
     (mask_size, mask_size) uint8 crop, ``gt_masks`` (G, S, S)
-    (``core/mask/mask_target.rasterize_polygons``)."""
+    (``core/mask/mask_target.rasterize_polygons``).  ``with_seg`` reads the
+    semantic label map ``seg_prefix/<annotation's seg_map>``, by default
+    ``seg_prefix/<image stem>.png``, with the port's own PNG reader
+    (``png.read_png``; a 3-channel map gives its first channel), as
+    ``gt_semantic_seg`` (H, W) uint8; where the file is missing the map is
+    all 255 (ignored), as in ``ioudet``."""
 
     def __init__(self, with_bbox: bool = True, with_label: bool = True,
                  with_mask: bool = False, with_seg: bool = False, mask_size: int = 112):
-        if with_seg:
-            raise NotImplementedError("LoadAnnotations with_seg is not ported yet")
         self.with_bbox = with_bbox
         self.with_label = with_label
         self.with_mask = with_mask
+        self.with_seg = with_seg
         self.mask_size = mask_size
 
     def __call__(self, results: dict) -> dict:
@@ -139,4 +143,16 @@ class LoadAnnotations:
                      for box, poly in zip(ann["bboxes"], ann.get("masks", []))]
             results["gt_masks"] = np.stack(crops) if crops else \
                 np.zeros((0, self.mask_size, self.mask_size), np.uint8)
+        if self.with_seg:
+            name = ann.get("seg_map")
+            if name is None:
+                stem = os.path.splitext(os.path.basename(results["img_info"]["filename"]))[0]
+                name = stem + ".png"
+            path = os.path.join(results.get("seg_prefix") or "", name)
+            if os.path.exists(path):
+                from .png import read_png
+                seg = read_png(path)
+                results["gt_semantic_seg"] = seg[..., 0] if seg.ndim == 3 else seg
+            else:
+                results["gt_semantic_seg"] = np.full(results["img"].shape[:2], 255, np.uint8)
         return results

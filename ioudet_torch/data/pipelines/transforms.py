@@ -13,9 +13,13 @@ Pad).
   * Pad: to ``size_divisor`` (``pad_shape``) and onto a fixed canvas, one
     per orientation;
   * Resize and RandomFlip take a view's ``scale_override`` /
-    ``flip_override`` from ``MultiScaleFlipAug`` (``test_aug.py``).
+    ``flip_override`` from ``MultiScaleFlipAug`` (``test_aug.py``);
+  * a semantic label map (``gt_semantic_seg``) is resized by
+    ``imresize_nearest`` (cv2's INTER_NEAREST rule, in numpy), flipped with
+    the image, padded with 255 (ignore) onto the canvas, and scaled to the
+    semantic head's stride by ``SegRescale``.
 
-The SSD and segmentation transforms are not ported yet.
+The SSD transforms are not ported yet.
 """
 
 from __future__ import annotations
@@ -97,6 +101,17 @@ def imresize(img: np.ndarray, size_hw: Tuple[int, int]) -> np.ndarray:
     return out.astype(np.uint8).reshape((dh, dw) + img.shape[2:])
 
 
+def imresize_nearest(img: np.ndarray, size_hw: Tuple[int, int]) -> np.ndarray:
+    """Nearest resize of a label map, as ``cv2.resize(img, (w, h),
+    interpolation=INTER_NEAREST)``: source index floor(dst * (1 / (dst /
+    src))) in double, clamped to the last row or column."""
+    h, w = img.shape[:2]
+    dh, dw = size_hw
+    rows = np.minimum(np.floor(np.arange(dh) * (1.0 / (dh / h))).astype(np.int64), h - 1)
+    cols = np.minimum(np.floor(np.arange(dw) * (1.0 / (dw / w))).astype(np.int64), w - 1)
+    return np.ascontiguousarray(img[rows][:, cols])
+
+
 class Resize:
     """keep_ratio rescale into ``img_scale`` (long, short), or to it exactly
     without keep_ratio; several scales are sampled per image ('range': long
@@ -136,6 +151,8 @@ class Resize:
         for key in ("gt_bboxes", "gt_bboxes_ignore"):
             if key in results and len(results[key]):
                 results[key] = results[key] * factor
+        if "gt_semantic_seg" in results:
+            results["gt_semantic_seg"] = imresize_nearest(results["gt_semantic_seg"], (nh, nw))
         return results
 
 
@@ -166,6 +183,9 @@ class RandomFlip:
             if "gt_masks" in results and len(results["gt_masks"]):
                 # a box-frame mask mirrors with its box
                 results["gt_masks"] = np.ascontiguousarray(results["gt_masks"][:, :, ::-1])
+            if "gt_semantic_seg" in results:
+                results["gt_semantic_seg"] = np.ascontiguousarray(
+                    results["gt_semantic_seg"][:, ::-1])
         return results
 
 
@@ -187,7 +207,8 @@ class Normalize:
 
 class Pad:
     """Pad with zeros to ``size_divisor`` (recorded as ``pad_shape``) and
-    onto the fixed canvas ``size``, turned for portrait images."""
+    onto the fixed canvas ``size``, turned for portrait images; a semantic
+    label map onto the same canvas with 255."""
 
     def __init__(self, size: Optional[Tuple[int, int]] = None,
                  size_divisor: Optional[int] = None):
@@ -214,4 +235,25 @@ class Pad:
         canvas = np.zeros((th, tw) + img.shape[2:], img.dtype)
         canvas[:h, :w] = img
         results["img"] = canvas
+        if "gt_semantic_seg" in results:
+            seg = results["gt_semantic_seg"]
+            seg_canvas = np.full((th, tw), 255, seg.dtype)
+            seg_canvas[:seg.shape[0], :seg.shape[1]] = seg
+            results["gt_semantic_seg"] = seg_canvas
+        return results
+
+
+class SegRescale:
+    """The semantic label map scaled by ``scale_factor`` (HTC's 1/8: the
+    semantic head's stride) with ``imresize_nearest``, to
+    int(side * scale_factor)."""
+
+    def __init__(self, scale_factor: float = 1.0):
+        self.scale_factor = scale_factor
+
+    def __call__(self, results: dict) -> dict:
+        if "gt_semantic_seg" in results and self.scale_factor != 1.0:
+            seg = results["gt_semantic_seg"]
+            size = (int(seg.shape[0] * self.scale_factor), int(seg.shape[1] * self.scale_factor))
+            results["gt_semantic_seg"] = imresize_nearest(seg, size)
         return results

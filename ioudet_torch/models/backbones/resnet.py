@@ -1,7 +1,8 @@
 """ResNet backbone (counterpart of ``ioudet/models/backbones/resnet.py``).
 
-mmdet module names (``conv1``, ``bn1``, ``layer{i}.{j}.conv{k}``,
-``layer{i}.{j}.downsample.{0,1}``), FrozenBN, 'pytorch' style (stride on the
+mmdet module names (``conv1``, ``bn1`` / ``gn1``, ``layer{i}.{j}.conv{k}``,
+``layer{i}.{j}.downsample.{0,1}``), FrozenBN or GN (``norm_cfg``), plain or
+weight-standardized convs (``conv_cfg``), 'pytorch' style (stride on the
 3x3) and 'caffe' style (stride on the first 1x1) bottlenecks, and
 ``frozen_stages``.  Takes NCHW and returns the NCHW stage outputs selected by
 ``out_indices``.
@@ -22,44 +23,68 @@ from torch import nn
 
 from ...ops.deform_conv import DeformConv
 from ..plugins import ContextBlock
-from ..utils.layers import Conv2d, FrozenBatchNorm, check_norm_cfg, compute_dtype
+from ..utils.layers import Conv2d, build_norm, compute_dtype, conv_class
 
 
-def _conv(cin, cout, k, stride=1, dtype=torch.float32):
-    return Conv2d(cin, cout, k, stride, (k - 1) // 2, bias=False, compute_dtype=dtype)
+FROZEN_BN = dict(type="FrozenBN")
 
 
-class BasicBlock(nn.Module):
+def _conv(cin, cout, k, stride=1, dtype=torch.float32, conv_cfg=None, groups=1):
+    return conv_class(conv_cfg)(cin, cout, k, stride, (k - 1) // 2, groups=groups, bias=False,
+                                compute_dtype=dtype)
+
+
+class _Block(nn.Module):
+    """A residual block's norms under mmdet's names (``bn<i>`` or
+    ``gn<i>``), reached as ``norm<i>``."""
+
+    def add_norm(self, index: int, norm_cfg: dict, features: int, dtype) -> None:
+        stem, norm = build_norm(norm_cfg, features, dtype)
+        self.norm_stem = stem
+        self.add_module(f"{stem}{index}", norm)
+
+    def norm(self, index: int) -> nn.Module:
+        return getattr(self, f"{self.norm_stem}{index}")
+
+    def downsample_branch(self, inplanes, out, stride, dtype, conv_cfg, norm_cfg):
+        return nn.Sequential(_conv(inplanes, out, 1, stride, dtype, conv_cfg),
+                             build_norm(norm_cfg, out, dtype)[1])
+
+
+class BasicBlock(_Block):
     expansion = 1
+    last_norm = 2
 
     def __init__(self, inplanes: int, planes: int, stride: int = 1,
                  downsample: bool = False, style: str = "pytorch",
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32, conv_cfg: Optional[dict] = None,
+                 norm_cfg: dict = FROZEN_BN):
         super().__init__()
-        self.conv1 = _conv(inplanes, planes, 3, stride, dtype)
-        self.bn1 = FrozenBatchNorm(planes, dtype=dtype)
-        self.conv2 = _conv(planes, planes, 3, dtype=dtype)
-        self.bn2 = FrozenBatchNorm(planes, dtype=dtype)
+        self.conv1 = _conv(inplanes, planes, 3, stride, dtype, conv_cfg)
+        self.add_norm(1, norm_cfg, planes, dtype)
+        self.conv2 = _conv(planes, planes, 3, dtype=dtype, conv_cfg=conv_cfg)
+        self.add_norm(2, norm_cfg, planes, dtype)
         self.relu = nn.ReLU(inplace=True)
-        self.downsample = nn.Sequential(
-            _conv(inplanes, planes, 1, stride, dtype),
-            FrozenBatchNorm(planes, dtype=dtype)) if downsample else None
+        self.downsample = self.downsample_branch(inplanes, planes, stride, dtype, conv_cfg,
+                                                 norm_cfg) if downsample else None
 
     def forward(self, x):
         identity = x if self.downsample is None else self.downsample(x)
-        out = self.relu(self.bn1(self.conv1(x)))
-        out = self.bn2(self.conv2(out))
+        out = self.relu(self.norm(1)(self.conv1(x)))
+        out = self.norm(2)(self.conv2(out))
         return self.relu(out + identity)
 
 
-class Bottleneck(nn.Module):
+class Bottleneck(_Block):
     expansion = 4
+    last_norm = 3
 
     def __init__(self, inplanes: int, planes: int, stride: int = 1,
                  downsample: bool = False, style: str = "pytorch",
                  dtype: torch.dtype = torch.float32, groups: int = 1,
                  base_width: int = 4, with_dcn: bool = False,
-                 dcn_modulated: bool = False, with_gcb: bool = False):
+                 dcn_modulated: bool = False, with_gcb: bool = False,
+                 conv_cfg: Optional[dict] = None, norm_cfg: dict = FROZEN_BN):
         super().__init__()
         if style not in ("pytorch", "caffe"):
             raise ValueError(f"style must be 'pytorch' or 'caffe', got {style!r}")
@@ -67,8 +92,8 @@ class Bottleneck(nn.Module):
         # ResNeXt's width rule as ioudet writes it
         width = planes if groups == 1 else int((planes * (base_width / 64.0)) * groups)
         out = planes * self.expansion
-        self.conv1 = _conv(inplanes, width, 1, c1_stride, dtype)
-        self.bn1 = FrozenBatchNorm(width, dtype=dtype)
+        self.conv1 = _conv(inplanes, width, 1, c1_stride, dtype, conv_cfg)
+        self.add_norm(1, norm_cfg, width, dtype)
         self.with_dcn, self.dcn_modulated = with_dcn, dcn_modulated
         if with_dcn:
             # offsets (dy, dx a tap), then 9 mask logits for v2; zero init
@@ -76,28 +101,26 @@ class Bottleneck(nn.Module):
                                        compute_dtype=dtype)
             self.conv2 = DeformConv(width, width, 3, c2_stride, compute_dtype=dtype)
         else:
-            self.conv2 = Conv2d(width, width, 3, c2_stride, 1, groups=groups, bias=False,
-                                compute_dtype=dtype)
-        self.bn2 = FrozenBatchNorm(width, dtype=dtype)
-        self.conv3 = _conv(width, out, 1, dtype=dtype)
-        self.bn3 = FrozenBatchNorm(out, dtype=dtype)
+            self.conv2 = _conv(width, width, 3, c2_stride, dtype, conv_cfg, groups)
+        self.add_norm(2, norm_cfg, width, dtype)
+        self.conv3 = _conv(width, out, 1, dtype=dtype, conv_cfg=conv_cfg)
+        self.add_norm(3, norm_cfg, out, dtype)
         self.context_block = ContextBlock(out, dtype=dtype) if with_gcb else None
         self.relu = nn.ReLU(inplace=True)
-        self.downsample = nn.Sequential(
-            _conv(inplanes, out, 1, stride, dtype),
-            FrozenBatchNorm(out, dtype=dtype)) if downsample else None
+        self.downsample = self.downsample_branch(inplanes, out, stride, dtype, conv_cfg,
+                                                 norm_cfg) if downsample else None
 
     def forward(self, x):
         identity = x if self.downsample is None else self.downsample(x)
-        out = self.relu(self.bn1(self.conv1(x)))
+        out = self.relu(self.norm(1)(self.conv1(x)))
         if self.with_dcn:
             om = self.conv2_offset(out)
             mask = torch.sigmoid(om[:, 18:]) if self.dcn_modulated else None
             out = self.conv2(out, om[:, :18], mask)
         else:
             out = self.conv2(out)
-        out = self.relu(self.bn2(out))
-        out = self.bn3(self.conv3(out))
+        out = self.relu(self.norm(2)(out))
+        out = self.norm(3)(self.conv3(out))
         if self.context_block is not None:
             out = self.context_block(out)
         return self.relu(out + identity)
@@ -131,9 +154,8 @@ class ResNet(nn.Module):
         super().__init__()
         if depth not in ARCH_SETTINGS:
             raise KeyError(f"invalid depth {depth} for resnet")
-        check_norm_cfg(norm_cfg)
-        not_ported = dict(conv_cfg=conv_cfg is not None,
-                          gen_attention=gen_attention is not None,
+        norm_cfg = dict(norm_cfg or FROZEN_BN)
+        not_ported = dict(gen_attention=gen_attention is not None,
                           stem_space_to_depth=stem_space_to_depth)
         for name, used in not_ported.items():
             if used:
@@ -143,8 +165,9 @@ class ResNet(nn.Module):
         self.zero_init_residual = zero_init_residual
         block, stage_blocks = ARCH_SETTINGS[depth]
         dtype = compute_dtype(dtype)
-        self.conv1 = Conv2d(3, 64, 7, 2, 3, bias=False, compute_dtype=dtype)
-        self.bn1 = FrozenBatchNorm(64, dtype=dtype)
+        self.conv1 = _conv(3, 64, 7, 2, dtype, conv_cfg)
+        self.norm_stem, norm = build_norm(norm_cfg, 64, dtype)
+        self.add_module(f"{self.norm_stem}1", norm)
         self.relu = nn.ReLU(inplace=True)
         self.maxpool = nn.MaxPool2d(3, 2, 1)
         inplanes = 64
@@ -162,7 +185,7 @@ class ResNet(nn.Module):
                                  with_dcn=bool(stage_with_dcn[i]), dcn_modulated=dcn_modulated,
                                  with_gcb=bool(stage_with_gcb[i]))
                 blocks.append(block(inplanes, planes, stride, downsample, style,
-                                    dtype, **extra))
+                                    dtype, conv_cfg=conv_cfg, norm_cfg=norm_cfg, **extra))
                 inplanes = planes * block.expansion
             setattr(self, f"layer{i + 1}", nn.Sequential(*blocks))
         self._freeze_stages()
@@ -170,7 +193,7 @@ class ResNet(nn.Module):
     def _freeze_stages(self) -> None:
         if self.frozen_stages < 0:
             return
-        frozen = [self.conv1, self.bn1] + [getattr(self, f"layer{i}")
+        frozen = [self.conv1, self.norm1] + [getattr(self, f"layer{i}")
                                            for i in range(1, self.frozen_stages + 1)]
         for m in frozen:
             for p in m.parameters():
@@ -179,8 +202,8 @@ class ResNet(nn.Module):
     def init_weights(self, generator: torch.Generator) -> None:
         """Random init drawn from ``generator``: He-normal (fan_out) convs,
         deformable ones too, zero conv biases (the context blocks'), zero
-        offset convs, identity FrozenBN (zero scale on each block's last BN
-        when ``zero_init_residual``)."""
+        offset convs, identity FrozenBN or GN (zero scale on each block's
+        last norm when ``zero_init_residual``)."""
         with torch.no_grad():
             for m in self.modules():
                 if isinstance(m, (nn.Conv2d, DeformConv)):
@@ -195,13 +218,15 @@ class ResNet(nn.Module):
                     m.conv2_offset.bias.zero_()
             if self.zero_init_residual:
                 for m in self.modules():
-                    if isinstance(m, Bottleneck):
-                        m.bn3.weight.zero_()
-                    elif isinstance(m, BasicBlock):
-                        m.bn2.weight.zero_()
+                    if isinstance(m, _Block):
+                        m.norm(m.last_norm).weight.zero_()
+
+    @property
+    def norm1(self) -> nn.Module:
+        return getattr(self, f"{self.norm_stem}1")
 
     def forward(self, x: torch.Tensor):
-        x = self.maxpool(self.relu(self.bn1(self.conv1(x))))
+        x = self.maxpool(self.relu(self.norm1(self.conv1(x))))
         outs = []
         for i in range(self.num_stages):
             x = getattr(self, f"layer{i + 1}")(x)

@@ -92,10 +92,10 @@ class BBoxHead(nn.Module):
 
 
 class ConvFCBBoxHead(BBoxHead):
-    """``num_shared_convs`` 3x3 ConvModules, then ``num_shared_fcs`` fcs of
-    ``fc_out_channels`` + ReLU, before ``fc_cls`` / ``fc_reg``.  A
-    ``conv_cfg`` / ``norm_cfg`` the port cannot build (GN, weight
-    standardization) raises."""
+    """``num_shared_convs`` 3x3 ConvModules (GN and weight-standardized by
+    ``norm_cfg`` / ``conv_cfg``, the gn / gn+ws configs' "4conv1fc" head),
+    then ``num_shared_fcs`` fcs of ``fc_out_channels`` + ReLU, before
+    ``fc_cls`` / ``fc_reg``."""
 
     def __init__(self, num_shared_convs: int = 0, num_shared_fcs: int = 2,
                  fc_out_channels: int = 1024, conv_out_channels: int = 256,

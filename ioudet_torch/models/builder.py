@@ -3,11 +3,13 @@ the same nested config dicts ``ioudet`` takes (``type`` keys).
 
 Only the components of the ported slice are known; any other ``type``
 raises ``KeyError`` naming what is available, and a structure the port
-does not build yet (a chain of necks, one mask head a stage) raises
+does not build yet (a chain of necks, a shared RoI trunk) raises
 ``NotImplementedError``.  A config with ``rpn_head`` or
 ``bbox_roi_extractor`` builds a two-stage detector (``FasterRCNN``,
-``RPN``, ``MaskRCNN`` with ``mask_roi_extractor`` and ``mask_head``), in
-f32 only.
+``RPN``, ``MaskRCNN`` with ``mask_roi_extractor`` and ``mask_head``), or
+a cascade from a list of box heads (``CascadeRCNN``; ``HybridTaskCascade``
+with a list of mask heads and optionally ``semantic_roi_extractor`` and
+``semantic_head``), in f32 only.
 """
 
 from __future__ import annotations
@@ -21,13 +23,16 @@ from .backbones.resnext import ResNeXt
 from .bbox_heads.bbox_head import BBoxHead, ConvFCBBoxHead, SharedFCBBoxHead
 from .detectors.single_stage import (IoUAwareRetinaNet, RetinaNet,
                                      SingleStageDetector)
+from .detectors.cascade_rcnn import CascadeRCNN
+from .detectors.htc import HybridTaskCascade
 from .detectors.mask_rcnn import MaskRCNN
 from .detectors.two_stage import RPN, FasterRCNN, TwoStageDetector
 from .heads.iou_aware_retina_head import IoUAwareRetinaHead
 from .heads.retina_head import RetinaHead
 from .heads.rpn_head import RPNHead
 from .losses import CrossEntropyLoss, FocalLoss, L1Loss, SmoothL1Loss
-from .mask_heads.fcn_mask_head import FCNMaskHead
+from .mask_heads.fcn_mask_head import FCNMaskHead, HTCMaskHead
+from .mask_heads.fused_semantic_head import FusedSemanticHead
 from .necks.fpn import FPN
 from .roi_extractors.single_level import SingleRoIExtractor
 from .utils.layers import compute_dtype
@@ -36,12 +41,18 @@ BACKBONES = {"ResNet": ResNet, "ResNeXt": ResNeXt}
 NECKS = {"FPN": FPN}
 HEADS = {"RetinaHead": RetinaHead, "IoUAwareRetinaHead": IoUAwareRetinaHead,
          "RPNHead": RPNHead, "BBoxHead": BBoxHead, "ConvFCBBoxHead": ConvFCBBoxHead,
-         "SharedFCBBoxHead": SharedFCBBoxHead, "FCNMaskHead": FCNMaskHead}
+         "SharedFCBBoxHead": SharedFCBBoxHead, "FCNMaskHead": FCNMaskHead,
+         "HTCMaskHead": HTCMaskHead, "FusedSemanticHead": FusedSemanticHead}
 ROI_EXTRACTORS = {"SingleRoIExtractor": SingleRoIExtractor}
 DETECTORS = {"SingleStageDetector": SingleStageDetector,
              "RetinaNet": RetinaNet, "IoUAwareRetinaNet": IoUAwareRetinaNet,
              "TwoStageDetector": TwoStageDetector, "FasterRCNN": FasterRCNN, "RPN": RPN,
-             "MaskRCNN": MaskRCNN}
+             "MaskRCNN": MaskRCNN, "CascadeRCNN": CascadeRCNN,
+             "HybridTaskCascade": HybridTaskCascade}
+# the detectors' own config entries besides their parts
+CASCADE_OPTIONS = ("num_stages", "stage_loss_weights", "stage_pos_thrs")
+DETECTOR_OPTIONS = {"CascadeRCNN": CASCADE_OPTIONS,
+                    "HybridTaskCascade": CASCADE_OPTIONS + ("interleaved", "mask_info_flow")}
 LOSSES = {"FocalLoss": FocalLoss, "SmoothL1Loss": SmoothL1Loss, "L1Loss": L1Loss,
           "CrossEntropyLoss": CrossEntropyLoss}
 
@@ -96,16 +107,28 @@ def build_detector(cfg: dict, train_cfg: Optional[dict] = None,
         if "bbox_roi_extractor" in cfg:
             parts["bbox_roi_extractor"] = _build(cfg.pop("bbox_roi_extractor"),
                                                  ROI_EXTRACTORS, "roi extractor")
-        if "mask_roi_extractor" in cfg:
-            parts["mask_roi_extractor"] = _build(cfg.pop("mask_roi_extractor"),
-                                                 ROI_EXTRACTORS, "roi extractor")
+        for key in ("mask_roi_extractor", "semantic_roi_extractor"):
+            if key in cfg:
+                parts[key] = _build(cfg.pop(key), ROI_EXTRACTORS, "roi extractor")
         if "mask_head" in cfg:
             mask_head = cfg.pop("mask_head")
             if isinstance(mask_head, (list, tuple)):
-                raise NotImplementedError("one mask head a stage (HTC) is not ported yet")
-            parts["mask_head"] = _build(with_dtype(mask_head), HEADS, "head")
+                # HTC's, one a stage; the information flow enters through
+                # conv_res from the second stage on (ioudet creates none elsewhere)
+                flow = cfg.get("mask_info_flow", True)
+                parts["mask_head"] = [
+                    _build(with_dtype(dict(h, with_conv_res=flow and i > 0)), HEADS, "head")
+                    for i, h in enumerate(mask_head)]
+            else:
+                parts["mask_head"] = _build(with_dtype(mask_head), HEADS, "head")
+        if "semantic_head" in cfg:
+            parts["semantic_head"] = _build(with_dtype(cfg.pop("semantic_head")), HEADS, "head")
     if "bbox_head" in cfg:
-        parts["bbox_head"] = _build(with_dtype(cfg.pop("bbox_head")), HEADS, "head")
+        bbox_head = cfg.pop("bbox_head")
+        parts["bbox_head"] = ([_build(with_dtype(h), HEADS, "head") for h in bbox_head]
+                              if isinstance(bbox_head, (list, tuple)) else
+                              _build(with_dtype(bbox_head), HEADS, "head"))
+    options = {k: cfg.pop(k) for k in DETECTOR_OPTIONS.get(det_type, ()) if k in cfg}
     if cfg:
         raise KeyError(f"unsupported detector keys: {sorted(cfg)}")
-    return DETECTORS[det_type](train_cfg=train_cfg, test_cfg=test_cfg, **parts)
+    return DETECTORS[det_type](train_cfg=train_cfg, test_cfg=test_cfg, **parts, **options)

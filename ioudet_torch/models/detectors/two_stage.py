@@ -101,6 +101,23 @@ def proposal_cfg(cfg: dict, nms_pre: int, max_num: int) -> dict:
                 max_per_img=cfg.get("max_num", max_num))
 
 
+def final_nms(test_cfg: Optional[dict], boxes: torch.Tensor, scores: torch.Tensor,
+              scale_factors: torch.Tensor, rescale: bool, valid: torch.Tensor):
+    """The R-CNN's detections: boxes (B, P, C - 1, 4) clipped to the image,
+    scaled back to the original with ``rescale``, and scores (B, P, C - 1)
+    through one class-offset ``multiclass_nms`` by ``test_cfg.rcnn``; the
+    proposals' ``valid`` (B, P) mask keeps the padding rows out."""
+    rcnn_cfg = dict(dict(test_cfg or {}).get("rcnn", dict(score_thr=0.05, nms=dict(iou_thr=0.5),
+                                                          max_per_img=100)))
+    if rescale:
+        boxes = boxes / scale_factors.float()[:, None, None, None]
+    bsz, num = scores.shape[:2]
+    return multiclass_nms(
+        boxes.reshape(bsz, num, -1), scores, score_thr=rcnn_cfg.get("score_thr", 0.05),
+        iou_thr=rcnn_cfg.get("nms", {}).get("iou_thr", 0.5),
+        max_per_img=rcnn_cfg.get("max_per_img", 100), valid=valid)
+
+
 class _Extract(nn.Module):
     """backbone (+ neck) on NHWC images; init of every part."""
 
@@ -109,8 +126,9 @@ class _Extract(nn.Module):
     def init_weights(self, generator: torch.Generator) -> None:
         for name in self.parts:
             part = getattr(self, name, None)
-            if part is not None:
-                part.init_weights(generator)
+            for m in (part if isinstance(part, nn.ModuleList) else [part]):
+                if m is not None:
+                    m.init_weights(generator)
 
     def extract_feat(self, img: torch.Tensor):
         x = self.backbone(img.permute(0, 3, 1, 2).contiguous())
@@ -125,6 +143,44 @@ class _Extract(nn.Module):
             dets, _ = self.rpn_head.get_bboxes(*outs, img_shapes, ones, pad_shapes, cfg,
                                                rescale=False)
         return dets
+
+    def rpn_train(self, feats, gt_bboxes, gt_labels, gt_valid, img_shapes, pad_shapes,
+                  gt_bboxes_ignore=None, gt_ignore_valid=None,
+                  generator: Optional[torch.Generator] = None) -> tuple:
+        """The RPN's training half: its losses ({rpn_loss_cls, rpn_loss_bbox})
+        and its (B, max_num, 5) proposals by ``train_cfg.rpn_proposal``,
+        without gradient."""
+        tcfg = dict(self.train_cfg or {})
+        ig_kw = {} if gt_bboxes_ignore is None else dict(
+            gt_bboxes_ignore=gt_bboxes_ignore, gt_ignore_valid=gt_ignore_valid)
+        rpn_outs = self.rpn_head(feats)
+        # the RPN is class-agnostic: every gt is class 1
+        losses = self.rpn_head.loss(*rpn_outs, gt_bboxes, torch.ones_like(gt_labels), gt_valid,
+                                    img_shapes, pad_shapes, dict(tcfg.get("rpn", {})),
+                                    generator=generator, **ig_kw)
+        dets = self.proposals(rpn_outs, img_shapes, pad_shapes,
+                              proposal_cfg(dict(tcfg.get("rpn_proposal", {})), 2000, 2000))
+        return {f"rpn_{k}": v for k, v in losses.items()}, dets
+
+    def test_proposals(self, feats, img_shapes, pad_shapes) -> torch.Tensor:
+        """The RPN's (B, max_num, 5) proposals by ``test_cfg.rpn``."""
+        cfg = dict(dict(self.test_cfg or {}).get("rpn", {}))
+        return self.proposals(self.rpn_head(feats), img_shapes, pad_shapes,
+                              proposal_cfg(cfg, 1000, 1000))
+
+
+def rcnn_losses(head, cls_score, bbox_pred, sel_boxes, sel_pos, sel_valid, matched_gt,
+                labels) -> tuple:
+    """A box head's losses on its sampled rois (``sample_rois_batch``'s
+    outputs), the two denominators the global batch's; and the flat labels."""
+    labels_f, bbox_t, bbox_w = bbox_target_single(
+        sel_boxes.flatten(0, 1), sel_pos.flatten(), matched_gt.flatten(0, 1),
+        labels.flatten(), head.target_means, head.target_stds)
+    label_w = sel_valid.flatten().float()
+    losses = head.loss(cls_score, bbox_pred, labels_f, label_w, bbox_t, bbox_w,
+                       label_count=global_count(label_w.sum()),
+                       pos_count=global_count((bbox_w[:, 0] > 0).sum().float()))
+    return losses, labels_f
 
 
 class TwoStageDetector(_Extract):
@@ -174,21 +230,13 @@ class TwoStageDetector(_Extract):
         """``forward_train``'s losses, and what a mask branch extends them
         with: the features, the sampled rois (B * N, 5) and their boxes,
         positives, flat labels and assigned gt indices."""
-        tcfg = dict(self.train_cfg or {})
-        rpn_cfg, rcnn_cfg = dict(tcfg.get("rpn", {})), dict(tcfg.get("rcnn", {}))
+        rcnn_cfg = dict(dict(self.train_cfg or {}).get("rcnn", {}))
         if generator is None:
             generator = torch.Generator(img.device).manual_seed(0)
         feats = self.extract_feat(img)
-        rpn_outs = self.rpn_head(feats)
-        ig_kw = {} if gt_bboxes_ignore is None else dict(
-            gt_bboxes_ignore=gt_bboxes_ignore, gt_ignore_valid=gt_ignore_valid)
-        # the RPN is class-agnostic: every gt is class 1
-        rpn_losses = self.rpn_head.loss(*rpn_outs, gt_bboxes, torch.ones_like(gt_labels),
-                                        gt_valid, img_shapes, pad_shapes, rpn_cfg,
-                                        generator=generator, **ig_kw)
-
-        dets = self.proposals(rpn_outs, img_shapes, pad_shapes,
-                              proposal_cfg(dict(tcfg.get("rpn_proposal", {})), 2000, 2000))
+        rpn_losses, dets = self.rpn_train(feats, gt_bboxes, gt_labels, gt_valid, img_shapes,
+                                          pad_shapes, gt_bboxes_ignore, gt_ignore_valid,
+                                          generator)
 
         sampler_cfg = dict(rcnn_cfg.get("sampler", {}))
         num_samples = sampler_cfg.get("num", 512)
@@ -207,15 +255,9 @@ class TwoStageDetector(_Extract):
 
         rois = to_rois(sel_boxes)
         cls_score, bbox_pred = self.roi_head(feats, rois)
-        head = self.bbox_head
-        labels_f, bbox_t, bbox_w = bbox_target_single(
-            sel_boxes.flatten(0, 1), sel_pos.flatten(), matched_gt.flatten(0, 1),
-            labels.flatten(), head.target_means, head.target_stds)
-        label_w = sel_valid.flatten().float()
-        losses = head.loss(cls_score, bbox_pred, labels_f, label_w, bbox_t, bbox_w,
-                           label_count=global_count(label_w.sum()),
-                           pos_count=global_count((bbox_w[:, 0] > 0).sum().float()))
-        losses.update({f"rpn_{k}": v for k, v in rpn_losses.items()})
+        losses, labels_f = rcnn_losses(self.bbox_head, cls_score, bbox_pred, sel_boxes, sel_pos,
+                                       sel_valid, matched_gt, labels)
+        losses.update(rpn_losses)
         return losses, dict(feats=feats, rois=rois, sel_boxes=sel_boxes, sel_pos=sel_pos,
                             labels=labels_f, gt_idx=gt_idx)
 
@@ -241,11 +283,7 @@ class TwoStageDetector(_Extract):
     def simple_test_bboxes(self, feats, img_shapes, scale_factors, pad_shapes,
                            rescale: bool = True):
         """``simple_test`` on the features of its images."""
-        cfg = dict(self.test_cfg or {})
-        rcnn_cfg = dict(cfg.get("rcnn", dict(score_thr=0.05, nms=dict(iou_thr=0.5),
-                                             max_per_img=100)))
-        props = self.proposals(self.rpn_head(feats), img_shapes, pad_shapes,
-                               proposal_cfg(dict(cfg.get("rpn", {})), 1000, 1000))
+        props = self.test_proposals(feats, img_shapes, pad_shapes)
         bsz, num = props.shape[:2]
         rois = to_rois(props[..., :4])
         cls_score, bbox_pred = self.roi_head(feats, rois)
@@ -253,13 +291,7 @@ class TwoStageDetector(_Extract):
         scores = F.softmax(cls_score, dim=-1)[:, 1:].reshape(bsz, num, nc - 1)
         boxes = self.decode_rcnn(rois, bbox_pred).reshape(bsz, num * nc, 4)
         boxes = clip_boxes(boxes, img_shapes).reshape(bsz, num, nc, 4)[:, :, 1:]
-        if rescale:
-            boxes = boxes / scale_factors.float()[:, None, None, None]
-        return multiclass_nms(
-            boxes.reshape(bsz, num, (nc - 1) * 4), scores,
-            score_thr=rcnn_cfg.get("score_thr", 0.05),
-            iou_thr=rcnn_cfg.get("nms", {}).get("iou_thr", 0.5),
-            max_per_img=rcnn_cfg.get("max_per_img", 100), valid=props[..., 4] > 0)
+        return final_nms(self.test_cfg, boxes, scores, scale_factors, rescale, props[..., 4] > 0)
 
     def decode_rcnn(self, rois: torch.Tensor, bbox_pred: torch.Tensor) -> torch.Tensor:
         """Class-specific decode: (R, 4C) deltas on the rois' boxes."""

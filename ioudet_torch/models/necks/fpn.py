@@ -15,7 +15,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ..utils.layers import ConvModule
+from ..utils.layers import ConvModule, resize_nearest
 
 
 class FPN(nn.Module):
@@ -71,10 +71,9 @@ class FPN(nn.Module):
         laterals = [conv(inputs[self.start_level + i])
                     for i, conv in enumerate(self.lateral_convs)]
         for i in range(len(laterals) - 1, 0, -1):
-            # nearest by target size (src = floor(dst * in / out)), as
-            # ioudet's resize_nearest; exact x2 on pad-32 canvases
-            laterals[i - 1] = laterals[i - 1] + F.interpolate(
-                laterals[i], size=laterals[i - 1].shape[2:], mode="nearest")
+            # exact x2 on pad-32 canvases
+            laterals[i - 1] = laterals[i - 1] + resize_nearest(laterals[i],
+                                                               laterals[i - 1].shape[2:])
         n_lat = len(laterals)
         outs = [self.fpn_convs[i](laterals[i]) for i in range(n_lat)]
         extra = self.num_outs - n_lat

@@ -8,7 +8,8 @@ reference checkpoints and the flax bridge load without renaming.
 parameters stay f32, so state_dicts and ``.pth`` files do not depend on it;
 each convolution casts its input, weight and bias to the compute dtype per
 call and returns that dtype; FrozenBN folds its statistics in f32 and casts
-the folded scale and shift.  The casts are written out, as in the flax
+the folded scale and shift; GN takes its statistics in f32 and returns the
+compute dtype.  The casts are written out, as in the flax
 modules: ``torch.autocast`` picks its own operators and is not this policy.
 """
 
@@ -59,11 +60,14 @@ class Conv2d(nn.Conv2d):
         return self._conv_forward(x.to(dt), self.weight.to(dt), bias)
 
 
+NORMS = ("FrozenBN", "GN")
+
+
 def check_norm_cfg(norm_cfg: Optional[dict]) -> None:
-    if norm_cfg is not None and norm_cfg.get("type") != "FrozenBN":
+    if norm_cfg is not None and norm_cfg.get("type") not in NORMS:
         raise NotImplementedError(
-            f"norm {norm_cfg.get('type')!r} is not ported yet; only FrozenBN "
-            "(the inference form of the detection backbones' BN) is")
+            f"norm {norm_cfg.get('type')!r} is not ported yet; only FrozenBN (the "
+            "inference form of the detection backbones' BN) and GN are")
 
 
 class FrozenBatchNorm(nn.Module):
@@ -88,6 +92,84 @@ class FrozenBatchNorm(nn.Module):
         return x * inv[None, :, None, None] + shift[None, :, None, None]
 
 
+class GroupNorm(nn.Module):
+    """Trainable group norm as flax's ``nn.GroupNorm`` computes it: the
+    statistics of each group in f32, the variance as E[x^2] - E[x]^2 floored
+    at 0, ``epsilon`` 1e-6 (torch's and mmdet's is 1e-5), then
+    ``(x - mean) * (rsqrt(var + eps) * weight) + bias`` in the compute
+    dtype.  ``weight`` / ``bias`` are mmdet's names of GN's affine."""
+
+    def __init__(self, num_groups: int, num_channels: int, eps: float = 1e-6,
+                 dtype: torch.dtype = torch.float32):
+        super().__init__()
+        if num_channels % num_groups:
+            raise ValueError(f"{num_channels} channels do not split into {num_groups} groups")
+        self.num_groups, self.eps, self.dtype = num_groups, eps, dtype
+        self.weight = nn.Parameter(torch.ones(num_channels))
+        self.bias = nn.Parameter(torch.zeros(num_channels))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        n, c = x.shape[:2]
+        g = x.float().reshape(n, self.num_groups, -1)
+        mean = g.mean(-1, keepdim=True)
+        var = ((g * g).mean(-1, keepdim=True) - mean * mean).clamp(min=0.0)
+        scale = torch.rsqrt(var + self.eps).reshape(n, self.num_groups, 1) * \
+            self.weight.reshape(self.num_groups, -1)
+        y = (g - mean).reshape(n, self.num_groups, c // self.num_groups, -1) * scale[..., None]
+        y = y.reshape(x.shape) + self.bias.reshape(1, c, *([1] * (x.dim() - 2)))
+        return y.to(self.dtype)
+
+
+def build_norm(norm_cfg: dict, num_features: int, dtype: torch.dtype = torch.float32):
+    """(mmdet's name stem, module) of a norm config: ("bn", FrozenBN) or
+    ("gn", GroupNorm of ``num_groups``, 32 by default)."""
+    check_norm_cfg(norm_cfg)
+    if norm_cfg["type"] == "GN":
+        return "gn", GroupNorm(norm_cfg.get("num_groups", 32), num_features, dtype=dtype)
+    return "bn", FrozenBatchNorm(num_features, dtype=dtype)
+
+
+class ConvWS2d(Conv2d):
+    """Weight-standardized convolution (``ioudet``'s ``ConvWS``, mmdet's
+    ``ConvWS2d``): each output channel's kernel, over (I, kh, kw), minus its
+    mean and divided by its population standard deviation plus ``eps``
+    (1e-5 added to the std, not to the variance), then the plain conv.  The
+    parameters are ``nn.Conv2d``'s."""
+
+    eps = 1e-5
+
+    def standardized(self) -> torch.Tensor:
+        w = self.weight.float()
+        mean = w.mean(dim=(1, 2, 3), keepdim=True)
+        std = (w - mean).square().mean(dim=(1, 2, 3), keepdim=True).sqrt()
+        return (w - mean) / (std + self.eps)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        dt = self.compute_dtype
+        bias = None if self.bias is None else self.bias.to(dt)
+        return self._conv_forward(x.to(dt), self.standardized().to(dt), bias)
+
+
+CONVS = {"Conv": Conv2d, "ConvWS": ConvWS2d}
+
+
+def conv_class(conv_cfg: Optional[dict]):
+    """The conv class of a config's ``conv_cfg`` (None or "Conv": ``Conv2d``,
+    "ConvWS": ``ConvWS2d``)."""
+    name = (conv_cfg or {}).get("type", "Conv")
+    if name not in CONVS:
+        raise NotImplementedError(f"conv {name!r} is not ported yet; available: {sorted(CONVS)}")
+    return CONVS[name]
+
+
+def resize_nearest(x: torch.Tensor, size) -> torch.Tensor:
+    """Nearest resize of an NCHW map to ``size``: source index floor(dst *
+    in / out) in f32, clamped, the rule of ``ioudet``'s ``resize_nearest``
+    (an exact x2 is its repeat).  The FPN's top-down path and the semantic
+    head's fusion share it."""
+    return F.interpolate(x, size=tuple(size), mode="nearest")
+
+
 def same_pads(size: int, kernel: int, stride: int) -> Tuple[int, int]:
     """XLA's 'SAME' padding of one axis: out = ceil(size / stride), the
     odd pixel of padding goes after."""
@@ -96,7 +178,10 @@ def same_pads(size: int, kernel: int, stride: int) -> Tuple[int, int]:
 
 
 class ConvModule(nn.Module):
-    """conv (+ FrozenBN) (+ ReLU), in that order (the reference's ConvModule).
+    """conv (+ norm) (+ ReLU), in that order (the reference's ConvModule).
+    The conv is ``conv_class(conv_cfg)``'s, with a bias only where there is
+    no norm; the norm is ``build_norm``'s under mmdet's name, ``bn`` or
+    ``gn``.
 
     ``padding='SAME'`` follows ``ioudet``'s ConvModule default (XLA 'SAME'),
     which for a stride-2 3x3 conv on an even input pads (0, 1) where mmdet's
@@ -110,11 +195,8 @@ class ConvModule(nn.Module):
                  norm_cfg: Optional[dict] = None, act: Optional[str] = "relu",
                  dtype: Union[None, str, torch.dtype] = None):
         super().__init__()
-        if (conv_cfg or {}).get("type", "Conv") != "Conv":
-            raise NotImplementedError(f"conv {conv_cfg['type']!r} is not ported yet")
         if act not in ("relu", None):
             raise NotImplementedError(f"activation {act!r} is not ported yet")
-        check_norm_cfg(norm_cfg)
         self.kernel_size, self.stride = kernel_size, stride
         # with stride 1 and an odd kernel 'SAME' is the symmetric (k-1)/2;
         # otherwise it depends on the input size and is padded per call
@@ -122,10 +204,12 @@ class ConvModule(nn.Module):
         if padding == "SAME":
             padding = 0 if self.pad_per_call else (kernel_size - 1) // 2
         dtype = compute_dtype(dtype)
-        self.conv = Conv2d(in_channels, out_channels, kernel_size, stride,
-                           padding, bias=norm_cfg is None, compute_dtype=dtype)
+        self.conv = conv_class(conv_cfg)(in_channels, out_channels, kernel_size, stride,
+                                         padding, bias=norm_cfg is None, compute_dtype=dtype)
+        self.norm_name = None
         if norm_cfg is not None:
-            self.bn = FrozenBatchNorm(out_channels, dtype=dtype)
+            self.norm_name, norm = build_norm(norm_cfg, out_channels, dtype)
+            self.add_module(self.norm_name, norm)
         self.act = act
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -134,7 +218,7 @@ class ConvModule(nn.Module):
             pw = same_pads(x.shape[3], self.kernel_size, self.stride)
             x = F.pad(x, (pw[0], pw[1], ph[0], ph[1]))
         x = self.conv(x)
-        if hasattr(self, "bn"):
-            x = self.bn(x)
+        if self.norm_name is not None:
+            x = getattr(self, self.norm_name)(x)
         return F.relu(x) if self.act == "relu" else x
 

@@ -88,6 +88,51 @@ def mask_rcnn_cfgs(num_gts: int = 4, max_num: int = 64) -> tuple:
     return model, train, test
 
 
+STAGE_STDS = ((0.1, 0.1, 0.2, 0.2), (0.05, 0.05, 0.1, 0.1), (0.033, 0.033, 0.067, 0.067))
+
+
+def cascade_rcnn_cfgs(num_gts: int = 4, max_num: int = 64) -> tuple:
+    """``faster_rcnn_cfgs`` as a three-stage Cascade R-CNN (box heads of the
+    stages' stds).  Every stage adds the gts to its candidates again, so
+    the valid ones grow by the gts a stage (and once more for HTC's
+    interleaved mask sample): the training proposals are cut to at most 8
+    a level before their NMS (40 of the ``max_num`` slots valid at most), so
+    that the sampler's ``num`` (the first stage's candidates, ``max_num +
+    num_gts``) holds every valid candidate of every stage, and each stage
+    takes them all whatever the draw."""
+    model, train, test = faster_rcnn_cfgs(num_gts, max_num)
+    head = model["bbox_head"]
+    model = dict(model, type="CascadeRCNN", num_stages=3, stage_loss_weights=(1.0, 0.5, 0.25),
+                 stage_pos_thrs=(0.5, 0.6, 0.7),
+                 bbox_head=[dict(head, target_stds=stds) for stds in STAGE_STDS])
+    train["rpn_proposal"]["nms_pre"] = 8
+    return model, train, test
+
+
+def htc_cfgs(interleaved: bool = True, mask_info_flow: bool = True, semantic: bool = True,
+             num_gts: int = 4, max_num: int = 64) -> tuple:
+    """``cascade_rcnn_cfgs`` as HTC with the three flags: two 64-wide
+    ``HTCMaskHead`` convs a stage, and with ``semantic`` a
+    ``FusedSemanticHead`` (two convs, 64 wide, 7 classes) and its 14x14
+    extractor at stride 8.  All off is Cascade Mask R-CNN."""
+    model, train, test = cascade_rcnn_cfgs(num_gts, max_num)
+    model = dict(model, type="HybridTaskCascade", interleaved=interleaved,
+                 mask_info_flow=mask_info_flow,
+                 mask_roi_extractor=dict(type="SingleRoIExtractor", out_channels=64,
+                                         featmap_strides=(4, 8, 16, 32),
+                                         roi_layer=dict(out_size=14, sample_num=2)),
+                 mask_head=[dict(type="HTCMaskHead", num_convs=2, in_channels=64,
+                                 conv_out_channels=64, num_classes=5)] * 3)
+    if semantic:
+        model.update(semantic_roi_extractor=dict(type="SingleRoIExtractor", out_channels=64,
+                                                 featmap_strides=(8,),
+                                                 roi_layer=dict(out_size=14, sample_num=2)),
+                     semantic_head=dict(type="FusedSemanticHead", num_ins=5, fusion_level=1,
+                                        num_convs=2, in_channels=64, conv_out_channels=64,
+                                        num_classes=7, loss_weight=0.2))
+    return model, train, test
+
+
 TWO_STAGE_STEPS = 2
 
 

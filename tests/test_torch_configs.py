@@ -4,7 +4,8 @@ other one raises ``NotImplementedError`` or a "not ported" ``KeyError``,
 and the paper's family (the 11 ``configs/*iou_aware_*.py``,
 ``retinanet_x101_64x4d_fpn_1x.py``) and the two-stage configs
 (``faster_rcnn_r50_fpn_1x.py``, ``rpn_r50_fpn_1x.py``,
-``mask_rcnn_r50_fpn_1x.py``) also go through the weight bridge: ``ioudet``
+``mask_rcnn_r50_fpn_1x.py``, ``htc_r50_fpn_1x.py``,
+``faster_rcnn_r50_fpn_gn_ws_1x.py``) also go through the weight bridge: ``ioudet``
 builds under ``jax.eval_shape``, its parameter tree (of ``simple_test`` for
 a two-stage detector, whose ``__call__`` runs the RPN alone) goes through
 ``state_dict_from_flax`` as meta tensors, and the bridged names and shapes
@@ -29,7 +30,7 @@ FAMILY = sorted(os.path.basename(f) for f in glob.glob(
     os.path.join(ROOT, "configs", "*iou_aware_*.py")))
 
 
-# every config the port builds (37 of 109); what stops the rest is in
+# every config the port builds (56 of 109); what stops the rest is in
 # ROADMAP.md ("Configs")
 BUILDS = FAMILY + [
     "retinanet_r50_fpn_1x.py", "retinanet_r50_fpn_2x.py", "retinanet_r101_fpn_1x.py",
@@ -43,7 +44,17 @@ BUILDS = FAMILY + [
     "rpn_r50_fpn_1x.py", "rpn_r101_fpn_1x.py", "rpn_x101_64x4d_fpn_1x.py",
     "mask_rcnn_r50_fpn_1x.py", "mask_rcnn_r50_fpn_2x.py", "mask_rcnn_r101_fpn_1x.py",
     "mask_rcnn_x101_32x4d_fpn_1x.py", "mask_rcnn_x101_64x4d_fpn_1x.py",
-    "mask_rcnn_r50_fpn_1x_cityscapes.py", "dcn_mask_rcnn_dconv_c3-c5_r50_fpn_1x.py"]
+    "mask_rcnn_r50_fpn_1x_cityscapes.py", "dcn_mask_rcnn_dconv_c3-c5_r50_fpn_1x.py",
+    "cascade_rcnn_r50_fpn_1x.py", "cascade_rcnn_r50_fpn_20e.py", "cascade_rcnn_r101_fpn_1x.py",
+    "cascade_rcnn_x101_64x4d_fpn_1x.py", "dcn_cascade_rcnn_dconv_c3-c5_r50_fpn_1x.py",
+    "cascade_mask_rcnn_r50_fpn_1x.py", "cascade_mask_rcnn_r101_fpn_1x.py",
+    "cascade_mask_rcnn_x101_64x4d_fpn_1x.py",
+    "htc_r50_fpn_1x.py", "htc_without_semantic_r50_fpn_1x.py", "htc_r101_fpn_20e.py",
+    "htc_x101_64x4d_fpn_20e.py",
+    "faster_rcnn_r50_fpn_gn_ws_1x.py", "faster_rcnn_x101_32x4d_fpn_gn_ws_1x.py",
+    "scratch_faster_rcnn_r50_fpn_gn_6x.py", "mask_rcnn_r50_fpn_gn_2x.py",
+    "mask_rcnn_r50_fpn_gn_ws_2x.py", "mask_rcnn_r101_fpn_gn_2x.py",
+    "scratch_mask_rcnn_r50_fpn_gn_6x.py"]
 ALL = sorted(os.path.basename(f) for f in glob.glob(os.path.join(ROOT, "configs", "*.py")))
 LIBRA = ("libra_fast_rcnn_r50_fpn_1x.py", "libra_faster_rcnn_r50_fpn_1x.py",
          "libra_retinanet_r50_fpn_1x.py")
@@ -90,7 +101,8 @@ def test_the_family_is_all_there():
 
 @pytest.mark.parametrize("name", FAMILY + ["retinanet_x101_64x4d_fpn_1x.py",
                                   "faster_rcnn_r50_fpn_1x.py", "rpn_r50_fpn_1x.py",
-                                  "mask_rcnn_r50_fpn_1x.py"])
+                                  "mask_rcnn_r50_fpn_1x.py", "htc_r50_fpn_1x.py",
+                                  "faster_rcnn_r50_fpn_gn_ws_1x.py"])
 def test_config_builds_and_bridges_one_for_one(name):
     model = build(name)
     ours = {k: tuple(v.shape) for k, v in model.state_dict().items()}
@@ -98,7 +110,7 @@ def test_config_builds_and_bridges_one_for_one(name):
     jcfg = JaxConfig.fromfile(os.path.join(ROOT, "configs", name)).todict()
     det = jax_build_detector(jcfg["model"], jcfg.get("train_cfg"), jcfg.get("test_cfg"))
     img = jax.ShapeDtypeStruct((1, 64, 64, 3), jnp.float32)
-    if jcfg["model"]["type"] in ("FasterRCNN", "MaskRCNN"):
+    if jcfg["model"]["type"] in ("FasterRCNN", "MaskRCNN", "HybridTaskCascade"):
         meta = (jax.ShapeDtypeStruct((1, 2), jnp.int32), jax.ShapeDtypeStruct((1,), jnp.float32),
                 jax.ShapeDtypeStruct((1, 2), jnp.int32))
         shapes = jax.eval_shape(lambda x, *m: det.init(jax.random.PRNGKey(0), x, *m,

@@ -145,15 +145,49 @@ logs = step(dict(img=x, gt_bboxes=gts, gt_labels=torch.tensor([[3, 4]], dtype=to
 assert sorted(logs) == ['loss', 'loss_bbox', 'loss_cls', 'loss_mask', 'rpn_loss_bbox',
                         'rpn_loss_cls']
 assert all(bool(torch.isfinite(v)) for v in logs.values())
+import struct, tempfile, zlib
+from ioudet_torch.data.pipelines import Compose
+from tests._torch_mp_worker import htc_cfgs
+model_cfg, train_cfg, test_cfg = htc_cfgs()
+test_cfg['rcnn']['score_thr'] = 0.0
+h = init_detector(dict(model=model_cfg, train_cfg=train_cfg, test_cfg=test_cfg), device='cpu')
+dets, labels, masks = predict(h, x, *meta)
+assert tuple(masks.shape) == (1, 20, 28, 28) and int((labels >= 0).sum()) > 0
+seg = (np.arange(64 * 96).reshape(64, 96) // 97 % 7).astype(np.uint8)
+def chunk(kind, data):
+    return struct.pack('>I', len(data)) + kind + data + struct.pack('>I', zlib.crc32(kind + data))
+png = (b'\\x89PNG\\r\\n\\x1a\\n' + chunk(b'IHDR', struct.pack('>IIBBBBB', 96, 64, 8, 0, 0, 0, 0))
+       + chunk(b'IDAT', zlib.compress(b''.join(b'\\x00' + r.tobytes() for r in seg)))
+       + chunk(b'IEND', b''))
+with tempfile.TemporaryDirectory() as seg_dir:
+    with open(os.path.join(seg_dir, 'a.png'), 'wb') as f:
+        f.write(png)
+    sample = Compose([dict(type='LoadAnnotations', with_seg=True),
+                      dict(type='SegRescale', scale_factor=0.125)])(dict(
+        img=np.zeros((64, 96, 3), np.uint8), img_info=dict(filename='a.ppm'),
+        ann_info=dict(bboxes=np.zeros((0, 4), np.float32), labels=np.zeros(0, np.int64)),
+        seg_prefix=seg_dir))
+assert (sample['gt_semantic_seg'] == seg[::8, ::8]).all()
+model = h.model.train()
+ttrain.make_trainable_mask(model)
+step = ttrain.make_train_step(model, ttrain.build_optimizer(model, dict(type='SGD', lr=0.01)),
+                              lambda s: 0.01)
+logs = step(dict(img=x, gt_bboxes=gts, gt_labels=torch.tensor([[3, 4]], dtype=torch.int32),
+                 gt_valid=torch.ones(1, 2, dtype=torch.bool), img_shape=meta[0],
+                 pad_shape=meta[2], gt_masks=torch.ones(1, 2, 112, 112, dtype=torch.uint8),
+                 gt_semantic_seg=torch.from_numpy(sample['gt_semantic_seg'][None].astype(int))), 0)
+assert 'loss_semantic_seg' in logs and 's2_loss_mask' in logs
+assert all(bool(torch.isfinite(v)) for v in logs.values())
 """
 
 
 def test_port_runs_without_jax():
     """import ioudet_torch and a CPU run of the slice leave jax (and flax,
     cv2, PIL) out of sys.modules: the IoU-aware RetinaNet's serving, the
-    RPN from its config file through init_detector and predict, and a tiny
+    RPN from its config file through init_detector and predict, a tiny
     Mask R-CNN's predict, its masks pasted and encoded, inference_detector
-    and one make_train_step step."""
+    and one make_train_step step, and a tiny HTC's predict and one step on
+    a semantic map read from a PNG by LoadAnnotations."""
     code = (
         "import os, sys, numpy as np, torch\n"
         "import ioudet_torch\n"

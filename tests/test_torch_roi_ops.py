@@ -291,14 +291,14 @@ def _dense_leaf(n_in: int, n_out: int) -> dict:
 @pytest.mark.parametrize("tree", [
     # the plain BBoxHead: fc_cls / fc_reg take the flattened RoI feature
     dict(fc_cls=_dense_leaf(7 * 7 * 16, 6), fc_reg=_dense_leaf(7 * 7 * 16, 24)),
-    # ConvFCBBoxHead with a shared conv before the shared fcs
+    # ConvFCBBoxHead with a shared conv and no shared fc (the gn / gn+ws
+    # heads' shared convs before their fc are bridged: tests/test_torch_gn_ws.py)
     dict(shared_conv0=dict(conv=dict(kernel=np.zeros((3, 3, 16, 16), np.float32))),
-         shared_fc0=_dense_leaf(7 * 7 * 16, 32), fc_cls=_dense_leaf(32, 6),
-         fc_reg=_dense_leaf(32, 24)),
+         fc_cls=_dense_leaf(7 * 7 * 16, 6), fc_reg=_dense_leaf(7 * 7 * 16, 24)),
 ], ids=["plain_bbox_head", "shared_conv"])
 def test_bridge_refuses_other_box_heads(tree):
-    """Only SharedFCBBoxHead's tree is bridged; another box head's raises
-    rather than guessing which layer takes the RoI feature."""
+    """Only a ConvFCBBoxHead's tree with shared fcs is bridged; another box
+    head's raises rather than guessing which layer takes the RoI feature."""
     with pytest.raises(NotImplementedError):
         state_dict_from_flax(dict(bbox_head=tree))
 
