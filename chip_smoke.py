@@ -122,7 +122,7 @@ Phases (any failure exits non-zero):
      straddle a rounding boundary rounds the other way) and their times,
      six ``train_detector`` steps with every loss and gradient finite
      (``utils/debug.check_finite``), K2 / K3 launches a step, and the
-     step's median of 10 beside phase 5's f32 steps; (8b) data parallel: two
+     step's median of TIMED_REPS beside phase 5's f32 steps; (8b) data parallel: two
      ranks on cuda:0 over gloo (``--dp-rank``: this script started as one
      rank of ``init_dist``'s group) train three steps at imgs_per_gpu 2,
      their logged losses and parameters against one process at batch 4
@@ -190,7 +190,25 @@ Phases (any failure exits non-zero):
      gradients nonzero) and two train steps; (11e) timings: HTC ``predict``
      at batch 8 and 1 and its parts by CUDA events, TF32 off and on, K1 at
      each stage, the train step, the other two configs' ``predict``, the
-     PNG decode of an 800x1333 map on the host.
+     PNG decode of an 800x1333 map on the host;
+  12. the rest of Faster R-CNN's family at full width and depth, as phase
+     11: (12a) configs/fast_rcnn_r50_fpn_1x.py on proposals planted as
+     .pkl files of (n, 5) arrays: ``predict`` at batch 8 and 1 (K1 once a
+     predict, the detections' NMS), three ``train_detector`` steps from the
+     config's own train_pipeline (no kernel launched), each loaded sample's
+     proposals equal to the planted ones after Resize and RandomFlip,
+     ``single_device_test`` and ``evaluate`` bit-equal to a replay, and
+     ``tools.test`` (on the steps' checkpoint) and ``tools.train`` on the
+     config; (12b) Fast Mask R-CNN: ``predict``, two steps, the segm eval
+     of 10c on EVAL_BATCH images with proposals; (12c) Double-Head with
+     its BN head: ``predict`` on running statistics, two steps that move
+     them; (12d) C4 (res5 as a shared head over the chunked RoIAlign);
+     (12e) the two modulated deformable RoI pooling configs, the zero-init
+     offset layer's gradient nonzero; (12f) bf16 Faster and Mask R-CNN
+     (three steps, the head drift against f32 on the same weights); each
+     against the plain-NMS replay; (12g) timings: ``predict`` at batch 8
+     with its parts by CUDA events, TF32 off and on, K1 at each stage, the
+     train step with peak memory, the host time of the proposals' loading.
 The last two lines are the card's name and power limit, then
 ``{"ok": true, "device": {...}}``; the line before them lists the kernels.
 """
@@ -202,6 +220,7 @@ import copy
 import io
 import json
 import os
+import pickle
 import runpy
 import statistics
 import subprocess
@@ -289,6 +308,7 @@ ACCUM_LOOPS = (1, 2, 63, 64, 65, 300)
 DEQUANT_SHAPES = ((129, 65, 144), (1000, 7, 1024), (2304, 64, 160), (3000, 256, 2304),
                   (16897, 255, 384), (16897, 128, 640), (17000, 512, 64))
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM data sheet
+TIMED_REPS = 5   # host-clock medians of phases 5, 8a, 9d and 10d
 F32_FLOPS_PER_S = 67e12     # f32 outside the tensor cores, same sheet
 INT8_OPS_PER_S = 1979e12    # dense int8 tensor-core rate, same sheet
 BF16_FLOPS_PER_S = 989e12   # dense bf16 tensor-core rate, same sheet
@@ -1737,8 +1757,8 @@ def phase_timing(K, A, Fc, handle, runner, batch, rng, card: str) -> dict:
         set_tf32(tf32)
         for bsz in (1, BATCH):
             inputs = canvases(bsz, rng)
-            ms = host_ms(lambda: predict(handle, *inputs), reps=10)
-            print(f"predict batch {bsz}: median of 10 {ms:.3f} ms, "
+            ms = host_ms(lambda: predict(handle, *inputs), reps=TIMED_REPS)
+            print(f"predict batch {bsz}: median of {TIMED_REPS} {ms:.3f} ms, "
                   f"{bsz * 1e3 / ms:.2f} img/s "
                   f"{tag}, TF32 {'on' if tf32 else 'off'}]", flush=True)
             del inputs
@@ -1749,10 +1769,10 @@ def phase_timing(K, A, Fc, handle, runner, batch, rng, card: str) -> dict:
     for tf32 in (False, True):
         set_tf32(tf32)
         torch.cuda.reset_peak_memory_stats()
-        ms = host_ms(lambda: runner.train_step(batch, step), reps=10, warmup=2)
+        ms = host_ms(lambda: runner.train_step(batch, step), reps=TIMED_REPS, warmup=2)
         peak = torch.cuda.max_memory_allocated() / 2 ** 30
         F32_STEP[tf32] = (ms, peak)
-        print(f"train step batch {TRAIN_BATCH}: median of 10 {ms:.3f} ms, "
+        print(f"train step batch {TRAIN_BATCH}: median of {TIMED_REPS} {ms:.3f} ms, "
               f"{TRAIN_BATCH * 1e3 / ms:.2f} img/s, peak memory {peak:.2f} GiB "
               f"{tag}, TF32 {'on' if tf32 else 'off'}]", flush=True)
         parts = train_step_parts(runner, batch)
@@ -2054,10 +2074,11 @@ def phase_low_precision_timing(Mm, Q, handle, scales, rng, card: str) -> dict:
                 predict(handle, *inputs)
                 torch.cuda.synchronize()
                 torch.cuda.reset_peak_memory_stats()
-                ms = host_ms(lambda: predict(handle, *inputs), reps=10, warmup=0)
+                ms = host_ms(lambda: predict(handle, *inputs), reps=TIMED_REPS, warmup=0)
             peak = torch.cuda.max_memory_allocated() / 2 ** 30
-            print(f"predict batch {bsz}: median of 10 {ms:.3f} ms, {bsz * 1e3 / ms:.2f} img/s, "
-                  f"peak memory {peak:.2f} GiB [{card}; {name}]", flush=True)
+            print(f"predict batch {bsz}: median of {TIMED_REPS} {ms:.3f} ms, "
+                  f"{bsz * 1e3 / ms:.2f} img/s, peak memory {peak:.2f} GiB [{card}; {name}]",
+                  flush=True)
             del inputs
         torch.cuda.empty_cache()
 
@@ -3117,11 +3138,11 @@ def phase_bf16_train(B, A, Fc, card: str) -> dict:
 
     step = runner.step + 1
     torch.cuda.reset_peak_memory_stats()
-    ms = host_ms(lambda: runner.train_step(batch, step), reps=10, warmup=2)
+    ms = host_ms(lambda: runner.train_step(batch, step), reps=TIMED_REPS, warmup=2)
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
     f32 = "; ".join(f"f32 TF32 {'on' if on else 'off'} (phase 5) {v[0]:.3f} ms, peak "
                     f"{v[1]:.2f} GiB" for on, v in sorted(F32_STEP.items()))
-    print(f"train step batch {TRAIN_BATCH} bf16: median of 10 {ms:.3f} ms, "
+    print(f"train step batch {TRAIN_BATCH} bf16: median of {TIMED_REPS} {ms:.3f} ms, "
           f"{TRAIN_BATCH * 1e3 / ms:.2f} img/s, peak memory {peak:.2f} GiB; {f32} "
           f"[{card}]", flush=True)
     runner.optimizer.zero_grad(set_to_none=True)
@@ -3454,12 +3475,13 @@ def two_stage_cfg(name: str = TWO_STAGE) -> dict:
 
 
 def two_stage_serving(B, K, handle, inputs, what: str = "Faster R-CNN",
-                      tag: str = "9a", batches=(TWO_STAGE_BATCH, 1)) -> dict:
-    """9a / 10a / 11a / 11d: ``predict`` at batch 8 and 1 (``batches``) with
-    host syncs made errors: K1a and K1b twice a predict (proposals,
-    detections), each stage's candidates, every output (a mask detector's
-    masks (B, 100, 28, 28) in [0, 1] too) bit-equal to a plain-NMS replay.
-    Returns the launch counts."""
+                      tag: str = "9a", batches=(TWO_STAGE_BATCH, 1), stages: int = 2) -> dict:
+    """9a / 10a / 11a / 11d / 12: ``predict`` at batch 8 and 1 (``batches``)
+    with host syncs made errors: K1a and K1b once a stage (the RPN's
+    proposals, the R-CNN's detections; a Fast R-CNN's ``stages`` 1, its
+    proposals the inputs after the four canvas ones), each stage's
+    candidates, every output (a mask detector's masks (B, 100, 28, 28) in
+    [0, 1] too) bit-equal to a plain-NMS replay.  Returns the launch counts."""
     from ioudet_torch.apis.inference import predict
 
     counts = {}
@@ -3473,9 +3495,10 @@ def two_stage_serving(B, K, handle, inputs, what: str = "Faster R-CNN",
         seen = dict(B.launches)
         counts = add_counts(counts, seen)
         dets, labels = outs[:2]
-        check(seen["nms_mask_kernel"] == 2 and seen["nms_reduce_kernel"] == 2,
-              f"{what} predict at batch {bsz}: K1a and K1b launched twice (the RPN's "
-              f"proposals, the R-CNN's detections), host syncs made errors: {seen}")
+        check(seen["nms_mask_kernel"] == stages and seen["nms_reduce_kernel"] == stages,
+              f"{what} predict at batch {bsz}: K1a and K1b launched once a NMS stage ("
+              + ("the RPN's proposals, the R-CNN's detections" if stages == 2 else
+                 "the detections") + f"), host syncs made errors: {seen}")
         check_predict_outputs(dets, labels, bsz, handle.model.num_result_classes - 1,
                               f"{what} predict at batch {bsz}")
         if len(outs) > 2:
@@ -3484,15 +3507,15 @@ def two_stage_serving(B, K, handle, inputs, what: str = "Faster R-CNN",
                   and bool(((masks >= 0) & (masks <= 1)).all()),
                   f"batch {bsz}: masks {tuple(masks.shape)} in [0, 1]; valid detections' "
                   f"pixels above 0.5: {float((masks[labels >= 0] > 0.5).float().mean()):.4f}")
-        stages = []
-        with nms_calls(K, stages):
+        seen_stages = []
+        with nms_calls(K, seen_stages):
             predict(handle, *args)
-        check(len(stages) == 2 and [s[0].shape[1] for s in stages] == [2000, 2000],
-              f"batch {bsz}: two NMS stages of N = 2000 candidates an image")
-        print(f"{tag} batch {bsz}: valid NMS candidates an image, proposals (IoU "
-              f"{stages[0][2]}): {stages[0][1].sum(1).tolist()}; detections (IoU "
-              f"{stages[1][2]}, 80 classes): {stages[1][1].sum(1).tolist()}; valid "
-              f"detections {int((labels >= 0).sum())}", flush=True)
+        check(len(seen_stages) == stages and all(s[0].shape[1] == 2000 for s in seen_stages),
+              f"batch {bsz}: {stages} NMS stage(s) of N = 2000 candidates an image")
+        print(f"{tag} batch {bsz}: valid NMS candidates an image, " + "; ".join(
+            f"{name} (IoU {st[2]}): {st[1].sum(1).tolist()}" for name, st in zip(
+                ("proposals", "detections")[-stages:], seen_stages)) +
+              f"; valid detections {int((labels >= 0).sum())}", flush=True)
         with plain_nms(K):
             plain = predict(handle, *args)
         check(all(torch.equal(a, b) for a, b in zip(plain, outs)),
@@ -3508,7 +3531,8 @@ def two_stage_losses(model, batch, names=TWO_STAGE_NAMES) -> tuple:
     its ``gt_semantic_seg`` to HTC."""
     from ioudet_torch.apis.train import step_generator
 
-    kw = {k: batch[k] for k in ("gt_masks", "gt_semantic_seg") if k in batch}
+    kw = {k: batch[k] for k in ("gt_masks", "gt_semantic_seg", "proposals", "prop_valid")
+          if k in batch}
     return loss_and_grads(model, batch, names,
                           generator=step_generator(batch["img"].device, 0, 0), **kw)
 
@@ -3516,13 +3540,14 @@ def two_stage_losses(model, batch, names=TWO_STAGE_NAMES) -> tuple:
 def two_stage_training(B, K, handle, cfg, batch=None, names=TWO_STAGE_NAMES,
                        what: str = "Faster R-CNN", tag: str = "9b",
                        steps: int = TWO_STAGE_STEPS, nonzero=(), loss_keys=None,
-                       positive=()) -> tuple:
-    """9b / 10b / 11b / 11d: step 1 against its plain-NMS replay (the
+                       positive=(), k1: int = 1) -> tuple:
+    """9b / 10b / 11b / 11d / 12: step 1 against its plain-NMS replay (the
     gradients of ``names``; those of ``nonzero`` must not be all zero; the
     losses must be ``loss_keys`` where given, those of ``positive`` > 0), then
     ``train_detector`` for ``steps`` steps at batch 2 with 100 gt slots (by
     default ``train_batch``'s; 10b's carry box-frame masks, 11b's semantic
-    maps too): K1 once a step, K2 and K3 never, every loss finite.  Returns
+    maps too, 12b's proposals): K1 ``k1`` times a step (the RPN's proposals;
+    0 for a Fast R-CNN), K2 and K3 never, every loss finite.  Returns
     (launch counts, runner, batch)."""
     from ioudet_torch.apis.train import train_detector
 
@@ -3562,11 +3587,11 @@ def two_stage_training(B, K, handle, cfg, batch=None, names=TWO_STAGE_NAMES,
     with tempfile.TemporaryDirectory() as work_dir:
         runner = train_detector(handle, [batch] * steps, cfg, work_dir,
                                 device="cuda", step_hook=hook)
-    want = {"nms_mask_kernel": 1, "nms_reduce_kernel": 1, "assign_gtmax_kernel": 0,
+    want = {"nms_mask_kernel": k1, "nms_reduce_kernel": k1, "assign_gtmax_kernel": 0,
             "assign_targets_kernel": 0, "focal_sum_kernel": 0, "focal_dx_kernel": 0}
     check(len(per_step) == steps and
           all(all(c[k] == n for k, n in want.items()) for c in per_step),
-          f"each of {steps} {what} steps launched K1a and K1b once, K2 and K3 "
+          f"each of {steps} {what} steps launched K1a and K1b {k1} time(s), K2 and K3 "
           f"never: {per_step}")
     for i, rec in enumerate(history):
         print(f"{tag} step {i + 1}: " + ", ".join(f"{k} {v:.6f}" for k, v in rec.items()))
@@ -3696,9 +3721,9 @@ def two_stage_timing(K, handle, runner, batch, inputs, card: str,
         for bsz in (TWO_STAGE_BATCH, 1):
             args = tuple(x[:bsz] for x in inputs)
             torch.cuda.reset_peak_memory_stats()
-            ms = host_ms(lambda: predict(handle, *args), reps=10)
+            ms = host_ms(lambda: predict(handle, *args), reps=TIMED_REPS)
             peak = torch.cuda.max_memory_allocated() / 2 ** 30
-            print(f"{what} predict batch {bsz}: median of 10 {ms:.3f} ms, "
+            print(f"{what} predict batch {bsz}: median of {TIMED_REPS} {ms:.3f} ms, "
                   f"{bsz * 1e3 / ms:.2f} img/s, peak memory {peak:.2f} GiB {tag}", flush=True)
         parts = two_stage_split(handle, inputs)
         print(f"{what} predict batch {TWO_STAGE_BATCH} by CUDA events (median of 5), ms: "
@@ -3732,11 +3757,12 @@ def two_stage_timing(K, handle, runner, batch, inputs, card: str,
     for tf32 in (False, True):
         set_tf32(tf32)
         torch.cuda.reset_peak_memory_stats()
-        ms = host_ms(lambda: runner.train_step(batch, TWO_STAGE_STEPS), reps=10, warmup=2)
+        ms = host_ms(lambda: runner.train_step(batch, TWO_STAGE_STEPS), reps=TIMED_REPS,
+                     warmup=2)
         peak = torch.cuda.max_memory_allocated() / 2 ** 30
-        print(f"{what} train step batch {TWO_STAGE_TRAIN_BATCH}: median of 10 {ms:.3f} ms, "
-              f"{TWO_STAGE_TRAIN_BATCH * 1e3 / ms:.2f} img/s, peak memory {peak:.2f} GiB "
-              f"[{card}; f32, TF32 {'on' if tf32 else 'off'}]", flush=True)
+        print(f"{what} train step batch {TWO_STAGE_TRAIN_BATCH}: median of {TIMED_REPS} "
+              f"{ms:.3f} ms, {TWO_STAGE_TRAIN_BATCH * 1e3 / ms:.2f} img/s, peak memory "
+              f"{peak:.2f} GiB [{card}; f32, TF32 {'on' if tf32 else 'off'}]", flush=True)
     set_tf32(False)
 
 
@@ -3833,20 +3859,25 @@ def segm_oracle(dataset) -> list:
     return out
 
 
-def mask_eval(B, handle, dataset6, what: str = "Mask R-CNN") -> dict:
-    """10c / 11c: the first MASK_EVAL images of phase 6's set with polygons,
-    through ``single_device_test`` and ``evaluate(["bbox", "segm"])``; each
-    result bit-equal to a ``predict`` replay and the host paste, K1 twice a
-    predict, the gts' own polygons at segm AP = 1.  Returns the launch
-    counts."""
+def mask_eval(B, handle, dataset6, what: str = "Mask R-CNN", config: str = MASK_RCNN,
+              proposals: bool = False, count: int = MASK_EVAL) -> dict:
+    """10c / 11c / 12b: the first ``count`` images of phase 6's set with
+    polygons, through ``single_device_test`` and ``evaluate(["bbox",
+    "segm"])`` by ``config``'s test pipeline (with ``proposals``, a planted
+    proposal file beside them: K1 once a predict, else twice); each result
+    bit-equal to a ``predict`` replay and the host paste, the gts' own
+    polygons at segm AP = 1.  Returns the launch counts."""
     from ioudet_torch.apis.inference import predict
     from ioudet_torch.apis.test import eval_batches, single_device_test, to_results
     from ioudet_torch.data import build_dataset
 
     ann_file = os.path.join(os.path.dirname(dataset6.ann_file), "polygons.json")
-    plant_polygons(dataset6.ann_file, ann_file, MASK_EVAL)
-    test = dict(two_stage_cfg(MASK_RCNN)["data"]["test"], ann_file=ann_file,
+    plant_polygons(dataset6.ann_file, ann_file, count)
+    test = dict(two_stage_cfg(config)["data"]["test"], ann_file=ann_file,
                 img_prefix=dataset6.img_prefix)
+    if proposals:
+        test["proposal_file"] = plant_proposals(ann_file, ann_file[:-len(".json")] + ".pkl")[0]
+    stages = 1 if proposals else 2
     dataset = build_dataset(test)
     torch.cuda.synchronize()
     B.reset_launches()
@@ -3869,8 +3900,9 @@ def mask_eval(B, handle, dataset6, what: str = "Mask R-CNN") -> dict:
                 bad.append(i)
     check(not bad, f"single_device_test of {len(dataset)} images: each (bbox, segm) result "
           f"bit-equal to a predict replay and its host paste (differing: {bad})")
-    check(counts["nms_mask_kernel"] == 2 * batches and counts["nms_reduce_kernel"] == 2 * batches,
-          f"K1a and K1b launched twice for each of the loop's {batches} predicts")
+    check(counts["nms_mask_kernel"] == stages * batches and
+          counts["nms_reduce_kernel"] == stages * batches,
+          f"K1a and K1b launched {stages} time(s) for each of the loop's {batches} predicts")
     t = time.perf_counter()
     metrics = dataset.evaluate(results, metric=["bbox", "segm"])
     check(all(np.isfinite(v) and -1 <= v <= 1 for v in metrics.values()),
@@ -4246,6 +4278,541 @@ def phase_cascade(B, K, dataset6, rng, card: str) -> dict:
     return counts
 
 
+# -------------------------- phase 12: the rest of Faster R-CNN's family
+
+FAST_RCNN = "fast_rcnn_r50_fpn_1x.py"
+FAST_MASK = "fast_mask_rcnn_r50_fpn_1x.py"
+DOUBLE_HEAD = "double_head_rcnn_r50_fpn_1x.py"
+C4 = "faster_rcnn_r50_caffe_c4_1x.py"
+DPOOLS = ("dpool_faster_rcnn_r50_fpn_1x.py", "dcn_faster_rcnn_mdpool_r50_fpn_1x.py")
+BF16_CONFIGS = (("faster_rcnn_r50_fpn_bf16_1x.py", TWO_STAGE, "bf16 Faster R-CNN"),
+                ("mask_rcnn_r50_fpn_bf16_1x.py", MASK_RCNN, "bf16 Mask R-CNN"))
+FAST_TRAIN = 6        # 12a: phase 6's first images, three steps at batch 2
+FAST_EVAL = 16        # 12a: phase 6's first images through single_device_test
+TEST_PROPOSALS = 1000   # the Fast R-CNN config's test_pipeline LoadProposals
+TRAIN_PROPOSALS = 2000  # its train_pipeline's
+FAMILY_STEPS = 2      # 12b-12e: train steps a config
+FAMILY_REPS = 3       # 12g: timed predicts and steps a setting, after one warm-up
+FAST_NAMES = ("bbox_head.shared_fcs.0.weight", "bbox_head.fc_cls.weight",
+              "bbox_head.fc_reg.weight")
+FAST_MASK_NAMES = FAST_NAMES + ("mask_head.convs.0.conv.weight", "mask_head.conv_logits.weight")
+DH_NAMES = ("rpn_head.rpn_cls.weight", "bbox_head.res_block.conv1.conv.weight",
+            "bbox_head.conv_branch.3.conv3.weight", "bbox_head.fc_branch.0.weight",
+            "bbox_head.fc_cls.weight", "bbox_head.fc_reg.weight")
+C4_NAMES = ("rpn_head.rpn_cls.weight", "shared_head.layer4.0.conv1.weight",
+            "shared_head.layer4.2.conv3.weight", "bbox_head.fc_cls.weight",
+            "bbox_head.fc_reg.weight")
+DPOOL_NAMES = TWO_STAGE_NAMES + tuple(f"bbox_roi_extractor.roi_layers.{i}.offset_fc.{j}.weight"
+                                      for i in range(4) for j in (0, 4))
+
+
+def plant_proposals(ann_file: str, out_file: str, seed: int = 11) -> tuple:
+    """A .pkl proposal file beside a COCO-style ``ann_file``: an (n, 5)
+    f32 array an image in its order, n from 600 to 2600 (so both pipelines'
+    caps cut some and pad others), boxes of 16-500 px inside the image,
+    scores uniform.  Returns (out_file, the arrays)."""
+    with open(ann_file) as f:
+        images = json.load(f)["images"]
+    rng = np.random.default_rng(seed)
+    props = []
+    for im in images:
+        n = int(rng.integers(600, 2600))
+        wh = rng.uniform(16, 500, (n, 2))
+        xy = rng.uniform(0, 1, (n, 2)) * np.maximum((im["width"], im["height"]) - wh, 1)
+        props.append(np.concatenate([xy, xy + wh, rng.uniform(0, 1, (n, 1))], 1)
+                     .astype(np.float32))
+    with open(out_file, "wb") as f:
+        pickle.dump(props, f)
+    return out_file, props
+
+
+def subset_ann(ann_file: str, out_file: str, count: int) -> str:
+    """``ann_file``'s first ``count`` images and their annotations."""
+    with open(ann_file) as f:
+        coco = json.load(f)
+    keep = {im["id"] for im in coco["images"][:count]}
+    coco["images"] = coco["images"][:count]
+    coco["annotations"] = [a for a in coco["annotations"] if a["image_id"] in keep]
+    with open(out_file, "w") as f:
+        json.dump(coco, f)
+    return out_file
+
+
+def cut_proposals(props: list, cap: int) -> tuple:
+    """(B, cap, 4) proposals and (B, cap) validity on the card, each
+    image's array through ``LoadProposals(cap)`` (the planted images are
+    800x1333: ``Resize`` keeps them as they are)."""
+    from ioudet_torch.data.pipelines.loading import LoadProposals
+
+    cut = [LoadProposals(cap)(dict(proposals=p)) for p in props]
+    return (torch.from_numpy(np.stack([c["proposals"] for c in cut])).cuda(),
+            torch.from_numpy(np.stack([c["prop_valid"] for c in cut])).cuda())
+
+
+def fast_train_batch(batch: int, num_gts: int, masks: bool = False) -> dict:
+    """``train_batch`` (with ``mask_train_batch``'s masks) and TRAIN_PROPOSALS
+    proposals an image: a quarter the valid gts jittered by up to 8 px, the
+    rest random boxes; image 1 has 1500 valid rows, the rest padding."""
+    out = mask_train_batch(batch, num_gts) if masks else train_batch(batch, num_gts)
+    rng = np.random.default_rng(12)
+    h, w = out["img"].shape[1:3]
+    wh = rng.uniform(16, 500, (batch, TRAIN_PROPOSALS, 2))
+    xy = rng.uniform(0, 1, (batch, TRAIN_PROPOSALS, 2)) * ((w, h) - wh)
+    boxes = np.concatenate([xy, xy + wh], -1)
+    near = np.repeat(out["gt_bboxes"], 5, axis=1) + rng.uniform(-8, 8, (batch, 5 * num_gts, 4))
+    boxes[:, :near.shape[1]] = near
+    valid = np.arange(TRAIN_PROPOSALS)[None] < np.array([[TRAIN_PROPOSALS], [1500]])[:batch]
+    out["proposals"] = (boxes * valid[..., None]).astype(np.float32)
+    out["prop_valid"] = valid
+    return out
+
+
+def family_spans(model) -> tuple:
+    """(spans, end label) of ``family_split``: each span the label of the
+    part that ends at a (module, 'pre' | 'post') hook, in the order a
+    ``predict`` reaches them; phase 9d's parts plus the Double-Head's two
+    branches, C4's res5 trunk and the deformable pooling's passes."""
+    ext = model.bbox_roi_extractor
+    spans = [("start", model.backbone, "pre"),
+             ("backbone + FPN" if model.neck is not None else "backbone to C4",
+              model.neck if model.neck is not None else model.backbone, "post"),
+             ("RPN head + proposal NMS" if model.rpn_head is not None else "proposals to rois",
+              ext, "pre")]
+    if ext.roi_layers is not None:
+        spans += [("offset pass (RoIAlign, 4 levels' offset fcs)", ext.roi_layers[-1].offset_fc,
+                   "post"), ("second pass", ext, "post")]
+    else:
+        spans.append(("RoIAlign", ext, "post"))
+    if model.shared_head is not None:
+        spans.append(("res5 trunk", model.shared_head, "post"))
+    if hasattr(model.bbox_head, "res_block"):
+        spans += [("fc branch", model.bbox_head.fc_cls, "post"),
+                  ("conv branch", model.bbox_head, "post")]
+    else:
+        spans.append(("box head", model.bbox_head, "post"))
+    if getattr(model, "mask_head", None) is None:
+        return spans, "decode + final NMS"
+    spans += [("decode + final NMS", model.mask_roi_extractor, "pre"),
+              ("mask RoIAlign", model.mask_roi_extractor, "post"),
+              ("mask head", model.mask_head, "post")]
+    return spans, "class pick + sigmoid"
+
+
+def family_split(handle, args, reps: int = FAMILY_REPS) -> tuple:
+    """(host-clock median ms, peak GiB, {part: median ms by CUDA events}) of
+    ``reps`` predicts after a warm-up, parts by ``family_spans``."""
+    from ioudet_torch.apis.inference import predict
+
+    spans, end = family_spans(handle.model)
+    marks = []
+
+    def mark(label):
+        def hook(*_):
+            ev = torch.cuda.Event(enable_timing=True)
+            ev.record()
+            marks.append((label, ev))
+        return hook
+
+    hooks = [(m.register_forward_pre_hook if kind == "pre" else m.register_forward_hook)(
+        mark(label)) for label, m, kind in spans]
+    parts, walls = {}, []
+    torch.cuda.reset_peak_memory_stats()
+    try:
+        for rep in range(reps + 1):
+            marks.clear()
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            predict(handle, *args)
+            mark(end)()
+            torch.cuda.synchronize()
+            if rep:
+                walls.append((time.perf_counter() - t) * 1e3)
+                seen = {}
+                for (_, a), (label, b) in zip(marks, marks[1:]):
+                    seen[label] = seen.get(label, 0.0) + a.elapsed_time(b)
+                for k, v in seen.items():
+                    parts.setdefault(k, []).append(v)
+    finally:
+        for h in hooks:
+            h.remove()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    return statistics.median(walls), peak, {k: statistics.median(v) for k, v in parts.items()}
+
+
+def family_timing(K, handle, args, card: str, what: str, runner=None, batch=None,
+                  batch1: bool = False, dtype: str = "f32") -> None:
+    """12g: ``predict`` at batch 8 (and 1) with its parts, TF32 off and on;
+    K1 at each NMS stage's own candidates; with ``runner`` the train step
+    at batch 2 with peak memory, TF32 off."""
+    from ioudet_torch.apis.inference import predict
+
+    for tf32 in (False, True):
+        set_tf32(tf32)
+        tag = f"[{card}; {dtype}, TF32 {'on' if tf32 else 'off'}]"
+        ms, peak, parts = family_split(handle, args)
+        print(f"12g {what} predict batch {TWO_STAGE_BATCH}: median of {FAMILY_REPS} {ms:.3f} "
+              f"ms, {TWO_STAGE_BATCH * 1e3 / ms:.2f} img/s, peak memory {peak:.2f} GiB; by CUDA "
+              "events, ms: " + ", ".join(f"{k} {v:.3f}" for k, v in parts.items()) + f" {tag}",
+              flush=True)
+        if batch1:
+            one = tuple(x[:1] for x in args)
+            ms = host_ms(lambda: predict(handle, *one), reps=FAMILY_REPS)
+            print(f"12g {what} predict batch 1: median of {FAMILY_REPS} {ms:.3f} ms {tag}",
+                  flush=True)
+    set_tf32(False)
+    stages = []
+    with nms_calls(K, stages):
+        predict(handle, *args)
+    names = ("proposals", "detections")[-len(stages):]
+    for (boxes, valid, thr), stage in zip(stages, names):
+        words = K.nms_mask(boxes, thr)
+        keep = K.nms_reduce(words, valid)
+        print(k1_line(K, f"{what} {stage}, IoU {thr}, batch {TWO_STAGE_BATCH}", boxes, keep,
+                      cuda_ms(lambda: K.nms_mask(boxes, thr), 50),
+                      cuda_ms(lambda: K.nms_reduce(words, valid), 50),
+                      *k1_bounds(boxes, words, keep), f"[{card}; {dtype}"), flush=True)
+    if runner is None:
+        return
+    runner.model.train()
+    torch.cuda.reset_peak_memory_stats()
+    ms = host_ms(lambda: runner.train_step(batch, TWO_STAGE_STEPS), reps=FAMILY_REPS)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    print(f"12g {what} train step batch {TWO_STAGE_TRAIN_BATCH}: median of {FAMILY_REPS} "
+          f"{ms:.3f} ms, peak memory {peak:.2f} GiB [{card}; {dtype}, TF32 off]", flush=True)
+    runner.model.eval()
+
+
+def check_loaded_proposals(dataset, props: list) -> None:
+    """12a: each train sample's proposals are its planted array sorted by
+    score, cut to TRAIN_PROPOSALS, scaled by Resize and flipped by
+    RandomFlip (+1-pixel rule), the padding rows 0; both flips seen."""
+    from ioudet_torch.data.rng import make_sample_rng, set_sample_rng
+
+    flips = set()
+    for epoch in range(4):
+        for idx in range(len(dataset)):
+            set_sample_rng(make_sample_rng(0, epoch, idx))
+            try:
+                s = dataset[idx]
+            finally:
+                set_sample_rng(None)
+            raw = props[idx]
+            want = raw[np.argsort(-raw[:, 4], kind="stable")][:TRAIN_PROPOSALS, :4] * \
+                s["scale_factor"]
+            if s["flip"]:
+                w = int(s["img_shape"][1])
+                want = np.stack([w - want[:, 2] - 1, want[:, 1], w - want[:, 0] - 1, want[:, 3]],
+                                1)
+            valid = s["prop_valid"]
+            ok = (s["proposals"].shape == (TRAIN_PROPOSALS, 4) and
+                  int(valid.sum()) == min(len(raw), TRAIN_PROPOSALS) and
+                  np.array_equal(s["proposals"][valid], want) and
+                  not s["proposals"][~valid].any())
+            if not ok:
+                raise AssertionError(f"12a: train sample {idx} (epoch {epoch}, flip "
+                                     f"{bool(s['flip'])}): proposals differ from the planted")
+            flips.add(bool(s["flip"]))
+        if flips == {False, True}:
+            break
+    check(flips == {False, True}, f"12a: every train sample's {TRAIN_PROPOSALS} proposal slots "
+          "are its planted (n, 5) array sorted by score, cut, scaled by Resize, flipped by "
+          "RandomFlip (both ways seen), the padding rows 0")
+
+
+def write_fast_config(path: str, base: str, **data) -> None:
+    """A config file that ``_base_``s the Fast R-CNN config with ``data``'s
+    sets (ann_file, img_prefix, proposal_file) over its own, one epoch,
+    ``rcnn.score_thr`` 0."""
+    sets = ", ".join(f"{k}=dict({', '.join(f'{a}={b!r}' for a, b in v.items())})"
+                     for k, v in data.items())
+    with open(path, "w") as f:
+        f.write(f"_base_ = {base!r}\ndata = dict(imgs_per_gpu=2, workers_per_gpu=2, {sets})\n"
+                "test_cfg = dict(rcnn=dict(score_thr=0.0))\ntotal_epochs = 1\n"
+                "log_config = dict(interval=1)\n"
+                "optimizer_config = dict(grad_clip=dict(max_norm=35, norm_type=2))\n")
+
+
+def fast_rcnn_phase(B, K, dataset6, rng, card: str) -> dict:
+    """12a: Fast R-CNN on proposals read from planted .pkl files: ``predict``
+    at batch 8 and 1, three ``train_detector`` steps from the config's own
+    train_pipeline, ``single_device_test`` + ``evaluate(["bbox"])``, the
+    CLIs; then 12g's timings.  Returns the launch counts."""
+    from ioudet_torch.apis.inference import init_detector
+    from ioudet_torch.apis.test import single_device_test
+    from ioudet_torch.apis.train import train_detector
+    from ioudet_torch.data import build_dataset
+    from ioudet_torch.data.pipelines import Compose
+    from ioudet_torch.tools import test as test_tool
+    from ioudet_torch.tools import train as train_tool
+
+    root = os.path.join(os.path.dirname(dataset6.ann_file), "fast_rcnn")
+    os.makedirs(root, exist_ok=True)
+    cfg = two_stage_cfg(FAST_RCNN)
+    handle = init_detector(cfg, device="cuda", seed=0)
+    _, props = plant_proposals(dataset6.ann_file, os.path.join(root, "all.pkl"))
+    inputs = canvases(TWO_STAGE_BATCH, rng) + cut_proposals(props[:TWO_STAGE_BATCH],
+                                                            TEST_PROPOSALS)
+    print(f"12a: Fast R-CNN ({FAST_RCNN}, {sum(p.numel() for p in handle.model.parameters()):,}"
+          f" parameters), rcnn score_thr 0; {TEST_PROPOSALS} proposal slots an image, valid "
+          f"{inputs[5].sum(1).tolist()}", flush=True)
+    counts = two_stage_serving(B, K, handle, inputs, "Fast R-CNN", "12a", stages=1)
+
+    ann = subset_ann(dataset6.ann_file, os.path.join(root, "train.json"), FAST_TRAIN)
+    pkl, train_props = plant_proposals(ann, os.path.join(root, "train.pkl"), seed=13)
+    dataset = build_dataset(dict(cfg["data"]["train"], ann_file=ann,
+                                 img_prefix=dataset6.img_prefix, proposal_file=pkl))
+    check_loaded_proposals(dataset, train_props)
+    per_step = []
+
+    def hook(step, log_vars):
+        per_step.append((dict(B.launches), {k: float(v) for k, v in log_vars.items()}))
+        B.reset_launches()
+
+    torch.cuda.synchronize()
+    B.reset_launches()
+    work_dir = os.path.join(root, "train_work")
+    runner = train_detector(handle, dataset, dict(cfg, log_config=dict(interval=1)),
+                            work_dir, device="cuda", step_hook=hook)
+    check(len(per_step) == FAST_TRAIN // 2 and
+          all(not any(c.values()) and sorted(r) == ["loss", "loss_bbox", "loss_cls"] and
+              all(np.isfinite(v) for v in r.values()) for c, r in per_step),
+          f"12a: {len(per_step)} train_detector steps at batch 2 from the config's "
+          "train_pipeline (LoadProposals 2000, flip): no kernel launched (no RPN: the step's "
+          "one draw is the roi sampler's), losses finite: " +
+          "; ".join(", ".join(f"{k} {v:.4f}" for k, v in r.items()) for _, r in per_step))
+
+    ann = subset_ann(dataset6.ann_file, os.path.join(root, "test.json"), FAST_EVAL)
+    pkl = plant_proposals(ann, os.path.join(root, "test.pkl"), seed=14)[0]
+    test = dict(cfg["data"]["test"], ann_file=ann, img_prefix=dataset6.img_prefix,
+                proposal_file=pkl)
+    eval_set = build_dataset(test)
+    handle.model.eval()
+    torch.cuda.synchronize()
+    B.reset_launches()
+    t = time.perf_counter()
+    results = single_device_test(handle, eval_set, EVAL_BATCH, EVAL_WORKERS, progress=False)
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t
+    seen = dict(B.launches)
+    counts = add_counts(counts, seen)
+    n = check_results_replay(handle, eval_set, results, False, "12a Fast R-CNN single_device_test")
+    check(seen["nms_mask_kernel"] == n and seen["nms_reduce_kernel"] == n,
+          f"12a: K1a and K1b launched once for each of the loop's {n} predicts")
+    metrics = eval_set.evaluate(results, metric="bbox")
+    check(all(np.isfinite(v) and -1 <= v <= 1 for v in metrics.values()),
+          f"12a: Fast R-CNN on {len(eval_set)} planted images with their proposals: loop "
+          f"{run_s:.2f} s; random weights: AP {metrics['AP']:.4f}, AR100 {metrics['AR100']:.4f}")
+    base = os.path.join(ROOT, "configs", FAST_RCNN)
+    cli_cfg = os.path.join(root, "cli_test.py")
+    write_fast_config(cli_cfg, base, test=dict(ann_file=ann, img_prefix=dataset6.img_prefix,
+                                               proposal_file=pkl))
+    out = test_tool.main([cli_cfg, os.path.join(work_dir, "epoch_1.pth"), "--eval", "bbox",
+                          "--batch", str(EVAL_BATCH)])
+    check(out["bbox"] == metrics,
+          f"12a: python -m ioudet_torch.tools.test {FAST_RCNN} (its proposal_file set to the "
+          f"planted .pkl) epoch_1.pth of the steps above --eval bbox: the metrics of "
+          f"single_device_test, AP "
+          f"{out['bbox']['AP']:.4f}")
+    cli_cfg = os.path.join(root, "cli_train.py")
+    ann = subset_ann(dataset6.ann_file, os.path.join(root, "cli.json"), 2)
+    write_fast_config(cli_cfg, base, train=dict(
+        ann_file=ann, img_prefix=dataset6.img_prefix,
+        proposal_file=plant_proposals(ann, os.path.join(root, "cli.pkl"), seed=15)[0]))
+    work = os.path.join(root, "cli_work")
+    cli_runner = train_tool.main([cli_cfg, "--work_dir", work, "--n-devices", "1"])
+    with open(os.path.join(work, "log.json")) as f:
+        logged = [json.loads(line) for line in f]
+    check(cli_runner.step == 1 and len(logged) == 1 and np.isfinite(logged[0]["loss"]),
+          f"12a: python -m ioudet_torch.tools.train {FAST_RCNN} on 2 planted images: one "
+          f"step, loss {logged[0]['loss']:.4f}")
+    del cli_runner
+
+    steps = [Compose([dict(type="LoadImageFromFile")] + [
+        s for s in cfg["data"]["train"]["pipeline"] if s["type"] in names])
+        for names in (("LoadProposals", "Resize", "RandomFlip"), ("Resize", "RandomFlip"))]
+    info = dataset.img_infos[0]
+    times = []
+    for pipe in steps:
+        def run():
+            return pipe(dict(img_info=info, img_prefix=dataset6.img_prefix,
+                             proposals=train_props[0], flip_override=True))
+        run()
+        t = time.perf_counter()
+        for _ in range(5):
+            run()
+        times.append((time.perf_counter() - t) * 1e3 / 5)
+    print(f"12g host pipeline of an 800x1333 .ppm with {len(train_props[0])} planted proposals "
+          f"({TRAIN_PROPOSALS} slots), mean of 5: LoadImageFromFile + LoadProposals + Resize + "
+          f"RandomFlip {times[0]:.3f} ms, without LoadProposals {times[1]:.3f} ms: the "
+          f"proposals' share {times[0] - times[1]:.3f} ms [{card}]", flush=True)
+    train = fast_train_batch(TWO_STAGE_TRAIN_BATCH, NUM_GTS)
+    batch = {k: torch.from_numpy(v).cuda() for k, v in train.items()}
+    family_timing(K, handle, inputs, card, "Fast R-CNN", runner, batch, batch1=True)
+    del handle, runner, batch, inputs
+    torch.cuda.empty_cache()
+    return counts
+
+
+def family_member(B, K, name: str, inputs, card: str, what: str, tag: str, names, *,
+                  batch=None, steps: int = FAMILY_STEPS, nonzero=(), stages: int = 2,
+                  k1: int = 1, time_step: bool = False, timed: bool = True,
+                  dtype: str = "f32", before_train=None, after_train=None) -> tuple:
+    """One config of 12b-12f: ``predict`` at batch 8 through
+    ``two_stage_serving``, ``steps`` train steps through
+    ``two_stage_training``, then 12g's timings where ``timed``.  Returns
+    (launch counts, handle)."""
+    from ioudet_torch.apis.inference import init_detector
+
+    cfg = two_stage_cfg(name)
+    handle = init_detector(cfg, device="cuda", seed=0)
+    print(f"{tag}: {what} ({name}, {sum(p.numel() for p in handle.model.parameters()):,} "
+          "parameters), rcnn score_thr 0", flush=True)
+    counts = two_stage_serving(B, K, handle, inputs, what, tag, batches=(TWO_STAGE_BATCH,),
+                               stages=stages)
+    state = before_train(handle) if before_train else None
+    train_counts, runner, tbatch = two_stage_training(
+        B, K, handle, cfg, batch, names, what, tag, steps, nonzero, k1=k1)
+    if after_train:
+        after_train(handle, state)
+    counts = add_counts(counts, train_counts)
+    handle.model.eval()
+    if timed:
+        family_timing(K, handle, inputs, card, what, runner if time_step else None, tbatch,
+                      dtype=dtype)
+    del runner, tbatch
+    return counts, handle
+
+
+def bn_buffers(handle) -> list:
+    return [b.detach().clone() for n, b in handle.model.bbox_head.named_buffers()
+            if n.endswith(("running_mean", "running_var"))]
+
+
+def check_bn_moved(handle, before) -> None:
+    after = bn_buffers(handle)
+    moved = sum(not torch.equal(a, b) for a, b in zip(before, after))
+    check(moved == len(after) and all(bool(torch.isfinite(a).all()) for a in after),
+          f"12c: all {len(after)} running statistics of the Double-Head's BNs moved in "
+          "training and are finite")
+
+
+def phase_faster_family(B, K, dataset6, rng, card: str) -> dict:
+    """Phase 12: the rest of Faster R-CNN's family at full width and depth,
+    seeded random weights, f32 unless bf16 is named, TF32 off for the
+    checks: 12a Fast R-CNN, 12b Fast Mask R-CNN, 12c Double-Head (BN), 12d
+    C4, 12e dpool / mdpool, 12f bf16 Faster / Mask R-CNN; 12g the timings of
+    each.  Returns the kernels' launch counts of its main-path runs."""
+    set_tf32(False)
+    t = time.perf_counter()
+    counts = fast_rcnn_phase(B, K, dataset6, rng, card)
+    print(f"12a: {time.perf_counter() - t:.2f} s", flush=True)
+
+    t = time.perf_counter()
+    inputs = canvases(TWO_STAGE_BATCH, rng)
+    props = cut_proposals(plant_proposals(dataset6.ann_file, os.path.join(
+        os.path.dirname(dataset6.ann_file), "fast_mask.pkl"), seed=16)[1][:TWO_STAGE_BATCH],
+        TEST_PROPOSALS)
+    got, handle = family_member(
+        B, K, FAST_MASK, inputs + props, card, "Fast Mask R-CNN", "12b", FAST_MASK_NAMES,
+        batch=fast_train_batch(TWO_STAGE_TRAIN_BATCH, NUM_GTS, masks=True), stages=1, k1=0)
+    counts = add_counts(counts, got)
+    counts = add_counts(counts, mask_eval(B, handle, dataset6, "Fast Mask R-CNN", FAST_MASK,
+                                          proposals=True, count=EVAL_BATCH))
+    del handle, props
+    torch.cuda.empty_cache()
+    print(f"12b: {time.perf_counter() - t:.2f} s", flush=True)
+
+    t = time.perf_counter()
+    got, handle = family_member(B, K, DOUBLE_HEAD, inputs, card, "Double-Head R-CNN", "12c",
+                                DH_NAMES, time_step=True, before_train=bn_buffers,
+                                after_train=check_bn_moved)
+    counts = add_counts(counts, got)
+    del handle
+    torch.cuda.empty_cache()
+    print(f"12c: {time.perf_counter() - t:.2f} s", flush=True)
+
+    t = time.perf_counter()
+    got, handle = family_member(B, K, C4, inputs, card, "C4 Faster R-CNN", "12d", C4_NAMES,
+                                time_step=True)
+    counts = add_counts(counts, got)
+    del handle
+    torch.cuda.empty_cache()
+    print(f"12d: {time.perf_counter() - t:.2f} s", flush=True)
+
+    t = time.perf_counter()
+    # both configs name ModulatedDeformRoIPoolingPack with the same settings:
+    # the second is built, served and trained, and not timed again
+    for name in DPOOLS:
+        got, handle = family_member(
+            B, K, name, inputs, card, f"mdpool Faster R-CNN ({name[:-3]})", "12e", DPOOL_NAMES,
+            nonzero=("bbox_roi_extractor.roi_layers.0.offset_fc.4.weight",),
+            timed=name == DPOOLS[0])
+        counts = add_counts(counts, got)
+        del handle
+        torch.cuda.empty_cache()
+    print(f"12e: {time.perf_counter() - t:.2f} s", flush=True)
+
+    t = time.perf_counter()
+    counts = add_counts(counts, bf16_two_stage(B, K, inputs, card))
+    print(f"12f: {time.perf_counter() - t:.2f} s", flush=True)
+    del inputs
+    torch.cuda.empty_cache()
+    return counts
+
+
+def two_stage_drift(handle, f32, inputs) -> float:
+    """Phase 3b's drift of a two-stage detector: the largest |head output - f32
+    head output| as a share of that output's largest |f32 output|, over the
+    RPN's two branches (every level), the box head's (cls, reg) and the mask
+    head's logits, on the f32 model's proposals."""
+    from ioudet_torch.models.detectors.two_stage import to_rois
+
+    outs = []
+    with torch.inference_mode():
+        rois = to_rois(f32.model.test_proposals(f32.model.extract_feat(inputs[0]), inputs[1],
+                                                inputs[3])[..., :4])
+        for m in (handle.model, f32.model):
+            feats = m.extract_feat(inputs[0])
+            rpn = m.rpn_head(feats)
+            heads = [o for branch in rpn for o in branch] + list(m.roi_head(feats, rois))
+            if getattr(m, "mask_head", None) is not None:
+                heads.append(m.mask_head(m.mask_roi_extractor(feats, rois[:800])))
+            outs.append(heads)
+    return max(float((a.float() - b).abs().max()) / float(b.abs().max())
+               for a, b in zip(*outs))
+
+
+def bf16_two_stage(B, K, inputs, card: str) -> dict:
+    """12f: bf16 Faster R-CNN and Mask R-CNN: ``predict`` at batch 8 (the
+    tails through K1 equal the plain-NMS replay), three train steps (cuDNN
+    deterministic for step 1's replay), 12g's timings with the train step's
+    peak memory, then the head drift against the f32 model on the same
+    (trained) weights."""
+    from ioudet_torch.apis.inference import init_detector
+
+    counts = {}
+    for name, f32_name, what in BF16_CONFIGS:
+        f32 = init_detector(two_stage_cfg(f32_name), device="cuda", seed=0)
+        batch = mask_train_batch(TWO_STAGE_TRAIN_BATCH, NUM_GTS) if "mask" in name else None
+        names = MASK_NAMES if "mask" in name else TWO_STAGE_NAMES
+        kept = torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+        try:
+            got, handle = family_member(B, K, name, inputs, card, what, "12f", names,
+                                        batch=batch, steps=TWO_STAGE_STEPS, time_step=True,
+                                        dtype="bf16")
+        finally:
+            torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = kept
+        counts = add_counts(counts, got)
+        f32.model.load_state_dict(handle.model.state_dict())   # the weights after the steps
+        drift = two_stage_drift(handle, f32, inputs)
+        check(0.0 < drift < 0.1, f"12f {what}: head drift against f32 on the same weights "
+              f"{drift:.4f} (RPN levels, box head on the f32 proposals, mask logits) [{card}]")
+        del handle, f32
+        torch.cuda.empty_cache()
+    return counts
+
+
 KERNELS = {  # name: (source, the TPU kernel it replaces)
     "nms_mask_kernel": ("nms_kernel.cu", "ioudet/ops/nms_pallas.py:26"),
     "nms_reduce_kernel": ("nms_kernel.cu", "ioudet/ops/nms_pallas.py:81"),
@@ -4417,8 +4984,19 @@ def main() -> int:
     t = time.perf_counter()
     cascade_launches = phase_cascade(B, K, eval_dataset, rng, card)
     launches = {k: launches[k] + cascade_launches.get(k, 0) for k in launches}
-    eval_dir.cleanup()
     print(f"phase 11: {time.perf_counter() - t:.2f} s", flush=True)
+
+    print("phase 12: the rest of Faster R-CNN's family at full width; TF32 off for the checks: "
+          "12a Fast R-CNN on proposals read from planted .pkl files (predict at batch 8 and 1, "
+          "three train_detector steps from its train_pipeline, single_device_test and "
+          "evaluate, tools.test, tools.train), 12b Fast Mask R-CNN (predict, two steps, segm "
+          "eval), 12c Double-Head with BN, 12d C4, 12e dpool and mdpool, 12f bf16 Faster and "
+          "Mask R-CNN; 12g timings" + since(start), flush=True)
+    t = time.perf_counter()
+    family_launches = phase_faster_family(B, K, eval_dataset, rng, card)
+    launches = {k: launches[k] + family_launches.get(k, 0) for k in launches}
+    eval_dir.cleanup()
+    print(f"phase 12: {time.perf_counter() - t:.2f} s", flush=True)
     check(all(launches[name] > 0 for name in KERNELS if name not in REPLACED) and
           all(launches[name] == 0 for name in REPLACED),
           "every kernel was launched on a main path, and none of those the wgmma kernels "

@@ -102,6 +102,26 @@ def _context_block(sd: dict, prefix: str, tree: dict) -> None:
             _conv(sd, dst, leaf)
 
 
+def _res_block(sd: dict, base: str, node: dict, what: str) -> None:
+    """A ResNet block's tree (``conv<i>``, ``bn<i>``, ``downsample_*``,
+    DCN's and the context block's) -> mmdet's names under ``base``."""
+    for sub, leaf in node.items():
+        if sub == "downsample_conv":
+            _conv(sd, base + ".downsample.0", leaf)
+        elif sub == "downsample_bn":
+            _bn(sd, base + ".downsample.1", leaf)
+        elif re.fullmatch(r"conv\d", sub) or sub == "conv2_offset":
+            _conv(sd, f"{base}.{sub}", leaf)
+        elif sub == "conv2_kernel":   # the deformable 3x3, a bare kernel
+            sd[f"{base}.conv2.weight"] = _oihw(leaf)
+        elif sub == "context_block":
+            _context_block(sd, f"{base}.context_block", leaf)
+        elif re.fullmatch(r"bn\d", sub):
+            _norm(sd, base, sub[2:], leaf)
+        else:
+            raise KeyError(f"unknown {what} param {sub}")
+
+
 def _backbone(sd: dict, tree: dict, prefix: str = "backbone") -> None:
     block = re.compile(r"layer(\d+)_(\d+)$")
     for name, node in tree.items():
@@ -111,24 +131,18 @@ def _backbone(sd: dict, tree: dict, prefix: str = "backbone") -> None:
             _norm(sd, prefix, "1", node)
         elif block.match(name):
             stage, idx = block.match(name).groups()
-            base = f"{prefix}.layer{stage}.{idx}"
-            for sub, leaf in node.items():
-                if sub == "downsample_conv":
-                    _conv(sd, base + ".downsample.0", leaf)
-                elif sub == "downsample_bn":
-                    _bn(sd, base + ".downsample.1", leaf)
-                elif re.fullmatch(r"conv\d", sub) or sub == "conv2_offset":
-                    _conv(sd, f"{base}.{sub}", leaf)
-                elif sub == "conv2_kernel":   # the deformable 3x3, a bare kernel
-                    sd[f"{base}.conv2.weight"] = _oihw(leaf)
-                elif sub == "context_block":
-                    _context_block(sd, f"{base}.context_block", leaf)
-                elif re.fullmatch(r"bn\d", sub):
-                    _norm(sd, base, sub[2:], leaf)
-                else:
-                    raise KeyError(f"unknown backbone param {name}/{sub}")
+            _res_block(sd, f"{prefix}.layer{stage}.{idx}", node, f"backbone {name}")
         else:
             raise KeyError(f"unknown backbone param {name}")
+
+
+def _shared_head(sd: dict, tree: dict, prefix: str = "shared_head") -> None:
+    """ResLayer's tree {layer<s>_block<j>} -> mmdet's ``layer<s>.<j>``."""
+    for name, node in tree.items():
+        m = re.fullmatch(r"layer(\d+)_block(\d+)", name)
+        if not m:
+            raise KeyError(f"unknown shared head param {name}")
+        _res_block(sd, f"{prefix}.layer{m.group(1)}.{m.group(2)}", node, f"shared head {name}")
 
 
 def _neck(sd: dict, tree: dict, prefix: str = "neck") -> None:
@@ -167,10 +181,14 @@ def _roi_head(sd: dict, tree: dict, prefix: str = "bbox_head") -> None:
     """ConvFCBBoxHead's tree {shared_conv<i>, shared_fc<i>, fc_cls, fc_reg}
     -> mmdet's shared_convs.<i>, shared_fcs.<i>, fc_cls, fc_reg; shared_fc0
     takes the flattened RoI feature (after the shared convs) and gets its
-    input permuted.  A box head without shared fcs is not bridged."""
+    input permuted.  The plain BBoxHead's {fc_cls, fc_reg} is bridged where
+    it takes the avg-pooled feature (C4's); on the flattened one it is not."""
     if "shared_fc0" not in tree:
-        raise NotImplementedError(
-            f"box head tree {sorted(tree)}: only ConvFCBBoxHead's with shared fcs is bridged")
+        fan_in = _tensor(tree["fc_cls"]["kernel"]).shape[0]
+        if sorted(tree) != ["fc_cls", "fc_reg"] or fan_in % ROI_FEAT_SIZE ** 2 == 0:
+            raise NotImplementedError(
+                f"box head tree {sorted(tree)} ({fan_in} inputs): ConvFCBBoxHead's with shared "
+                "fcs and the avg-pooled BBoxHead's are bridged")
     for name, leaf in tree.items():
         m = re.fullmatch(r"shared_(fc|conv)(\d+)", name)
         if m and m.group(1) == "conv":
@@ -240,8 +258,59 @@ def _semantic_head(sd: dict, tree: dict, prefix: str = "semantic_head") -> None:
             raise KeyError(f"unknown semantic head param {name}")
 
 
+def _double_head(sd: dict, tree: dict, prefix: str = "bbox_head") -> None:
+    """DoubleConvFCBBoxHead's tree {res_block/{conv1, conv2, conv_identity},
+    conv_branch<i>/{conv1, conv2, conv3}, fc_branch<i>, fc_cls, fc_reg} ->
+    mmdet's res_block.<conv>, conv_branch.<i>.conv<k> / bn<k> (or gn<k>),
+    fc_branch.<i> (fc_branch0's input permuted), fc_cls, fc_reg."""
+    for name, node in tree.items():
+        m = re.fullmatch(r"(conv|fc)_branch(\d+)", name)
+        if name == "res_block":
+            for sub, leaf in node.items():
+                _conv_module(sd, f"{prefix}.res_block.{sub}", leaf)
+        elif m and m.group(1) == "conv":
+            for sub, leaf in node.items():
+                base = f"{prefix}.conv_branch.{m.group(2)}"
+                _conv(sd, f"{base}.{sub}", leaf["conv"])
+                _norm(sd, base, sub[4:], leaf["norm"])
+        elif m:
+            _dense(sd, f"{prefix}.fc_branch.{m.group(2)}", node, roi_input=m.group(2) == "0")
+        elif name in ("fc_cls", "fc_reg"):
+            _dense(sd, f"{prefix}.{name}", node)
+        else:
+            raise KeyError(f"unknown double head param {name}")
+
+
+def _roi_extractor(sd: dict, tree: dict, prefix: str = "bbox_roi_extractor") -> None:
+    """The deformable RoI pooling packs {deform_pool<i>/{offset_fc1..3}} ->
+    mmdet's roi_layers.<i>.offset_fc.{0,2,4}: offset_fc1's input permuted
+    from ``ioudet``'s (S, S, C) flatten to (C, S, S), offset_fc3's outputs
+    from (S, S, K) with K = (dy, dx[, mask]) to mmdet's (K', S, S) with K' =
+    (dx, dy[, mask])."""
+    for name, node in tree.items():
+        m = re.fullmatch(r"deform_pool(\d+)", name)
+        if not m:
+            raise KeyError(f"unknown roi extractor param {name}")
+        base = f"{prefix}.roi_layers.{m.group(1)}.offset_fc"
+        for sub, leaf in node.items():
+            k = {"offset_fc1": 0, "offset_fc2": 2, "offset_fc3": 4}.get(sub)
+            if k is None:
+                raise KeyError(f"unknown deformable pooling param {name}/{sub}")
+            _dense(sd, f"{base}.{k}", leaf, roi_input=k == 0)
+            if k == 4:
+                s = ROI_FEAT_SIZE
+                order = [1, 0, 2]
+                for key in (f"{base}.4.weight", f"{base}.4.bias"):
+                    t = sd[key]
+                    kk = t.shape[0] // (s * s)
+                    t = t.reshape(s, s, kk, *t.shape[1:]).movedim(2, 0)[order[:kk]]
+                    sd[key] = t.reshape(s * s * kk, *t.shape[3:]).contiguous()
+
+
 def _box_head(sd: dict, head: dict, prefix: str) -> None:
-    if any(k.startswith(("shared_", "fc_")) for k in head):
+    if "res_block" in head:
+        _double_head(sd, head, prefix)
+    elif any(k.startswith(("shared_", "fc_")) for k in head):
         _roi_head(sd, head, prefix)
     elif head:
         _head(sd, head, prefix)
@@ -253,14 +322,19 @@ _STAGE = re.compile(r"(bbox_head|mask_head)_(\d+)$")
 def state_dict_from_flax(params: dict) -> Dict[str, torch.Tensor]:
     """``ioudet`` params of the RetinaNet family {backbone, neck, bbox_head},
     of Faster R-CNN / RPN / Mask R-CNN {backbone, neck, rpn_head,
-    bbox_head[, mask_head]} or of a cascade (flax's ``bbox_head_<i>`` /
-    ``mask_head_<i>`` a stage, HTC's ``semantic_head``) -> a state_dict for
-    the port's detector (mmdet key layout, a stage's heads under
-    ``bbox_head.<i>`` / ``mask_head.<i>``).  A partial tree (a pretrained
-    backbone alone, or the trainable leaves of an optimizer state) gives the
-    entries it holds."""
+    bbox_head[, mask_head]} (Fast R-CNN's without rpn_head; the C4 form's
+    ``shared_head``; deformable pooling's ``bbox_roi_extractor``) or of a
+    cascade (flax's ``bbox_head_<i>`` / ``mask_head_<i>`` a stage, HTC's
+    ``semantic_head``) -> a state_dict for the port's detector (mmdet key
+    layout, a stage's heads under ``bbox_head.<i>`` / ``mask_head.<i>``).
+    A trainable BN's affine (the Double-Head's) crosses under GN's name:
+    its statistics would be flax's ``batch_stats``, which no ``ioudet``
+    checkpoint holds (its BN ConvModule cannot run).  A partial tree (a
+    pretrained backbone alone, or the trainable leaves of an optimizer
+    state) gives the entries it holds."""
     unknown = {k for k in params if not _STAGE.match(k)} - {
-        "backbone", "neck", "rpn_head", "bbox_head", "mask_head", "semantic_head"}
+        "backbone", "neck", "rpn_head", "bbox_head", "mask_head", "semantic_head",
+        "shared_head", "bbox_roi_extractor"}
     if unknown:
         raise KeyError(f"unsupported parameter groups: {sorted(unknown)}")
     sd: Dict[str, torch.Tensor] = {}
@@ -270,6 +344,10 @@ def state_dict_from_flax(params: dict) -> Dict[str, torch.Tensor]:
         _neck(sd, params["neck"])
     if "rpn_head" in params:
         _head(sd, params["rpn_head"], "rpn_head")
+    if "bbox_roi_extractor" in params:
+        _roi_extractor(sd, params["bbox_roi_extractor"])
+    if "shared_head" in params:
+        _shared_head(sd, params["shared_head"])
     _box_head(sd, params.get("bbox_head", {}), "bbox_head")
     if "mask_head" in params:
         _mask_head(sd, params["mask_head"])

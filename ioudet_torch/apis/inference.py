@@ -70,14 +70,22 @@ def init_detector(config, checkpoint: Optional[str] = None,
 @torch.inference_mode()
 def predict(handle: DetectorHandle, imgs: torch.Tensor, img_shapes: torch.Tensor,
             scale_factors: torch.Tensor, pad_shapes: torch.Tensor,
+            proposals: Optional[torch.Tensor] = None, prop_valid: Optional[torch.Tensor] = None,
             rescale: bool = True) -> Tuple[torch.Tensor, ...]:
     """Batched ``simple_test`` on device tensors: imgs (B, H, W, 3) f32
     canvas, img_shapes / pad_shapes (B, 2) int, scale_factors (B,) f32 ->
     (dets (B, max_per_img, 5), labels (B, max_per_img)), label -1 padding;
     a mask detector adds masks (B, max_per_img, 28, 28), each detection's
-    class probabilities in its box's frame."""
-    return handle.model.simple_test(imgs, img_shapes, scale_factors,
-                                    pad_shapes, rescale=rescale)
+    class probabilities in its box's frame.  A detector that
+    ``requires_proposals`` (Fast R-CNN) takes proposals (B, P, 4) on the
+    canvas and prop_valid (B, P) bool."""
+    model = handle.model
+    if getattr(model, "requires_proposals", False):
+        return model.simple_test(imgs, img_shapes, scale_factors, pad_shapes, proposals,
+                                 prop_valid, rescale=rescale)
+    if proposals is not None:
+        raise ValueError(f"{type(model).__name__} makes its own proposals")
+    return model.simple_test(imgs, img_shapes, scale_factors, pad_shapes, rescale=rescale)
 
 
 def pipeline_settings(cfg: dict):
@@ -104,7 +112,13 @@ def inference_detector(handle: DetectorHandle, img: Union[str, np.ndarray, torch
     """img: (H, W, 3) uint8, BGR, or the path of an image file.  Returns
     ``num_classes - 1`` float32 (k, 5) arrays in original-image
     coordinates; for a mask detector (those arrays, per-class lists of RLE
-    dicts of the (H, W) image), row for row (``apis.test.to_results``)."""
+    dicts of the (H, W) image), row for row (``apis.test.to_results``).  A
+    detector that ``requires_proposals`` has no route here (nor in
+    ``ioudet``): it raises, and ``predict`` takes its proposals."""
+    if getattr(handle.model, "requires_proposals", False):
+        raise NotImplementedError(f"{type(handle.model).__name__} needs precomputed proposals: "
+                                  "inference_detector has no proposal route; call predict "
+                                  "with proposals and prop_valid")
     if isinstance(img, str):
         img = imread(img)
     arr = img if isinstance(img, torch.Tensor) else torch.from_numpy(

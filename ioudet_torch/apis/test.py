@@ -24,7 +24,10 @@ loader's padding repeats are dropped before the device sees them.
 ``torch.distributed`` group runs its shard of the batches, the fixed-shape
 per-image outputs go through ``allgather_pytrees``, and every rank gets the
 whole list.  A two-stage detector serves through the same functions, and
-a proposal model's recall is ``make_proposal_recall_hook``'s.  A mask
+a proposal model's recall is ``make_proposal_recall_hook``'s.  A detector
+that ``requires_proposals`` (Fast R-CNN) gets the batch's ``proposals`` and
+``prop_valid`` from the host pipeline (``LoadProposals``) after the four
+inputs; the device route has no proposals and raises for it.  A mask
 detector's results are (bbox list, segm list) pairs: each detection's
 box-frame mask pasted into the original image and RLE-encoded on the host
 (``masks_to_segm_result``).  The two-stage TTA merge is not ported yet.
@@ -51,6 +54,7 @@ from ..parallel.mesh import allgather_pytrees, rank, world_size
 logger = logging.getLogger(__name__)
 
 INPUT_KEYS = ("img", "img_shape", "scale_factor", "pad_shape")
+PROPOSAL_KEYS = ("proposals", "prop_valid")   # a Fast R-CNN's, from LoadProposals
 
 
 def _pipeline_specs(dataset):
@@ -90,8 +94,9 @@ def _host_batches(dataset, device, imgs_per_batch, workers, num_shards, shard_in
         seen.update(idx[b] for b in keep)
         sel = slice(None) if len(keep) == len(idx) else np.asarray(keep)
         ori = batch.get("ori_shape", batch["img_shape"])[sel]
+        keys = INPUT_KEYS + (PROPOSAL_KEYS if "proposals" in batch else ())
         yield [idx[b] for b in keep], tuple(to_device(batch[k][sel], device)
-                                            for k in INPUT_KEYS), ori
+                                            for k in keys), ori
 
 
 def _device_batches(dataset, device, imgs_per_batch, workers, num_shards, shard_index):
@@ -140,9 +145,15 @@ def eval_batches(dataset, device, imgs_per_batch: int = 8, workers: int = 4,
     (B, H, W, 3) f32 canvas, img_shapes (B, 2), scale_factors (B,),
     pad_shapes (B, 2))), one orientation a batch; every image once, or with
     ``num_shards`` > 1 the ``shard_index``-th share of the batches (an image
-    may then come again in another shard).  ``with_ori_shape`` adds the
+    may then come again in another shard); a pipeline with
+    ``LoadProposals`` adds (proposals (B, P, 4), prop_valid (B, P)) to the
+    inputs.  ``with_ori_shape`` adds the
     images' decoded (h, w), (B, 2) int32 numpy, as a third item."""
     device = torch.device(device)
+    if device_preprocess and any(type(t).__name__ == "LoadProposals"
+                                 for t in dataset.pipeline.transforms):
+        raise NotImplementedError("device_preprocess has no proposal route: a pipeline with "
+                                  "LoadProposals runs on the host")
     route = _device_batches if device_preprocess else _host_batches
     batches = route(dataset, device, imgs_per_batch, workers, num_shards, shard_index)
     if with_ori_shape:

@@ -52,7 +52,8 @@ from ..utils.logging import get_root_logger
 from .checkpoint import latest_checkpoint, load_checkpoint, merge_weights, save_checkpoint
 
 BATCH_KEYS = ("img", "gt_bboxes", "gt_labels", "gt_valid", "img_shape", "pad_shape",
-              "gt_bboxes_ignore", "gt_ignore_valid", "gt_masks", "gt_semantic_seg")
+              "gt_bboxes_ignore", "gt_ignore_valid", "gt_masks", "gt_semantic_seg",
+              "proposals", "prop_valid")
 
 
 # --------------------------------------------------------------------------
@@ -212,8 +213,9 @@ def make_train_step(model: torch.nn.Module, optimizer: torch.optim.Optimizer,
     batch keys: img, gt_bboxes, gt_labels, gt_valid, img_shape, pad_shape
     (+ gt_bboxes_ignore, gt_ignore_valid; + gt_masks, (B, G, S, S) uint8
     box-frame crops, for a mask detector; + gt_semantic_seg, (B, h, w) int
-    labels at the semantic head's stride, for a detector with one), tensors
-    on the model's device;
+    labels at the semantic head's stride, for a detector with one; +
+    proposals (B, P, 4), prop_valid (B, P) for one that ``requires_proposals``),
+    tensors on the model's device;
     ``step`` is the number of steps taken so far and picks the LR and the
     generator of the step's draws (``step_generator(device, seed, step)``,
     ``ioudet``'s ``fold_in(key, step)``).  The parameters must be f32 (a
@@ -228,6 +230,7 @@ def make_train_step(model: torch.nn.Module, optimizer: torch.optim.Optimizer,
     device = next(model.parameters()).device
     with_masks = getattr(model, "mask_head", None) is not None
     with_semantic = getattr(model, "semantic_head", None) is not None
+    with_proposals = getattr(model, "requires_proposals", False)
 
     def train_step(batch: dict, step: int) -> Dict[str, torch.Tensor]:
         lr = lr_schedule(step)
@@ -241,6 +244,8 @@ def make_train_step(model: torch.nn.Module, optimizer: torch.optim.Optimizer,
             kw["gt_masks"] = batch["gt_masks"]
         if with_semantic and "gt_semantic_seg" in batch:
             kw["gt_semantic_seg"] = batch["gt_semantic_seg"]
+        if with_proposals:
+            kw.update(proposals=batch["proposals"], prop_valid=batch["prop_valid"])
         losses = forward(
             batch["img"], batch["gt_bboxes"], batch["gt_labels"], batch["gt_valid"],
             batch["img_shape"], batch["pad_shape"], **kw)

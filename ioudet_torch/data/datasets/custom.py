@@ -6,7 +6,10 @@ labels (n,) 1-based, bboxes_ignore (k, 4)); ``seg_prefix`` is where
 ``LoadAnnotations(with_seg=True)`` finds the semantic maps.  In train mode images smaller
 than ``min_size`` or without annotations are dropped, and a sample whose
 pipeline leaves no valid gt is replaced by another of the same orientation
-(``_rand_another``).  ``flag`` is the
+(``_rand_another``).  ``proposal_file`` (a ``.pkl`` / ``.pickle`` list of
+(n, 4|5) arrays, or an ``.npy`` object array, one an image in annotation
+order) gives each sample its ``proposals`` for ``LoadProposals``; a filtered
+image's proposals go with it.  ``flag`` is the
 orientation group: 1 where w >= h, 0 for portrait.  Square images go with
 the landscape ones, as ``Pad`` gives them the landscape canvas (``ioudet``
 puts them in the portrait group, w / h > 1, where they cannot be stacked
@@ -16,6 +19,7 @@ with the portrait canvases, and its loader then ends the epoch early).
 from __future__ import annotations
 
 import json
+import pickle
 from typing import List, Optional
 
 import numpy as np
@@ -30,15 +34,17 @@ class CustomDataset:
     def __init__(self, ann_file: str, pipeline, img_prefix: str = "",
                  proposal_file: Optional[str] = None, test_mode: bool = False,
                  min_size: int = 32, seg_prefix: Optional[str] = ""):
-        if proposal_file is not None:
-            raise NotImplementedError("precomputed proposals (LoadProposals) are not ported yet")
         self.ann_file = ann_file
         self.img_prefix = img_prefix
         self.seg_prefix = seg_prefix
         self.test_mode = test_mode
         self.img_infos = self.load_annotations(ann_file)
+        self.proposals = self.load_proposals(proposal_file) if proposal_file else None
         if not test_mode:
-            self.img_infos = [self.img_infos[i] for i in self._filter_imgs(min_size)]
+            valid = self._filter_imgs(min_size)
+            self.img_infos = [self.img_infos[i] for i in valid]
+            if self.proposals is not None:
+                self.proposals = [self.proposals[i] for i in valid]
         self._set_group_flag()
         self.pipeline = Compose(pipeline)
 
@@ -48,6 +54,17 @@ class CustomDataset:
 
     def get_ann_info(self, idx: int) -> dict:
         return self.img_infos[idx]["ann"]
+
+    @staticmethod
+    def load_proposals(proposal_file: str) -> list:
+        """The per-image proposal arrays of a ``.pkl`` / ``.pickle`` (a list)
+        or ``.npy`` (an object array) file."""
+        if proposal_file.endswith((".pkl", ".pickle")):
+            with open(proposal_file, "rb") as f:
+                return list(pickle.load(f))
+        if proposal_file.endswith(".npy"):
+            return list(np.load(proposal_file, allow_pickle=True))
+        raise ValueError(f"unsupported proposal file {proposal_file} (.pkl, .pickle or .npy)")
 
     def _filter_imgs(self, min_size: int = 32) -> List[int]:
         valid = []
@@ -72,15 +89,19 @@ class CustomDataset:
         pool = np.where(self.flag == self.flag[idx])[0]
         return int(sample_rng().choice(list(pool)))
 
+    def _results(self, idx: int, **extra) -> dict:
+        results = dict(img_info=self.img_infos[idx], img_prefix=self.img_prefix, idx=idx,
+                       **extra)
+        if self.proposals is not None:
+            results["proposals"] = self.proposals[idx]
+        return results
+
     def prepare_train_img(self, idx: int):
-        return self.pipeline(dict(img_info=self.img_infos[idx],
-                                  ann_info=self.get_ann_info(idx),
-                                  img_prefix=self.img_prefix, seg_prefix=self.seg_prefix,
-                                  idx=idx))
+        return self.pipeline(self._results(idx, ann_info=self.get_ann_info(idx),
+                                           seg_prefix=self.seg_prefix))
 
     def prepare_test_img(self, idx: int):
-        return self.pipeline(dict(img_info=self.img_infos[idx],
-                                  img_prefix=self.img_prefix, idx=idx))
+        return self.pipeline(self._results(idx))
 
     def __getitem__(self, idx: int):
         if self.test_mode:

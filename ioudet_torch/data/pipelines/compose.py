@@ -7,12 +7,12 @@ config step names its class by ``type``; a type that is not ported raises
 from __future__ import annotations
 
 from .formatting import Collect, DefaultFormatBundle, ImageToTensor
-from .loading import LoadAnnotations, LoadImageFromFile
+from .loading import LoadAnnotations, LoadImageFromFile, LoadProposals
 from .test_aug import MultiScaleFlipAug
 from .transforms import Normalize, Pad, RandomFlip, Resize, SegRescale
 
 PIPELINES = {c.__name__: c for c in (
-    LoadImageFromFile, LoadAnnotations, Resize, RandomFlip, Normalize, Pad,
+    LoadImageFromFile, LoadAnnotations, LoadProposals, Resize, RandomFlip, Normalize, Pad,
     SegRescale, DefaultFormatBundle, ImageToTensor, Collect, MultiScaleFlipAug)}
 
 

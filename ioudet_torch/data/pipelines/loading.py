@@ -13,6 +13,7 @@ change the pixels without a word.
 from __future__ import annotations
 
 import os
+from typing import Optional
 
 import numpy as np
 
@@ -155,4 +156,35 @@ class LoadAnnotations:
                 results["gt_semantic_seg"] = seg[..., 0] if seg.ndim == 3 else seg
             else:
                 results["gt_semantic_seg"] = np.full(results["img"].shape[:2], 255, np.uint8)
+        return results
+
+
+class LoadProposals:
+    """The dataset's precomputed proposals of the image (``results
+    ['proposals']``, an (n, 4) or (n, 5) array): a 5-column array is sorted
+    by score, descending, with a stable sort, and the score dropped; then
+    cut to ``num_max_proposals`` and zero-padded to it with ``prop_valid``
+    marking the real rows (``ioudet``'s fixed-shape departure from mmdet,
+    which keeps the cut rows only).  Without ``num_max_proposals`` every
+    row is kept and valid."""
+
+    def __init__(self, num_max_proposals: Optional[int] = None):
+        self.num_max_proposals = num_max_proposals
+
+    def __call__(self, results: dict) -> dict:
+        proposals = np.asarray(results["proposals"], np.float32)
+        if proposals.ndim != 2 or proposals.shape[1] not in (4, 5):
+            raise ValueError(f"proposals must be (n, 4|5), got {proposals.shape}")
+        if proposals.shape[1] == 5:
+            proposals = proposals[np.argsort(-proposals[:, 4], kind="stable")][:, :4]
+        if self.num_max_proposals is None:
+            results["proposals"] = proposals
+            results["prop_valid"] = np.ones((len(proposals),), bool)
+            return results
+        proposals = proposals[:self.num_max_proposals]
+        padded = np.zeros((self.num_max_proposals, 4), np.float32)
+        padded[:len(proposals)] = proposals
+        valid = np.zeros((self.num_max_proposals,), bool)
+        valid[:len(proposals)] = True
+        results["proposals"], results["prop_valid"] = padded, valid
         return results

@@ -148,7 +148,8 @@ class Resize:
         results["img"] = imresize(img, (nh, nw))
         results["img_shape"] = (nh, nw)
         results["scale_factor"] = factor
-        for key in ("gt_bboxes", "gt_bboxes_ignore"):
+        # the proposals' padding rows are zeros and stay zeros
+        for key in ("gt_bboxes", "gt_bboxes_ignore", "proposals"):
             if key in results and len(results[key]):
                 results[key] = results[key] * factor
         if "gt_semantic_seg" in results:
@@ -174,11 +175,13 @@ class RandomFlip:
         if flip:
             results["img"] = np.ascontiguousarray(results["img"][:, ::-1])
             w = results["img_shape"][1]
-            for key in ("gt_bboxes", "gt_bboxes_ignore"):
+            for key in ("gt_bboxes", "gt_bboxes_ignore", "proposals"):
                 if key in results and len(results[key]):
                     b = results[key].copy()
                     b[:, 0] = w - results[key][:, 2] - 1
                     b[:, 2] = w - results[key][:, 0] - 1
+                    if key == "proposals" and "prop_valid" in results:
+                        b[~results["prop_valid"]] = 0.0   # the padding rows stay 0
                     results[key] = b
             if "gt_masks" in results and len(results["gt_masks"]):
                 # a box-frame mask mirrors with its box

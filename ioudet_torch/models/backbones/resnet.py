@@ -156,7 +156,9 @@ class ResNet(nn.Module):
             raise KeyError(f"invalid depth {depth} for resnet")
         norm_cfg = dict(norm_cfg or FROZEN_BN)
         not_ported = dict(gen_attention=gen_attention is not None,
-                          stem_space_to_depth=stem_space_to_depth)
+                          stem_space_to_depth=stem_space_to_depth,
+                          # the trainable BN is the Double-Head's (ConvModule)
+                          train_mode_bn=norm_cfg.get("type") in ("BN", "SyncBN"))
         for name, used in not_ported.items():
             if used:
                 raise NotImplementedError(f"ResNet option {name} is not ported yet")

@@ -8,7 +8,8 @@ deltas, stds (.1, .1, .2, .2)).  ``ConvFCBBoxHead`` / ``SharedFCBBoxHead``
 before the two linears.  The RoI features come NCHW and are flattened
 channel-major, as mmdet flattens them, so a mmdet ``.pth`` loads as it is;
 ``ioudet`` flattens spatial-major, and the weight bridge permutes the first
-fc's input (``apis/checkpoint.py``).
+fc's input (``apis/checkpoint.py``).  The linears compute in the head's
+``dtype`` (flax's ``nn.Dense(dtype=...)``): f32 parameters cast per call.
 """
 
 from __future__ import annotations
@@ -21,7 +22,7 @@ from torch import nn
 
 from ...core.bbox import bbox2delta
 from ..losses import cross_entropy
-from ..utils.layers import ConvModule
+from ..utils.layers import ConvModule, Linear, compute_dtype
 
 
 class BBoxHead(nn.Module):
@@ -42,14 +43,18 @@ class BBoxHead(nn.Module):
         self.target_stds = tuple(float(s) for s in target_stds)
         self.cls_loss_weight = cls_loss_weight
         self.bbox_loss_weight = bbox_loss_weight
+        self.dtype = compute_dtype(dtype)
         from ..builder import build_loss  # models/builder.py imports the heads
         self.loss_bbox_fn = build_loss(dict(loss_bbox or dict(type="SmoothL1Loss", beta=1.0)))
         self.build_fcs()
 
     def build_fcs(self) -> None:
         feat = self.in_channels * (1 if self.with_avg_pool else self.roi_feat_size ** 2)
-        self.fc_cls = nn.Linear(feat, self.num_classes)
-        self.fc_reg = nn.Linear(feat, 4 if self.reg_class_agnostic else 4 * self.num_classes)
+        self.fc_cls = self.linear(feat, self.num_classes)
+        self.fc_reg = self.linear(feat, 4 if self.reg_class_agnostic else 4 * self.num_classes)
+
+    def linear(self, cin: int, cout: int) -> Linear:
+        return Linear(cin, cout, compute_dtype=self.dtype)
 
     def init_weights(self, generator: torch.Generator) -> None:
         with torch.no_grad():
@@ -112,13 +117,14 @@ class ConvFCBBoxHead(BBoxHead):
         chans = [self.in_channels] + [self.conv_out_channels] * self.num_shared_convs
         self.shared_convs = nn.ModuleList(
             [ConvModule(chans[i], chans[i + 1], 3, padding=1, conv_cfg=self.conv_cfg,
-                        norm_cfg=self.norm_cfg) for i in range(self.num_shared_convs)])
+                        norm_cfg=self.norm_cfg, dtype=self.dtype)
+             for i in range(self.num_shared_convs)])
         dims = [chans[-1] * self.roi_feat_size ** 2] + \
             [self.fc_out_channels] * self.num_shared_fcs
-        self.shared_fcs = nn.ModuleList([nn.Linear(dims[i], dims[i + 1])
+        self.shared_fcs = nn.ModuleList([self.linear(dims[i], dims[i + 1])
                                          for i in range(self.num_shared_fcs)])
-        self.fc_cls = nn.Linear(dims[-1], self.num_classes)
-        self.fc_reg = nn.Linear(dims[-1], 4 if self.reg_class_agnostic else 4 * self.num_classes)
+        self.fc_cls = self.linear(dims[-1], self.num_classes)
+        self.fc_reg = self.linear(dims[-1], 4 if self.reg_class_agnostic else 4 * self.num_classes)
 
     def init_weights(self, generator: torch.Generator) -> None:
         super().init_weights(generator)

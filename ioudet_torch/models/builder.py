@@ -3,13 +3,16 @@ the same nested config dicts ``ioudet`` takes (``type`` keys).
 
 Only the components of the ported slice are known; any other ``type``
 raises ``KeyError`` naming what is available, and a structure the port
-does not build yet (a chain of necks, a shared RoI trunk) raises
-``NotImplementedError``.  A config with ``rpn_head`` or
-``bbox_roi_extractor`` builds a two-stage detector (``FasterRCNN``,
-``RPN``, ``MaskRCNN`` with ``mask_roi_extractor`` and ``mask_head``), or
-a cascade from a list of box heads (``CascadeRCNN``; ``HybridTaskCascade``
+does not build yet (a chain of necks) raises ``NotImplementedError``.  A
+config with ``rpn_head`` or ``bbox_roi_extractor`` builds a two-stage
+detector (``FasterRCNN``, ``DoubleHeadRCNN``, ``RPN``, ``MaskRCNN`` with
+``mask_roi_extractor`` and ``mask_head``, the C4 form with a
+``shared_head``; ``FastRCNN`` / ``FastMaskRCNN`` without an RPN), or a
+cascade from a list of box heads (``CascadeRCNN``; ``HybridTaskCascade``
 with a list of mask heads and optionally ``semantic_roi_extractor`` and
-``semantic_head``), in f32 only.
+``semantic_head``).  Of these, Faster R-CNN and Mask R-CNN with FPN and
+RoIAlign also build in bf16 (``BF16_TWO_STAGE``); every other one raises
+``NotImplementedError`` in bf16.
 """
 
 from __future__ import annotations
@@ -21,12 +24,14 @@ import torch
 from .backbones.resnet import ResNet
 from .backbones.resnext import ResNeXt
 from .bbox_heads.bbox_head import BBoxHead, ConvFCBBoxHead, SharedFCBBoxHead
+from .bbox_heads.double_bbox_head import DoubleConvFCBBoxHead
 from .detectors.single_stage import (IoUAwareRetinaNet, RetinaNet,
                                      SingleStageDetector)
 from .detectors.cascade_rcnn import CascadeRCNN
+from .detectors.fast_rcnn import FastMaskRCNN, FastRCNN
 from .detectors.htc import HybridTaskCascade
 from .detectors.mask_rcnn import MaskRCNN
-from .detectors.two_stage import RPN, FasterRCNN, TwoStageDetector
+from .detectors.two_stage import RPN, DoubleHeadRCNN, FasterRCNN, TwoStageDetector
 from .heads.iou_aware_retina_head import IoUAwareRetinaHead
 from .heads.retina_head import RetinaHead
 from .heads.rpn_head import RPNHead
@@ -34,21 +39,27 @@ from .losses import CrossEntropyLoss, FocalLoss, L1Loss, SmoothL1Loss
 from .mask_heads.fcn_mask_head import FCNMaskHead, HTCMaskHead
 from .mask_heads.fused_semantic_head import FusedSemanticHead
 from .necks.fpn import FPN
-from .roi_extractors.single_level import SingleRoIExtractor
+from .roi_extractors.single_level import DEFORM_POOLS, SingleRoIExtractor
+from .shared_heads.res_layer import ResLayer
 from .utils.layers import compute_dtype
 
 BACKBONES = {"ResNet": ResNet, "ResNeXt": ResNeXt}
 NECKS = {"FPN": FPN}
 HEADS = {"RetinaHead": RetinaHead, "IoUAwareRetinaHead": IoUAwareRetinaHead,
          "RPNHead": RPNHead, "BBoxHead": BBoxHead, "ConvFCBBoxHead": ConvFCBBoxHead,
-         "SharedFCBBoxHead": SharedFCBBoxHead, "FCNMaskHead": FCNMaskHead,
-         "HTCMaskHead": HTCMaskHead, "FusedSemanticHead": FusedSemanticHead}
+         "SharedFCBBoxHead": SharedFCBBoxHead, "DoubleConvFCBBoxHead": DoubleConvFCBBoxHead,
+         "FCNMaskHead": FCNMaskHead, "HTCMaskHead": HTCMaskHead,
+         "FusedSemanticHead": FusedSemanticHead, "ResLayer": ResLayer}
 ROI_EXTRACTORS = {"SingleRoIExtractor": SingleRoIExtractor}
 DETECTORS = {"SingleStageDetector": SingleStageDetector,
              "RetinaNet": RetinaNet, "IoUAwareRetinaNet": IoUAwareRetinaNet,
              "TwoStageDetector": TwoStageDetector, "FasterRCNN": FasterRCNN, "RPN": RPN,
              "MaskRCNN": MaskRCNN, "CascadeRCNN": CascadeRCNN,
-             "HybridTaskCascade": HybridTaskCascade}
+             "HybridTaskCascade": HybridTaskCascade, "DoubleHeadRCNN": DoubleHeadRCNN,
+             "FastRCNN": FastRCNN, "FastMaskRCNN": FastMaskRCNN}
+# the two-stage detectors that run in bf16 (with FPN and RoIAlign; held
+# against ioudet's in tests/test_torch_two_stage_bf16.py)
+BF16_TWO_STAGE = ("TwoStageDetector", "FasterRCNN", "MaskRCNN")
 # the detectors' own config entries besides their parts
 CASCADE_OPTIONS = ("num_stages", "stage_loss_weights", "stage_pos_thrs")
 DETECTOR_OPTIONS = {"CascadeRCNN": CASCADE_OPTIONS,
@@ -97,13 +108,18 @@ def build_detector(cfg: dict, train_cfg: Optional[dict] = None,
     if "neck" in cfg:
         parts["neck"] = _build(with_dtype(cfg.pop("neck")), NECKS, "neck")
     if "rpn_head" in cfg or "bbox_roi_extractor" in cfg:
-        # the two-stage family (ioudet's config keys), f32 only for now
-        if dtype != torch.float32:
-            raise NotImplementedError(f"{det_type} in {dtype} is not ported yet")
+        # the two-stage family (ioudet's config keys)
+        roi_layer = dict(dict(cfg.get("bbox_roi_extractor") or {}).get("roi_layer") or {})
+        if dtype != torch.float32 and (det_type not in BF16_TWO_STAGE or "shared_head" in cfg
+                                       or roi_layer.get("type") in DEFORM_POOLS):
+            what = ("the C4 shared head" if "shared_head" in cfg else
+                    roi_layer.get("type") if roi_layer.get("type") in DEFORM_POOLS else det_type)
+            raise NotImplementedError(f"{what} in {dtype} is not ported yet (bf16 runs "
+                                      f"{', '.join(BF16_TWO_STAGE)} with FPN and RoIAlign)")
         if "shared_head" in cfg:
-            raise NotImplementedError("shared_head (the C4 RoI trunk) is not ported yet")
+            parts["shared_head"] = _build(with_dtype(cfg.pop("shared_head")), HEADS, "head")
         if "rpn_head" in cfg:
-            parts["rpn_head"] = _build(cfg.pop("rpn_head"), HEADS, "head")
+            parts["rpn_head"] = _build(with_dtype(cfg.pop("rpn_head")), HEADS, "head")
         if "bbox_roi_extractor" in cfg:
             parts["bbox_roi_extractor"] = _build(cfg.pop("bbox_roi_extractor"),
                                                  ROI_EXTRACTORS, "roi extractor")

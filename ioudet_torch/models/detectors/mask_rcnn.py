@@ -12,6 +12,11 @@ Faster R-CNN with an FCN mask branch on the same features.
     frame, the boxes scaled back to the canvas for the RoIAlign.  The
     backbone and FPN run once (``ioudet`` runs them twice, to the same
     result); the paste into the image is the host's (``apis/test.py``).
+    In bf16 the sigmoid is written out as XLA's (``anchor_head.sigmoid``)
+    and the probabilities come back as f32 holding those bf16 values.
+
+``mask_losses`` / ``mask_test`` are the branch's two halves, shared with
+``FastMaskRCNN`` (``fast_rcnn.py``).
 """
 
 from __future__ import annotations
@@ -22,7 +27,32 @@ import torch
 from torch import nn
 
 from ...core.mask import mask_target
+from ..heads.anchor_head import sigmoid
 from .two_stage import TwoStageDetector, to_rois
+
+
+def mask_losses(det, aux: dict, gt_masks: torch.Tensor, gt_bboxes: torch.Tensor):
+    """``loss_mask`` of the mask branch on a train step's sampled rois
+    (``train_core``'s aux dict), with ``gt_masks`` (B, G, S, S) uint8
+    box-frame crops."""
+    mask_pred = det.mask_head(det.mask_roi_extractor(aux["feats"], aux["rois"]))
+    targets = mask_target(gt_masks, gt_bboxes, aux["sel_boxes"], aux["gt_idx"],
+                          aux["sel_pos"], out_size=mask_pred.shape[-1])
+    return det.mask_head.loss(mask_pred, targets.flatten(0, 1), aux["labels"],
+                              aux["sel_pos"].flatten())
+
+
+def mask_test(det, feats, dets: torch.Tensor, labels: torch.Tensor,
+              scale_factors: torch.Tensor, rescale: bool) -> torch.Tensor:
+    """(B, N, 28, 28) f32 mask probabilities of the detections' own classes,
+    the boxes scaled back to the canvas for the RoIAlign."""
+    boxes = dets[..., :4]
+    if rescale:
+        boxes = boxes * scale_factors.float()[:, None, None]
+    mask_pred = det.mask_head(det.mask_roi_extractor(feats, to_rois(boxes)))
+    bsz, n = labels.shape
+    own = det.mask_head.own_class(mask_pred, labels.reshape(-1).clamp(min=0) + 1)
+    return sigmoid(own).float().reshape(bsz, n, *own.shape[1:])
 
 
 class MaskRCNN(TwoStageDetector):
@@ -45,13 +75,8 @@ class MaskRCNN(TwoStageDetector):
         S, S) uint8 box-frame crops, ``loss_mask``."""
         losses, aux = self.train_core(img, gt_bboxes, gt_labels, gt_valid, img_shapes,
                                       pad_shapes, gt_bboxes_ignore, gt_ignore_valid, generator)
-        if gt_masks is None:
-            return losses
-        mask_pred = self.mask_head(self.mask_roi_extractor(aux["feats"], aux["rois"]))
-        targets = mask_target(gt_masks, gt_bboxes, aux["sel_boxes"], aux["gt_idx"],
-                              aux["sel_pos"], out_size=mask_pred.shape[-1])
-        losses["loss_mask"] = self.mask_head.loss(mask_pred, targets.flatten(0, 1),
-                                                  aux["labels"], aux["sel_pos"].flatten())
+        if gt_masks is not None:
+            losses["loss_mask"] = mask_losses(self, aux, gt_masks, gt_bboxes)
         return losses
 
     def simple_test(self, img, img_shapes, scale_factors, pad_shapes, rescale: bool = True):
@@ -60,10 +85,4 @@ class MaskRCNN(TwoStageDetector):
         feats = self.extract_feat(img)
         dets, labels = self.simple_test_bboxes(feats, img_shapes, scale_factors, pad_shapes,
                                                rescale)
-        boxes = dets[..., :4]
-        if rescale:
-            boxes = boxes * scale_factors.float()[:, None, None]
-        mask_pred = self.mask_head(self.mask_roi_extractor(feats, to_rois(boxes)))
-        bsz, n = labels.shape
-        own = self.mask_head.own_class(mask_pred, labels.reshape(-1).clamp(min=0) + 1)
-        return dets, labels, torch.sigmoid(own).reshape(bsz, n, *own.shape[1:])
+        return dets, labels, mask_test(self, feats, dets, labels, scale_factors, rescale)

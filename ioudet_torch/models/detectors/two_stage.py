@@ -1,7 +1,10 @@
 """Two-stage detectors (counterpart of
 ``ioudet/models/detectors/two_stage.py``): ``TwoStageDetector`` /
-``FasterRCNN`` (backbone -> FPN -> RPN proposals -> RoIAlign -> box head)
-and the proposal-only ``RPN``.
+``FasterRCNN`` (backbone -> FPN -> RPN proposals -> RoIAlign -> box head),
+``DoubleHeadRCNN`` (its box head's two branches are the head's own), the
+C4 form (no FPN; a ``shared_head``, the ResNet's res5, between the
+RoIAlign and the box head, in training and at test) and the proposal-only
+``RPN``.
 
 Fixed shapes throughout, as in ``ioudet``:
   * the RPN's proposals are its ``get_bboxes`` output, (B, P, 5), zero rows
@@ -118,6 +121,19 @@ def final_nms(test_cfg: Optional[dict], boxes: torch.Tensor, scores: torch.Tenso
         max_per_img=rcnn_cfg.get("max_per_img", 100), valid=valid)
 
 
+def softmax(x: torch.Tensor) -> torch.Tensor:
+    """Softmax over the last axis in x's dtype.  Below f32 it is written out
+    as XLA's CPU program computes ``jax.nn.softmax`` of bf16 logits: exp in
+    f32 of the difference to the row's max rounded to the dtype, the sum of
+    the f32 exps rounded once, the rounded exps divided by it (XLA sums 81
+    classes in windows of 32, each by halves: 0.02-0.07% of such scores
+    differ by one bf16 step from this sum's order)."""
+    if x.dtype == torch.float32:
+        return F.softmax(x, dim=-1)
+    e = torch.exp((x - x.amax(-1, keepdim=True)).float())
+    return e.to(x.dtype) / e.sum(-1, keepdim=True).to(x.dtype)
+
+
 class _Extract(nn.Module):
     """backbone (+ neck) on NHWC images; init of every part."""
 
@@ -184,17 +200,18 @@ def rcnn_losses(head, cls_score, bbox_pred, sel_boxes, sel_pos, sel_valid, match
 
 
 class TwoStageDetector(_Extract):
-    parts = ("backbone", "neck", "rpn_head", "bbox_roi_extractor", "bbox_head")
+    parts = ("backbone", "neck", "rpn_head", "bbox_roi_extractor", "shared_head", "bbox_head")
 
     def __init__(self, backbone: nn.Module, rpn_head: nn.Module,
                  bbox_roi_extractor: nn.Module, bbox_head: nn.Module,
-                 neck: Optional[nn.Module] = None,
+                 neck: Optional[nn.Module] = None, shared_head: Optional[nn.Module] = None,
                  train_cfg: Optional[dict] = None, test_cfg: Optional[dict] = None):
         super().__init__()
         self.backbone = backbone
         self.neck = neck
         self.rpn_head = rpn_head
         self.bbox_roi_extractor = bbox_roi_extractor
+        self.shared_head = shared_head
         self.bbox_head = bbox_head
         self.train_cfg = train_cfg
         self.test_cfg = test_cfg
@@ -209,9 +226,15 @@ class TwoStageDetector(_Extract):
         """Raw RPN outputs, NHWC per level."""
         return self.rpn_head(self.extract_feat(img))
 
+    def roi_feats(self, feats, rois: torch.Tensor) -> torch.Tensor:
+        """The box head's input of rois (R, 5): RoIAlign, then the shared
+        head where there is one."""
+        x = self.bbox_roi_extractor(feats, rois)
+        return x if self.shared_head is None else self.shared_head(x)
+
     def roi_head(self, feats, rois: torch.Tensor):
         """(cls_score, bbox_pred) of rois (R, 5)."""
-        return self.bbox_head(self.bbox_roi_extractor(feats, rois))
+        return self.bbox_head(self.roi_feats(feats, rois))
 
     # ------------------------------------------------------------- train
 
@@ -230,14 +253,23 @@ class TwoStageDetector(_Extract):
         """``forward_train``'s losses, and what a mask branch extends them
         with: the features, the sampled rois (B * N, 5) and their boxes,
         positives, flat labels and assigned gt indices."""
-        rcnn_cfg = dict(dict(self.train_cfg or {}).get("rcnn", {}))
         if generator is None:
             generator = torch.Generator(img.device).manual_seed(0)
         feats = self.extract_feat(img)
         rpn_losses, dets = self.rpn_train(feats, gt_bboxes, gt_labels, gt_valid, img_shapes,
                                           pad_shapes, gt_bboxes_ignore, gt_ignore_valid,
                                           generator)
+        losses, aux = self.rcnn_train(feats, dets[..., :4], dets[..., 4] > 0, gt_bboxes,
+                                      gt_labels, gt_valid, generator)
+        losses.update(rpn_losses)
+        return losses, aux
 
+    def rcnn_train(self, feats, proposals, prop_valid, gt_bboxes, gt_labels, gt_valid,
+                   generator: torch.Generator) -> tuple:
+        """The R-CNN's half of a train step on proposals (B, P, 4) and their
+        validity (B, P): ``sample_rois_batch`` by ``train_cfg.rcnn``, the
+        box head's losses, and the ``train_core`` aux dict."""
+        rcnn_cfg = dict(dict(self.train_cfg or {}).get("rcnn", {}))
         sampler_cfg = dict(rcnn_cfg.get("sampler", {}))
         num_samples = sampler_cfg.get("num", 512)
         assigner = MaxIoUAssigner(**{k: v for k, v in dict(rcnn_cfg.get(
@@ -249,7 +281,7 @@ class TwoStageDetector(_Extract):
                 return self.hardness(feats, boxes_all, labels_all)
 
         sel_boxes, sel_pos, sel_valid, matched_gt, labels, gt_idx = sample_rois_batch(
-            generator, dets[..., :4], dets[..., 4] > 0, gt_bboxes, gt_valid, gt_labels,
+            generator, proposals, prop_valid, gt_bboxes, gt_valid, gt_labels,
             assigner, num_samples, sampler_cfg.get("pos_fraction", 0.25),
             sampler_cfg=sampler_cfg, hardness_fn=hardness_fn)
 
@@ -257,7 +289,6 @@ class TwoStageDetector(_Extract):
         cls_score, bbox_pred = self.roi_head(feats, rois)
         losses, labels_f = rcnn_losses(self.bbox_head, cls_score, bbox_pred, sel_boxes, sel_pos,
                                        sel_valid, matched_gt, labels)
-        losses.update(rpn_losses)
         return losses, dict(feats=feats, rois=rois, sel_boxes=sel_boxes, sel_pos=sel_pos,
                             labels=labels_f, gt_idx=gt_idx)
 
@@ -284,14 +315,22 @@ class TwoStageDetector(_Extract):
                            rescale: bool = True):
         """``simple_test`` on the features of its images."""
         props = self.test_proposals(feats, img_shapes, pad_shapes)
-        bsz, num = props.shape[:2]
-        rois = to_rois(props[..., :4])
+        return self.detect(feats, props[..., :4], props[..., 4] > 0, img_shapes,
+                           scale_factors, rescale)
+
+    def detect(self, feats, proposals, valid, img_shapes, scale_factors, rescale: bool):
+        """The R-CNN's detections of proposals (B, P, 4), ``valid`` (B, P):
+        the box head, the softmax (in the head's dtype, uncast, as
+        ``ioudet``'s ``simple_test``), the class-specific decode clipped to
+        the image, and ``final_nms``."""
+        bsz, num = proposals.shape[:2]
+        rois = to_rois(proposals)
         cls_score, bbox_pred = self.roi_head(feats, rois)
         nc = self.bbox_head.num_classes
-        scores = F.softmax(cls_score, dim=-1)[:, 1:].reshape(bsz, num, nc - 1)
+        scores = softmax(cls_score)[:, 1:].reshape(bsz, num, nc - 1)
         boxes = self.decode_rcnn(rois, bbox_pred).reshape(bsz, num * nc, 4)
         boxes = clip_boxes(boxes, img_shapes).reshape(bsz, num, nc, 4)[:, :, 1:]
-        return final_nms(self.test_cfg, boxes, scores, scale_factors, rescale, props[..., 4] > 0)
+        return final_nms(self.test_cfg, boxes, scores, scale_factors, rescale, valid)
 
     def decode_rcnn(self, rois: torch.Tensor, bbox_pred: torch.Tensor) -> torch.Tensor:
         """Class-specific decode: (R, 4C) deltas on the rois' boxes."""
@@ -303,6 +342,12 @@ class TwoStageDetector(_Extract):
 
 class FasterRCNN(TwoStageDetector):
     """Registration name of the reference's Faster R-CNN."""
+
+
+class DoubleHeadRCNN(TwoStageDetector):
+    """Registration name of the reference's Double-Head R-CNN: the
+    conv-regression / fc-classification split is the box head's
+    (``bbox_heads/double_bbox_head.py``)."""
 
 
 class RPN(_Extract):

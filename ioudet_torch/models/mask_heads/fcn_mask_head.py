@@ -3,7 +3,7 @@ mmdet's ``FCNMaskHead``): ``num_convs`` 3x3 convs + ReLU on the 14x14 RoI
 features, a 2x2 stride-2 transposed conv + ReLU, and a 1x1 ``conv_logits``
 to ``num_classes - 1`` class masks at 28x28 (no background channel, as
 ``ioudet`` has it); the convs take ``conv_cfg`` / ``norm_cfg`` (GN, weight
-standardization).  NCHW; parameters under mmdet's names (``convs.{i}.conv``,
+standardization) and compute in the head's ``dtype``.  NCHW; parameters under mmdet's names (``convs.{i}.conv``,
 ``convs.{i}.gn``, ``upsample``, ``conv_logits``).
 
 ``HTCMaskHead`` is HTC's: the previous stage's pre-upsample feature enters
@@ -25,7 +25,7 @@ from torch import nn
 
 from ..heads.anchor_head import global_count
 from ..losses.cross_entropy_loss import binary_cross_entropy_with_logits
-from ..utils.layers import ConvModule
+from ..utils.layers import Conv2d, ConvModule, ConvTranspose2d, compute_dtype
 
 
 class FCNMaskHead(nn.Module):
@@ -40,8 +40,10 @@ class FCNMaskHead(nn.Module):
         self.convs = nn.ModuleList([ConvModule(chans[i], chans[i + 1], 3, padding=1,
                                                conv_cfg=conv_cfg, norm_cfg=norm_cfg, dtype=dtype)
                                     for i in range(num_convs)])
-        self.upsample = nn.ConvTranspose2d(chans[-1], conv_out_channels, 2, stride=2)
-        self.conv_logits = nn.Conv2d(conv_out_channels, num_classes - 1, 1)
+        dt = compute_dtype(dtype)
+        self.upsample = ConvTranspose2d(chans[-1], conv_out_channels, 2, stride=2,
+                                        compute_dtype=dt)
+        self.conv_logits = Conv2d(conv_out_channels, num_classes - 1, 1, compute_dtype=dt)
 
     def init_weights(self, generator: torch.Generator) -> None:
         """``ioudet``'s initializers: N(0, 0.01) for the convs and

@@ -6,10 +6,10 @@ reference checkpoints and the flax bridge load without renaming.
 
 ``dtype`` threads ``ioudet``'s compute-dtype policy through every block:
 parameters stay f32, so state_dicts and ``.pth`` files do not depend on it;
-each convolution casts its input, weight and bias to the compute dtype per
-call and returns that dtype; FrozenBN folds its statistics in f32 and casts
-the folded scale and shift; GN takes its statistics in f32 and returns the
-compute dtype.  The casts are written out, as in the flax
+each convolution and linear layer casts its input, weight and bias to the
+compute dtype per call and returns that dtype; FrozenBN folds its statistics
+in f32 and casts the folded scale and shift; GN and the trainable BN take
+their statistics in f32 and return the compute dtype.  The casts are written out, as in the flax
 modules: ``torch.autocast`` picks its own operators and is not this policy.
 """
 
@@ -60,14 +60,43 @@ class Conv2d(nn.Conv2d):
         return self._conv_forward(x.to(dt), self.weight.to(dt), bias)
 
 
-NORMS = ("FrozenBN", "GN")
+class ConvTranspose2d(nn.ConvTranspose2d):
+    """``nn.ConvTranspose2d`` with f32 parameters that computes in
+    ``compute_dtype``, as ``Conv2d``."""
+
+    def __init__(self, *args, compute_dtype: torch.dtype = torch.float32, **kwargs):
+        super().__init__(*args, **kwargs)
+        self.compute_dtype = compute_dtype
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        dt = self.compute_dtype
+        bias = None if self.bias is None else self.bias.to(dt)
+        return F.conv_transpose2d(x.to(dt), self.weight.to(dt), bias, self.stride,
+                                  self.padding, self.output_padding, self.groups,
+                                  self.dilation)
+
+
+class Linear(nn.Linear):
+    """``nn.Linear`` with f32 parameters that computes in ``compute_dtype``
+    (flax's ``nn.Dense(dtype=...)``): input, weight and bias cast per call."""
+
+    def __init__(self, *args, compute_dtype: torch.dtype = torch.float32, **kwargs):
+        super().__init__(*args, **kwargs)
+        self.compute_dtype = compute_dtype
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        dt = self.compute_dtype
+        bias = None if self.bias is None else self.bias.to(dt)
+        return F.linear(x.to(dt), self.weight.to(dt), bias)
+
+
+NORMS = ("FrozenBN", "GN", "BN")
 
 
 def check_norm_cfg(norm_cfg: Optional[dict]) -> None:
     if norm_cfg is not None and norm_cfg.get("type") not in NORMS:
         raise NotImplementedError(
-            f"norm {norm_cfg.get('type')!r} is not ported yet; only FrozenBN (the "
-            "inference form of the detection backbones' BN) and GN are")
+            f"norm {norm_cfg.get('type')!r} is not ported yet; available: {sorted(NORMS)}")
 
 
 class FrozenBatchNorm(nn.Module):
@@ -120,12 +149,56 @@ class GroupNorm(nn.Module):
         return y.to(self.dtype)
 
 
+class BatchNorm(nn.Module):
+    """Trainable batch norm as flax's ``nn.BatchNorm`` computes it with the
+    numbers ``ioudet``'s ``build_norm`` gives it (momentum 0.9 in flax's
+    sense, 0.1 in torch's; epsilon 1e-5): in training the statistics of the
+    batch over (N, H, W) in f32, the variance E[x^2] - E[x]^2 floored at 0
+    and not Bessel-corrected, and the running statistics moved by ``running
+    = 0.9 * running + 0.1 * batch``; in eval the running statistics.  Then
+    ``(x - mean) * (rsqrt(var + eps) * weight) + bias``, returned in the
+    compute dtype.  torch's ``BatchNorm2d`` keeps the unbiased variance in its
+    running statistics and is not this module.  mmdet's names (``weight``,
+    ``bias``, ``running_mean``, ``running_var``).  Under DDP each rank keeps
+    its own batch statistics and running buffers (mmdet v1's plain BN)."""
+
+    momentum = 0.9
+
+    def __init__(self, num_features: int, eps: float = 1e-5,
+                 dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.eps, self.dtype = eps, dtype
+        self.weight = nn.Parameter(torch.ones(num_features))
+        self.bias = nn.Parameter(torch.zeros(num_features))
+        self.register_buffer("running_mean", torch.zeros(num_features))
+        self.register_buffer("running_var", torch.ones(num_features))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.training:
+            xf = x.float()
+            axes = [d for d in range(x.dim()) if d != 1]
+            mean = xf.mean(axes)
+            var = ((xf * xf).mean(axes) - mean * mean).clamp(min=0.0)
+            with torch.no_grad():
+                self.running_mean.mul_(self.momentum).add_((1 - self.momentum) * mean)
+                self.running_var.mul_(self.momentum).add_((1 - self.momentum) * var)
+        else:
+            mean, var = self.running_mean, self.running_var
+        shape = (1, -1) + (1,) * (x.dim() - 2)
+        mul = torch.rsqrt(var + self.eps) * self.weight
+        y = (x - mean.reshape(shape)) * mul.reshape(shape) + self.bias.reshape(shape)
+        return y.to(self.dtype)
+
+
 def build_norm(norm_cfg: dict, num_features: int, dtype: torch.dtype = torch.float32):
-    """(mmdet's name stem, module) of a norm config: ("bn", FrozenBN) or
-    ("gn", GroupNorm of ``num_groups``, 32 by default)."""
+    """(mmdet's name stem, module) of a norm config: ("bn", FrozenBN),
+    ("bn", the trainable ``BatchNorm`` of type "BN") or ("gn", GroupNorm of
+    ``num_groups``, 32 by default)."""
     check_norm_cfg(norm_cfg)
     if norm_cfg["type"] == "GN":
         return "gn", GroupNorm(norm_cfg.get("num_groups", 32), num_features, dtype=dtype)
+    if norm_cfg["type"] == "BN":
+        return "bn", BatchNorm(num_features, dtype=dtype)
     return "bn", FrozenBatchNorm(num_features, dtype=dtype)
 
 

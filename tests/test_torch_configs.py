@@ -5,11 +5,15 @@ and the paper's family (the 11 ``configs/*iou_aware_*.py``,
 ``retinanet_x101_64x4d_fpn_1x.py``) and the two-stage configs
 (``faster_rcnn_r50_fpn_1x.py``, ``rpn_r50_fpn_1x.py``,
 ``mask_rcnn_r50_fpn_1x.py``, ``htc_r50_fpn_1x.py``,
-``faster_rcnn_r50_fpn_gn_ws_1x.py``) also go through the weight bridge: ``ioudet``
+``faster_rcnn_r50_fpn_gn_ws_1x.py``, ``fast_rcnn_r50_fpn_1x.py``,
+``double_head_rcnn_r50_fpn_1x.py``) also go through the weight bridge: ``ioudet``
 builds under ``jax.eval_shape``, its parameter tree (of ``simple_test`` for
 a two-stage detector, whose ``__call__`` runs the RPN alone) goes through
 ``state_dict_from_flax`` as meta tensors, and the bridged names and shapes
-must be the port's state_dict, one for one."""
+must be the port's state_dict, one for one.  ``ioudet`` cannot build the
+Double-Head config's BN head (flax raises at its first call: the mode is
+passed to ``nn.BatchNorm`` twice), so that config crosses with GN on both
+sides."""
 
 import glob
 import os
@@ -30,7 +34,7 @@ FAMILY = sorted(os.path.basename(f) for f in glob.glob(
     os.path.join(ROOT, "configs", "*iou_aware_*.py")))
 
 
-# every config the port builds (56 of 109); what stops the rest is in
+# every config the port builds (66 of 109); what stops the rest is in
 # ROADMAP.md ("Configs")
 BUILDS = FAMILY + [
     "retinanet_r50_fpn_1x.py", "retinanet_r50_fpn_2x.py", "retinanet_r101_fpn_1x.py",
@@ -54,14 +58,30 @@ BUILDS = FAMILY + [
     "faster_rcnn_r50_fpn_gn_ws_1x.py", "faster_rcnn_x101_32x4d_fpn_gn_ws_1x.py",
     "scratch_faster_rcnn_r50_fpn_gn_6x.py", "mask_rcnn_r50_fpn_gn_2x.py",
     "mask_rcnn_r50_fpn_gn_ws_2x.py", "mask_rcnn_r101_fpn_gn_2x.py",
-    "scratch_mask_rcnn_r50_fpn_gn_6x.py"]
+    "scratch_mask_rcnn_r50_fpn_gn_6x.py",
+    "fast_rcnn_r50_fpn_1x.py", "fast_rcnn_r101_fpn_1x.py", "fast_mask_rcnn_r50_fpn_1x.py",
+    "double_head_rcnn_r50_fpn_1x.py", "faster_rcnn_r50_caffe_c4_1x.py",
+    "dpool_faster_rcnn_r50_fpn_1x.py", "dcn_faster_rcnn_mdpool_r50_fpn_1x.py",
+    "faster_rcnn_r50_fpn_bf16_1x.py", "mask_rcnn_r50_fpn_bf16_1x.py",
+    # Fast R-CNN with a caffe-style backbone: guided anchoring made its
+    # proposal file, and the model has nothing of it
+    "ga_fast_r50_caffe_fpn_1x.py"]
 ALL = sorted(os.path.basename(f) for f in glob.glob(os.path.join(ROOT, "configs", "*.py")))
 LIBRA = ("libra_fast_rcnn_r50_fpn_1x.py", "libra_faster_rcnn_r50_fpn_1x.py",
          "libra_retinanet_r50_fpn_1x.py")
 
 
-def build(name: str):
+def gn_double_head(cfg: dict) -> dict:
+    """A Double-Head config's head with GN in place of its BN."""
+    if cfg["model"]["type"] == "DoubleHeadRCNN":
+        cfg["model"]["bbox_head"]["norm_cfg"] = dict(type="GN", num_groups=32)
+    return cfg
+
+
+def build(name: str, gn: bool = False):
     cfg = Config.fromfile(os.path.join(ROOT, "configs", name)).todict()
+    if gn:
+        cfg = gn_double_head(cfg)
     with torch.device("meta"):
         return build_detector(cfg["model"], cfg.get("train_cfg"), cfg.get("test_cfg"))
 
@@ -102,17 +122,22 @@ def test_the_family_is_all_there():
 @pytest.mark.parametrize("name", FAMILY + ["retinanet_x101_64x4d_fpn_1x.py",
                                   "faster_rcnn_r50_fpn_1x.py", "rpn_r50_fpn_1x.py",
                                   "mask_rcnn_r50_fpn_1x.py", "htc_r50_fpn_1x.py",
-                                  "faster_rcnn_r50_fpn_gn_ws_1x.py"])
+                                  "faster_rcnn_r50_fpn_gn_ws_1x.py", "fast_rcnn_r50_fpn_1x.py",
+                                  "double_head_rcnn_r50_fpn_1x.py"])
 def test_config_builds_and_bridges_one_for_one(name):
-    model = build(name)
+    model = build(name, gn=True)
     ours = {k: tuple(v.shape) for k, v in model.state_dict().items()}
 
-    jcfg = JaxConfig.fromfile(os.path.join(ROOT, "configs", name)).todict()
+    jcfg = gn_double_head(JaxConfig.fromfile(os.path.join(ROOT, "configs", name)).todict())
     det = jax_build_detector(jcfg["model"], jcfg.get("train_cfg"), jcfg.get("test_cfg"))
     img = jax.ShapeDtypeStruct((1, 64, 64, 3), jnp.float32)
-    if jcfg["model"]["type"] in ("FasterRCNN", "MaskRCNN", "HybridTaskCascade"):
+    if jcfg["model"]["type"] in ("FasterRCNN", "MaskRCNN", "HybridTaskCascade",
+                                 "DoubleHeadRCNN", "FastRCNN"):
         meta = (jax.ShapeDtypeStruct((1, 2), jnp.int32), jax.ShapeDtypeStruct((1,), jnp.float32),
                 jax.ShapeDtypeStruct((1, 2), jnp.int32))
+        if jcfg["model"]["type"] == "FastRCNN":
+            meta += (jax.ShapeDtypeStruct((1, 8, 4), jnp.float32),
+                     jax.ShapeDtypeStruct((1, 8), jnp.bool_))
         shapes = jax.eval_shape(lambda x, *m: det.init(jax.random.PRNGKey(0), x, *m,
                                                        method=det.simple_test), img, *meta)
     else:

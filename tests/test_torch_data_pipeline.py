@@ -19,7 +19,6 @@ from ioudet.data import build_dataset as jax_build_dataset
 from ioudet.data.rng import make_sample_rng as jax_make_rng, set_sample_rng as jax_set_rng
 from ioudet_torch.data import build_dataset
 from ioudet_torch.data.pipelines import Compose, imresize
-from ioudet_torch.data.datasets import CustomDataset
 from ioudet_torch.data.pipelines.loading import (decode_netpbm, encode_netpbm, imread,
                                                  imwrite_netpbm)
 from ioudet_torch.data.rng import make_sample_rng, set_sample_rng
@@ -210,5 +209,7 @@ def test_dataset_wrappers_and_build_dataset(planted):
 def test_unported_steps_raise():
     with pytest.raises(KeyError, match="not ported"):
         Compose([dict(type="PhotoMetricDistortion")])
-    with pytest.raises(NotImplementedError, match="proposals"):
-        CustomDataset("unread.json", [], proposal_file="proposals.pkl")
+    # precomputed proposals are ported (tests/test_torch_fast_rcnn.py); the
+    # Cityscapes dataset is not
+    with pytest.raises(KeyError, match="not ported"):
+        build_dataset(dict(type="CityscapesDataset", ann_file="unread.json", pipeline=[]))

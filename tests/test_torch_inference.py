@@ -178,6 +178,19 @@ logs = step(dict(img=x, gt_bboxes=gts, gt_labels=torch.tensor([[3, 4]], dtype=to
                  gt_semantic_seg=torch.from_numpy(sample['gt_semantic_seg'][None].astype(int))), 0)
 assert 'loss_semantic_seg' in logs and 's2_loss_mask' in logs
 assert all(bool(torch.isfinite(v)) for v in logs.values())
+from tests._torch_mp_worker import faster_rcnn_cfgs
+model_cfg, train_cfg, test_cfg = faster_rcnn_cfgs()
+model_cfg = dict(model_cfg, type='FastRCNN', rpn_head=None)
+test_cfg['rcnn']['score_thr'] = 0.0
+h = init_detector(dict(model=model_cfg, test_cfg=test_cfg), device='cpu')
+props = torch.tensor([[[4., 6., 40., 50.], [30., 10., 90., 60.], [0., 0., 0., 0.]]])
+dets, labels = predict(h, x, *meta, props, torch.tensor([[True, True, False]]))
+assert tuple(dets.shape) == (1, 20, 5) and int((labels >= 0).sum()) > 0
+try:
+    inference_detector(h, np.zeros((48, 80, 3), np.uint8))
+    raise AssertionError('inference_detector took a Fast R-CNN without proposals')
+except NotImplementedError:
+    pass
 """
 
 
@@ -186,8 +199,9 @@ def test_port_runs_without_jax():
     cv2, PIL) out of sys.modules: the IoU-aware RetinaNet's serving, the
     RPN from its config file through init_detector and predict, a tiny
     Mask R-CNN's predict, its masks pasted and encoded, inference_detector
-    and one make_train_step step, and a tiny HTC's predict and one step on
-    a semantic map read from a PNG by LoadAnnotations."""
+    and one make_train_step step, a tiny HTC's predict and one step on
+    a semantic map read from a PNG by LoadAnnotations, and a tiny Fast
+    R-CNN's predict on given proposals."""
     code = (
         "import os, sys, numpy as np, torch\n"
         "import ioudet_torch\n"

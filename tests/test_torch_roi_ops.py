@@ -100,8 +100,12 @@ def test_extractor_gathers_each_roi_on_its_own_level():
     got = ours([nchw(f) for f in feats], torch.from_numpy(rois))
     want = ref.apply({}, [jnp.asarray(f) for f in feats], jnp.asarray(rois))
     np.testing.assert_allclose(nhwc(got), np.asarray(want), rtol=0, atol=1e-5)
-    with pytest.raises(NotImplementedError):
-        SingleRoIExtractor(roi_layer=dict(type="DeformRoIPoolingPack", out_size=7))
+    # deformable RoI pooling is ported (tests/test_torch_deform_pool.py): a
+    # pack a level; another layer type is named as not ported
+    assert len(SingleRoIExtractor(roi_layer=dict(type="DeformRoIPoolingPack",
+                                                 out_size=7)).roi_layers) == 4
+    with pytest.raises(KeyError, match="not ported"):
+        SingleRoIExtractor(roi_layer=dict(type="PSRoIPool", out_size=7))
 
 
 # ------------------------------------------------------------------ samplers
