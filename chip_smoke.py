@@ -1,7 +1,8 @@
 """Drive the PyTorch port's serving, low-precision serving, training
 (f32, bf16 and data parallel) and evaluation paths, and Faster R-CNN's,
-Mask R-CNN's and the cascade family's (HTC, Cascade R-CNN, GN + WS), once
-on one NVIDIA GPU and check them.
+Mask R-CNN's, the cascade family's (HTC, Cascade R-CNN, GN + WS), the rest
+of Faster R-CNN's family's, Mask Scoring R-CNN's, Grid R-CNN's and the
+two-stage TTA's, once on one NVIDIA GPU and check them.
 
     python3 chip_smoke.py                  # everything, as below
     python3 chip_smoke.py --kernels-only   # phases 1-2: a short first run
@@ -208,7 +209,33 @@ Phases (any failure exits non-zero):
      (three steps, the head drift against f32 on the same weights); each
      against the plain-NMS replay; (12g) timings: ``predict`` at batch 8
      with its parts by CUDA events, TF32 off and on, K1 at each stage, the
-     train step with peak memory, the host time of the proposals' loading.
+     train step with peak memory, the host time of the proposals' loading;
+  13. Mask Scoring R-CNN, Grid R-CNN and the two-stage TTA at full width and
+     depth, as phase 12: (13a) configs/ms_rcnn_r50_fpn_1x.py ``predict`` at
+     batch 8 and 1 with host syncs made errors, K1 twice a predict, (dets,
+     labels, masks) bit-equal to the plain-NMS replay, the scores Mask
+     R-CNN's times each detection's clipped mask IoU bit for bit, step 1
+     against its plain-NMS replay and two ``train_detector`` steps with
+     planted box-frame masks (``loss_mask_iou`` > 0, the mask-IoU head's
+     gradients nonzero), 10c's segm eval on EVAL_BATCH images; (13b)
+     configs/grid_rcnn_r50_fpn_2x.py ``predict`` at batch 8 and 1 against
+     its replay, every valid detection moved by the grid and the score-0
+     rows kept, step 1 against its replay with the same generator and two
+     steps (``loss_grid`` > 0); (13c) ``python -m ioudet_torch.tools.test``
+     of configs/mask_rcnn_r50_fpn_1x.py with the mstest config's views (two
+     scales and flip, 4 on one 1024x1696 canvas) on TTA_IMAGES of phase 6's
+     images with polygons, ``--eval bbox segm`` on a saved .pth: K1 views + 2
+     times an image (each view's proposals, the proposal merge, the final
+     NMS), every image's result bit-equal to a replay through the
+     primitives with the plain NMS at every stage, the merge written out
+     in the script; one identity view (scale 1, no flip) against
+     ``predict``; Cascade R-CNN's ``tta_test`` on TTA_CASCADE images against
+     its replay; (13d) timings: ``predict`` at batch 8 of both detectors
+     with the mask-IoU head, the grid RoIAlign and the grid head's convs,
+     fusion and deconvs by CUDA events, TF32 off and on, K1 at each stage,
+     the train steps with peak memory, ``tta_test``'s ms an image split
+     into the backbone, proposals, merge, R-CNN passes, final NMS and mask
+     passes.
 The last two lines are the card's name and power limit, then
 ``{"ok": true, "device": {...}}``; the line before them lists the kernels.
 """
@@ -4398,12 +4425,13 @@ def family_spans(model) -> tuple:
     return spans, "class pick + sigmoid"
 
 
-def family_split(handle, args, reps: int = FAMILY_REPS) -> tuple:
+def family_split(handle, args, reps: int = FAMILY_REPS, spans=None) -> tuple:
     """(host-clock median ms, peak GiB, {part: median ms by CUDA events}) of
-    ``reps`` predicts after a warm-up, parts by ``family_spans``."""
+    ``reps`` predicts after a warm-up, parts by ``spans`` ((spans, end label)
+    as ``family_spans`` gives them, its own by default)."""
     from ioudet_torch.apis.inference import predict
 
-    spans, end = family_spans(handle.model)
+    spans, end = spans or family_spans(handle.model)
     marks = []
 
     def mark(label):
@@ -4440,24 +4468,26 @@ def family_split(handle, args, reps: int = FAMILY_REPS) -> tuple:
 
 
 def family_timing(K, handle, args, card: str, what: str, runner=None, batch=None,
-                  batch1: bool = False, dtype: str = "f32") -> None:
-    """12g: ``predict`` at batch 8 (and 1) with its parts, TF32 off and on;
-    K1 at each NMS stage's own candidates; with ``runner`` the train step
-    at batch 2 with peak memory, TF32 off."""
+                  batch1: bool = False, dtype: str = "f32", phase: str = "12g",
+                  spans=None) -> None:
+    """12g / 13d: ``predict`` at batch 8 (and 1) with its parts (``spans``,
+    ``family_split``'s), TF32 off and on; K1 at each NMS stage's own
+    candidates; with ``runner`` the train step at batch 2 with peak memory,
+    TF32 off."""
     from ioudet_torch.apis.inference import predict
 
     for tf32 in (False, True):
         set_tf32(tf32)
         tag = f"[{card}; {dtype}, TF32 {'on' if tf32 else 'off'}]"
-        ms, peak, parts = family_split(handle, args)
-        print(f"12g {what} predict batch {TWO_STAGE_BATCH}: median of {FAMILY_REPS} {ms:.3f} "
+        ms, peak, parts = family_split(handle, args, spans=spans)
+        print(f"{phase} {what} predict batch {TWO_STAGE_BATCH}: median of {FAMILY_REPS} {ms:.3f} "
               f"ms, {TWO_STAGE_BATCH * 1e3 / ms:.2f} img/s, peak memory {peak:.2f} GiB; by CUDA "
               "events, ms: " + ", ".join(f"{k} {v:.3f}" for k, v in parts.items()) + f" {tag}",
               flush=True)
         if batch1:
             one = tuple(x[:1] for x in args)
             ms = host_ms(lambda: predict(handle, *one), reps=FAMILY_REPS)
-            print(f"12g {what} predict batch 1: median of {FAMILY_REPS} {ms:.3f} ms {tag}",
+            print(f"{phase} {what} predict batch 1: median of {FAMILY_REPS} {ms:.3f} ms {tag}",
                   flush=True)
     set_tf32(False)
     stages = []
@@ -4477,7 +4507,7 @@ def family_timing(K, handle, args, card: str, what: str, runner=None, batch=None
     torch.cuda.reset_peak_memory_stats()
     ms = host_ms(lambda: runner.train_step(batch, TWO_STAGE_STEPS), reps=FAMILY_REPS)
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
-    print(f"12g {what} train step batch {TWO_STAGE_TRAIN_BATCH}: median of {FAMILY_REPS} "
+    print(f"{phase} {what} train step batch {TWO_STAGE_TRAIN_BATCH}: median of {FAMILY_REPS} "
           f"{ms:.3f} ms, peak memory {peak:.2f} GiB [{card}; {dtype}, TF32 off]", flush=True)
     runner.model.eval()
 
@@ -4813,6 +4843,421 @@ def bf16_two_stage(B, K, inputs, card: str) -> dict:
     return counts
 
 
+# ------------------- phase 13: Mask Scoring R-CNN, Grid R-CNN, the two-stage TTA
+
+MS_RCNN = "ms_rcnn_r50_fpn_1x.py"
+GRID_RCNN = "grid_rcnn_r50_fpn_2x.py"
+MS_NAMES = MASK_NAMES + ("mask_iou_head.convs.0.weight", "mask_iou_head.fcs.0.weight",
+                         "mask_iou_head.fc_mask_iou.weight")
+GRID_NAMES = TWO_STAGE_NAMES + ("grid_head.convs.0.conv.weight", "grid_head.fusion_o1.0to1.weight",
+                                "grid_head.fusion_o2.4to5.weight", "grid_head.deconv2.weight")
+MS_STEPS = GRID_STEPS = 2
+TTA_IMAGES = 4        # 13c: phase 6's first images through tools.test
+TTA_CASCADE = 2       # 13c: Cascade R-CNN's TTA images
+# the mstest config's views (configs/iou_aware_retinanet_r101_fpn_mstest.py)
+TTA_SCALES = [(1333, 800), (1666, 1000)]
+TTA_CANVAS = (1024, 1696)
+
+
+def ms_spans(model) -> tuple:
+    """``family_split``'s spans of a Mask Scoring R-CNN ``predict``: phase
+    10d's parts, then the class pick and the mask-IoU head."""
+    spans, _ = family_spans(model)
+    return spans + [("class pick + sigmoid", model.mask_iou_head, "pre"),
+                    ("mask-IoU head", model.mask_iou_head, "post")], "rescore"
+
+
+def grid_spans(model) -> tuple:
+    """``family_split``'s spans of a Grid R-CNN ``predict``: phase 9d's
+    parts, then the grid RoIAlign, the grid head's convs, fusion and
+    deconvs."""
+    spans, _ = family_spans(model)
+    head = model.grid_head
+    return spans + [("decode + final NMS", model.grid_roi_extractor, "pre"),
+                    ("grid RoIAlign", model.grid_roi_extractor, "post"),
+                    ("grid convs", head.convs[-1], "post"),
+                    ("grid fusion", head.deconv1, "pre"),
+                    ("grid deconvs", head.deconv2, "post")], "grid decode + clip"
+
+
+def check_rescored(handle, inputs) -> None:
+    """13a: the rescored scores are the Mask R-CNN scores times each
+    detection's clipped mask IoU, bit for bit."""
+    from ioudet_torch.apis.inference import predict
+    from ioudet_torch.models.detectors.mask_rcnn import mask_branch
+
+    model = handle.model
+    dets, labels, masks = predict(handle, *inputs)
+    with torch.inference_mode():
+        feats = model.extract_feat(inputs[0])
+        d0, l0 = model.simple_test_bboxes(feats, inputs[1], inputs[2], inputs[3])
+        mask_feats, m0 = mask_branch(model, feats, d0[..., :4] * inputs[2][:, None, None], l0)
+        iou = model.mask_iou_head(mask_feats, m0.flatten(0, 1))
+    own = iou.gather(1, l0.reshape(-1, 1).clamp(min=0))[:, 0].reshape(l0.shape).clamp(0, 1)
+    valid = l0 >= 0
+    check(torch.equal(l0, labels) and torch.equal(m0, masks) and
+          torch.equal(d0[..., :4], dets[..., :4]) and torch.equal(dets[..., 4], d0[..., 4] * own),
+          f"13a: predict's scores are Mask R-CNN's times the clipped mask IoU of each "
+          f"detection's class, bit for bit; the IoU over valid detections: mean "
+          f"{float(own[valid].mean()):.4f}, min {float(own[valid].min()):.4f}, max "
+          f"{float(own[valid].max()):.4f}")
+
+
+def check_grid_refined(handle, inputs) -> None:
+    """13b: on the canvas, the grid moves every valid detection of the box
+    path and leaves its scores, labels and the score-0 padding rows as they
+    are."""
+    model = handle.model
+    with torch.inference_mode():
+        refined, labels = model.simple_test(*inputs, rescale=False)
+        boxes, labels0 = model.simple_test_bboxes(model.extract_feat(inputs[0]), *inputs[1:],
+                                                  rescale=False)
+    valid = labels >= 0
+    moved = (refined[..., :4] - boxes[..., :4]).abs().amax(-1)
+    check(torch.equal(labels, labels0) and torch.equal(refined[..., 4], boxes[..., 4]) and
+          bool((moved[valid] > 0).all()) and torch.equal(refined[~valid], boxes[~valid]),
+          f"13b: the grid refined all {int(valid.sum())} valid detections (moved "
+          f"{float(moved[valid].median()):.2f} px median, {float(moved[valid].max()):.2f} max), "
+          "scores and labels kept, score-0 rows unchanged")
+
+
+def tta_pipeline(cfg: dict) -> list:
+    """The mstest config's views (two scales, flip, one canvas) over the
+    Normalize of ``cfg``'s test pipeline."""
+    norm = next(s for s in cfg["data"]["test"]["pipeline"] if s["type"] == "Normalize")
+    return [dict(type="LoadImageFromFile"),
+            dict(type="MultiScaleFlipAug", img_scale=TTA_SCALES, flip=True, transforms=[
+                dict(type="Resize", keep_ratio=True), dict(type="RandomFlip", flip_ratio=0.0),
+                norm, dict(type="Pad", size_divisor=32, size=TTA_CANVAS),
+                dict(type="Collect", keys=["img"])])]
+
+
+def tta_cfg_file(path: str, base: str, ann_file: str, img_prefix: str, pipeline: list) -> None:
+    """A config file that ``_base_``s ``base`` with ``pipeline`` and the
+    planted set as ``data.test``, and ``rcnn.score_thr`` 0."""
+    with open(path, "w") as f:
+        f.write(f"_base_ = {base!r}\n"
+                f"data = dict(test=dict(ann_file={ann_file!r}, img_prefix={img_prefix!r}, "
+                f"pipeline={pipeline!r}))\n"
+                "test_cfg = dict(rcnn=dict(score_thr=0.0))\n")
+
+
+def tta_two_stage_replay(K, handle, views, test_cfg) -> tuple:
+    """One image's views through the model's TTA primitives, with the
+    proposal merge written out here (each view's proposals mapped back, a
+    stable descending sort, the plain greedy NMS, the top ``max_num`` of the
+    kept scores), the views' boxes and scores averaged and the final
+    ``multiclass_nms`` with the plain NMS; a mask detector's masks averaged
+    over the views, flipped ones mirrored.  Returns (dets, labels[, masks])."""
+    from ioudet_torch.core.post_processing import multiclass_nms
+    from ioudet_torch.core.post_processing.bbox_nms import topk_stable
+
+    model = handle.model
+    rpn, rcnn = test_cfg["rpn"], test_cfg["rcnn"]
+    feats, metas, props = [], [], []
+
+    def back(b, m):
+        if m["flip"]:
+            w = m["shape"][1]
+            b = torch.stack([w - b[..., 2] - 1, b[..., 1], w - b[..., 0] - 1, b[..., 3]], -1)
+        return b / m["scale"]
+
+    def into(b, m):
+        b = b * m["scale"]
+        if m["flip"]:
+            w = m["shape"][1]
+            b = torch.stack([w - b[..., 2] - 1, b[..., 1], w - b[..., 0] - 1, b[..., 3]], -1)
+        return b
+
+    with torch.inference_mode():
+        for v in views:
+            img = torch.from_numpy(v["img"])[None].cuda()
+            m = dict(shape=torch.from_numpy(v["img_shape"]).cuda(),
+                     scale=torch.from_numpy(np.asarray(v["scale_factor"], np.float32)).cuda(),
+                     flip=bool(v["flip"]))
+            feats.append(model.extract_feat(img))
+            p = model.test_proposals(feats[-1], m["shape"][None],
+                                     torch.from_numpy(v["pad_shape"]).cuda()[None])[0]
+            props.append(torch.cat([back(p[:, :4], m), p[:, 4:]], -1))
+            metas.append(m)
+        merged = torch.cat(props)
+        s, order = torch.sort(torch.where(merged[:, 4] > 0, merged[:, 4], -1e10),
+                              descending=True, stable=True)
+        cand = merged[order, :4][None].contiguous()
+        keep = K.nms_reduce_plain(K.nms_mask_plain(cand, float(rpn["nms_thr"])),
+                                  (s > -5e9)[None])[0]
+        top, idx = topk_stable(torch.where(keep, s, 0.0), min(rpn["max_num"], len(s)))
+        boxes = cand[0, idx]
+        scores, refined = [], []
+        for f, m in zip(feats, metas):
+            sc, bx = model.rcnn_test_raw(f, into(boxes, m)[None], m["shape"][None])
+            scores.append(sc[0])
+            refined.append(back(bx[0], m))
+        mscores = torch.stack(scores).mean(0)
+        mboxes = torch.stack(refined).mean(0)
+        with plain_nms(K):
+            dets, labels = multiclass_nms(
+                mboxes.reshape(1, len(boxes), -1), mscores[None], rcnn["score_thr"],
+                rcnn["nms"]["iou_thr"], rcnn["max_per_img"], valid=(top > 0)[None])
+        if getattr(model, "mask_test_boxes", None) is None:
+            return dets[0], labels[0]
+        masks = [model.mask_test_boxes(f, into(dets[..., :4], m), labels)[0]
+                 for f, m in zip(feats, metas)]
+        masks = torch.stack([mk.flip(-1) if m["flip"] else mk
+                             for mk, m in zip(masks, metas)]).mean(0)
+    return dets[0], labels[0], masks
+
+
+def tta_replay_results(K, handle, dataset, test_cfg) -> list:
+    """``tta_two_stage_replay`` of every image of ``dataset``, as results."""
+    from ioudet_torch.apis.test import to_results
+
+    out = []
+    for i in range(len(dataset)):
+        views = dataset[i]
+        raw = tuple(o.cpu().numpy() for o in tta_two_stage_replay(K, handle, views, test_cfg))
+        if len(raw) > 2:
+            raw += (np.asarray(views[0]["ori_shape"])[:2],)
+        out.append(to_results(raw, handle.model.num_result_classes))
+    return out
+
+
+def same_result(a, b) -> bool:
+    """One image's result, a bbox list or a (bbox list, segm list) pair."""
+    if isinstance(a, tuple):
+        return isinstance(b, tuple) and same_results(a[0], b[0]) and a[1] == b[1]
+    return same_results(a, b)
+
+
+def tta_split(handle, dataset, test_cfg, reps: int = 1) -> tuple:
+    """(host ms an image, {part: device ms an image by CUDA events}) of
+    ``tta_test`` over ``dataset`` after a warm-up image: the backbone and
+    FPN, the RPN with each view's proposal NMS, the merge, the R-CNN passes,
+    the final NMS, the mask passes."""
+    import ioudet_torch.apis.test as T
+
+    model = handle.model
+    marks = []
+
+    def timed(label, fn):
+        def run(*a, **kw):
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = fn(*a, **kw)
+            end.record()
+            marks.append((label, start, end))
+            return out
+        return run
+
+    names = (("backbone + FPN", model, "extract_feat"),
+             ("RPN + proposal NMS", model, "test_proposals"),
+             ("merge", T, "merge_aug_proposals"), ("R-CNN passes", model, "rcnn_test_raw"),
+             ("final NMS", T, "multiclass_nms"),
+             ("mask passes", model, "mask_test_boxes"))
+    kept = [(obj, attr, getattr(obj, attr)) for _, obj, attr in names if hasattr(obj, attr)]
+    for label, obj, attr in names:
+        if hasattr(obj, attr):
+            setattr(obj, attr, timed(label, getattr(obj, attr)))
+    try:
+        T.tta_test(handle, [dataset[0]], test_cfg)   # warm-up
+        torch.cuda.synchronize()
+        marks.clear()
+        t = time.perf_counter()
+        for _ in range(reps):
+            T.tta_test(handle, dataset, test_cfg)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t) * 1e3 / (reps * len(dataset))
+    finally:
+        for obj, attr, fn in kept:
+            if obj is model:
+                delattr(obj, attr)
+            else:
+                setattr(obj, attr, fn)
+    parts = {}
+    for label, a, b in marks:
+        parts[label] = parts.get(label, 0.0) + a.elapsed_time(b) / (reps * len(dataset))
+    return wall, parts
+
+
+def phase_tta_two_stage(B, K, dataset6, card: str) -> dict:
+    """13c: the two-stage TTA.  ``tools.test`` on the Mask R-CNN config with
+    the mstest views on TTA_IMAGES of phase 6's images with polygons
+    (``--eval bbox segm``, weights from a .pth), K1 views + 2 times an
+    image, each result bit-equal to ``tta_two_stage_replay``; one identity
+    view against ``predict``; Cascade R-CNN's ``tta_test`` on TTA_CASCADE
+    images against its replay; then the split of ``tta_test`` an image.
+    Returns the launch counts."""
+    from ioudet_torch.apis.checkpoint import save_checkpoint
+    from ioudet_torch.apis.inference import init_detector, predict
+    from ioudet_torch.apis.test import aug_test_two_stage, tta_test
+    from ioudet_torch.data import build_dataset
+    from ioudet_torch.tools import test as test_tool
+    from ioudet_torch.utils.config import Config
+
+    root = os.path.join(os.path.dirname(dataset6.ann_file), "tta_two_stage")
+    os.makedirs(root, exist_ok=True)
+    ann = os.path.join(root, "polygons.json")
+    plant_polygons(dataset6.ann_file, ann, TTA_IMAGES)
+    cfg = two_stage_cfg(MASK_RCNN)
+    ckpt = save_checkpoint(root, "mask_rcnn", init_detector(cfg, device="cuda", seed=0).model)
+    config = os.path.join(root, "mask_rcnn_tta.py")
+    pipeline = tta_pipeline(cfg)
+    tta_cfg_file(config, os.path.join(ROOT, "configs", MASK_RCNN), ann, dataset6.img_prefix,
+                 pipeline)
+    handle = init_detector(config, ckpt, device="cuda")   # the tool's model and weights
+    out_file = os.path.join(root, "results.pkl")
+    torch.cuda.synchronize()
+    B.reset_launches()
+    t = time.perf_counter()
+    metrics = test_tool.main([config, ckpt, "--eval", "bbox", "segm", "--out", out_file])
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t
+    counts = dict(B.launches)
+    with open(out_file, "rb") as f:
+        results = pickle.load(f)
+    test_cfg = Config.fromfile(config).todict()["test_cfg"]   # the tool's
+    dataset = build_dataset(dict(cfg["data"]["test"], ann_file=ann,
+                                 img_prefix=dataset6.img_prefix, pipeline=pipeline))
+    views = dataset[0]
+    per_image = len(views) + 2
+    check(len(views) == 4 and {v["img"].shape[:2] for v in views} == {TTA_CANVAS} and
+          counts["nms_mask_kernel"] == per_image * TTA_IMAGES and
+          counts["nms_reduce_kernel"] == per_image * TTA_IMAGES,
+          f"13c: python -m ioudet_torch.tools.test {MASK_RCNN} with the mstest views (4 an "
+          f"image on {TTA_CANVAS[0]}x{TTA_CANVAS[1]}) --eval bbox segm on {TTA_IMAGES} images "
+          f"({run_s:.2f} s): K1a and K1b launched views + 2 = {per_image} times an image "
+          f"(each view's proposals, the merge, the final NMS): {counts['nms_mask_kernel']}")
+    replay = tta_replay_results(K, handle, dataset, test_cfg)
+    bad = [i for i in range(len(dataset)) if not same_result(results[i], replay[i])]
+    check(not bad and all(isinstance(r, tuple) for r in results),
+          "13c: each image's (bbox, segm) result bit-equal to its replay through the "
+          f"primitives with the plain NMS at every stage, the merge included (differing: {bad})")
+    check(all(np.isfinite(v) and -1 <= v <= 1 for m in metrics.values() for v in m.values()),
+          f"13c: random weights: bbox AP {metrics['bbox']['AP']:.4f}, segm AP "
+          f"{metrics['segm']['AP']:.4f}; {sum(sum(map(len, r[0])) for r in results)} "
+          "detections")
+
+    inputs = canvases(1, np.random.default_rng(13))
+    ident = dict(img=inputs[0][0].cpu().numpy(), img_shape=inputs[1][0].cpu().numpy(),
+                 pad_shape=inputs[3][0].cpu().numpy(), scale_factor=np.float32(1.0),
+                 flip=False)
+    one = (inputs[0], inputs[1], torch.ones(1, device="cuda"), inputs[3])
+    want = predict(handle, *one)
+    got = aug_test_two_stage(handle, [ident])
+    check(all(torch.equal(g, w[0]) for g, w in zip(got, want)) and len(got) == 3,
+          f"13c: one identity view (scale 1, no flip) gives predict's dets, labels and masks "
+          f"bit for bit ({int((got[1] >= 0).sum())} detections)")
+    stages = []
+    with nms_calls(K, stages):
+        aug_test_two_stage(handle, views, test_cfg)
+    boxes, valid, thr = stages[len(views)]   # after each view's proposals: the merge
+    words = K.nms_mask(boxes, thr)
+    keep = K.nms_reduce(words, valid)
+    check(len(stages) == per_image and boxes.shape[1] == len(views) * test_cfg["rpn"]["max_num"]
+          and torch.equal(words, K.nms_mask_plain(boxes, thr)) and
+          torch.equal(keep, K.nms_reduce_plain(words, valid)),
+          f"13c: K1 on the merge's own {boxes.shape[1]} candidates bit-equal to plain")
+    print(k1_line(K, f"Mask R-CNN TTA merge of {len(views)} views, IoU {thr}", boxes, keep,
+                  cuda_ms(lambda: K.nms_mask(boxes, thr), 50),
+                  cuda_ms(lambda: K.nms_reduce(words, valid), 50),
+                  *k1_bounds(boxes, words, keep), f"[{card}; f32"), flush=True)
+    wall, parts = tta_split(handle, dataset, test_cfg)
+    print(f"13d Mask R-CNN tta_test ({len(views)} views on {TTA_CANVAS[0]}x{TTA_CANVAS[1]}): "
+          f"{wall:.3f} ms an image (host clock, pipeline and paste included); by CUDA events, "
+          "ms an image: " + ", ".join(f"{k} {v:.3f}" for k, v in parts.items()) +
+          f" [{card}; f32, TF32 off]", flush=True)
+    del handle
+    torch.cuda.empty_cache()
+
+    ccfg = two_stage_cfg(CASCADE)
+    cascade = init_detector(ccfg, device="cuda", seed=0)
+    small = build_dataset(dict(ccfg["data"]["test"], img_prefix=dataset6.img_prefix,
+                               ann_file=subset_ann(ann, os.path.join(root, "two.json"),
+                                                   TTA_CASCADE),
+                               pipeline=tta_pipeline(ccfg)))
+    ccfg = ccfg["test_cfg"]
+    torch.cuda.synchronize()
+    B.reset_launches()
+    results = tta_test(cascade, small, ccfg)
+    torch.cuda.synchronize()
+    seen = dict(B.launches)
+    counts = add_counts(counts, seen)
+    replay = tta_replay_results(K, cascade, small, ccfg)
+    check(seen["nms_mask_kernel"] == per_image * TTA_CASCADE and
+          seen["nms_reduce_kernel"] == per_image * TTA_CASCADE,
+          f"13c: Cascade R-CNN's tta_test on {TTA_CASCADE} images: K1 {per_image} times an "
+          "image")
+    check(len(results) == TTA_CASCADE and all(same_result(a, b) for a, b in zip(results, replay)),
+          "13c: Cascade R-CNN's tta_test: each image's result bit-equal to its replay with the "
+          f"plain NMS ({sum(sum(map(len, r)) for r in results)} detections)")
+    wall, parts = tta_split(cascade, small, ccfg)
+    print(f"13d Cascade R-CNN tta_test: {wall:.3f} ms an image; by CUDA events, ms an image: "
+          + ", ".join(f"{k} {v:.3f}" for k, v in parts.items()) + f" [{card}; f32, TF32 off]",
+          flush=True)
+    del cascade
+    torch.cuda.empty_cache()
+    return counts
+
+
+def phase_ms_grid(B, K, dataset6, rng, card: str) -> dict:
+    """Phase 13: Mask Scoring R-CNN and Grid R-CNN R-50-FPN at full width
+    and depth, seeded random weights, f32, TF32 off for the checks, then the
+    two-stage TTA.  Returns the kernels' launch counts of its main-path
+    runs."""
+    from ioudet_torch.apis.inference import init_detector
+
+    set_tf32(False)
+    inputs = canvases(TWO_STAGE_BATCH, rng)
+    t = time.perf_counter()
+    cfg = two_stage_cfg(MS_RCNN)
+    handle = init_detector(cfg, device="cuda", seed=0)
+    print(f"13a: Mask Scoring R-CNN ({MS_RCNN}, {sum(p.numel() for p in handle.model.parameters()):,}"
+          " parameters), rcnn score_thr 0", flush=True)
+    counts = two_stage_serving(B, K, handle, inputs, "Mask Scoring R-CNN", "13a")
+    check_rescored(handle, inputs)
+    loss_keys = ("loss_bbox", "loss_cls", "loss_mask", "loss_mask_iou", "rpn_loss_bbox",
+                 "rpn_loss_cls")
+    got, runner, batch = two_stage_training(
+        B, K, handle, cfg, mask_train_batch(TWO_STAGE_TRAIN_BATCH, NUM_GTS), MS_NAMES,
+        "Mask Scoring R-CNN", "13a", MS_STEPS,
+        nonzero=("mask_iou_head.convs.0.weight", "mask_iou_head.fc_mask_iou.weight"),
+        loss_keys=loss_keys, positive=("loss_mask_iou",))
+    counts = add_counts(counts, got)
+    handle.model.eval()
+    counts = add_counts(counts, mask_eval(B, handle, dataset6, "Mask Scoring R-CNN", MS_RCNN,
+                                          count=EVAL_BATCH))
+    family_timing(K, handle, inputs, card, "Mask Scoring R-CNN", runner, batch, phase="13d",
+                  spans=ms_spans(handle.model))
+    del handle, runner, batch
+    torch.cuda.empty_cache()
+    print(f"13a: {time.perf_counter() - t:.2f} s", flush=True)
+
+    t = time.perf_counter()
+    cfg = two_stage_cfg(GRID_RCNN)
+    handle = init_detector(cfg, device="cuda", seed=0)
+    print(f"13b: Grid R-CNN ({GRID_RCNN}, {sum(p.numel() for p in handle.model.parameters()):,} "
+          "parameters), rcnn score_thr 0", flush=True)
+    counts = add_counts(counts, two_stage_serving(B, K, handle, inputs, "Grid R-CNN", "13b"))
+    check_grid_refined(handle, inputs)
+    got, runner, batch = two_stage_training(
+        B, K, handle, cfg, None, GRID_NAMES, "Grid R-CNN", "13b", GRID_STEPS,
+        nonzero=("grid_head.fusion_o1.0to1.weight", "grid_head.deconv2.weight"),
+        loss_keys=("loss_bbox", "loss_cls", "loss_grid", "rpn_loss_bbox", "rpn_loss_cls"),
+        positive=("loss_grid",))
+    counts = add_counts(counts, got)
+    handle.model.eval()
+    family_timing(K, handle, inputs, card, "Grid R-CNN", runner, batch, phase="13d",
+                  spans=grid_spans(handle.model))
+    del handle, runner, batch, inputs
+    torch.cuda.empty_cache()
+    print(f"13b: {time.perf_counter() - t:.2f} s", flush=True)
+
+    t = time.perf_counter()
+    counts = add_counts(counts, phase_tta_two_stage(B, K, dataset6, card))
+    print(f"13c: {time.perf_counter() - t:.2f} s", flush=True)
+    return counts
+
+
 KERNELS = {  # name: (source, the TPU kernel it replaces)
     "nms_mask_kernel": ("nms_kernel.cu", "ioudet/ops/nms_pallas.py:26"),
     "nms_reduce_kernel": ("nms_kernel.cu", "ioudet/ops/nms_pallas.py:81"),
@@ -4995,8 +5440,20 @@ def main() -> int:
     t = time.perf_counter()
     family_launches = phase_faster_family(B, K, eval_dataset, rng, card)
     launches = {k: launches[k] + family_launches.get(k, 0) for k in launches}
-    eval_dir.cleanup()
     print(f"phase 12: {time.perf_counter() - t:.2f} s", flush=True)
+
+    print("phase 13: Mask Scoring R-CNN, Grid R-CNN and the two-stage TTA at full width; TF32 "
+          "off for the checks: 13a Mask Scoring R-CNN predict at batch 8 and 1 (K1 at both NMS "
+          "stages, rescored by the mask IoU), two train steps with box-frame masks, segm eval "
+          f"on {EVAL_BATCH} images; 13b Grid R-CNN predict (the grid's boxes), two train steps; "
+          f"13c tools.test of Mask R-CNN with the mstest views on {TTA_IMAGES} images (K1 views "
+          f"+ 2 times an image), an identity view against predict, Cascade R-CNN's tta_test; "
+          "13d timings" + since(start), flush=True)
+    t = time.perf_counter()
+    ms_grid_launches = phase_ms_grid(B, K, eval_dataset, rng, card)
+    launches = {k: launches[k] + ms_grid_launches.get(k, 0) for k in launches}
+    eval_dir.cleanup()
+    print(f"phase 13: {time.perf_counter() - t:.2f} s", flush=True)
     check(all(launches[name] > 0 for name in KERNELS if name not in REPLACED) and
           all(launches[name] == 0 for name in REPLACED),
           "every kernel was launched on a main path, and none of those the wgmma kernels "

@@ -3,8 +3,9 @@
 
 The port's modules use the mmdet state_dict key layout, so a reference
 ``.pth`` loads as it is.  ``state_dict_from_flax`` turns ``ioudet``'s
-parameter tree for the RetinaNet family, Faster R-CNN / RPN / Mask R-CNN
-and the cascades (Cascade R-CNN, HTC: a head a stage, the semantic head),
+parameter tree for the RetinaNet family, Faster R-CNN / RPN / Mask R-CNN,
+Mask Scoring R-CNN, Grid R-CNN and the cascades (Cascade R-CNN, HTC: a head
+a stage, the semantic head),
 with FrozenBN or GN and plain or weight-standardized convs (nested dicts of
 arrays, HWIO conv kernels, (in, out) dense kernels) into that layout: it is
 the inverse of ``ioudet``'s ``convert_torch_retinanet``,
@@ -232,13 +233,57 @@ def _mask_head(sd: dict, tree: dict, prefix: str = "mask_head") -> None:
         elif name == "conv_res":
             _conv(sd, f"{prefix}.conv_res", leaf)
         elif name == "upsample":
-            sd[f"{prefix}.upsample.weight"] = _tensor(leaf["kernel"]).flip(0, 1) \
-                .permute(2, 3, 0, 1).contiguous()
-            sd[f"{prefix}.upsample.bias"] = _tensor(leaf["bias"])
+            _deconv(sd, f"{prefix}.upsample", leaf)
         elif name == "conv_logits":
             _conv(sd, f"{prefix}.conv_logits", leaf)
         else:
             raise KeyError(f"unknown mask head param {name}")
+
+
+def _deconv(sd: dict, prefix: str, leaf: dict) -> None:
+    """flax's ``ConvTranspose`` {kernel (kh, kw, in, out), bias} -> torch's
+    ``ConvTranspose2d`` (in, out, kh, kw), the kernel flipped in both
+    spatial axes (``_mask_head`` says why)."""
+    sd[prefix + ".weight"] = _tensor(leaf["kernel"]).flip(0, 1).permute(2, 3, 0, 1).contiguous()
+    sd[prefix + ".bias"] = _tensor(leaf["bias"])
+
+
+def _mask_iou_head(sd: dict, tree: dict, prefix: str = "mask_iou_head") -> None:
+    """MaskIoUHead's tree {conv<i>, fc<i>, fc_mask_iou} -> mmdet's convs.<i>,
+    fcs.<i>, fc_mask_iou; fc0 takes the flattened (7, 7, C) map after the
+    stride-2 conv and gets its input permuted to the port's (C, 7, 7)."""
+    for name, leaf in tree.items():
+        m = re.fullmatch(r"(conv|fc)(\d+)", name)
+        if m and m.group(1) == "conv":
+            _conv(sd, f"{prefix}.convs.{m.group(2)}", leaf)
+        elif m:
+            _dense(sd, f"{prefix}.fcs.{m.group(2)}", leaf, roi_input=m.group(2) == "0")
+        elif name == "fc_mask_iou":
+            _dense(sd, f"{prefix}.fc_mask_iou", leaf)
+        else:
+            raise KeyError(f"unknown mask IoU head param {name}")
+
+
+def _grid_head(sd: dict, tree: dict, prefix: str = "grid_head") -> None:
+    """GridHead's tree {conv<i>, gn<i>, fuse_<order>_<j>to<i>, deconv1,
+    gn_deconv1, deconv2} -> convs.<i>.conv, convs.<i>.gn,
+    fusion_<order>.<j>to<i>, deconv1, norm1, deconv2 (``ioudet``'s
+    structure; the pair convs have no mmdet counterpart)."""
+    for name, leaf in tree.items():
+        m = re.fullmatch(r"(conv|gn)(\d+)", name)
+        f = re.fullmatch(r"fuse_(o[12])_(\d+to\d+)", name)
+        if m and m.group(1) == "conv":
+            _conv(sd, f"{prefix}.convs.{m.group(2)}.conv", leaf)
+        elif m:
+            _bn(sd, f"{prefix}.convs.{m.group(2)}.gn", leaf)
+        elif f:
+            _conv(sd, f"{prefix}.fusion_{f.group(1)}.{f.group(2)}", leaf)
+        elif name in ("deconv1", "deconv2"):
+            _deconv(sd, f"{prefix}.{name}", leaf)
+        elif name == "gn_deconv1":
+            _bn(sd, f"{prefix}.norm1", leaf)
+        else:
+            raise KeyError(f"unknown grid head param {name}")
 
 
 def _semantic_head(sd: dict, tree: dict, prefix: str = "semantic_head") -> None:
@@ -322,7 +367,8 @@ _STAGE = re.compile(r"(bbox_head|mask_head)_(\d+)$")
 def state_dict_from_flax(params: dict) -> Dict[str, torch.Tensor]:
     """``ioudet`` params of the RetinaNet family {backbone, neck, bbox_head},
     of Faster R-CNN / RPN / Mask R-CNN {backbone, neck, rpn_head,
-    bbox_head[, mask_head]} (Fast R-CNN's without rpn_head; the C4 form's
+    bbox_head[, mask_head[, mask_iou_head]]} (Grid R-CNN's with grid_head;
+    Fast R-CNN's without rpn_head; the C4 form's
     ``shared_head``; deformable pooling's ``bbox_roi_extractor``) or of a
     cascade (flax's ``bbox_head_<i>`` / ``mask_head_<i>`` a stage, HTC's
     ``semantic_head``) -> a state_dict for the port's detector (mmdet key
@@ -334,7 +380,7 @@ def state_dict_from_flax(params: dict) -> Dict[str, torch.Tensor]:
     state) gives the entries it holds."""
     unknown = {k for k in params if not _STAGE.match(k)} - {
         "backbone", "neck", "rpn_head", "bbox_head", "mask_head", "semantic_head",
-        "shared_head", "bbox_roi_extractor"}
+        "shared_head", "bbox_roi_extractor", "mask_iou_head", "grid_head"}
     if unknown:
         raise KeyError(f"unsupported parameter groups: {sorted(unknown)}")
     sd: Dict[str, torch.Tensor] = {}
@@ -359,6 +405,10 @@ def state_dict_from_flax(params: dict) -> Dict[str, torch.Tensor]:
             _mask_head(sd, tree, f"mask_head.{m.group(2)}")
     if "semantic_head" in params:
         _semantic_head(sd, params["semantic_head"])
+    if "mask_iou_head" in params:
+        _mask_iou_head(sd, params["mask_iou_head"])
+    if "grid_head" in params:
+        _grid_head(sd, params["grid_head"])
     return sd
 
 

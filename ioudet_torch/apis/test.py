@@ -16,9 +16,14 @@ at its own size: the port compiles nothing, so it need not pad, and the
 loader's padding repeats are dropped before the device sees them.
 
 ``tta_test`` is the route of a test pipeline that ends in
-``MultiScaleFlipAug``: each image's views go through the model and
-``decode_candidates`` one at a time, are mapped back and merged, and one
-``multiclass_nms`` an image runs over the union (``aug_test``).
+``MultiScaleFlipAug``.  A single-stage detector's views go through the model
+and ``decode_candidates`` one at a time, are mapped back and merged, and one
+``multiclass_nms`` an image runs over the union (``aug_test``).  A two-stage
+detector's (``aug_test_two_stage``) share one proposal set: each view's
+proposals are mapped back and merged by one NMS, every view refines the
+merged proposals, the boxes and scores are averaged and go through one
+``multiclass_nms``, and a mask detector's masks of the final detections are
+averaged over the views: K1 runs views + 2 times an image.
 
 ``multi_host_test`` is the data-parallel evaluation: each rank of a
 ``torch.distributed`` group runs its shard of the batches, the fixed-shape
@@ -30,7 +35,7 @@ that ``requires_proposals`` (Fast R-CNN) gets the batch's ``proposals`` and
 inputs; the device route has no proposals and raises for it.  A mask
 detector's results are (bbox list, segm list) pairs: each detection's
 box-frame mask pasted into the original image and RLE-encoded on the host
-(``masks_to_segm_result``).  The two-stage TTA merge is not ported yet.
+(``masks_to_segm_result``).
 """
 
 from __future__ import annotations
@@ -44,8 +49,9 @@ from typing import Callable, Iterator, List, Optional, Tuple
 import numpy as np
 import torch
 
-from ..core.bbox.transforms import bbox2result
-from ..core.post_processing import merge_aug_bboxes, multiclass_nms
+from ..core.bbox.transforms import bbox2result, bbox_mapping
+from ..core.post_processing import (merge_aug_bboxes, merge_aug_bboxes_mean, merge_aug_masks,
+                                    merge_aug_proposals, multiclass_nms)
 from ..data.loader import build_dataloader, to_device
 from ..data.pipelines.loading import imread
 from ..ops.preprocess import IMAGENET_MEAN, IMAGENET_STD, preprocess_batch
@@ -280,13 +286,11 @@ def aug_test(handle, samples: List[dict], test_cfg: Optional[dict] = None
     cfg = dict(model.test_cfg or {}) if test_cfg is None else dict(test_cfg)
     boxes, scores, metas = [], [], []
     for s in samples:
-        img = torch.from_numpy(np.ascontiguousarray(s["img"], np.float32))[None].to(device)
-        img_shape = torch.from_numpy(np.asarray(s["img_shape"], np.int32)).to(device)
+        img, img_shape, _, meta = view_inputs(s, device)
         b, sc = model.bbox_head.decode_candidates(*model(img), img_shape[None], cfg)
         boxes.append(b[0])
         scores.append(sc[0])
-        factor = torch.from_numpy(np.asarray(s["scale_factor"], np.float32)).to(device)
-        metas.append(dict(img_shape=img_shape, scale_factor=factor, flip=bool(s["flip"])))
+        metas.append(meta)
     merged_boxes, merged_scores = merge_aug_bboxes(boxes, scores, metas)
     dets, labels = multiclass_nms(merged_boxes[None], merged_scores[None],
                                   score_thr=cfg.get("score_thr", 0.05),
@@ -295,19 +299,102 @@ def aug_test(handle, samples: List[dict], test_cfg: Optional[dict] = None
     return dets[0], labels[0]
 
 
+def view_inputs(sample: dict, device) -> tuple:
+    """A ``MultiScaleFlipAug`` view's (img (1, H, W, 3) f32, img_shape (2,),
+    pad_shape (2,), meta dict(img_shape, scale_factor, flip)) on ``device``;
+    the scale factor a 0-d tensor (the map back divides by it)."""
+    img = torch.from_numpy(np.ascontiguousarray(sample["img"], np.float32))[None].to(device)
+    shape = torch.from_numpy(np.asarray(sample["img_shape"], np.int32)).to(device)
+    pad = torch.from_numpy(np.asarray(sample.get("pad_shape", sample["img_shape"]),
+                                      np.int32)).to(device)
+    factor = torch.from_numpy(np.asarray(sample["scale_factor"], np.float32)).to(device)
+    return img, shape, pad, dict(img_shape=shape, scale_factor=factor, flip=bool(sample["flip"]))
+
+
+@torch.inference_mode()
+def aug_test_two_stage(handle, samples: List[dict], test_cfg: Optional[dict] = None) -> tuple:
+    """Multi-scale / flip TTA of one image, two-stage (``ioudet``'s
+    ``aug_test_two_stage``; mmdet's ``aug_test_bboxes`` and
+    ``aug_test_mask``):
+
+      1. each view's RPN proposals (``test_proposals`` by the model's
+         ``test_cfg.rpn``) mapped back and merged by ``merge_aug_proposals``
+         (``test_cfg.rpn``'s ``nms_thr`` and ``max_num``);
+      2. the merged proposals mapped into each view, scored and refined
+         there without an NMS (``rcnn_test_raw``), mapped back and averaged
+         (``merge_aug_bboxes_mean``), then one ``multiclass_nms`` by
+         ``test_cfg.rcnn`` with the merged padding rows kept out;
+      3. a detector with ``mask_test_boxes`` (Mask R-CNN and Mask Scoring
+         R-CNN) runs its mask branch in each view on the final detections
+         mapped into it, and the probabilities are averaged
+         (``merge_aug_masks``).
+
+    The primitives are the ones ``ioudet`` calls: Mask Scoring R-CNN is not
+    rescored here and Grid R-CNN not refined, and HTC's are the cascade's
+    (no semantic feature, boxes only).  The backbone runs once a view
+    (``ioudet`` runs it in each primitive, to the same result).  Returns
+    (dets (max_per_img, 5), labels (max_per_img,)[, masks (max_per_img, 28,
+    28)]) on the model's device, in original-image coordinates."""
+    model = getattr(handle, "model", handle)
+    if getattr(model, "requires_proposals", False):
+        raise NotImplementedError(
+            f"{type(model).__name__} reads its proposals from a file: the two-stage TTA "
+            "merges each view's RPN proposals, and a detector without an RPN has no TTA")
+    device = next(model.parameters()).device
+    cfg = dict(model.test_cfg or {}) if test_cfg is None else dict(test_cfg)
+    rpn_cfg = dict(cfg.get("rpn", dict(nms_pre=1000, max_num=1000, nms_thr=0.7)))
+    rcnn_cfg = dict(cfg.get("rcnn", dict(score_thr=0.05, nms=dict(iou_thr=0.5),
+                                         max_per_img=100)))
+    feats, metas, props = [], [], []
+    for s in samples:
+        img, shape, pad, meta = view_inputs(s, device)
+        feats.append(model.extract_feat(img))
+        props.append(model.test_proposals(feats[-1], shape[None], pad[None])[0])
+        metas.append(meta)
+    merged = merge_aug_proposals(props, metas, rpn_cfg)
+    boxes, scores = [], []
+    for f, meta in zip(feats, metas):
+        view_boxes = bbox_mapping(merged[:, :4], meta["img_shape"], meta["scale_factor"],
+                                  meta["flip"])
+        sc, bx = model.rcnn_test_raw(f, view_boxes[None], meta["img_shape"][None])
+        scores.append(sc[0])
+        boxes.append(bx[0])
+    mboxes, mscores = merge_aug_bboxes_mean(boxes, scores, metas)
+    num, classes = mscores.shape
+    dets, labels = multiclass_nms(mboxes.reshape(1, num, classes * 4), mscores[None],
+                                  score_thr=rcnn_cfg.get("score_thr", 0.05),
+                                  iou_thr=rcnn_cfg.get("nms", {}).get("iou_thr", 0.5),
+                                  max_per_img=rcnn_cfg.get("max_per_img", 100),
+                                  valid=(merged[:, 4] > 0)[None])
+    if not hasattr(model, "mask_test_boxes"):
+        return dets[0], labels[0]
+    masks = [model.mask_test_boxes(f, bbox_mapping(dets[:, :, :4], meta["img_shape"],
+                                                   meta["scale_factor"], meta["flip"]),
+                                   labels)[0]
+             for f, meta in zip(feats, metas)]
+    return dets[0], labels[0], merge_aug_masks(masks, metas)
+
+
 def tta_test(handle, dataset, test_cfg: Optional[dict] = None) -> list:
-    """``aug_test`` over a dataset whose test pipeline ends in
-    ``MultiScaleFlipAug`` (each item a list of views), on the model's
-    device.  Returns one ``bbox2result`` list an image, in dataset order."""
+    """``aug_test`` (single-stage) or ``aug_test_two_stage`` over a dataset
+    whose test pipeline ends in ``MultiScaleFlipAug`` (each item a list of
+    views), on the model's device.  Returns one ``bbox2result`` list an
+    image, in dataset order; for a mask detector one (that list, the
+    per-class lists of RLE dicts) pair an image, the masks pasted into the
+    original image."""
     model = getattr(handle, "model", handle)
     num_classes = model.num_result_classes
+    two_stage = hasattr(model, "rcnn_test_raw")
     results = []
     for idx in range(len(dataset)):
         views = dataset[idx]
         if not isinstance(views, list):
             raise TypeError("tta_test needs a test pipeline that ends in MultiScaleFlipAug")
-        dets, labels = aug_test(model, views, test_cfg)
-        results.append(bbox2result(dets, labels, num_classes))
+        out = (aug_test_two_stage if two_stage else aug_test)(model, views, test_cfg)
+        raw = tuple(o.cpu().numpy() for o in out)
+        if len(raw) > 2:
+            raw += (np.asarray(views[0].get("ori_shape", views[0]["img_shape"]))[:2],)
+        results.append(to_results(raw, num_classes))
     return results
 
 

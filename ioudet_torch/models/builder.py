@@ -6,8 +6,10 @@ raises ``KeyError`` naming what is available, and a structure the port
 does not build yet (a chain of necks) raises ``NotImplementedError``.  A
 config with ``rpn_head`` or ``bbox_roi_extractor`` builds a two-stage
 detector (``FasterRCNN``, ``DoubleHeadRCNN``, ``RPN``, ``MaskRCNN`` with
-``mask_roi_extractor`` and ``mask_head``, the C4 form with a
-``shared_head``; ``FastRCNN`` / ``FastMaskRCNN`` without an RPN), or a
+``mask_roi_extractor`` and ``mask_head``, ``MaskScoringRCNN`` with a
+``mask_iou_head`` too, ``GridRCNN`` with ``grid_roi_extractor`` and
+``grid_head``, the C4 form with a ``shared_head``; ``FastRCNN`` /
+``FastMaskRCNN`` without an RPN), or a
 cascade from a list of box heads (``CascadeRCNN``; ``HybridTaskCascade``
 with a list of mask heads and optionally ``semantic_roi_extractor`` and
 ``semantic_head``).  Of these, Faster R-CNN and Mask R-CNN with FPN and
@@ -29,8 +31,10 @@ from .detectors.single_stage import (IoUAwareRetinaNet, RetinaNet,
                                      SingleStageDetector)
 from .detectors.cascade_rcnn import CascadeRCNN
 from .detectors.fast_rcnn import FastMaskRCNN, FastRCNN
+from .detectors.grid_rcnn import GridRCNN
 from .detectors.htc import HybridTaskCascade
 from .detectors.mask_rcnn import MaskRCNN
+from .detectors.mask_scoring_rcnn import MaskScoringRCNN
 from .detectors.two_stage import RPN, DoubleHeadRCNN, FasterRCNN, TwoStageDetector
 from .heads.iou_aware_retina_head import IoUAwareRetinaHead
 from .heads.retina_head import RetinaHead
@@ -38,6 +42,8 @@ from .heads.rpn_head import RPNHead
 from .losses import CrossEntropyLoss, FocalLoss, L1Loss, SmoothL1Loss
 from .mask_heads.fcn_mask_head import FCNMaskHead, HTCMaskHead
 from .mask_heads.fused_semantic_head import FusedSemanticHead
+from .mask_heads.grid_head import GridHead
+from .mask_heads.maskiou_head import MaskIoUHead
 from .necks.fpn import FPN
 from .roi_extractors.single_level import DEFORM_POOLS, SingleRoIExtractor
 from .shared_heads.res_layer import ResLayer
@@ -49,14 +55,16 @@ HEADS = {"RetinaHead": RetinaHead, "IoUAwareRetinaHead": IoUAwareRetinaHead,
          "RPNHead": RPNHead, "BBoxHead": BBoxHead, "ConvFCBBoxHead": ConvFCBBoxHead,
          "SharedFCBBoxHead": SharedFCBBoxHead, "DoubleConvFCBBoxHead": DoubleConvFCBBoxHead,
          "FCNMaskHead": FCNMaskHead, "HTCMaskHead": HTCMaskHead,
-         "FusedSemanticHead": FusedSemanticHead, "ResLayer": ResLayer}
+         "FusedSemanticHead": FusedSemanticHead, "ResLayer": ResLayer,
+         "MaskIoUHead": MaskIoUHead, "GridHead": GridHead}
 ROI_EXTRACTORS = {"SingleRoIExtractor": SingleRoIExtractor}
 DETECTORS = {"SingleStageDetector": SingleStageDetector,
              "RetinaNet": RetinaNet, "IoUAwareRetinaNet": IoUAwareRetinaNet,
              "TwoStageDetector": TwoStageDetector, "FasterRCNN": FasterRCNN, "RPN": RPN,
              "MaskRCNN": MaskRCNN, "CascadeRCNN": CascadeRCNN,
              "HybridTaskCascade": HybridTaskCascade, "DoubleHeadRCNN": DoubleHeadRCNN,
-             "FastRCNN": FastRCNN, "FastMaskRCNN": FastMaskRCNN}
+             "FastRCNN": FastRCNN, "FastMaskRCNN": FastMaskRCNN,
+             "MaskScoringRCNN": MaskScoringRCNN, "GridRCNN": GridRCNN}
 # the two-stage detectors that run in bf16 (with FPN and RoIAlign; held
 # against ioudet's in tests/test_torch_two_stage_bf16.py)
 BF16_TWO_STAGE = ("TwoStageDetector", "FasterRCNN", "MaskRCNN")
@@ -123,7 +131,7 @@ def build_detector(cfg: dict, train_cfg: Optional[dict] = None,
         if "bbox_roi_extractor" in cfg:
             parts["bbox_roi_extractor"] = _build(cfg.pop("bbox_roi_extractor"),
                                                  ROI_EXTRACTORS, "roi extractor")
-        for key in ("mask_roi_extractor", "semantic_roi_extractor"):
+        for key in ("mask_roi_extractor", "semantic_roi_extractor", "grid_roi_extractor"):
             if key in cfg:
                 parts[key] = _build(cfg.pop(key), ROI_EXTRACTORS, "roi extractor")
         if "mask_head" in cfg:
@@ -137,8 +145,9 @@ def build_detector(cfg: dict, train_cfg: Optional[dict] = None,
                     for i, h in enumerate(mask_head)]
             else:
                 parts["mask_head"] = _build(with_dtype(mask_head), HEADS, "head")
-        if "semantic_head" in cfg:
-            parts["semantic_head"] = _build(with_dtype(cfg.pop("semantic_head")), HEADS, "head")
+        for key in ("semantic_head", "mask_iou_head", "grid_head"):
+            if key in cfg:
+                parts[key] = _build(with_dtype(cfg.pop(key)), HEADS, "head")
     if "bbox_head" in cfg:
         bbox_head = cfg.pop("bbox_head")
         parts["bbox_head"] = ([_build(with_dtype(h), HEADS, "head") for h in bbox_head]

@@ -16,8 +16,11 @@ the R-CNN head run as a cascade of stages, each with its own box head
     ``multiclass_nms`` over the 80 classes keeps the padded proposals out.
 
 Every stage samples from the step's generator in turn, as ``ioudet``
-splits its key a stage.  The two-stage TTA's building blocks
-(``extract_proposals``, ``rcnn_test_raw``) wait with that TTA.
+splits its key a stage.  The two-stage TTA's per-view primitives are
+``test_proposals`` and ``rcnn_test_raw`` (the mean of the stages' softmaxes
+and the last stage's box broadcast over the classes); HTC inherits them as
+``ioudet``'s does, so its TTA pools no semantic feature and returns boxes
+only.
 """
 
 from __future__ import annotations
@@ -126,7 +129,7 @@ class CascadeRCNN(_Extract):
     # -------------------------------------------------------------- test
 
     def refine(self, feats, props: torch.Tensor, semantic_feat=None) -> tuple:
-        """Proposals (B, P, 5) through every stage: (scores (B, P, C - 1),
+        """Proposals (B, P, 4 or 5) through every stage: (scores (B, P, C - 1),
         the mean of the stages' softmaxes without the background; boxes (B,
         P, 4), the last stage's decode)."""
         bsz, num = props.shape[:2]
@@ -150,6 +153,13 @@ class CascadeRCNN(_Extract):
     def simple_test_bboxes(self, feats, img_shapes, scale_factors, pad_shapes,
                            rescale: bool = True, semantic_feat=None):
         props = self.test_proposals(feats, img_shapes, pad_shapes)
-        scores, boxes = self.refine(feats, props, semantic_feat)
-        boxes = clip_boxes(boxes, img_shapes)[:, :, None].expand(-1, -1, scores.shape[-1], 4)
+        scores, boxes = self.rcnn_test_raw(feats, props[..., :4], img_shapes, semantic_feat)
         return final_nms(self.test_cfg, boxes, scores, scale_factors, rescale, props[..., 4] > 0)
+
+    def rcnn_test_raw(self, feats, proposals, img_shapes, semantic_feat=None) -> tuple:
+        """``refine`` of proposals (B, P, 4) without an NMS: (scores (B, P,
+        C - 1), boxes (B, P, C - 1, 4), the last stage's box clipped to the
+        image and broadcast over the classes)."""
+        scores, boxes = self.refine(feats, proposals, semantic_feat)
+        boxes = clip_boxes(boxes, img_shapes)[:, :, None].expand(-1, -1, scores.shape[-1], 4)
+        return scores, boxes

@@ -16,7 +16,10 @@ Faster R-CNN with an FCN mask branch on the same features.
     and the probabilities come back as f32 holding those bf16 values.
 
 ``mask_losses`` / ``mask_test`` are the branch's two halves, shared with
-``FastMaskRCNN`` (``fast_rcnn.py``).
+``FastMaskRCNN`` (``fast_rcnn.py``) and ``MaskScoringRCNN``
+(``mask_scoring_rcnn.py``).  ``mask_test_boxes`` is the per-view primitive of
+the two-stage TTA (``apis/test.py`` ``aug_test_two_stage``): the masks of
+given boxes and labels on a view's features.
 """
 
 from __future__ import annotations
@@ -34,12 +37,27 @@ from .two_stage import TwoStageDetector, to_rois
 def mask_losses(det, aux: dict, gt_masks: torch.Tensor, gt_bboxes: torch.Tensor):
     """``loss_mask`` of the mask branch on a train step's sampled rois
     (``train_core``'s aux dict), with ``gt_masks`` (B, G, S, S) uint8
-    box-frame crops."""
-    mask_pred = det.mask_head(det.mask_roi_extractor(aux["feats"], aux["rois"]))
+    box-frame crops.  The branch's RoI features, logits and targets (B, N,
+    S, S) go into ``aux`` as ``mask_feats``, ``mask_pred`` and
+    ``mask_targets``."""
+    mask_feats = det.mask_roi_extractor(aux["feats"], aux["rois"])
+    mask_pred = det.mask_head(mask_feats)
     targets = mask_target(gt_masks, gt_bboxes, aux["sel_boxes"], aux["gt_idx"],
                           aux["sel_pos"], out_size=mask_pred.shape[-1])
+    aux.update(mask_feats=mask_feats, mask_pred=mask_pred, mask_targets=targets)
     return det.mask_head.loss(mask_pred, targets.flatten(0, 1), aux["labels"],
                               aux["sel_pos"].flatten())
+
+
+def mask_branch(det, feats, boxes: torch.Tensor, labels: torch.Tensor) -> tuple:
+    """The mask branch on boxes (B, N, 4) on the canvas and their 0-based
+    labels (B, N): (the RoI features (B * N, C, 14, 14), the f32 mask
+    probabilities (B, N, 28, 28) of each box's class)."""
+    mask_feats = det.mask_roi_extractor(feats, to_rois(boxes))
+    mask_pred = det.mask_head(mask_feats)
+    bsz, n = labels.shape
+    own = det.mask_head.own_class(mask_pred, labels.reshape(-1).clamp(min=0) + 1)
+    return mask_feats, sigmoid(own).float().reshape(bsz, n, *own.shape[1:])
 
 
 def mask_test(det, feats, dets: torch.Tensor, labels: torch.Tensor,
@@ -49,10 +67,7 @@ def mask_test(det, feats, dets: torch.Tensor, labels: torch.Tensor,
     boxes = dets[..., :4]
     if rescale:
         boxes = boxes * scale_factors.float()[:, None, None]
-    mask_pred = det.mask_head(det.mask_roi_extractor(feats, to_rois(boxes)))
-    bsz, n = labels.shape
-    own = det.mask_head.own_class(mask_pred, labels.reshape(-1).clamp(min=0) + 1)
-    return sigmoid(own).float().reshape(bsz, n, *own.shape[1:])
+    return mask_branch(det, feats, boxes, labels)[1]
 
 
 class MaskRCNN(TwoStageDetector):
@@ -86,3 +101,9 @@ class MaskRCNN(TwoStageDetector):
         dets, labels = self.simple_test_bboxes(feats, img_shapes, scale_factors, pad_shapes,
                                                rescale)
         return dets, labels, mask_test(self, feats, dets, labels, scale_factors, rescale)
+
+    def mask_test_boxes(self, feats, boxes: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+        """The TTA's per-view mask primitive: the (B, N, 28, 28) probabilities
+        of given boxes (B, N, 4) in the view's coordinates and their 0-based
+        labels (B, N), on the view's features."""
+        return mask_branch(self, feats, boxes, labels)[1]

@@ -179,7 +179,8 @@ class _Extract(nn.Module):
         return {f"rpn_{k}": v for k, v in losses.items()}, dets
 
     def test_proposals(self, feats, img_shapes, pad_shapes) -> torch.Tensor:
-        """The RPN's (B, max_num, 5) proposals by ``test_cfg.rpn``."""
+        """The RPN's (B, max_num, 5) proposals by ``test_cfg.rpn`` (on a
+        view's features, ``ioudet``'s TTA primitive ``extract_proposals``)."""
         cfg = dict(dict(self.test_cfg or {}).get("rpn", {}))
         return self.proposals(self.rpn_head(feats), img_shapes, pad_shapes,
                               proposal_cfg(cfg, 1000, 1000))
@@ -250,9 +251,9 @@ class TwoStageDetector(_Extract):
     def train_core(self, img, gt_bboxes, gt_labels, gt_valid, img_shapes, pad_shapes,
                    gt_bboxes_ignore=None, gt_ignore_valid=None,
                    generator: Optional[torch.Generator] = None) -> tuple:
-        """``forward_train``'s losses, and what a mask branch extends them
-        with: the features, the sampled rois (B * N, 5) and their boxes,
-        positives, flat labels and assigned gt indices."""
+        """``forward_train``'s losses, and what a mask or grid branch extends
+        them with: the features, the sampled rois (B * N, 5) and their boxes,
+        positives, assigned gt boxes, flat labels and assigned gt indices."""
         if generator is None:
             generator = torch.Generator(img.device).manual_seed(0)
         feats = self.extract_feat(img)
@@ -290,7 +291,7 @@ class TwoStageDetector(_Extract):
         losses, labels_f = rcnn_losses(self.bbox_head, cls_score, bbox_pred, sel_boxes, sel_pos,
                                        sel_valid, matched_gt, labels)
         return losses, dict(feats=feats, rois=rois, sel_boxes=sel_boxes, sel_pos=sel_pos,
-                            labels=labels_f, gt_idx=gt_idx)
+                            matched_gt=matched_gt, labels=labels_f, gt_idx=gt_idx)
 
     def hardness(self, feats, boxes_all: torch.Tensor, labels_all: torch.Tensor):
         """OHEM's per-candidate loss: the box head's CE of every candidate
@@ -320,17 +321,26 @@ class TwoStageDetector(_Extract):
 
     def detect(self, feats, proposals, valid, img_shapes, scale_factors, rescale: bool):
         """The R-CNN's detections of proposals (B, P, 4), ``valid`` (B, P):
-        the box head, the softmax (in the head's dtype, uncast, as
-        ``ioudet``'s ``simple_test``), the class-specific decode clipped to
-        the image, and ``final_nms``."""
+        ``rcnn_test_raw`` with the softmax in the head's dtype (uncast, as
+        ``ioudet``'s ``simple_test``), then ``final_nms``."""
+        scores, boxes = self.rcnn_test_raw(feats, proposals, img_shapes, f32_scores=False)
+        return final_nms(self.test_cfg, boxes, scores, scale_factors, rescale, valid)
+
+    def rcnn_test_raw(self, feats, proposals, img_shapes, f32_scores: bool = True) -> tuple:
+        """The box head on proposals (B, P, 4) without an NMS: (scores (B, P,
+        C - 1), the softmax without the background, in f32 as ``ioudet``'s
+        TTA primitive casts it, or in the head's dtype; boxes (B, P, C - 1,
+        4), the class-specific decode clipped to the image).  With the
+        features of a view and proposals mapped into it, the two-stage TTA's
+        per-view primitive."""
         bsz, num = proposals.shape[:2]
         rois = to_rois(proposals)
         cls_score, bbox_pred = self.roi_head(feats, rois)
         nc = self.bbox_head.num_classes
-        scores = softmax(cls_score)[:, 1:].reshape(bsz, num, nc - 1)
+        scores = softmax(cls_score.float() if f32_scores else cls_score)[:, 1:]
         boxes = self.decode_rcnn(rois, bbox_pred).reshape(bsz, num * nc, 4)
         boxes = clip_boxes(boxes, img_shapes).reshape(bsz, num, nc, 4)[:, :, 1:]
-        return final_nms(self.test_cfg, boxes, scores, scale_factors, rescale, valid)
+        return scores.reshape(bsz, num, nc - 1), boxes
 
     def decode_rcnn(self, rois: torch.Tensor, bbox_pred: torch.Tensor) -> torch.Tensor:
         """Class-specific decode: (R, 4C) deltas on the rois' boxes."""

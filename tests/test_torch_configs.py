@@ -6,7 +6,8 @@ and the paper's family (the 11 ``configs/*iou_aware_*.py``,
 (``faster_rcnn_r50_fpn_1x.py``, ``rpn_r50_fpn_1x.py``,
 ``mask_rcnn_r50_fpn_1x.py``, ``htc_r50_fpn_1x.py``,
 ``faster_rcnn_r50_fpn_gn_ws_1x.py``, ``fast_rcnn_r50_fpn_1x.py``,
-``double_head_rcnn_r50_fpn_1x.py``) also go through the weight bridge: ``ioudet``
+``double_head_rcnn_r50_fpn_1x.py``, ``ms_rcnn_r50_fpn_1x.py``,
+``grid_rcnn_r50_fpn_2x.py``) also go through the weight bridge: ``ioudet``
 builds under ``jax.eval_shape``, its parameter tree (of ``simple_test`` for
 a two-stage detector, whose ``__call__`` runs the RPN alone) goes through
 ``state_dict_from_flax`` as meta tensors, and the bridged names and shapes
@@ -34,7 +35,7 @@ FAMILY = sorted(os.path.basename(f) for f in glob.glob(
     os.path.join(ROOT, "configs", "*iou_aware_*.py")))
 
 
-# every config the port builds (66 of 109); what stops the rest is in
+# every config the port builds (70 of 109); what stops the rest is in
 # ROADMAP.md ("Configs")
 BUILDS = FAMILY + [
     "retinanet_r50_fpn_1x.py", "retinanet_r50_fpn_2x.py", "retinanet_r101_fpn_1x.py",
@@ -65,7 +66,9 @@ BUILDS = FAMILY + [
     "faster_rcnn_r50_fpn_bf16_1x.py", "mask_rcnn_r50_fpn_bf16_1x.py",
     # Fast R-CNN with a caffe-style backbone: guided anchoring made its
     # proposal file, and the model has nothing of it
-    "ga_fast_r50_caffe_fpn_1x.py"]
+    "ga_fast_r50_caffe_fpn_1x.py",
+    "ms_rcnn_r50_fpn_1x.py", "ms_rcnn_r101_fpn_1x.py", "ms_rcnn_x101_64x4d_fpn_1x.py",
+    "grid_rcnn_r50_fpn_2x.py"]
 ALL = sorted(os.path.basename(f) for f in glob.glob(os.path.join(ROOT, "configs", "*.py")))
 LIBRA = ("libra_fast_rcnn_r50_fpn_1x.py", "libra_faster_rcnn_r50_fpn_1x.py",
          "libra_retinanet_r50_fpn_1x.py")
@@ -123,7 +126,8 @@ def test_the_family_is_all_there():
                                   "faster_rcnn_r50_fpn_1x.py", "rpn_r50_fpn_1x.py",
                                   "mask_rcnn_r50_fpn_1x.py", "htc_r50_fpn_1x.py",
                                   "faster_rcnn_r50_fpn_gn_ws_1x.py", "fast_rcnn_r50_fpn_1x.py",
-                                  "double_head_rcnn_r50_fpn_1x.py"])
+                                  "double_head_rcnn_r50_fpn_1x.py", "ms_rcnn_r50_fpn_1x.py",
+                                  "grid_rcnn_r50_fpn_2x.py"])
 def test_config_builds_and_bridges_one_for_one(name):
     model = build(name, gn=True)
     ours = {k: tuple(v.shape) for k, v in model.state_dict().items()}
@@ -132,7 +136,7 @@ def test_config_builds_and_bridges_one_for_one(name):
     det = jax_build_detector(jcfg["model"], jcfg.get("train_cfg"), jcfg.get("test_cfg"))
     img = jax.ShapeDtypeStruct((1, 64, 64, 3), jnp.float32)
     if jcfg["model"]["type"] in ("FasterRCNN", "MaskRCNN", "HybridTaskCascade",
-                                 "DoubleHeadRCNN", "FastRCNN"):
+                                 "DoubleHeadRCNN", "FastRCNN", "MaskScoringRCNN", "GridRCNN"):
         meta = (jax.ShapeDtypeStruct((1, 2), jnp.int32), jax.ShapeDtypeStruct((1,), jnp.float32),
                 jax.ShapeDtypeStruct((1, 2), jnp.int32))
         if jcfg["model"]["type"] == "FastRCNN":

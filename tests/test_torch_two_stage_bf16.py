@@ -313,6 +313,14 @@ NOT_IN_BF16 = {
         roi_layer=dict(type="ModulatedDeformRoIPoolingPack", out_size=7))),
     "CascadeRCNN": dict(faster_rcnn_cfgs()[0], type="CascadeRCNN"),
     "HybridTaskCascade": dict(MODEL, type="HybridTaskCascade"),
+    "MaskScoringRCNN": dict(MODEL, type="MaskScoringRCNN", mask_iou_head=dict(
+        type="MaskIoUHead", num_convs=2, num_fcs=1, in_channels=64, conv_out_channels=64,
+        fc_out_channels=64, num_classes=5)),
+    "GridRCNN": dict(faster_rcnn_cfgs()[0], type="GridRCNN",
+                     grid_roi_extractor=dict(faster_rcnn_cfgs()[0]["bbox_roi_extractor"],
+                                             roi_layer=dict(out_size=14, sample_num=2)),
+                     grid_head=dict(type="GridHead", num_convs=2, in_channels=64,
+                                    point_feat_channels=8, conv_out_channels=72)),
 }
 
 
