@@ -1,8 +1,8 @@
 """Drive the PyTorch port's serving, low-precision serving, training
 (f32, bf16 and data parallel) and evaluation paths, and Faster R-CNN's,
 Mask R-CNN's, the cascade family's (HTC, Cascade R-CNN, GN + WS), the rest
-of Faster R-CNN's family's, Mask Scoring R-CNN's, Grid R-CNN's and the
-two-stage TTA's, once on one NVIDIA GPU and check them.
+of Faster R-CNN's family's, Mask Scoring R-CNN's, Grid R-CNN's, the
+two-stage TTA's and SSD's, once on one NVIDIA GPU and check them.
 
     python3 chip_smoke.py                  # everything, as below
     python3 chip_smoke.py --kernels-only   # phases 1-2: a short first run
@@ -235,7 +235,29 @@ Phases (any failure exits non-zero):
      fusion and deconvs by CUDA events, TF32 off and on, K1 at each stage,
      the train steps with peak memory, ``tta_test``'s ms an image split
      into the backbone, proposals, merge, R-CNN passes, final NMS and mask
-     passes.
+     passes;
+  14. SSD at full width (VGG-16, seeded random weights, f32, TF32 off for
+     the checks): (14a) configs/ssd300_coco.py ``predict`` at batch 8 on
+     480x640 images resized to 300x300 without keep_ratio (scale factors
+     (B, 4)), host syncs made errors, K1a and K1b once on its 2000 (box,
+     class) candidates an image, K1's keep bit-equal to the plain mask and
+     walk and (dets (8, 200, 5), labels) to the plain-NMS replay; three
+     ``inference_detector`` requests; GPU against CPU at batch 1; (14b)
+     step 1 on the first batch of the config's own train_pipeline
+     (PhotoMetricDistortion, Expand, MinIoURandomCrop) from 24 planted
+     images on the card against the same step on the CPU (no kernel: the
+     plain assigner, softmax CE), then three ``train_detector`` steps
+     at batch 8 from the dataset, no kernel launched, losses finite; (14c)
+     ``single_device_test`` by both routes and ``evaluate(["bbox"])`` on
+     those images, each result bit-equal to a ``predict`` replay, K1 once a
+     predict, the ground truth at AP 1; ``tools.test`` on the steps'
+     checkpoint (the same metrics) and ``tools.train``; configs/
+     ssd300_voc.py through ``single_device_test`` and the VOC mAP on 7d's
+     planted tree; (14d) configs/ssd512_coco.py ``predict`` at batch 8 as
+     14a; (14e) timings: ``predict`` at batch 8 and 1 of both, TF32 off and
+     on, split into the VGG backbone, the head's convs and decode + NMS by
+     CUDA events, with peak memory; K1 on each one's own candidates; the
+     SSD300 train step at batch 8.
 The last two lines are the card's name and power limit, then
 ``{"ok": true, "device": {...}}``; the line before them lists the kernels.
 """
@@ -335,7 +357,7 @@ ACCUM_LOOPS = (1, 2, 63, 64, 65, 300)
 DEQUANT_SHAPES = ((129, 65, 144), (1000, 7, 1024), (2304, 64, 160), (3000, 256, 2304),
                   (16897, 255, 384), (16897, 128, 640), (17000, 512, 64))
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM data sheet
-TIMED_REPS = 5   # host-clock medians of phases 5, 8a, 9d and 10d
+TIMED_REPS = 3   # host-clock medians of phases 5, 8a, 9d and 10d
 F32_FLOPS_PER_S = 67e12     # f32 outside the tensor cores, same sheet
 INT8_OPS_PER_S = 1979e12    # dense int8 tensor-core rate, same sheet
 BF16_FLOPS_PER_S = 989e12   # dense bf16 tensor-core rate, same sheet
@@ -2892,18 +2914,27 @@ def voc_gt_as_results(dataset) -> list:
 def phase_voc(B) -> dict:
     """7d: the VOC config on a planted VOC2007 tree through ``build_dataset``,
     ``single_device_test`` and ``evaluate``."""
+    cfg = paper_cfg(VOC)
+    counts = voc_eval(B, serving_handle(cfg), cfg, "7d", "VOC")
+    torch.cuda.empty_cache()
+    return counts
+
+
+def voc_eval(B, handle, cfg: dict, tag: str, what: str) -> dict:
+    """``handle`` on a planted VOC2007 tree of VOC_SIZES through the config's
+    test pipeline, ``single_device_test`` (each result bit-equal to a
+    ``predict`` replay, K1 once a predict) and ``evaluate``; the ground
+    truth fed back at mAP 1 in '11points' and 'area' mode."""
     from ioudet_torch.apis.test import single_device_test
     from ioudet_torch.core.evaluation import eval_map
     from ioudet_torch.data import build_dataset
 
-    cfg = paper_cfg(VOC)
-    handle = serving_handle(cfg)
     with tempfile.TemporaryDirectory() as root:
         ann_file, prefix = plant_voc(root, VOC_SIZES, seed=8)
         dataset = build_dataset(dict(cfg["data"]["test"], ann_file=ann_file, img_prefix=prefix))
         anns = [dataset.get_ann_info(i) for i in range(len(dataset))]
         check(dataset.year == 2007 and len(dataset) == len(VOC_SIZES),
-              f"7d: {len(dataset)} images, {sum(len(a['bboxes']) for a in anns)} boxes and "
+              f"{tag}: {len(dataset)} images, {sum(len(a['bboxes']) for a in anns)} boxes and "
               f"{sum(len(a['bboxes_ignore']) for a in anns)} difficult ones (ignored), "
               "evaluated in '11points' mode (VOC2007)")
         torch.cuda.synchronize()
@@ -2911,20 +2942,18 @@ def phase_voc(B) -> dict:
         results = single_device_test(handle, dataset, EVAL_BATCH, EVAL_WORKERS, progress=False)
         torch.cuda.synchronize()
         counts = dict(B.launches)
-        n = check_results_replay(handle, dataset, results, False, "VOC single_device_test")
+        n = check_results_replay(handle, dataset, results, False, f"{what} single_device_test")
         check(counts["nms_mask_kernel"] == n and counts["nms_reduce_kernel"] == n,
-              f"VOC: K1a and K1b launched once for each of the loop's {n} predicts")
+              f"{what}: K1a and K1b launched once for each of the loop's {n} predicts")
         metrics = dataset.evaluate(results)
-        check(0.0 <= metrics["mAP"] <= 1.0, f"VOC: random weights: mAP {metrics['mAP']:.4f}")
+        check(0.0 <= metrics["mAP"] <= 1.0, f"{what}: random weights: mAP {metrics['mAP']:.4f}")
         gt = voc_gt_as_results(dataset)
         mean_ap = dataset.evaluate(gt)["mAP"]
         area = eval_map(gt, [a["bboxes"] for a in anns], [a["labels"] for a in anns],
                         num_classes=len(dataset.CLASSES), mode="area")[0]
         check(area == 1.0 and abs(mean_ap - 1.0) <= 2.0 ** -52,
-              f"VOC: the ground truth fed back: mAP {mean_ap!r} in '11points' mode (eleven "
+              f"{what}: the ground truth fed back: mAP {mean_ap!r} in '11points' mode (eleven "
               f"steps of 1/11 in float64, as ioudet sums them), {area!r} in 'area' mode")
-    del handle
-    torch.cuda.empty_cache()
     return counts
 
 
@@ -5258,6 +5287,374 @@ def phase_ms_grid(B, K, dataset6, rng, card: str) -> dict:
     return counts
 
 
+SSD300 = "ssd300_coco.py"
+SSD512 = "ssd512_coco.py"
+SSD_VOC = "ssd300_voc.py"
+SSD_BATCH = 8         # 14a / 14d: predict's batch, and 14b's imgs_per_gpu (the config's)
+SSD_STEPS = 3         # 14b: train_detector steps from the config's train_pipeline
+SSD_MEAN = (123.675, 116.28, 103.53)   # the configs' Normalize: mean only, std 1
+# 14b / 14c: 24 planted COCO images, three batches of one orientation each
+SSD_SIZES = ((480, 640),) * 16 + ((640, 480),) * 8
+SSD_REPS = 3          # 14e: timed predicts and steps, after one warm-up
+SSD_NAMES = ("backbone.features.0.weight", "backbone.l2_norm.weight", "backbone.extra.1.weight",
+             "bbox_head.cls_convs.0.weight", "bbox_head.reg_convs.1.weight",
+             "bbox_head.cls_convs.5.weight")
+
+
+def ssd_cfg(name: str) -> dict:
+    """An SSD config of configs/ as the port's loader reads it, one epoch
+    logged at every step, gradient clipping at 35 as phase 4 (the weights
+    are random: softmax losses of a few hundred)."""
+    from ioudet_torch.utils.config import Config
+
+    cfg = Config.fromfile(os.path.join(ROOT, "configs", name)).todict()
+    return dict(cfg, total_epochs=1, log_config=dict(interval=1),
+                optimizer_config=dict(grad_clip=dict(max_norm=35, norm_type=2)))
+
+
+def ssd_canvases(batch: int, size: int, rng) -> tuple:
+    """480x640 uint8 images through the test pipeline's device form: Resize
+    to size x size without keep_ratio (scale factors (B, 4)), Normalize with
+    SSD's mean and std 1, BGR -> RGB."""
+    from ioudet_torch.ops.preprocess import preprocess_batch
+
+    raw = torch.from_numpy(rng.integers(0, 256, (batch, 480, 640, 3), dtype=np.uint8)).cuda()
+    shapes = torch.tensor([[480, 640]] * batch, dtype=torch.int32, device="cuda")
+    img, img_shapes, factors = preprocess_batch(
+        raw, shapes, canvas=(size, size), max_scale=(size, size), mean=SSD_MEAN,
+        std=(1.0, 1.0, 1.0), flip_channels=True, keep_ratio=False)
+    pad = torch.full((batch, 2), size, dtype=torch.int32, device="cuda")
+    return img, img_shapes, factors, pad
+
+
+def ssd_serving(B, K, handle, inputs, what: str, tag: str) -> dict:
+    """14a / 14d: ``predict`` with host syncs made errors: K1a and K1b once,
+    on 2000 (box, class) candidates an image; (dets (B, 200, 5), labels)
+    bit-equal to a replay with the plain NMS, and K1's keep on those
+    candidates bit-equal to the plain mask and walk.  Returns the launch
+    counts."""
+    from ioudet_torch.apis.inference import predict
+
+    bsz = inputs[0].shape[0]
+    predict(handle, *inputs)   # warm-up: anchors reach the device here
+    torch.cuda.synchronize()
+    B.reset_launches()
+    dets, labels = set_sync_errors(lambda: predict(handle, *inputs))
+    torch.cuda.synchronize()
+    counts = dict(B.launches)
+    nc = handle.model.num_result_classes - 1
+    check(counts["nms_mask_kernel"] == 1 and counts["nms_reduce_kernel"] == 1,
+          f"{what} predict at batch {bsz}: K1a and K1b launched once, host syncs made "
+          f"errors: {counts}")
+    check(tuple(dets.shape) == (bsz, 200, 5) and tuple(labels.shape) == (bsz, 200)
+          and bool(torch.isfinite(dets).all()) and bool(((labels >= -1) & (labels < nc)).all())
+          and int((labels >= 0).sum()) > 0,
+          f"{what}: dets {tuple(dets.shape)} finite, labels in [-1, {nc - 1}], "
+          f"{int((labels >= 0).sum())} valid detections")
+    seen = []
+    with nms_calls(K, seen):
+        predict(handle, *inputs)
+    (boxes, valid, thr), = seen
+    check(boxes.shape[1] == 2000 and thr == 0.45,
+          f"{tag}: one NMS of N = 2000 (box, class) candidates an image at IoU {thr}; valid "
+          f"{valid.sum(1).tolist()}")
+    keep = K.greedy_keep(boxes, valid, thr)
+    plain_keep = K.nms_reduce_plain(K.nms_mask_plain(boxes, thr), valid)
+    check(torch.equal(keep, plain_keep),
+          f"{tag}: K1's keep on SSD's candidates bit-equal to the plain mask and walk "
+          f"({int(keep.sum())} kept of {int(valid.sum())})")
+    with plain_nms(K):
+        plain = predict(handle, *inputs)
+    check(torch.equal(plain[0], dets) and torch.equal(plain[1], labels),
+          f"{what}: dets and labels through K1 bit-equal to the plain-NMS replay")
+    return counts
+
+
+def ssd_reference(handle, size: int, what: str) -> None:
+    """The full-width model at batch 1 on a pixel-scale canvas, GPU against
+    CPU (f32, TF32 off): every output to 2e-3 of its largest |value|."""
+    rng = np.random.default_rng(2)
+    x = torch.from_numpy(rng.normal(0, 60, (1, size, size, 3)).astype(np.float32))
+    with torch.inference_mode():
+        gpu = handle.model(x.cuda())
+        cpu = copy.deepcopy(handle.model).cpu()(x)
+    worst = 0.0
+    for g_lvls, c_lvls in zip(gpu, cpu):
+        for g, c in zip(g_lvls, c_lvls):
+            worst = max(worst, float((g.cpu() - c).abs().max()) / (float(c.abs().max()) + 1e-6))
+    check(worst <= 2e-3, f"{what}: GPU forward matches CPU forward: max rel err {worst:.2e}")
+
+
+def ssd_training(B, handle, cfg, dataset, work_dir: str) -> tuple:
+    """14b: step 1 on the loader's first batch (the config's train_pipeline:
+    PhotoMetricDistortion, Expand, MinIoURandomCrop, Resize, flip, Normalize,
+    Pad) on the card against the same step of a CPU copy of the model (SSD's
+    loss takes the plain assigner and a softmax, so no kernel runs), then
+    ``train_detector`` for SSD_STEPS steps from the dataset.  Returns
+    (launch counts, runner, batch)."""
+    from ioudet_torch.apis.train import train_detector
+    from ioudet_torch.data import build_dataloader
+    from ioudet_torch.data.loader import to_device
+
+    model = handle.model.train()
+    loader = build_dataloader(dataset, SSD_BATCH, EVAL_WORKERS, shuffle=True, seed=0)
+    first = next(iter(loader))
+    batch = {k: to_device(first[k], torch.device("cuda"))
+             for k in ("img", "gt_bboxes", "gt_labels", "gt_valid", "img_shape", "pad_shape")}
+    check(tuple(batch["img"].shape) == (SSD_BATCH, 300, 300, 3) and
+          int(batch["gt_valid"].sum()) > 0,
+          f"14b: the loader's first batch: {tuple(batch['img'].shape)} canvases, "
+          f"{batch['gt_valid'].sum(1).tolist()} gts an image after the crops")
+    torch.cuda.synchronize()
+    B.reset_launches()
+    losses, grads = loss_and_grads(model, batch, SSD_NAMES)
+    torch.cuda.synchronize()
+    check(not any(B.launches.values()),
+          f"14b: step 1 launched no kernel (the plain assigner, softmax CE): {dict(B.launches)}")
+    cpu_batch = {k: v.cpu() for k, v in batch.items()}
+    cpu_losses, cpu_grads = loss_and_grads(copy.deepcopy(model).cpu(), cpu_batch, SSD_NAMES)
+    # the whole step, card against CPU, where no mining decides: the box loss
+    # and the gradient of a box conv (loss_cls mines every tie at its
+    # threshold, and which anchors tie follows the last bits of the convs)
+    got, want = float(losses["loss_bbox"]), float(cpu_losses["loss_bbox"])
+    check(abs(got - want) <= 1e-4 * abs(want),
+          f"14b: step 1's loss_bbox on the card {got:.6f}, on the CPU {want:.6f} (rtol 1e-4); "
+          f"loss_cls {float(losses['loss_cls']):.6f} and {float(cpu_losses['loss_cls']):.6f}")
+    name = "bbox_head.reg_convs.1.weight"
+    scale = float(cpu_grads[name].abs().max())
+    diff = max_abs(grads[name].cpu(), cpu_grads[name])
+    check(scale > 0 and diff <= 2e-3 * scale,
+          f"14b: step 1, grad of {name} on the card against the CPU: max abs diff "
+          f"{diff:.2e} of max {scale:.2e} (limit 2e-3 of it)")
+    # the loss itself (assignment, softmax CE, mining, smooth L1) on the same
+    # head outputs: card against CPU, losses and their gradients
+    with torch.no_grad():
+        outs = model(batch["img"])
+    head_losses, head_grads = [], []
+    for dev, b in (("cuda", batch), ("cpu", cpu_batch)):
+        leaves = [[t.detach().to(dev).requires_grad_() for t in lvl] for lvl in outs]
+        out = model.bbox_head.loss(*leaves, b["gt_bboxes"], b["gt_labels"], b["gt_valid"],
+                                   b["img_shape"], b["pad_shape"], dict(model.train_cfg))
+        sum(out.values()).backward()
+        head_losses.append({k: float(v.detach()) for k, v in out.items()})
+        head_grads.append([t.grad.cpu() for lvl in leaves for t in lvl])
+    for k, want in head_losses[1].items():
+        got = head_losses[0][k]
+        check(abs(got - want) <= 1e-5 * abs(want),
+              f"14b: SSDHead.loss on the same head outputs: {k} on the card {got:.6f}, "
+              f"on the CPU {want:.6f} (rtol 1e-5)")
+    scale = max(float(c.abs().max()) for c in head_grads[1])
+    diff = max(max_abs(g, c) for g, c in zip(*head_grads))
+    check(scale > 0 and diff <= 1e-5 * scale,
+          f"14b: its gradient w.r.t. the head outputs on the card against the CPU: max abs "
+          f"diff {diff:.2e} of max {scale:.2e} (limit 1e-5 of it)")
+    check(float(grads[SSD_NAMES[0]].abs().max()) > 0,
+          "14b: step 1's gradient reaches the first VGG conv")
+    per_step, history = [], []
+
+    def hook(step, log_vars):
+        per_step.append(dict(B.launches))
+        history.append({k: float(v) for k, v in log_vars.items()})
+        B.reset_launches()
+
+    torch.cuda.synchronize()
+    B.reset_launches()
+    runner = train_detector(handle, dataset, dict(cfg, data=dict(
+        cfg["data"], imgs_per_gpu=SSD_BATCH, workers_per_gpu=EVAL_WORKERS)), work_dir,
+        device="cuda", step_hook=hook)
+    check(len(per_step) == SSD_STEPS and all(not any(c.values()) for c in per_step),
+          f"14b: {len(per_step)} train_detector steps at batch {SSD_BATCH} from the dataset, "
+          f"no kernel launched: {per_step}")
+    check(all(sorted(r) == ["loss", "loss_bbox", "loss_cls"] and
+              all(np.isfinite(v) for v in r.values()) for r in history),
+          "14b: every step's losses finite: " + "; ".join(
+              ", ".join(f"{k} {v:.4f}" for k, v in r.items()) for r in history))
+    for k, v in losses.items():
+        check(abs(history[0][k] - float(v)) <= 1e-5 * abs(float(v)),
+              f"14b: step 1's {k} of train_detector equals the one above on the loader's "
+              "first batch")
+    counts = {}
+    for c in per_step:
+        counts = add_counts(counts, c)
+    return counts, runner, batch
+
+
+def ssd_eval(B, handle, cfg, ann_file: str, img_dir: str, work_dir: str) -> dict:
+    """14c: ``single_device_test`` by the host pipeline and the device route
+    and ``evaluate(["bbox"])`` on the planted COCO set, each result
+    bit-equal to a ``predict`` replay, K1 once a predict, the ground truth
+    at AP 1; ``tools.test`` on the steps' checkpoint gives the same metrics;
+    ``tools.train`` trains the config one step on two images."""
+    from ioudet_torch.apis.test import single_device_test
+    from ioudet_torch.data import build_dataset
+    from ioudet_torch.tools import test as test_tool
+    from ioudet_torch.tools import train as train_tool
+
+    handle.model.eval()
+    dataset = build_dataset(dict(cfg["data"]["test"], ann_file=ann_file, img_prefix=img_dir))
+    counts, metrics = {}, None
+    for dp in (False, True):
+        route = "device route" if dp else "host pipeline"
+        torch.cuda.synchronize()
+        B.reset_launches()
+        results = single_device_test(handle, dataset, EVAL_BATCH, EVAL_WORKERS, progress=False,
+                                     device_preprocess=dp)
+        torch.cuda.synchronize()
+        seen = dict(B.launches)
+        counts = add_counts(counts, seen)
+        n = check_results_replay(handle, dataset, results, dp, f"14c SSD300 {route}")
+        check(seen["nms_mask_kernel"] == n and seen["nms_reduce_kernel"] == n,
+              f"14c {route}: K1a and K1b launched once for each of the loop's {n} predicts")
+        got = dataset.evaluate(results, metric="bbox")
+        check(all(np.isfinite(v) and -1 <= v <= 1 for v in got.values()),
+              f"14c {route}: {sum(sum(map(len, r)) for r in results)} detections; after "
+              f"{SSD_STEPS} steps: AP {got['AP']:.4f}, AR100 {got['AR100']:.4f}")
+        metrics = metrics or got
+    gt = dataset.evaluate(gt_as_results(dataset), metric="bbox")
+    check(gt["AP"] == 1.0 and gt["AR100"] == 1.0,
+          f"14c: the ground truth fed back: AP {gt['AP']!r}, AR100 {gt['AR100']!r}")
+    base = os.path.join(ROOT, "configs", SSD300)
+    cli_cfg = os.path.join(work_dir, "cli.py")
+    with open(cli_cfg, "w") as f:
+        f.write(f"_base_ = {base!r}\n"
+                f"data = dict(imgs_per_gpu=2, workers_per_gpu=2, "
+                f"train=dict(ann_file={ann_file!r}, img_prefix={img_dir!r}), "
+                f"test=dict(ann_file={ann_file!r}, img_prefix={img_dir!r}))\n"
+                "total_epochs = 1\nlog_config = dict(interval=1)\n"
+                "optimizer_config = dict(grad_clip=dict(max_norm=35, norm_type=2))\n")
+    out = test_tool.main([cli_cfg, os.path.join(work_dir, "train", "epoch_1.pth"), "--eval",
+                          "bbox", "--batch", str(EVAL_BATCH)])
+    check(out["bbox"] == metrics,
+          f"14c: python -m ioudet_torch.tools.test {SSD300} epoch_1.pth --eval bbox: the "
+          f"metrics of single_device_test, AP {out['bbox']['AP']:.4f}")
+    cli_work = os.path.join(work_dir, "cli_work")
+    with open(ann_file) as f:
+        ann = json.load(f)
+    two = os.path.join(work_dir, "two.json")
+    with open(two, "w") as f:
+        keep = {im["id"] for im in ann["images"][:2]}
+        json.dump(dict(ann, images=ann["images"][:2],
+                       annotations=[a for a in ann["annotations"] if a["image_id"] in keep]), f)
+    with open(cli_cfg, "a") as f:
+        f.write(f"data['train']['ann_file'] = {two!r}\n")
+    runner = train_tool.main([cli_cfg, "--work_dir", cli_work, "--n-devices", "1"])
+    with open(os.path.join(cli_work, "log.json")) as f:
+        logged = [json.loads(line) for line in f]
+    check(runner.step == 1 and len(logged) == 1 and np.isfinite(logged[0]["loss"]),
+          f"14c: python -m ioudet_torch.tools.train {SSD300} on 2 planted images: one step, "
+          f"loss {logged[0]['loss']:.4f}")
+    return counts
+
+
+def ssd_timing(K, what: str, handle, inputs, card: str, runner=None, batch=None) -> None:
+    """14e: ``predict`` at batch 8 and 1, TF32 off and on, with peak memory
+    and the backbone / head / decode + NMS split by CUDA events; K1 on the
+    predict's own candidates; with ``runner`` the train step at batch 8 with
+    peak memory, TF32 off."""
+    from ioudet_torch.apis.inference import predict
+
+    model = handle.model
+    spans = ([("start", model.backbone, "pre"), ("VGG backbone", model.backbone, "post"),
+              ("head convs", model.bbox_head, "post")], "decode + NMS")
+    for tf32 in (False, True):
+        set_tf32(tf32)
+        tag = f"[{card}; f32, TF32 {'on' if tf32 else 'off'}]"
+        ms, peak, parts = family_split(handle, inputs, SSD_REPS, spans)
+        one = tuple(x[:1] for x in inputs)
+        ms1 = host_ms(lambda: predict(handle, *one), reps=SSD_REPS)
+        print(f"14e {what} predict batch {inputs[0].shape[0]}: median of {SSD_REPS} {ms:.3f} "
+              f"ms, {inputs[0].shape[0] * 1e3 / ms:.2f} img/s, peak memory {peak:.2f} GiB; by "
+              "CUDA events, ms: " + ", ".join(f"{k} {v:.3f}" for k, v in parts.items()) +
+              f"; batch 1 {ms1:.3f} ms {tag}", flush=True)
+    set_tf32(False)
+    seen = []
+    with nms_calls(K, seen):
+        predict(handle, *inputs)
+    (boxes, valid, thr), = seen
+    words = K.nms_mask(boxes, thr)
+    keep = K.nms_reduce(words, valid)
+    print(k1_line(K, f"{what} detections, IoU {thr}, batch {boxes.shape[0]}", boxes, keep,
+                  cuda_ms(lambda: K.nms_mask(boxes, thr), 50),
+                  cuda_ms(lambda: K.nms_reduce(words, valid), 50),
+                  *k1_bounds(boxes, words, keep), f"[{card}; f32"), flush=True)
+    if runner is None:
+        return
+    runner.model.train()
+    torch.cuda.reset_peak_memory_stats()
+    ms = host_ms(lambda: runner.train_step(batch, SSD_STEPS), reps=SSD_REPS)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    print(f"14e {what} train step batch {SSD_BATCH}: median of {SSD_REPS} {ms:.3f} ms, "
+          f"{SSD_BATCH * 1e3 / ms:.2f} img/s, peak memory {peak:.2f} GiB [{card}; f32, TF32 "
+          "off]", flush=True)
+    runner.model.eval()
+
+
+def phase_ssd(B, K, rng, card: str) -> dict:
+    """Phase 14: SSD300 COCO at full width (VGG-16, 81 classes, seeded
+    random weights, f32, TF32 off for the checks) served, trained and
+    evaluated through the port's entry points, SSD300 VOC through the VOC
+    mAP, SSD512 COCO served; then their timings.  Returns the kernels'
+    launch counts of its main-path runs."""
+    from ioudet_torch.apis.inference import inference_detector, init_detector
+    from ioudet_torch.data import build_dataset
+
+    set_tf32(False)
+    t = time.perf_counter()
+    cfg = ssd_cfg(SSD300)
+    handle = init_detector(cfg, device="cuda", seed=0)
+    print(f"14a: SSD300 ({SSD300}, {sum(p.numel() for p in handle.model.parameters()):,} "
+          "parameters, 8,096 anchors)", flush=True)
+    inputs = ssd_canvases(SSD_BATCH, 300, rng)
+    counts = ssd_serving(B, K, handle, inputs, "SSD300", "14a")
+    requests = [rng.integers(0, 256, (h, w, 3), dtype=np.uint8)
+                for h, w in ((480, 640), (800, 1333), (1333, 800))]
+    B.reset_launches()
+    results = [inference_detector(handle, im) for im in requests]
+    torch.cuda.synchronize()
+    counts = add_counts(counts, dict(B.launches))
+    check(all(len(r) == 80 and all(a.ndim == 2 and a.shape[1] == 5 and np.isfinite(a).all()
+                                   for a in r) for r in results) and B.launches[
+              "nms_mask_kernel"] == 3,
+          "14a: three inference_detector requests (480x640, 800x1333, 1333x800, resized to "
+          f"300x300 without keep_ratio): {[sum(map(len, r)) for r in results]} dets in 80 "
+          "per-class lists, K1 once each")
+    ssd_reference(handle, 300, "SSD300")
+    print(f"14a: {time.perf_counter() - t:.2f} s", flush=True)
+
+    t = time.perf_counter()
+    work = tempfile.TemporaryDirectory()
+    ann_file, img_dir = plant_coco(work.name, SSD_SIZES, 80, seed=21)
+    dataset = build_dataset(dict(cfg["data"]["train"], ann_file=ann_file, img_prefix=img_dir))
+    got, runner, batch = ssd_training(B, handle, cfg, dataset,
+                                      os.path.join(work.name, "train"))
+    counts = add_counts(counts, got)
+    print(f"14b: {time.perf_counter() - t:.2f} s", flush=True)
+    t = time.perf_counter()
+    counts = add_counts(counts, ssd_eval(B, handle, cfg, ann_file, img_dir, work.name))
+    voc_cfg = ssd_cfg(SSD_VOC)
+    counts = add_counts(counts, voc_eval(B, init_detector(voc_cfg, device="cuda", seed=0),
+                                         voc_cfg, "14c", "SSD300 VOC"))
+    print(f"14c: {time.perf_counter() - t:.2f} s", flush=True)
+
+    t = time.perf_counter()
+    handle512 = init_detector(ssd_cfg(SSD512), device="cuda", seed=0)
+    print(f"14d: SSD512 ({SSD512}, {sum(p.numel() for p in handle512.model.parameters()):,} "
+          "parameters, 24,564 anchors)", flush=True)
+    inputs512 = ssd_canvases(SSD_BATCH, 512, rng)
+    counts = add_counts(counts, ssd_serving(B, K, handle512, inputs512, "SSD512", "14d"))
+    print(f"14d: {time.perf_counter() - t:.2f} s", flush=True)
+
+    t = time.perf_counter()
+    handle.model.eval()
+    ssd_timing(K, "SSD300", handle, inputs, card, runner, batch)
+    ssd_timing(K, "SSD512", handle512, inputs512, card)
+    print(f"14e: {time.perf_counter() - t:.2f} s", flush=True)
+    del handle, handle512, runner, batch, inputs, inputs512
+    work.cleanup()
+    torch.cuda.empty_cache()
+    return counts
+
+
 KERNELS = {  # name: (source, the TPU kernel it replaces)
     "nms_mask_kernel": ("nms_kernel.cu", "ioudet/ops/nms_pallas.py:26"),
     "nms_reduce_kernel": ("nms_kernel.cu", "ioudet/ops/nms_pallas.py:81"),
@@ -5454,6 +5851,16 @@ def main() -> int:
     launches = {k: launches[k] + ms_grid_launches.get(k, 0) for k in launches}
     eval_dir.cleanup()
     print(f"phase 13: {time.perf_counter() - t:.2f} s", flush=True)
+
+    print("phase 14: SSD at full width; TF32 off for the checks: 14a SSD300 COCO predict at "
+          f"batch {SSD_BATCH} (K1 at its one NMS), inference_detector, GPU against CPU; 14b "
+          f"{SSD_STEPS} train_detector steps at batch {SSD_BATCH} from the config's "
+          "train_pipeline; 14c single_device_test and evaluate (COCO, and SSD300 VOC's mAP), "
+          "tools.test, tools.train; 14d SSD512 predict; 14e timings" + since(start), flush=True)
+    t = time.perf_counter()
+    ssd_launches = phase_ssd(B, K, rng, card)
+    launches = {k: launches[k] + ssd_launches.get(k, 0) for k in launches}
+    print(f"phase 14: {time.perf_counter() - t:.2f} s", flush=True)
     check(all(launches[name] > 0 for name in KERNELS if name not in REPLACED) and
           all(launches[name] == 0 for name in REPLACED),
           "every kernel was launched on a main path, and none of those the wgmma kernels "

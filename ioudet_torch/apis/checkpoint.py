@@ -123,7 +123,35 @@ def _res_block(sd: dict, base: str, node: dict, what: str) -> None:
             raise KeyError(f"unknown {what} param {sub}")
 
 
-def _backbone(sd: dict, tree: dict, prefix: str = "backbone") -> None:
+# flax conv name -> torchvision's VGG-16 ``features`` index (ioudet's
+# ``_VGG16_FEATURE_IDX`` inverted; fc6 and fc7 follow pool5)
+VGG16_FEATURE_IDX = {
+    "conv1_1": 0, "conv1_2": 2, "conv2_1": 5, "conv2_2": 7,
+    "conv3_1": 10, "conv3_2": 12, "conv3_3": 14,
+    "conv4_1": 17, "conv4_2": 19, "conv4_3": 21,
+    "conv5_1": 24, "conv5_2": 26, "conv5_3": 28,
+    "fc6": 31, "fc7": 33,
+}
+
+
+def _ssd_vgg(sd: dict, tree: dict, prefix: str = "backbone") -> None:
+    """``SSDVGG``'s tree -> mmdet's ``features.N``, ``extra.N`` and
+    ``l2_norm.weight``."""
+    for name, leaf in tree.items():
+        if name in VGG16_FEATURE_IDX:
+            _conv(sd, f"{prefix}.features.{VGG16_FEATURE_IDX[name]}", leaf)
+        elif re.fullmatch(r"extra\d+", name):
+            _conv(sd, f"{prefix}.extra.{name[5:]}", leaf)
+        elif name == "l2norm":
+            sd[f"{prefix}.l2_norm.weight"] = _tensor(leaf["gamma"])
+        else:
+            raise KeyError(f"unknown SSD backbone param {name}")
+
+
+def _backbone(sd: dict, tree: dict, prefix: str = "backbone", kind: str = "") -> None:
+    if kind == "SSDVGG":
+        _ssd_vgg(sd, tree, prefix)
+        return
     block = re.compile(r"layer(\d+)_(\d+)$")
     for name, node in tree.items():
         if name == "conv1":
@@ -202,11 +230,14 @@ def _roi_head(sd: dict, tree: dict, prefix: str = "bbox_head") -> None:
             raise KeyError(f"unknown box head param {name}")
 
 
-def _head(sd: dict, tree: dict, prefix: str = "bbox_head") -> None:
+def _head(sd: dict, tree: dict, prefix: str = "bbox_head", kind: str = "") -> None:
+    # SSDHead's per-level output convs are bare convs (``cls_convs.i``); the
+    # RetinaNet family's towers are ConvModules (``cls_convs.i.conv``)
+    tower = "" if kind == "SSDHead" else ".conv"
     for name, leaf in tree.items():
         m = re.fullmatch(r"(cls|reg)_conv(\d+)", name)
         if m:
-            _conv(sd, f"{prefix}.{m.group(1)}_convs.{m.group(2)}.conv", leaf)
+            _conv(sd, f"{prefix}.{m.group(1)}_convs.{m.group(2)}{tower}", leaf)
         elif name in ("retina_cls", "retina_reg", "retina_iou", "rpn_conv", "rpn_cls",
                       "rpn_reg"):
             _conv(sd, f"{prefix}.{name}", leaf)
@@ -352,20 +383,28 @@ def _roi_extractor(sd: dict, tree: dict, prefix: str = "bbox_roi_extractor") -> 
                     sd[key] = t.reshape(s * s * kk, *t.shape[3:]).contiguous()
 
 
-def _box_head(sd: dict, head: dict, prefix: str) -> None:
+def _box_head(sd: dict, head: dict, prefix: str, kind: str = "") -> None:
     if "res_block" in head:
         _double_head(sd, head, prefix)
     elif any(k.startswith(("shared_", "fc_")) for k in head):
         _roi_head(sd, head, prefix)
     elif head:
-        _head(sd, head, prefix)
+        _head(sd, head, prefix, kind)
 
 
 _STAGE = re.compile(r"(bbox_head|mask_head)_(\d+)$")
 
 
-def state_dict_from_flax(params: dict) -> Dict[str, torch.Tensor]:
+def module_types(model: torch.nn.Module) -> Dict[str, str]:
+    """{parameter group: the class name of the port's module there} of a
+    detector: the ``types`` that ``state_dict_from_flax`` dispatches on."""
+    return {name: type(child).__name__ for name, child in model.named_children()}
+
+
+def state_dict_from_flax(params: dict, types: Optional[Dict[str, str]] = None
+                         ) -> Dict[str, torch.Tensor]:
     """``ioudet`` params of the RetinaNet family {backbone, neck, bbox_head},
+    of SSD {backbone (SSDVGG), bbox_head},
     of Faster R-CNN / RPN / Mask R-CNN {backbone, neck, rpn_head,
     bbox_head[, mask_head[, mask_iou_head]]} (Grid R-CNN's with grid_head;
     Fast R-CNN's without rpn_head; the C4 form's
@@ -377,7 +416,12 @@ def state_dict_from_flax(params: dict) -> Dict[str, torch.Tensor]:
     its statistics would be flax's ``batch_stats``, which no ``ioudet``
     checkpoint holds (its BN ConvModule cannot run).  A partial tree (a
     pretrained backbone alone, or the trainable leaves of an optimizer
-    state) gives the entries it holds."""
+    state) gives the entries it holds.  ``types`` (``module_types`` of the
+    detector) names the backbone's and the box head's families where the
+    tree's names alone do not: ``SSDVGG`` and ``SSDHead`` are bridged only
+    when named there; without them the ResNet and RetinaNet forms are taken,
+    and an SSD tree raises at its first VGG name."""
+    types = types or {}
     unknown = {k for k in params if not _STAGE.match(k)} - {
         "backbone", "neck", "rpn_head", "bbox_head", "mask_head", "semantic_head",
         "shared_head", "bbox_roi_extractor", "mask_iou_head", "grid_head"}
@@ -385,7 +429,7 @@ def state_dict_from_flax(params: dict) -> Dict[str, torch.Tensor]:
         raise KeyError(f"unsupported parameter groups: {sorted(unknown)}")
     sd: Dict[str, torch.Tensor] = {}
     if "backbone" in params:
-        _backbone(sd, params["backbone"])
+        _backbone(sd, params["backbone"], kind=types.get("backbone", ""))
     if "neck" in params:
         _neck(sd, params["neck"])
     if "rpn_head" in params:
@@ -394,7 +438,7 @@ def state_dict_from_flax(params: dict) -> Dict[str, torch.Tensor]:
         _roi_extractor(sd, params["bbox_roi_extractor"])
     if "shared_head" in params:
         _shared_head(sd, params["shared_head"])
-    _box_head(sd, params.get("bbox_head", {}), "bbox_head")
+    _box_head(sd, params.get("bbox_head", {}), "bbox_head", types.get("bbox_head", ""))
     if "mask_head" in params:
         _mask_head(sd, params["mask_head"])
     for name, tree in params.items():
@@ -446,18 +490,18 @@ def load_optax_state(model: torch.nn.Module, optimizer: torch.optim.Optimizer,
     if len(found) != 1:
         raise KeyError(f"expected one momentum or Adam state in the optax state, found "
                        f"{len(found)}")
-    leaf = found[0]
+    leaf, types = found[0], module_types(model)
     names = {id(p): n for n, p in model.named_parameters()}
     trained = {names[id(p)]: p for g in optimizer.param_groups for p in g["params"]}
     if "trace" in leaf:
         if not isinstance(optimizer, torch.optim.SGD):
             raise TypeError(f"a momentum trace needs SGD, not {type(optimizer).__name__}")
-        slots = {"momentum_buffer": state_dict_from_flax(_prune(leaf["trace"]))}
+        slots = {"momentum_buffer": state_dict_from_flax(_prune(leaf["trace"]), types)}
     else:
         if not isinstance(optimizer, torch.optim.AdamW):
             raise TypeError(f"an Adam state needs AdamW, not {type(optimizer).__name__}")
-        slots = {"exp_avg": state_dict_from_flax(_prune(leaf["mu"])),
-                 "exp_avg_sq": state_dict_from_flax(_prune(leaf["nu"]))}
+        slots = {"exp_avg": state_dict_from_flax(_prune(leaf["mu"]), types),
+                 "exp_avg_sq": state_dict_from_flax(_prune(leaf["nu"]), types)}
     slots = {slot: _norm_names(sd, trained) for slot, sd in slots.items()}
     for slot, sd in slots.items():
         if set(sd) != set(trained):
@@ -591,18 +635,19 @@ def latest_checkpoint(work_dir: str) -> Optional[str]:
         return os.path.join(work_dir, f.read().strip())
 
 
-def read_weights(filename: str) -> Tuple[Dict[str, torch.Tensor], dict, dict]:
+def read_weights(filename: str, types: Optional[Dict[str, str]] = None
+                 ) -> Tuple[Dict[str, torch.Tensor], dict, dict]:
     """(state_dict, optimizer state, meta) of a checkpoint: an mmdet-layout
     ``.pth`` (a state_dict, or a dict holding one under ``state_dict``; the
     optimizer state is torch's) or an ``ioudet`` directory (the parameters
-    bridged; the optimizer state is optax's tree, ``{}`` where there is
-    none)."""
+    bridged, ``types`` as ``state_dict_from_flax`` takes them; the optimizer
+    state is optax's tree, ``{}`` where there is none)."""
     if os.path.isdir(filename):
         state, meta = read_flax_checkpoint(filename)
         if state.get("model_state"):
             raise NotImplementedError(f"{filename}: model_state {sorted(state['model_state'])} "
                                       "(GHM's EMA) is not ported")
-        return state_dict_from_flax(state.get("params", state)), \
+        return state_dict_from_flax(state.get("params", state), types), \
             state.get("opt_state") or {}, meta
     ckpt = torch.load(filename, map_location="cpu", weights_only=True)
     if not isinstance(ckpt, dict):
@@ -619,7 +664,7 @@ def load_checkpoint(model: torch.nn.Module, filename: str, strict: bool = True,
     directory) into ``model`` and, when ``optimizer`` is given and the
     checkpoint holds its state, into the optimizer.  Returns the
     checkpoint's ``meta`` (``epoch``, ``step``, ...)."""
-    sd, opt_state, meta = read_weights(filename)
+    sd, opt_state, meta = read_weights(filename, module_types(model))
     model.load_state_dict(sd, strict=strict)
     if optimizer is not None and opt_state:
         if os.path.isdir(filename):
@@ -634,7 +679,7 @@ def merge_weights(model: torch.nn.Module, filename: str) -> list:
     partial tree, such as a pretrained backbone, leaves the rest as it
     was).  A name the model does not have or a shape that differs raises.
     Returns the names loaded."""
-    sd, _, _ = read_weights(filename)
+    sd, _, _ = read_weights(filename, module_types(model))
     own = model.state_dict()
     unknown = sorted(set(sd) - set(own))
     if unknown:

@@ -89,15 +89,16 @@ def predict(handle: DetectorHandle, imgs: torch.Tensor, img_shapes: torch.Tensor
 
 
 def pipeline_settings(cfg: dict):
-    """(canvas, img_scale, mean, std, to_rgb) of the config's test pipeline,
-    read as ``ioudet``'s device-preprocess route reads it: Pad and Normalize
-    at the top level or inside MultiScaleFlipAug, Resize at the top level,
-    ``ioudet``'s defaults for what is left out."""
-    canvas, scale = DEFAULT_CANVAS, DEFAULT_SCALE
+    """(canvas, img_scale, mean, std, to_rgb, keep_ratio) of the config's
+    test pipeline, read as ``ioudet``'s device-preprocess route reads it:
+    Pad and Normalize at the top level or inside MultiScaleFlipAug, Resize
+    at the top level (SSD's without keep_ratio), ``ioudet``'s defaults for
+    what is left out."""
+    canvas, scale, keep_ratio = DEFAULT_CANVAS, DEFAULT_SCALE, True
     mean, std, to_rgb = IMAGENET_MEAN, IMAGENET_STD, True
     for s in cfg.get("data", {}).get("test", {}).get("pipeline", []):
         if s.get("type") == "Resize":
-            scale = tuple(s["img_scale"])
+            scale, keep_ratio = tuple(s["img_scale"]), s.get("keep_ratio", True)
         for t in s.get("transforms", [s]):
             if t.get("type") == "Pad" and t.get("size"):
                 canvas = tuple(t["size"])
@@ -105,7 +106,7 @@ def pipeline_settings(cfg: dict):
                 mean = tuple(t.get("mean", mean))
                 std = tuple(t.get("std", std))
                 to_rgb = bool(t.get("to_rgb", True))
-    return canvas, scale, mean, std, to_rgb
+    return canvas, scale, mean, std, to_rgb, keep_ratio
 
 
 def inference_detector(handle: DetectorHandle, img: Union[str, np.ndarray, torch.Tensor]):
@@ -125,14 +126,15 @@ def inference_detector(handle: DetectorHandle, img: Union[str, np.ndarray, torch
         np.ascontiguousarray(img))
     if arr.dtype != torch.uint8 or arr.dim() != 3 or arr.shape[2] != 3:
         raise ValueError(f"expected (H, W, 3) uint8, got {tuple(arr.shape)} {arr.dtype}")
-    canvas, scale, mean, std, to_rgb = pipeline_settings(handle.cfg)
+    canvas, scale, mean, std, to_rgb, keep_ratio = pipeline_settings(handle.cfg)
     h, w = arr.shape[:2]
     if h > w and canvas[0] < canvas[1]:  # portrait images get a portrait canvas
         canvas = (canvas[1], canvas[0])
     dev = handle.device
     canvas_img, img_shape, factor = preprocess(
         arr.to(dev), torch.tensor([h, w], dtype=torch.int32, device=dev),
-        canvas=canvas, max_scale=scale, mean=mean, std=std, flip_channels=to_rgb)
+        canvas=canvas, max_scale=scale, mean=mean, std=std, flip_channels=to_rgb,
+        keep_ratio=keep_ratio)
     pad_shape = torch.tensor([canvas], dtype=torch.int32, device=dev)
     outs = predict(handle, canvas_img[None], img_shape[None], factor[None], pad_shape)
     raw = tuple(o[0].cpu().numpy() for o in outs)

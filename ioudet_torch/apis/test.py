@@ -64,21 +64,21 @@ PROPOSAL_KEYS = ("proposals", "prop_valid")   # a Fast R-CNN's, from LoadProposa
 
 
 def _pipeline_specs(dataset):
-    """(canvas, max_scale, mean, std, to_rgb) of the dataset's test pipeline,
-    so that the device route reproduces it; ``ioudet``'s defaults where a
-    step is absent."""
-    canvas, max_scale = (832, 1344), (1333, 800)
+    """(canvas, max_scale, mean, std, to_rgb, keep_ratio) of the dataset's
+    test pipeline, so that the device route reproduces it; ``ioudet``'s
+    defaults where a step is absent."""
+    canvas, max_scale, keep_ratio = (832, 1344), (1333, 800), True
     mean, std, to_rgb = IMAGENET_MEAN, IMAGENET_STD, True
     for step in dataset.pipeline.transforms:
         name = type(step).__name__
         if name == "Resize":
-            max_scale = tuple(step.img_scale[0])
+            max_scale, keep_ratio = tuple(step.img_scale[0]), step.keep_ratio
         elif name == "Pad" and step.size:
             canvas = tuple(step.size)
         elif name == "Normalize":
             mean, std = tuple(step.mean), tuple(step.std)
             to_rgb = bool(step.to_rgb)
-    return canvas, max_scale, mean, std, to_rgb
+    return canvas, max_scale, mean, std, to_rgb, keep_ratio
 
 
 def _host_batches(dataset, device, imgs_per_batch, workers, num_shards, shard_index):
@@ -106,7 +106,7 @@ def _host_batches(dataset, device, imgs_per_batch, workers, num_shards, shard_in
 
 
 def _device_batches(dataset, device, imgs_per_batch, workers, num_shards, shard_index):
-    canvas, max_scale, mean, std, to_rgb = _pipeline_specs(dataset)
+    canvas, max_scale, mean, std, to_rgb, keep_ratio = _pipeline_specs(dataset)
     infos = dataset.img_infos
     # one raw buffer shape for the dataset (ioudet's bucket): the largest
     # image rounded up to 256
@@ -138,7 +138,8 @@ def _device_batches(dataset, device, imgs_per_batch, workers, num_shards, shard_
                 shapes[b] = h, w
             imgs, img_shapes, factors = preprocess_batch(
                 raw.to(device, non_blocking=True), to_device(shapes, device),
-                canvas=cv, max_scale=max_scale, mean=mean, std=std, flip_channels=to_rgb)
+                canvas=cv, max_scale=max_scale, mean=mean, std=std, flip_channels=to_rgb,
+                keep_ratio=keep_ratio)
             pad_shapes = np.tile(np.asarray([cv], np.int32), (len(idxs), 1))
             yield idxs, (imgs, img_shapes, factors, to_device(pad_shapes, device)), shapes
 
@@ -148,7 +149,7 @@ def eval_batches(dataset, device, imgs_per_batch: int = 8, workers: int = 4,
                  with_ori_shape: bool = False
                  ) -> Iterator[Tuple[List[int], Tuple[torch.Tensor, ...]]]:
     """The evaluation loop's batches on ``device``: (dataset indices, (imgs
-    (B, H, W, 3) f32 canvas, img_shapes (B, 2), scale_factors (B,),
+    (B, H, W, 3) f32 canvas, img_shapes (B, 2), scale_factors (B,) or (B, 4),
     pad_shapes (B, 2))), one orientation a batch; every image once, or with
     ``num_shards`` > 1 the ``shard_index``-th share of the batches (an image
     may then come again in another shard); a pipeline with

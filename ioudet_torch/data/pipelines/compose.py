@@ -9,11 +9,13 @@ from __future__ import annotations
 from .formatting import Collect, DefaultFormatBundle, ImageToTensor
 from .loading import LoadAnnotations, LoadImageFromFile, LoadProposals
 from .test_aug import MultiScaleFlipAug
-from .transforms import Normalize, Pad, RandomFlip, Resize, SegRescale
+from .transforms import (Expand, MinIoURandomCrop, Normalize, Pad, PhotoMetricDistortion,
+                         RandomFlip, Resize, SegRescale)
 
 PIPELINES = {c.__name__: c for c in (
     LoadImageFromFile, LoadAnnotations, LoadProposals, Resize, RandomFlip, Normalize, Pad,
-    SegRescale, DefaultFormatBundle, ImageToTensor, Collect, MultiScaleFlipAug)}
+    SegRescale, PhotoMetricDistortion, Expand, MinIoURandomCrop, DefaultFormatBundle,
+    ImageToTensor, Collect, MultiScaleFlipAug)}
 
 
 def build_step(cfg: dict):

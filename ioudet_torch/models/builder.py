@@ -27,8 +27,8 @@ from .backbones.resnet import ResNet
 from .backbones.resnext import ResNeXt
 from .bbox_heads.bbox_head import BBoxHead, ConvFCBBoxHead, SharedFCBBoxHead
 from .bbox_heads.double_bbox_head import DoubleConvFCBBoxHead
-from .detectors.single_stage import (IoUAwareRetinaNet, RetinaNet,
-                                     SingleStageDetector)
+from .backbones.ssd_vgg import SSDVGG
+from .detectors.single_stage import SSD, IoUAwareRetinaNet, RetinaNet, SingleStageDetector
 from .detectors.cascade_rcnn import CascadeRCNN
 from .detectors.fast_rcnn import FastMaskRCNN, FastRCNN
 from .detectors.grid_rcnn import GridRCNN
@@ -39,6 +39,7 @@ from .detectors.two_stage import RPN, DoubleHeadRCNN, FasterRCNN, TwoStageDetect
 from .heads.iou_aware_retina_head import IoUAwareRetinaHead
 from .heads.retina_head import RetinaHead
 from .heads.rpn_head import RPNHead
+from .heads.ssd_head import SSDHead
 from .losses import CrossEntropyLoss, FocalLoss, L1Loss, SmoothL1Loss
 from .mask_heads.fcn_mask_head import FCNMaskHead, HTCMaskHead
 from .mask_heads.fused_semantic_head import FusedSemanticHead
@@ -49,14 +50,14 @@ from .roi_extractors.single_level import DEFORM_POOLS, SingleRoIExtractor
 from .shared_heads.res_layer import ResLayer
 from .utils.layers import compute_dtype
 
-BACKBONES = {"ResNet": ResNet, "ResNeXt": ResNeXt}
+BACKBONES = {"ResNet": ResNet, "ResNeXt": ResNeXt, "SSDVGG": SSDVGG}
 NECKS = {"FPN": FPN}
 HEADS = {"RetinaHead": RetinaHead, "IoUAwareRetinaHead": IoUAwareRetinaHead,
          "RPNHead": RPNHead, "BBoxHead": BBoxHead, "ConvFCBBoxHead": ConvFCBBoxHead,
          "SharedFCBBoxHead": SharedFCBBoxHead, "DoubleConvFCBBoxHead": DoubleConvFCBBoxHead,
          "FCNMaskHead": FCNMaskHead, "HTCMaskHead": HTCMaskHead,
          "FusedSemanticHead": FusedSemanticHead, "ResLayer": ResLayer,
-         "MaskIoUHead": MaskIoUHead, "GridHead": GridHead}
+         "MaskIoUHead": MaskIoUHead, "GridHead": GridHead, "SSDHead": SSDHead}
 ROI_EXTRACTORS = {"SingleRoIExtractor": SingleRoIExtractor}
 DETECTORS = {"SingleStageDetector": SingleStageDetector,
              "RetinaNet": RetinaNet, "IoUAwareRetinaNet": IoUAwareRetinaNet,
@@ -64,7 +65,7 @@ DETECTORS = {"SingleStageDetector": SingleStageDetector,
              "MaskRCNN": MaskRCNN, "CascadeRCNN": CascadeRCNN,
              "HybridTaskCascade": HybridTaskCascade, "DoubleHeadRCNN": DoubleHeadRCNN,
              "FastRCNN": FastRCNN, "FastMaskRCNN": FastMaskRCNN,
-             "MaskScoringRCNN": MaskScoringRCNN, "GridRCNN": GridRCNN}
+             "MaskScoringRCNN": MaskScoringRCNN, "GridRCNN": GridRCNN, "SSD": SSD}
 # the two-stage detectors that run in bf16 (with FPN and RoIAlign; held
 # against ioudet's in tests/test_torch_two_stage_bf16.py)
 BF16_TWO_STAGE = ("TwoStageDetector", "FasterRCNN", "MaskRCNN")

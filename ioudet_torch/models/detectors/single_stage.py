@@ -68,7 +68,7 @@ class SingleStageDetector(nn.Module):
                     scale_factors: torch.Tensor, pad_shapes: torch.Tensor,
                     rescale: bool = True):
         """img (B, H, W, 3) f32 canvas; img_shapes / pad_shapes (B, 2) int;
-        scale_factors (B,) f32."""
+        scale_factors (B,) f32, or (B, 4) from a Resize without keep_ratio."""
         outs = self(img)
         return self.bbox_head.get_bboxes(*outs, img_shapes, scale_factors,
                                          pad_shapes, dict(self.test_cfg or {}),
@@ -81,3 +81,7 @@ class RetinaNet(SingleStageDetector):
 
 class IoUAwareRetinaNet(SingleStageDetector):
     """The paper's detector: SingleStageDetector + IoUAwareRetinaHead."""
+
+
+class SSD(SingleStageDetector):
+    """SSD: the SSDVGG backbone and the SSDHead, no neck."""

@@ -35,6 +35,8 @@ class AnchorHead(nn.Module):
     """Configuration and anchor helpers shared by the anchor heads;
     subclasses define the network."""
 
+    SOFTMAX = False   # whether the subclass has a softmax classifier
+
     def __init__(self, num_classes: int = 81, in_channels: int = 256,
                  feat_channels: int = 256,
                  anchor_scales: Sequence[float] = (8, 16, 32),
@@ -49,8 +51,9 @@ class AnchorHead(nn.Module):
                  dtype: Union[None, str, torch.dtype] = None):
         super().__init__()
         self.dtype = compute_dtype(dtype)
-        if not use_sigmoid_cls:
-            raise NotImplementedError("softmax classification is not ported yet")
+        if not use_sigmoid_cls and not self.SOFTMAX:
+            raise NotImplementedError(f"softmax classification in {type(self).__name__} is "
+                                      "not ported (SSDHead has it)")
         self.num_classes = num_classes
         self.in_channels = in_channels
         self.feat_channels = feat_channels
@@ -262,9 +265,11 @@ def sigmoid(x: torch.Tensor) -> torch.Tensor:
 
 def batched_nms(boxes: torch.Tensor, scores: torch.Tensor,
                 scale_factors: torch.Tensor, test_cfg: dict, rescale: bool):
-    """Rescale + multiclass NMS over a (B, N, ...) candidate set."""
+    """Rescale + multiclass NMS over a (B, N, ...) candidate set;
+    scale_factors (B,), or (B, 4) for a Resize without keep_ratio (SSD's)."""
     if rescale:
-        boxes = boxes / scale_factors.float()[:, None, None]
+        factors = scale_factors.float()
+        boxes = boxes / (factors[:, None, None] if factors.dim() == 1 else factors[:, None])
     nms_cfg = test_cfg.get("nms", {})
     return multiclass_nms(
         boxes, scores, score_thr=test_cfg.get("score_thr", 0.05),

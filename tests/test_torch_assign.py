@@ -23,6 +23,7 @@ from ioudet.ops.assign_pallas import fused_anchor_assign as jax_fused
 from ioudet_torch.core.anchor import anchor_target, anchor_target_single
 from ioudet_torch.core.bbox import MaxIoUAssigner
 from ioudet_torch.ops import assign_cuda
+from tests.torch_twins import one_thread  # noqa: F401 (autouse)
 
 MEANS = (0.0, 0.0, 0.0, 0.0)
 STDS = (0.1, 0.1, 0.2, 0.2)

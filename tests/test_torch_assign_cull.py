@@ -34,6 +34,7 @@ from ioudet_torch.core.bbox.geometry import bbox_overlaps
 from ioudet_torch.core.bbox.transforms import bbox2delta
 from ioudet_torch.ops import assign_cuda as A
 from ioudet_torch.tools import probe_assign_parts as P
+from tests.torch_twins import one_thread  # noqa: F401 (autouse)
 
 # (pos_iou_thr, neg_iou_thr, min_pos_iou, pos_weight, means, stds), as
 # chip_smoke.phase_assign_kernels
@@ -42,16 +43,6 @@ SETTINGS = ((0.5, 0.4, 0.0, 1.0, (0.0,) * 4, (1.0,) * 4),
 # a pos_iou_thr of 0 makes an anchor that meets no gt positive for the first
 # valid gt (rule a's best)
 ZERO_THR = ((0.0, 0.0, 0.0, 1.0, (0.0,) * 4, (1.0,) * 4),)
-
-
-@pytest.fixture(autouse=True)
-def one_thread():
-    """Small tensors in Python loops: one intra-op thread, so that the
-    test workers running beside this one do not slow it down many times."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 
 def groups_of(anchors, valid, group):

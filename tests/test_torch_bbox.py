@@ -14,6 +14,7 @@ from ioudet.models.heads.anchor_head import clip_boxes as jclip
 from ioudet_torch.core.anchor import AnchorGenerator
 from ioudet_torch.core.bbox import bbox2delta, bbox2result, bbox_overlaps, delta2bbox
 from ioudet_torch.models.heads.anchor_head import clip_boxes
+from tests.torch_twins import one_thread  # noqa: F401 (autouse)
 
 
 def boxes(rng, shape, lo=0.0, hi=300.0):

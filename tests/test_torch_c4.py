@@ -34,7 +34,7 @@ from ioudet_torch.models.shared_heads.res_layer import ResLayer
 from ioudet_torch.ops import roi_align
 from tests._torch_mp_worker import faster_rcnn_cfgs, two_stage_batches
 from tests.test_torch_two_stage import FACTORS, PAD, SHAPES, images
-from tests.torch_twins import param_shapes, random_params
+from tests.torch_twins import one_thread, param_shapes, random_params  # one_thread: autouse
 
 KEYS = ("img", "gt_bboxes", "gt_labels", "gt_valid", "img_shape", "pad_shape")
 MAX_NUM = 12
@@ -57,14 +57,6 @@ def c4_cfgs(num_gts: int = 4, max_num: int = MAX_NUM) -> tuple:
 
 
 MODEL, TRAIN_CFG, TEST_CFG = c4_cfgs()
-
-
-@pytest.fixture(autouse=True, scope="module")
-def one_thread():
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 
 def test_res_layer_matches_ioudet():

@@ -34,18 +34,10 @@ from tests._torch_mp_worker import cascade_rcnn_cfgs, two_stage_batches
 from tests.test_torch_htc import (check_bridge, check_simple_test, check_train_losses,
                                    htc_params, htc_twin)
 from tests.test_torch_two_stage import FACTORS, PAD, SHAPES, images
-from tests.torch_twins import param_shapes, random_params
+from tests.torch_twins import one_thread, param_shapes, random_params  # one_thread: autouse
 
 MODEL, TRAIN_CFG, TEST_CFG = cascade_rcnn_cfgs()
 KEYS = ("img", "gt_bboxes", "gt_labels", "gt_valid", "img_shape", "pad_shape")
-
-
-@pytest.fixture(autouse=True, scope="module")
-def one_thread():
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 
 def train_batch() -> dict:

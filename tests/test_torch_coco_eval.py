@@ -11,6 +11,7 @@ import pytest
 import tests.test_coco_eval_golden as golden
 from ioudet.core import evaluation as J
 from ioudet_torch.core import evaluation as P
+from tests.torch_twins import one_thread  # noqa: F401 (autouse)
 
 GOLDENS = [getattr(golden, name) for name in sorted(dir(golden)) if name.startswith("test_")]
 

@@ -7,7 +7,8 @@ and the paper's family (the 11 ``configs/*iou_aware_*.py``,
 ``mask_rcnn_r50_fpn_1x.py``, ``htc_r50_fpn_1x.py``,
 ``faster_rcnn_r50_fpn_gn_ws_1x.py``, ``fast_rcnn_r50_fpn_1x.py``,
 ``double_head_rcnn_r50_fpn_1x.py``, ``ms_rcnn_r50_fpn_1x.py``,
-``grid_rcnn_r50_fpn_2x.py``) also go through the weight bridge: ``ioudet``
+``grid_rcnn_r50_fpn_2x.py``, ``ssd300_coco.py``) also go through the
+weight bridge: ``ioudet``
 builds under ``jax.eval_shape``, its parameter tree (of ``simple_test`` for
 a two-stage detector, whose ``__call__`` runs the RPN alone) goes through
 ``state_dict_from_flax`` as meta tensors, and the bridged names and shapes
@@ -26,16 +27,17 @@ import torch
 
 from ioudet.models import build_detector as jax_build_detector
 from ioudet.utils.config import Config as JaxConfig
-from ioudet_torch.apis.checkpoint import state_dict_from_flax
+from ioudet_torch.apis.checkpoint import module_types, state_dict_from_flax
 from ioudet_torch.models import build_detector
 from ioudet_torch.utils.config import Config
+from tests.torch_twins import one_thread  # noqa: F401 (autouse)
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 FAMILY = sorted(os.path.basename(f) for f in glob.glob(
     os.path.join(ROOT, "configs", "*iou_aware_*.py")))
 
 
-# every config the port builds (70 of 109); what stops the rest is in
+# every config the port builds (75 of 109); what stops the rest is in
 # ROADMAP.md ("Configs")
 BUILDS = FAMILY + [
     "retinanet_r50_fpn_1x.py", "retinanet_r50_fpn_2x.py", "retinanet_r101_fpn_1x.py",
@@ -68,7 +70,9 @@ BUILDS = FAMILY + [
     # proposal file, and the model has nothing of it
     "ga_fast_r50_caffe_fpn_1x.py",
     "ms_rcnn_r50_fpn_1x.py", "ms_rcnn_r101_fpn_1x.py", "ms_rcnn_x101_64x4d_fpn_1x.py",
-    "grid_rcnn_r50_fpn_2x.py"]
+    "grid_rcnn_r50_fpn_2x.py",
+    "ssd300_coco.py", "ssd512_coco.py", "ssd300_voc.py", "ssd512_voc.py",
+    "ssd300_wider_face.py"]
 ALL = sorted(os.path.basename(f) for f in glob.glob(os.path.join(ROOT, "configs", "*.py")))
 LIBRA = ("libra_fast_rcnn_r50_fpn_1x.py", "libra_faster_rcnn_r50_fpn_1x.py",
          "libra_retinanet_r50_fpn_1x.py")
@@ -127,14 +131,16 @@ def test_the_family_is_all_there():
                                   "mask_rcnn_r50_fpn_1x.py", "htc_r50_fpn_1x.py",
                                   "faster_rcnn_r50_fpn_gn_ws_1x.py", "fast_rcnn_r50_fpn_1x.py",
                                   "double_head_rcnn_r50_fpn_1x.py", "ms_rcnn_r50_fpn_1x.py",
-                                  "grid_rcnn_r50_fpn_2x.py"])
+                                  "grid_rcnn_r50_fpn_2x.py", "ssd300_coco.py"])
 def test_config_builds_and_bridges_one_for_one(name):
     model = build(name, gn=True)
     ours = {k: tuple(v.shape) for k, v in model.state_dict().items()}
 
     jcfg = gn_double_head(JaxConfig.fromfile(os.path.join(ROOT, "configs", name)).todict())
     det = jax_build_detector(jcfg["model"], jcfg.get("train_cfg"), jcfg.get("test_cfg"))
-    img = jax.ShapeDtypeStruct((1, 64, 64, 3), jnp.float32)
+    # SSD's extra convs need its own input size; the rest take any canvas
+    size = jcfg["model"]["backbone"].get("input_size", 64)
+    img = jax.ShapeDtypeStruct((1, size, size, 3), jnp.float32)
     if jcfg["model"]["type"] in ("FasterRCNN", "MaskRCNN", "HybridTaskCascade",
                                  "DoubleHeadRCNN", "FastRCNN", "MaskScoringRCNN", "GridRCNN"):
         meta = (jax.ShapeDtypeStruct((1, 2), jnp.int32), jax.ShapeDtypeStruct((1,), jnp.float32),
@@ -148,5 +154,5 @@ def test_config_builds_and_bridges_one_for_one(name):
         shapes = jax.eval_shape(lambda x: det.init(jax.random.PRNGKey(0), x), img)
     shapes = shapes["params"]
     meta = jax.tree_util.tree_map(lambda s: torch.empty(s.shape, device="meta"), shapes)
-    bridged = {k: tuple(v.shape) for k, v in state_dict_from_flax(meta).items()}
+    bridged = {k: tuple(v.shape) for k, v in state_dict_from_flax(meta, module_types(model)).items()}
     assert bridged == ours

@@ -24,6 +24,7 @@ from ioudet_torch.apis.train import train_detector
 from ioudet_torch.core.bbox import bbox_overlaps
 from ioudet_torch.data import build_dataset
 from ioudet_torch.data.pipelines.loading import imwrite_netpbm
+from tests.torch_twins import one_thread  # noqa: F401 (autouse)
 
 H, W, N, BATCH = 64, 96, 16, 8
 MODEL = dict(

@@ -22,6 +22,7 @@ from ioudet_torch.data.pipelines import Compose, imresize
 from ioudet_torch.data.pipelines.loading import (decode_netpbm, encode_netpbm, imread,
                                                  imwrite_netpbm)
 from ioudet_torch.data.rng import make_sample_rng, set_sample_rng
+from tests.torch_twins import one_thread  # noqa: F401 (autouse)
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 FLAGSHIP = runpy.run_path(os.path.join(ROOT, "configs", "iou_aware_retinanet_r50_fpn_1x.py"))
@@ -207,8 +208,9 @@ def test_dataset_wrappers_and_build_dataset(planted):
 
 
 def test_unported_steps_raise():
+    # SSD's augmentations are ported (tests/test_torch_ssd_pipeline.py); RandomCrop is not
     with pytest.raises(KeyError, match="not ported"):
-        Compose([dict(type="PhotoMetricDistortion")])
+        Compose([dict(type="RandomCrop", crop_size=(32, 32))])
     # precomputed proposals are ported (tests/test_torch_fast_rcnn.py); the
     # Cityscapes dataset is not
     with pytest.raises(KeyError, match="not ported"):

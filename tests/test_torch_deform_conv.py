@@ -18,14 +18,7 @@ import torch.nn.functional as F
 
 from ioudet.ops.deform_conv import deform_conv2d as jax_deform_conv2d
 from ioudet_torch.ops.deform_conv import DeformConv, deform_conv2d, sample_taps
-
-
-@pytest.fixture(autouse=True)
-def one_thread():
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
+from tests.torch_twins import one_thread  # noqa: F401 (autouse)
 
 
 def case(stride, dilation=1, b=2, c=5, h=9, w=11, o=7, seed=0):

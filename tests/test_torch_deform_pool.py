@@ -34,18 +34,10 @@ from ioudet_torch.apis.checkpoint import state_dict_from_flax
 from ioudet_torch.models.roi_extractors.single_level import SingleRoIExtractor
 from ioudet_torch.ops.deform_pool import (DeformRoIPoolingPack, ModulatedDeformRoIPoolingPack,
                                           deform_roi_pool)
-from tests.torch_twins import param_shapes, random_params
+from tests.torch_twins import one_thread, param_shapes, random_params  # one_thread: autouse
 
 C = 8
 REL = 5e-5
-
-
-@pytest.fixture(autouse=True, scope="module")
-def one_thread():
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 
 def scaled_close(got: torch.Tensor, want, rel: float = REL) -> None:

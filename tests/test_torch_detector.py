@@ -18,6 +18,7 @@ from ioudet.models import build_detector as jax_build_detector
 from ioudet_torch.apis.checkpoint import state_dict_from_flax
 from ioudet_torch.models import build_detector
 from ioudet_torch.models.utils.layers import FrozenBatchNorm
+from tests.torch_twins import one_thread  # noqa: F401 (autouse)
 
 TINY = dict(
     type="IoUAwareRetinaNet",

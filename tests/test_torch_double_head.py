@@ -39,20 +39,12 @@ from ioudet_torch.models.bbox_heads.double_bbox_head import DoubleConvFCBBoxHead
 from ioudet_torch.models.utils.layers import BatchNorm
 from tests._torch_mp_worker import faster_rcnn_cfgs, two_stage_batches
 from tests.test_torch_two_stage import FACTORS, PAD, SHAPES, images
-from tests.torch_twins import param_shapes, random_params
+from tests.torch_twins import one_thread, param_shapes, random_params  # one_thread: autouse
 
 HEAD = dict(num_convs=2, num_fcs=2, num_classes=5, in_channels=64, conv_out_channels=128,
             fc_out_channels=64, cls_loss_weight=2.0, bbox_loss_weight=2.0,
             norm_cfg=dict(type="GN"))
 KEYS = ("img", "gt_bboxes", "gt_labels", "gt_valid", "img_shape", "pad_shape")
-
-
-@pytest.fixture(autouse=True, scope="module")
-def one_thread():
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 
 def scaled_close(got: torch.Tensor, want, rel: float) -> None:

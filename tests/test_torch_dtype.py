@@ -52,6 +52,7 @@ from ioudet_torch.models.necks.fpn import FPN
 from ioudet_torch.models.utils.layers import Conv2d, ConvModule, FrozenBatchNorm
 from ioudet_torch.ops import quant
 from tests.test_torch_detector import randomize
+from tests.torch_twins import one_thread  # noqa: F401 (autouse)
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 

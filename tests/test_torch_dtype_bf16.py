@@ -13,14 +13,7 @@ import pytest
 import torch
 
 from tests.test_torch_dtype import META, TEST_CFG, as_np, images, pair  # noqa: F401
-
-
-@pytest.fixture(autouse=True, scope="module")
-def one_thread():
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
+from tests.torch_twins import one_thread  # noqa: F401 (autouse)
 
 
 @pytest.fixture(scope="module")

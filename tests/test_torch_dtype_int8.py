@@ -21,14 +21,7 @@ from ioudet_torch.apis import checkpoint as ckpt
 from ioudet_torch.apis.inference import DetectorHandle, predict
 from ioudet_torch.ops import quant
 from tests.test_torch_dtype import MODEL, META, TEST_CFG, as_np, images, pair  # noqa: F401
-
-
-@pytest.fixture(autouse=True, scope="module")
-def one_thread():
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
+from tests.torch_twins import one_thread  # noqa: F401 (autouse)
 
 
 def heads_flax(det, params, x):

@@ -37,6 +37,7 @@ from ioudet_torch.tools import train as train_tool
 from tests.test_torch_data_pipeline import plant_coco
 from tests.test_torch_detector import randomize
 from tests.test_torch_inference import CFG
+from tests.torch_twins import one_thread  # noqa: F401 (autouse)
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 MODEL, TEST_CFG = CFG["model"], CFG["test_cfg"]
@@ -44,15 +45,6 @@ TEST_PIPELINE = CFG["data"]["test"]["pipeline"]
 # 7 landscape and 3 portrait images: ragged batches of 4 in both groups
 SIZES = [(48, 80), (64, 96), (40, 72), (80, 56), (56, 90), (96, 64), (60, 100),
          (44, 70), (72, 48), (52, 84)]
-
-
-@pytest.fixture(autouse=True)
-def one_thread():
-    """Many small torch ops: one intra-op thread beside the other workers."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 
 def bridged(model_cfg=MODEL, seed=0, train_cfg=None, test_cfg=TEST_CFG):

@@ -44,7 +44,7 @@ from ioudet_torch.utils.config import Config
 from tests._torch_mp_worker import faster_rcnn_cfgs, two_stage_batches
 from tests.test_torch_data_pipeline import assert_samples_equal, plant_coco
 from tests.test_torch_two_stage import FACTORS, PAD, SHAPES, images
-from tests.torch_twins import param_shapes, random_params
+from tests.torch_twins import one_thread, param_shapes, random_params  # one_thread: autouse
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 NUM_PROPS = 32
@@ -69,14 +69,6 @@ def fast_rcnn_cfgs(num_gts: int = 4, num_props: int = NUM_PROPS) -> tuple:
 MODEL, TRAIN_CFG, TEST_CFG = fast_rcnn_cfgs()
 BOX_MODEL = {k: v for k, v in dict(MODEL, type="FastRCNN").items()
              if not k.startswith("mask_")}
-
-
-@pytest.fixture(autouse=True, scope="module")
-def one_thread():
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 
 def proposals(seed: int, batch: int = 2, valid_rows=(NUM_PROPS, 20)) -> tuple:

@@ -41,6 +41,7 @@ from ioudet_torch.utils.flax_msgpack import MsgpackError, msgpack_restore
 from ioudet.models import build_detector as jax_build_detector
 from tests.test_torch_train import (LR_CONFIG, MODEL, TRAIN_CFG, bridge, make_batch, new_model,
                                     tbatch)
+from tests.torch_twins import one_thread  # noqa: F401 (autouse)
 
 DTYPES = [np.float32, np.float16, np.int32, np.int64, np.uint8, np.bool_]
 

@@ -20,6 +20,7 @@ from ioudet.ops.focal_pallas import focal_level_dx as jax_dx
 from ioudet.ops.focal_pallas import focal_level_sum as jax_sum
 from ioudet_torch.models.losses import fused_level_focal_sum
 from ioudet_torch.ops import focal_cuda
+from tests.torch_twins import one_thread  # noqa: F401 (autouse)
 
 SHAPES = [(2, 6, 9, 3, 7), (3, 5, 7, 9, 80)]   # (B, H, W, A, C); the second is ragged
 DX_TOL = {torch.float32: dict(rtol=1e-5, atol=1e-6),

@@ -27,6 +27,7 @@ import torch
 
 import chip_smoke
 from ioudet_torch.ops import focal_cuda
+from tests.torch_twins import one_thread  # noqa: F401 (autouse)
 
 GAMMA, ALPHA, G = 2.0, 0.25, 3.0
 SMALL = [s for s in chip_smoke.FOCAL_SHAPES if s[0] * s[1] * s[2] * s[3] * s[4] <= 200_000]
@@ -34,16 +35,6 @@ SMALL = [s for s in chip_smoke.FOCAL_SHAPES if s[0] * s[1] * s[2] * s[3] * s[4] 
 # divides H*W (8 only in bf16), contiguous logits at V = 1
 CASES = [(s, "view", v) for s in SMALL for v in (1, 2, 4, 8) if (s[1] * s[2]) % v == 0]
 CASES += [(s, "contiguous", 1) for s in SMALL]
-
-
-@pytest.fixture(autouse=True)
-def one_thread():
-    """Small tensors in Python loops: one intra-op thread, so that the
-    test workers running beside this one do not slow it down many times."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 
 def level(shape, layout):

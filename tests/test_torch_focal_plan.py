@@ -11,6 +11,7 @@ import torch
 
 from ioudet_torch.ops import focal_cuda
 from ioudet_torch.tools import probe_focal_parts
+from tests.torch_twins import one_thread  # noqa: F401 (autouse)
 
 LEVELS = ((104, 168), (52, 84), (26, 42), (13, 21), (7, 11))   # P3-P7 at 832x1344
 SMS = 132

@@ -32,19 +32,11 @@ from ioudet_torch.models.bbox_heads.bbox_head import ConvFCBBoxHead
 from ioudet_torch.models.mask_heads.fcn_mask_head import FCNMaskHead
 from ioudet_torch.models.necks.fpn import FPN
 from ioudet_torch.models.utils.layers import ConvModule, ConvWS2d, GroupNorm
-from tests.torch_twins import param_shapes, random_params
+from tests.torch_twins import one_thread, param_shapes, random_params  # one_thread: autouse
 
 WS = dict(type="ConvWS")
 GN = dict(type="GN", num_groups=4)
 GN32 = dict(type="GN", num_groups=32)
-
-
-@pytest.fixture(autouse=True, scope="module")
-def one_thread():
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 
 def nchw(x: np.ndarray) -> torch.Tensor:

@@ -43,7 +43,7 @@ from ioudet_torch.models.mask_heads import grid_head
 from tests._torch_mp_worker import faster_rcnn_cfgs, two_stage_batches
 from tests.test_torch_roi_ops import jax_draws
 from tests.test_torch_two_stage import FACTORS, PAD, SHAPES, images
-from tests.torch_twins import param_shapes, random_params
+from tests.torch_twins import one_thread, param_shapes, random_params  # one_thread: autouse
 
 FASTER, TRAIN_CFG, TEST_CFG = faster_rcnn_cfgs()
 MODEL = dict(FASTER, type="GridRCNN",
@@ -54,14 +54,6 @@ MODEL = dict(FASTER, type="GridRCNN",
                             conv_out_channels=72, heatmap_size=56))
 KEYS = ("img", "gt_bboxes", "gt_labels", "gt_valid", "img_shape", "pad_shape")
 FROZEN = ("backbone.conv1.", "backbone.bn1.", "backbone.layer1.")
-
-
-@pytest.fixture(autouse=True, scope="module")
-def one_thread():
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 
 def boxes(rng, n: int) -> np.ndarray:

@@ -37,20 +37,12 @@ from ioudet_torch.models.mask_heads.fcn_mask_head import HTCMaskHead
 from ioudet_torch.models.mask_heads.fused_semantic_head import FusedSemanticHead
 from tests._torch_mp_worker import htc_cfgs, two_stage_batches
 from tests.test_torch_two_stage import FACTORS, PAD, SHAPES, images
-from tests.torch_twins import param_shapes, random_params
+from tests.torch_twins import one_thread, param_shapes, random_params  # one_thread: autouse
 
 KEYS = ("img", "gt_bboxes", "gt_labels", "gt_valid", "img_shape", "pad_shape")
 # (interleaved, mask_info_flow, semantic); Cascade Mask R-CNN's is all off
 SETTINGS = {"cascade_mask_rcnn": (False, False, False), "without_semantic": (True, True, False),
             "htc": (True, True, True)}
-
-
-@pytest.fixture(autouse=True, scope="module")
-def one_thread():
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 
 def train_batch() -> dict:

@@ -8,18 +8,10 @@ semantic head), ``simple_test`` (dets, labels, masks) and every train
 loss.  Tolerances: tests/test_torch_htc.py's."""
 
 import pytest
-import torch
 
 from tests.test_torch_htc import (check_bridge, check_simple_test, check_train_losses,
                                   htc_params, htc_twin)
-
-
-@pytest.fixture(autouse=True, scope="module")
-def one_thread():
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
+from tests.torch_twins import one_thread  # noqa: F401 (autouse)
 
 
 @pytest.fixture(scope="module")

@@ -13,6 +13,8 @@ import torch
 
 from ioudet_torch.apis.inference import (init_detector, inference_detector,
                                          pipeline_settings, predict)
+from ioudet_torch.utils.config import Config
+from tests.torch_twins import one_thread  # noqa: F401 (autouse)
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -82,9 +84,12 @@ def test_predict_and_inference_detector(handle):
 
 
 def test_pipeline_settings():
-    canvas, scale, mean, std, to_rgb = pipeline_settings(CFG)
-    assert (canvas, scale, to_rgb) == ((64, 96), (96, 64), True)
+    canvas, scale, mean, std, to_rgb, keep_ratio = pipeline_settings(CFG)
+    assert (canvas, scale, to_rgb, keep_ratio) == ((64, 96), (96, 64), True, True)
     assert pipeline_settings(dict(model=CFG["model"]))[:2] == ((832, 1344), (1333, 800))
+    ssd = Config.fromfile(os.path.join(ROOT, "configs", "ssd300_coco.py")).todict()
+    assert pipeline_settings(ssd)[:2] + pipeline_settings(ssd)[4:] == (
+        (300, 300), (300, 300), True, False)
 
 
 def test_cuda_without_a_card_raises():
@@ -194,22 +199,55 @@ except NotImplementedError:
 """
 
 
+SSD_RUN = """
+import tempfile
+from ioudet_torch.data.pipelines import Compose
+from ioudet_torch.data.pipelines.loading import imwrite_netpbm
+from ioudet_torch.utils.config import Config
+cfg = Config.fromfile(os.path.join('configs', 'ssd300_coco.py')).todict()
+h = init_detector(cfg, device='cpu')
+img = np.random.default_rng(0).integers(0, 256, (120, 160, 3), dtype=np.uint8)
+res = inference_detector(h, img)
+assert len(res) == 80 and sum(map(len, res)) > 0
+with tempfile.TemporaryDirectory() as root:
+    imwrite_netpbm(os.path.join(root, 'a.ppm'), img)
+    ann = dict(bboxes=np.array([[10., 20., 70., 90.], [60., 5., 150., 60.]], np.float32),
+               labels=np.array([3, 17]))
+    samples = [Compose(cfg['train_pipeline'])(dict(img_info=dict(filename='a.ppm'),
+                                                   img_prefix=root, ann_info=ann))
+               for _ in range(2)]
+batch = {k: torch.from_numpy(np.stack([s[k] for s in samples]))
+         for k in ('img', 'gt_bboxes', 'gt_labels', 'gt_valid', 'img_shape', 'pad_shape')}
+assert tuple(batch['img'].shape) == (2, 300, 300, 3)
+model = h.model.train()
+ttrain.make_trainable_mask(model)
+step = ttrain.make_train_step(model, ttrain.build_optimizer(model, dict(type='SGD', lr=1e-3)),
+                              lambda s: 1e-3)
+logs = step(batch, 0)
+assert sorted(logs) == ['loss', 'loss_bbox', 'loss_cls']
+assert all(bool(torch.isfinite(v)) for v in logs.values())
+"""
+
+
 def test_port_runs_without_jax():
     """import ioudet_torch and a CPU run of the slice leave jax (and flax,
     cv2, PIL) out of sys.modules: the IoU-aware RetinaNet's serving, the
     RPN from its config file through init_detector and predict, a tiny
     Mask R-CNN's predict, its masks pasted and encoded, inference_detector
     and one make_train_step step, a tiny HTC's predict and one step on
-    a semantic map read from a PNG by LoadAnnotations, and a tiny Fast
-    R-CNN's predict on given proposals."""
+    a semantic map read from a PNG by LoadAnnotations, a tiny Fast
+    R-CNN's predict on given proposals, and SSD300 at full width:
+    inference_detector, two samples through its train pipeline (the three
+    augmentations in numpy) and one train step."""
     code = (
         "import os, sys, numpy as np, torch\n"
         "import ioudet_torch\n"
         "from ioudet_torch.apis.inference import init_detector, inference_detector\n"
-        "from tests.test_torch_inference import CFG, TWO_STAGE_RUN\n"
+        "from tests.test_torch_inference import CFG, SSD_RUN, TWO_STAGE_RUN\n"
         "h = init_detector(CFG, device='cpu')\n"
         "inference_detector(h, np.zeros((40, 60, 3), np.uint8))\n"
         "exec(TWO_STAGE_RUN)\n"
+        "exec(SSD_RUN)\n"
         "bad = [m for m in ('jax', 'flax', 'cv2', 'PIL') if m in sys.modules]\n"
         "ours = [m for m in sys.modules if m == 'ioudet' or m.startswith('ioudet.')]\n"
         "print(bad, ours)\n"

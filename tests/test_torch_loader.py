@@ -18,6 +18,7 @@ from ioudet.data.loader import (DataLoader as JaxDataLoader,
 from ioudet_torch.data import build_dataset
 from ioudet_torch.data.loader import DataLoader, GroupedBatchSampler, build_dataloader
 from tests.test_torch_data_pipeline import plant_coco, small_pipeline
+from tests.torch_twins import one_thread  # noqa: F401 (autouse)
 
 # 13 landscape, 6 portrait: ragged at batch 4 and 5 in both groups
 FLAGS = np.array([1, 0, 1, 1, 0, 1, 1, 1, 0, 1, 1, 0, 1, 1, 0, 1, 1, 0, 1], np.uint8)

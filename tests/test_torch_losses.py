@@ -15,6 +15,7 @@ from ioudet.models.losses import focal_loss as jfocal
 from ioudet.models.losses.utils import weight_reduce_loss as jax_reduce
 from ioudet_torch.models import losses as L
 from ioudet_torch.models.builder import build_loss
+from tests.torch_twins import one_thread  # noqa: F401 (autouse)
 
 # the package exports a function of the module's name
 jsl1 = importlib.import_module("ioudet.models.losses.smooth_l1_loss")

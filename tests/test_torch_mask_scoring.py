@@ -37,7 +37,7 @@ from ioudet_torch.models.detectors.two_stage import to_rois
 from ioudet_torch.models.mask_heads.maskiou_head import MaskIoUHead
 from tests._torch_mp_worker import mask_rcnn_cfgs, two_stage_batches
 from tests.test_torch_two_stage import FACTORS, PAD, SHAPES, images
-from tests.torch_twins import param_shapes, random_params
+from tests.torch_twins import one_thread, param_shapes, random_params  # one_thread: autouse
 
 MASK_MODEL, TRAIN_CFG, TEST_CFG = mask_rcnn_cfgs()
 MODEL = dict(MASK_MODEL, type="MaskScoringRCNN",
@@ -45,14 +45,6 @@ MODEL = dict(MASK_MODEL, type="MaskScoringRCNN",
                                 conv_out_channels=64, fc_out_channels=64, num_classes=5))
 KEYS = ("img", "gt_bboxes", "gt_labels", "gt_valid", "img_shape", "pad_shape")
 FROZEN = ("backbone.conv1.", "backbone.bn1.", "backbone.layer1.")
-
-
-@pytest.fixture(autouse=True, scope="module")
-def one_thread():
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 
 def train_batch() -> dict:

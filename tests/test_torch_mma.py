@@ -34,6 +34,7 @@ sys.path.insert(0, TOOLS)
 import probe_mxu_rate as p1  # noqa: E402
 import probe_mxu_rate2 as p2  # noqa: E402
 import probe_pallas_int8_matmul as p3  # noqa: E402
+from tests.torch_twins import one_thread  # noqa: F401 (autouse)
 
 sys.path.remove(TOOLS)
 

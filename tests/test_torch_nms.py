@@ -19,6 +19,7 @@ from ioudet_torch.core.bbox import bbox_overlaps
 from ioudet_torch.core.post_processing import multiclass_nms
 from ioudet_torch.ops import nms as tnms
 from ioudet_torch.ops import nms_cuda
+from tests.torch_twins import one_thread  # noqa: F401 (autouse)
 
 
 def _cases(n):

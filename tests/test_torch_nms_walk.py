@@ -37,22 +37,13 @@ import chip_smoke
 from ioudet_torch.core.bbox.geometry import bbox_overlaps
 from ioudet_torch.ops import nms_cuda
 from ioudet_torch.tools import probe_nms_parts as P
+from tests.torch_twins import one_thread  # noqa: F401 (autouse)
 
 FULL = (1 << 64) - 1
 HALF = (1 << 32) - 1
 # column blocks of a mask tile, as the kernel's source sets them
 TILE_COLS = int(re.search(r"constexpr int kTileCols = (\d+);",
                           nms_cuda.LIBRARY.source.read_text()).group(1))
-
-
-@pytest.fixture(autouse=True)
-def one_thread():
-    """Small tensors in Python loops: one intra-op thread, so that the
-    test workers running beside this one do not slow it down many times."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 
 def cases(n, batch=2, seed=None):

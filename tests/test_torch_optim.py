@@ -22,6 +22,7 @@ from torch import nn
 
 from ioudet.apis import train as jtrain
 from ioudet_torch.apis import train as ttrain
+from tests.torch_twins import one_thread  # noqa: F401 (autouse)
 
 SHAPES = {"backbone.conv1.weight": (4, 3, 3, 3), "backbone.layer1.0.conv1.weight": (4, 4, 1, 1),
           "backbone.layer2.0.conv1.weight": (8, 4, 3, 3), "backbone.layer2.0.bn1.bias": (8,),

@@ -48,21 +48,12 @@ from ioudet_torch.parallel import allgather_pytrees, init_dist, world_size
 from tests._torch_mp_worker import (GRAD_CLIP, IMGS_PER_GPU, LR_CONFIG, OPTIMIZER,
                                     eval_dataset, train_cfg)
 from tests.mp_common import TRAIN_KEYS, TinyDataset
+from tests.torch_twins import one_thread  # noqa: F401 (autouse)
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 ROOT = os.path.dirname(HERE)
 WORLD = 2
 STEPS = 12 // (IMGS_PER_GPU * WORLD)
-
-@pytest.fixture(autouse=True, scope="module")
-def one_thread():
-    """One intra-op thread, as in the workers: the eval merge is compared
-    bit for bit, and oneDNN's kernels differ with the thread count."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
-
 
 # 13 landscape, 6 portrait: ragged at batch 2 and 5 in both groups
 FLAGS = np.array([1, 0, 1, 1, 0, 1, 1, 1, 0, 1, 1, 0, 1, 1, 0, 1, 1, 0, 1], np.uint8)

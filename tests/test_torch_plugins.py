@@ -13,6 +13,7 @@ import torch
 from ioudet.models.plugins import ContextBlock as JaxContextBlock
 from ioudet_torch.apis.checkpoint import state_dict_from_flax
 from ioudet_torch.models.plugins import ContextBlock
+from tests.torch_twins import one_thread  # noqa: F401 (autouse)
 
 
 def seeded(tree, seed):

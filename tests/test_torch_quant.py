@@ -22,6 +22,7 @@ from torch import nn
 from ioudet.ops import quant as jquant
 from ioudet_torch.models.utils.layers import Conv2d, ConvModule, same_pads
 from ioudet_torch.ops import _build, mma_cuda, quant
+from tests.torch_twins import one_thread  # noqa: F401 (autouse)
 
 
 def oihw(kernel):

@@ -17,6 +17,7 @@ from ioudet.models.backbones.resnext import ResNeXt as JaxResNeXt
 from ioudet_torch.apis.checkpoint import state_dict_from_flax
 from ioudet_torch.models.backbones.resnet import Bottleneck, ResNet
 from ioudet_torch.models.backbones.resnext import ResNeXt
+from tests.torch_twins import one_thread  # noqa: F401 (autouse)
 
 CASES = {
     "resnext50_4x4d": (ResNeXt, JaxResNeXt, dict(groups=4, base_width=4)),

@@ -29,16 +29,7 @@ from ioudet_torch.models.bbox_heads.bbox_head import SharedFCBBoxHead, bbox_targ
 from ioudet_torch.models.losses import accuracy
 from ioudet_torch.models.roi_extractors.single_level import SingleRoIExtractor
 from ioudet_torch.ops.roi_align import roi_align, roi_pool
-
-
-@pytest.fixture(autouse=True, scope="module")
-def one_thread():
-    """Small tensors: one intra-op thread, so that the test workers running
-    beside this one do not slow it down."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
+from tests.torch_twins import one_thread  # noqa: F401 (autouse)
 
 
 def nchw(x: np.ndarray) -> torch.Tensor:

@@ -40,6 +40,7 @@ from ioudet_torch.data.pipelines.transforms import imresize_nearest
 from ioudet_torch.data.rng import make_sample_rng, set_sample_rng
 from ioudet_torch.models.utils.layers import resize_nearest
 from tests.test_torch_data_pipeline import plant_coco
+from tests.torch_twins import one_thread  # noqa: F401 (autouse)
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 HTC = runpy.run_path(os.path.join(ROOT, "configs", "htc_r50_fpn_1x.py"))
@@ -166,14 +167,6 @@ def test_resize_nearest_matches_ioudet(src, dst):
 
 
 SIZES = [(60, 100), (100, 60), (80, 96), (45, 90), (90, 45)]
-
-
-@pytest.fixture(autouse=True, scope="module")
-def one_thread():
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 
 def htc_pipeline():

@@ -40,6 +40,7 @@ from ioudet_torch.tools import test as test_tool
 from tests._torch_mp_worker import mask_rcnn_cfgs
 from tests.test_torch_data_pipeline import plant_coco
 from tests.test_torch_mask_rcnn import bridge, new_model
+from tests.torch_twins import one_thread  # noqa: F401 (autouse)
 
 MODEL, TRAIN_CFG, TEST_CFG = mask_rcnn_cfgs()
 NORM = dict(type="Normalize", mean=(123.675, 116.28, 103.53), std=(58.395, 57.12, 57.375),
@@ -50,14 +51,6 @@ TEST_PIPELINE = [dict(type="LoadImageFromFile"),
                  dict(type="Collect", keys=["img"])]
 # 4 landscape and 2 portrait images: ragged batches of 4
 SIZES = [(48, 80), (64, 96), (80, 56), (56, 90), (96, 64), (60, 100)]
-
-
-@pytest.fixture(autouse=True, scope="module")
-def one_thread():
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 
 def polygon(rng, box, n):

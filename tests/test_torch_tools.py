@@ -37,17 +37,10 @@ from ioudet_torch.tools import train as train_tool
 from tests.test_torch_data_pipeline import plant_coco
 from tests.test_torch_eval_loop import (TEST_CFG, TEST_PIPELINE, TRAIN_CFG, TRAIN_MODEL,
                                         TRAIN_PIPELINE)
+from tests.torch_twins import one_thread  # noqa: F401 (autouse)
 
 SIZES = [(48, 80), (56, 90), (50, 84), (44, 72)]   # one group: 2 batches of 2
 LR = 0.004
-
-
-@pytest.fixture(autouse=True, scope="module")
-def one_thread():
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 
 @pytest.fixture(scope="module")

@@ -27,6 +27,7 @@ from ioudet_torch.apis import train as ttrain
 from ioudet_torch.apis.checkpoint import state_dict_from_flax
 from ioudet_torch.models import build_detector
 from tests.test_torch_detector import randomize
+from tests.torch_twins import one_thread  # noqa: F401 (autouse)
 
 MODEL = dict(
     type="IoUAwareRetinaNet",

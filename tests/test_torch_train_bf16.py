@@ -41,19 +41,12 @@ from ioudet_torch.models import build_detector
 from ioudet_torch.utils.debug import check_finite, grads_of
 from tests.test_torch_train import (FROZEN, KEYS, LR_CONFIG, MODEL, OPTIMIZER, TRAIN_CFG,
                                     bridge, make_batch, new_model, tbatch)
+from tests.torch_twins import one_thread  # noqa: F401 (autouse)
 
 RETINA = dict(MODEL, type="RetinaNet", bbox_head=dict(MODEL["bbox_head"], type="RetinaHead"))
 FAMILIES = {"iou_aware": MODEL, "retinanet": RETINA}
 STEPS = 3
 IPE = 100
-
-
-@pytest.fixture(autouse=True, scope="module")
-def one_thread():
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 
 def twin(model_cfg: dict, dtype: str, seed: int = 0):

@@ -15,6 +15,7 @@ import torch
 from ioudet_torch.apis import train as ttrain
 from ioudet_torch.apis.checkpoint import latest_checkpoint, load_checkpoint, save_checkpoint
 from tests.test_torch_train import CFG, LR_CONFIG, OPTIMIZER, make_batch, new_model, tbatch
+from tests.torch_twins import one_thread  # noqa: F401 (autouse)
 
 CANVAS = (32, 32)
 

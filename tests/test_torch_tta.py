@@ -34,6 +34,7 @@ from ioudet_torch.data.rng import make_sample_rng, sample_rng, set_sample_rng
 from ioudet_torch.tools import test as test_tool
 from tests.test_torch_data_pipeline import plant_coco
 from tests.test_torch_eval_loop import bridged
+from tests.torch_twins import one_thread  # noqa: F401 (autouse)
 
 # the detector of tests/test_tta.py's aug_test case
 MODEL = dict(
@@ -59,14 +60,6 @@ TTA_PIPELINE = [
                      dict(type="Collect", keys=["img"])]),
 ]
 SIZES = [(48, 80), (64, 96), (80, 56), (60, 100), (72, 48)]
-
-
-@pytest.fixture(autouse=True)
-def one_thread():
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 
 @pytest.fixture(scope="module")

@@ -40,18 +40,10 @@ from ioudet_torch.tools import test as test_tool
 from tests._torch_mp_worker import cascade_rcnn_cfgs, htc_cfgs, mask_rcnn_cfgs
 from tests.test_torch_data_pipeline import plant_coco
 from tests.test_torch_tta import TTA_PIPELINE
-from tests.torch_twins import param_shapes, random_params
+from tests.torch_twins import one_thread, param_shapes, random_params  # one_thread: autouse
 
 SIZES = [(48, 80), (64, 96)]   # landscape: one canvas
 CANVAS = (96, 128)   # TTA_PIPELINE's Pad size: every view's
-
-
-@pytest.fixture(autouse=True, scope="module")
-def one_thread():
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 
 # ------------------------------------------------------------------ merges

@@ -31,6 +31,7 @@ from ioudet_torch.models import build_detector
 from ioudet_torch.models.utils.layers import FrozenBatchNorm
 from tests._torch_mp_worker import faster_rcnn_cfgs
 from tests.mp_common import TinyDataset
+from tests.torch_twins import one_thread  # noqa: F401 (autouse)
 
 MODEL, TRAIN_CFG, TEST_CFG = faster_rcnn_cfgs()
 RPN_MODEL = dict(MODEL, type="RPN", bbox_roi_extractor=None, bbox_head=None)
@@ -38,14 +39,6 @@ RPN_TEST_CFG = dict(nms_pre=200, max_num=64, nms_thr=0.7)
 SHAPES = np.array([[64, 96], [50, 80]], np.int32)
 PAD = np.array([[64, 96], [64, 96]], np.int32)
 FACTORS = np.array([1.0, 0.625], np.float32)
-
-
-@pytest.fixture(autouse=True, scope="module")
-def one_thread():
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 
 def randomize(model, seed: int):

@@ -42,7 +42,7 @@ from ioudet_torch.apis.checkpoint import state_dict_from_flax
 from ioudet_torch.models import build_detector
 from tests._torch_mp_worker import faster_rcnn_cfgs, mask_rcnn_cfgs, two_stage_batches
 from tests.test_torch_two_stage import FACTORS, PAD, SHAPES, images
-from tests.torch_twins import param_shapes, random_params
+from tests.torch_twins import one_thread, param_shapes, random_params  # one_thread: autouse
 
 MODEL, TRAIN_CFG, TEST_CFG = mask_rcnn_cfgs()
 BF16 = dict(MODEL, dtype="bfloat16")
@@ -52,14 +52,6 @@ HEADS = ("rpn_head", "bbox_head", "mask_head")
 LOSS_REL = 0.01        # forward_train's losses, relative, against ioudet's bf16
 GRAD_REL = 0.05        # all gradients together, relative L2
 GRAD_LEAF_REL = 0.2    # one parameter's gradient, relative L2
-
-
-@pytest.fixture(autouse=True, scope="module")
-def one_thread():
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 
 def as_np(x) -> np.ndarray:

@@ -24,18 +24,10 @@ from ioudet_torch.models import build_detector
 from ioudet_torch.apis.train import step_generator
 from tests._torch_mp_worker import (faster_rcnn_cfgs, rpn_sampled_masks, two_stage_batches,
                                     two_stage_steps)
+from tests.torch_twins import one_thread  # noqa: F401 (autouse)
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 WORLD = 2
-
-
-@pytest.fixture(autouse=True, scope="module")
-def one_thread():
-    """One intra-op thread, as in the workers."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 
 def free_port() -> int:

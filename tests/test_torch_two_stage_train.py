@@ -31,18 +31,11 @@ from ioudet_torch.models import build_detector
 from tests._torch_mp_worker import (GRAD_CLIP, LR_CONFIG, OPTIMIZER, faster_rcnn_cfgs,
                                     two_stage_batches)
 from tests.test_torch_two_stage import bridge, randomize
+from tests.torch_twins import one_thread  # noqa: F401 (autouse)
 
 MODEL, TRAIN_CFG, TEST_CFG = faster_rcnn_cfgs()
 KEYS = ("img", "gt_bboxes", "gt_labels", "gt_valid", "img_shape", "pad_shape")
 FROZEN = ("backbone.conv1.", "backbone.bn1.", "backbone.layer1.")
-
-
-@pytest.fixture(autouse=True, scope="module")
-def one_thread():
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 
 def new_model(train_cfg=TRAIN_CFG):

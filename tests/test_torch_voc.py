@@ -23,6 +23,7 @@ from ioudet_torch.data.rng import make_sample_rng, set_sample_rng
 from ioudet_torch.tools import test as test_tool
 from ioudet_torch.utils.config import Config
 from tests.test_torch_data_pipeline import assert_samples_equal
+from tests.torch_twins import one_thread  # noqa: F401 (autouse)
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 VOC_CFG = Config.fromfile(os.path.join(ROOT, "configs", "iou_aware_retinanet_r50_fpn_voc.py"))

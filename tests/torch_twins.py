@@ -3,10 +3,25 @@ detector or module from ``jax.eval_shape`` (no initializer runs, nothing is
 compiled), filled with seeded numpy values that keep activations O(1) and
 spread the heads' outputs, and bridged to the port by
 ``state_dict_from_flax``.  So a twin needs no torch -> flax converter, and
-every test of a twin also holds the bridge one for one (``strict`` load)."""
+every test of a twin also holds the bridge one for one (``strict`` load).
 
-import jax
+``one_thread`` runs a test module on one intra-op thread: the port's tests
+run beside five other test workers, and an OpenMP pool as wide as the
+machine then spends its time waiting for cores (a tiny model's train step
+takes over ten times as long as alone).  A module takes it with ``from
+tests.torch_twins import one_thread``."""
+
 import numpy as np
+import pytest
+import torch
+
+
+@pytest.fixture(autouse=True, scope="module")
+def one_thread():
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
 
 # (path fragment, leaf) -> std of a normal draw, checked in order
 HEAD_STDS = (
@@ -17,6 +32,8 @@ HEAD_STDS = (
 
 def param_shapes(module, *args, method=None, **kwargs) -> dict:
     """The ``params`` tree of ``module.init(key, *args)`` as shapes."""
+    import jax   # here: a module that takes one_thread alone runs without JAX
+
     def init(*a):
         return module.init(jax.random.PRNGKey(0), *a, method=method, **kwargs)
     return jax.eval_shape(init, *args)["params"]
@@ -48,6 +65,8 @@ def random_params(shapes: dict, seed: int) -> dict:
     order): random FrozenBN statistics and norm affines, He-normal convs
     (halved in the backbone), LeCun-normal dense layers, the heads' output
     layers drawn wide (``HEAD_STDS``), small random biases."""
+    import jax
+
     rng = np.random.default_rng(seed)
     flat = jax.tree_util.tree_flatten_with_path(shapes)[0]
     out = {}
