@@ -3,7 +3,8 @@
 
 The port's modules use the mmdet state_dict key layout, so a reference
 ``.pth`` loads as it is.  ``state_dict_from_flax`` turns ``ioudet``'s
-parameter tree for the RetinaNet family, Faster R-CNN / RPN / Mask R-CNN,
+parameter tree for the RetinaNet family, SSD, FCOS, FoveaBox, Faster R-CNN /
+RPN / Mask R-CNN,
 Mask Scoring R-CNN, Grid R-CNN and the cascades (Cascade R-CNN, HTC: a head
 a stage, the semantic head),
 with FrozenBN or GN and plain or weight-standardized convs (nested dicts of
@@ -245,6 +246,44 @@ def _head(sd: dict, tree: dict, prefix: str = "bbox_head", kind: str = "") -> No
             raise KeyError(f"unknown head param {name}")
 
 
+def _anchor_free_head(sd: dict, tree: dict, prefix: str, kind: str) -> None:
+    """FCOSHead's tree {cls_conv<i>, cls_gn<i>, reg_conv<i>, reg_gn<i>,
+    fcos_cls, fcos_reg, fcos_centerness, scale<i>} or FoveaHead's
+    {cls_conv<i>[_gn], reg_conv<i>[_gn], fovea_cls, fovea_reg,
+    feature_adaption/{conv_offset, adaption_kernel}} -> mmdet's
+    ``{cls,reg}_convs.<i>.conv`` / ``.gn``, the output convs by their names,
+    ``scales.<i>.scale``, ``feature_adaption.conv_offset`` and
+    ``feature_adaption.conv_adaption.weight``."""
+    outputs = (("fcos_cls", "fcos_reg", "fcos_centerness") if kind == "FCOSHead" else
+               ("fovea_cls", "fovea_reg"))
+    for name, leaf in tree.items():
+        conv = re.fullmatch(r"(cls|reg)_conv(\d+)", name)
+        norm = re.fullmatch(r"(cls|reg)_gn(\d+)" if kind == "FCOSHead" else
+                            r"(cls|reg)_conv(\d+)_gn", name)
+        scale = re.fullmatch(r"scale(\d+)", name) if kind == "FCOSHead" else None
+        if conv:
+            _conv(sd, f"{prefix}.{conv.group(1)}_convs.{conv.group(2)}.conv", leaf)
+        elif norm:
+            _bn(sd, f"{prefix}.{norm.group(1)}_convs.{norm.group(2)}.gn", leaf)
+        elif scale:
+            sd[f"{prefix}.scales.{scale.group(1)}.scale"] = _tensor(leaf["scale"])
+        elif name in outputs:
+            _conv(sd, f"{prefix}.{name}", leaf)
+        elif name == "feature_adaption" and kind == "FoveaHead":
+            for sub, part in leaf.items():
+                if sub == "conv_offset":
+                    _conv(sd, f"{prefix}.feature_adaption.conv_offset", part)
+                elif sub == "adaption_kernel":
+                    sd[f"{prefix}.feature_adaption.conv_adaption.weight"] = _oihw(part)
+                else:
+                    raise KeyError(f"unknown feature adaption param {sub}")
+        else:
+            raise KeyError(f"unknown {kind} param {name}")
+
+
+ANCHOR_FREE = ("FCOSHead", "FoveaHead")
+
+
 def _mask_head(sd: dict, tree: dict, prefix: str = "mask_head") -> None:
     """FCNMaskHead's or HTCMaskHead's tree {conv<i>, [conv_res,] upsample,
     conv_logits} -> mmdet's convs.<i>.conv (a GN / WS head's conv<i> is a
@@ -384,7 +423,9 @@ def _roi_extractor(sd: dict, tree: dict, prefix: str = "bbox_roi_extractor") -> 
 
 
 def _box_head(sd: dict, head: dict, prefix: str, kind: str = "") -> None:
-    if "res_block" in head:
+    if kind in ANCHOR_FREE:
+        _anchor_free_head(sd, head, prefix, kind)
+    elif "res_block" in head:
         _double_head(sd, head, prefix)
     elif any(k.startswith(("shared_", "fc_")) for k in head):
         _roi_head(sd, head, prefix)
@@ -420,7 +461,9 @@ def state_dict_from_flax(params: dict, types: Optional[Dict[str, str]] = None
     detector) names the backbone's and the box head's families where the
     tree's names alone do not: ``SSDVGG`` and ``SSDHead`` are bridged only
     when named there; without them the ResNet and RetinaNet forms are taken,
-    and an SSD tree raises at its first VGG name."""
+    and an SSD tree raises at its first VGG name.  FCOS's and FoveaBox's
+    heads (``FCOSHead``, ``FoveaHead``) too are bridged only when named
+    there; without them their names raise as unknown head params."""
     types = types or {}
     unknown = {k for k in params if not _STAGE.match(k)} - {
         "backbone", "neck", "rpn_head", "bbox_head", "mask_head", "semantic_head",

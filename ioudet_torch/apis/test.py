@@ -283,6 +283,9 @@ def aug_test(handle, samples: List[dict], test_cfg: Optional[dict] = None
     ``iou_thr`` and ``max_per_img`` from ``test_cfg``: ``pre_nms_total``
     stays 2000 and ``class_topk`` unset whatever the config says."""
     model = getattr(handle, "model", handle)
+    if getattr(type(model.bbox_head), "TTA", True) is False:
+        raise NotImplementedError(f"the multi-scale / flip test of "
+                                  f"{type(model.bbox_head).__name__} is not ported yet")
     device = next(model.parameters()).device
     cfg = dict(model.test_cfg or {}) if test_cfg is None else dict(test_cfg)
     boxes, scores, metas = [], [], []

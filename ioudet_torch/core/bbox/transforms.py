@@ -108,6 +108,21 @@ def bbox_mapping_back(bboxes: torch.Tensor, img_shape, scale_factor, flip: bool)
     return new / scale_factor
 
 
+def distance2bbox(points: torch.Tensor, distance: torch.Tensor,
+                  max_shape: Optional[Tuple[int, int]] = None) -> torch.Tensor:
+    """Decode (left, top, right, bottom) distances around points (FCOS's
+    form): points (..., 2) as (x, y), distance (..., 4) -> (..., 4) xyxy,
+    clamped to ``[0, size - 1]`` of the (H, W) ``max_shape`` when given."""
+    x1 = points[..., 0] - distance[..., 0]
+    y1 = points[..., 1] - distance[..., 1]
+    x2 = points[..., 0] + distance[..., 2]
+    y2 = points[..., 1] + distance[..., 3]
+    if max_shape is not None:
+        x1, x2 = x1.clamp(0, max_shape[1] - 1), x2.clamp(0, max_shape[1] - 1)
+        y1, y2 = y1.clamp(0, max_shape[0] - 1), y2.clamp(0, max_shape[0] - 1)
+    return torch.stack([x1, y1, x2, y2], dim=-1)
+
+
 def bbox2result(bboxes, labels, num_classes: int) -> List[np.ndarray]:
     """(N, 5) dets + 0-based labels -> the reference's per-class list of
     ``num_classes - 1`` float32 (k, 5) numpy arrays.

@@ -14,7 +14,8 @@ cascade from a list of box heads (``CascadeRCNN``; ``HybridTaskCascade``
 with a list of mask heads and optionally ``semantic_roi_extractor`` and
 ``semantic_head``).  Of these, Faster R-CNN and Mask R-CNN with FPN and
 RoIAlign also build in bf16 (``BF16_TWO_STAGE``); every other one raises
-``NotImplementedError`` in bf16.
+``NotImplementedError`` in bf16, as SSD and the anchor-free heads (FCOS,
+FoveaBox) do.
 """
 
 from __future__ import annotations
@@ -28,7 +29,8 @@ from .backbones.resnext import ResNeXt
 from .bbox_heads.bbox_head import BBoxHead, ConvFCBBoxHead, SharedFCBBoxHead
 from .bbox_heads.double_bbox_head import DoubleConvFCBBoxHead
 from .backbones.ssd_vgg import SSDVGG
-from .detectors.single_stage import SSD, IoUAwareRetinaNet, RetinaNet, SingleStageDetector
+from .detectors.single_stage import (FCOS, FOVEA, SSD, IoUAwareRetinaNet, RetinaNet,
+                                     SingleStageDetector)
 from .detectors.cascade_rcnn import CascadeRCNN
 from .detectors.fast_rcnn import FastMaskRCNN, FastRCNN
 from .detectors.grid_rcnn import GridRCNN
@@ -36,11 +38,14 @@ from .detectors.htc import HybridTaskCascade
 from .detectors.mask_rcnn import MaskRCNN
 from .detectors.mask_scoring_rcnn import MaskScoringRCNN
 from .detectors.two_stage import RPN, DoubleHeadRCNN, FasterRCNN, TwoStageDetector
+from .heads.fcos_head import FCOSHead
+from .heads.fovea_head import FoveaHead
 from .heads.iou_aware_retina_head import IoUAwareRetinaHead
 from .heads.retina_head import RetinaHead
 from .heads.rpn_head import RPNHead
 from .heads.ssd_head import SSDHead
-from .losses import CrossEntropyLoss, FocalLoss, L1Loss, SmoothL1Loss
+from .losses import (BoundedIoULoss, CrossEntropyLoss, FocalLoss, GIoULoss, IoULoss, L1Loss,
+                     SmoothL1Loss)
 from .mask_heads.fcn_mask_head import FCNMaskHead, HTCMaskHead
 from .mask_heads.fused_semantic_head import FusedSemanticHead
 from .mask_heads.grid_head import GridHead
@@ -57,7 +62,8 @@ HEADS = {"RetinaHead": RetinaHead, "IoUAwareRetinaHead": IoUAwareRetinaHead,
          "SharedFCBBoxHead": SharedFCBBoxHead, "DoubleConvFCBBoxHead": DoubleConvFCBBoxHead,
          "FCNMaskHead": FCNMaskHead, "HTCMaskHead": HTCMaskHead,
          "FusedSemanticHead": FusedSemanticHead, "ResLayer": ResLayer,
-         "MaskIoUHead": MaskIoUHead, "GridHead": GridHead, "SSDHead": SSDHead}
+         "MaskIoUHead": MaskIoUHead, "GridHead": GridHead, "SSDHead": SSDHead,
+         "FCOSHead": FCOSHead, "FoveaHead": FoveaHead}
 ROI_EXTRACTORS = {"SingleRoIExtractor": SingleRoIExtractor}
 DETECTORS = {"SingleStageDetector": SingleStageDetector,
              "RetinaNet": RetinaNet, "IoUAwareRetinaNet": IoUAwareRetinaNet,
@@ -65,7 +71,8 @@ DETECTORS = {"SingleStageDetector": SingleStageDetector,
              "MaskRCNN": MaskRCNN, "CascadeRCNN": CascadeRCNN,
              "HybridTaskCascade": HybridTaskCascade, "DoubleHeadRCNN": DoubleHeadRCNN,
              "FastRCNN": FastRCNN, "FastMaskRCNN": FastMaskRCNN,
-             "MaskScoringRCNN": MaskScoringRCNN, "GridRCNN": GridRCNN, "SSD": SSD}
+             "MaskScoringRCNN": MaskScoringRCNN, "GridRCNN": GridRCNN, "SSD": SSD,
+             "FCOS": FCOS, "FOVEA": FOVEA}
 # the two-stage detectors that run in bf16 (with FPN and RoIAlign; held
 # against ioudet's in tests/test_torch_two_stage_bf16.py)
 BF16_TWO_STAGE = ("TwoStageDetector", "FasterRCNN", "MaskRCNN")
@@ -74,7 +81,8 @@ CASCADE_OPTIONS = ("num_stages", "stage_loss_weights", "stage_pos_thrs")
 DETECTOR_OPTIONS = {"CascadeRCNN": CASCADE_OPTIONS,
                     "HybridTaskCascade": CASCADE_OPTIONS + ("interleaved", "mask_info_flow")}
 LOSSES = {"FocalLoss": FocalLoss, "SmoothL1Loss": SmoothL1Loss, "L1Loss": L1Loss,
-          "CrossEntropyLoss": CrossEntropyLoss}
+          "CrossEntropyLoss": CrossEntropyLoss, "IoULoss": IoULoss,
+          "BoundedIoULoss": BoundedIoULoss, "GIoULoss": GIoULoss}
 
 
 def _build(cfg: dict, table: dict, kind: str):

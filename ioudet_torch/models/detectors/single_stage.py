@@ -85,3 +85,13 @@ class IoUAwareRetinaNet(SingleStageDetector):
 
 class SSD(SingleStageDetector):
     """SSD: the SSDVGG backbone and the SSDHead, no neck."""
+
+
+class FCOS(SingleStageDetector):
+    """Registration name of the reference's FCOS: SingleStageDetector +
+    FCOSHead."""
+
+
+class FOVEA(SingleStageDetector):
+    """Registration name of the reference's FoveaBox: SingleStageDetector +
+    FoveaHead."""

@@ -114,37 +114,6 @@ class AnchorHead(nn.Module):
         """(B, H, W, A*ch) per level -> (B, A_tot, ch), in anchor order."""
         return torch.cat([p.reshape(p.shape[0], -1, ch) for p in preds], dim=1)
 
-    def _cls_loss_from_levels(self, cls_scores, labels, label_weights, avg_factor):
-        """Classification loss that consumes the per-level conv outputs where
-        they are.
-
-        Flattening and concatenating the levels would copy every logit once
-        (the heads' NHWC outputs are permuted views) only to reorder anchors;
-        the anchor sum of an elementwise loss does not depend on the order,
-        so each level's (B, H, W, A*C) tensor goes to
-        ``fused_level_focal_sum`` as it is.  Only for the sigmoid FocalLoss
-        with 'mean' reduction (the retina family's loss); any other loss
-        takes the flat layout.
-        """
-        cfg = self.loss_cls
-        C = self.cls_out_channels
-        if not (cfg.get("type") == "FocalLoss" and cfg.get("use_sigmoid", True)
-                and cfg.get("reduction", "mean") == "mean"):
-            return self.loss_cls_fn(
-                self._flatten_levels(cls_scores, C).reshape(-1, C),
-                labels.reshape(-1), weight=label_weights.reshape(-1),
-                avg_factor=avg_factor)
-        gamma, alpha = cfg.get("gamma", 2.0), cfg.get("alpha", 0.25)
-        total, start = 0.0, 0
-        for p in cls_scores:
-            n = p.shape[1] * p.shape[2] * self.num_anchors
-            total = total + fused_level_focal_sum(
-                p, labels[:, start:start + n],
-                label_weights[:, start:start + n].float(), gamma, alpha,
-                self.num_anchors)
-            start += n
-        return cfg.get("loss_weight", 1.0) * total / avg_factor.clamp(min=1e-12)
-
     @property
     def sampling(self) -> bool:
         """Anchor subsampling is on unless the classification loss handles
@@ -196,8 +165,8 @@ class AnchorHead(nn.Module):
         _, targets, num_pos = self._targets(
             featmap_sizes, gt_bboxes, gt_labels, gt_valid, img_shapes, pad_shapes,
             train_cfg, gt_bboxes_ignore, gt_ignore_valid, generator)
-        loss_cls = self._cls_loss_from_levels(
-            cls_scores, targets.labels, targets.label_weights, avg_factor=num_pos)
+        loss_cls = level_cls_loss(self.loss_cls, self.loss_cls_fn, cls_scores, targets.labels,
+                                  targets.label_weights, num_pos, self.num_anchors)
         loss_bbox = self.loss_bbox_fn(
             self._flatten_levels(bbox_preds, 4).reshape(-1, 4),
             targets.bbox_targets.reshape(-1, 4),
@@ -235,6 +204,38 @@ class AnchorHead(nn.Module):
         boxes, scores = self.decode_candidates(cls_scores, bbox_preds, img_shapes,
                                                test_cfg)
         return batched_nms(boxes, scores, scale_factors, test_cfg, rescale)
+
+
+def level_cls_loss(cfg: dict, loss_fn, cls_scores, labels: torch.Tensor,
+                   label_weights: torch.Tensor, avg_factor: torch.Tensor,
+                   num_anchors: int) -> torch.Tensor:
+    """Classification loss that consumes the per-level conv outputs where
+    they are: cls_scores (B, H, W, A*C) a level, labels / label_weights
+    (B, total positions * A) in level order.
+
+    Flattening and concatenating the levels would copy every logit once
+    (the heads' NHWC outputs are permuted views) only to reorder positions;
+    the sum of an elementwise loss does not depend on the order, so each
+    level goes to ``fused_level_focal_sum`` as it is.  Only for the sigmoid
+    FocalLoss with 'mean' reduction (the retina family's, FCOS's and
+    FoveaBox's loss); any other loss (``loss_fn``, built from ``cfg``) takes
+    the flat layout.
+    """
+    C = cls_scores[0].shape[-1] // num_anchors
+    if not (cfg.get("type") == "FocalLoss" and cfg.get("use_sigmoid", True)
+            and cfg.get("reduction", "mean") == "mean"):
+        flat = torch.cat([p.reshape(p.shape[0], -1, C) for p in cls_scores], dim=1)
+        return loss_fn(flat.reshape(-1, C), labels.reshape(-1),
+                       weight=label_weights.reshape(-1), avg_factor=avg_factor)
+    gamma, alpha = cfg.get("gamma", 2.0), cfg.get("alpha", 0.25)
+    total, start = 0.0, 0
+    for p in cls_scores:
+        n = p.shape[1] * p.shape[2] * num_anchors
+        total = total + fused_level_focal_sum(
+            p, labels[:, start:start + n], label_weights[:, start:start + n].float(), gamma,
+            alpha, num_anchors)
+        start += n
+    return cfg.get("loss_weight", 1.0) * total / avg_factor.clamp(min=1e-12)
 
 
 def global_count(count: torch.Tensor) -> torch.Tensor:

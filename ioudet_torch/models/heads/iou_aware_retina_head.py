@@ -26,7 +26,7 @@ from ...core.bbox import bbox_overlaps, delta2bbox
 from ...core.post_processing.bbox_nms import topk_stable
 from ..losses import binary_cross_entropy_with_logits
 from ..utils.layers import Conv2d
-from .anchor_head import batched_nms, clip_boxes, sigmoid, take
+from .anchor_head import batched_nms, clip_boxes, level_cls_loss, sigmoid, take
 from .retina_head import RetinaHead, nhwc
 
 
@@ -57,8 +57,8 @@ class IoUAwareRetinaHead(RetinaHead):
         box_flat = self._flatten_levels(bbox_preds, 4)
         iou_flat = self._flatten_levels(iou_preds, 1)[..., 0]  # (B, A_tot)
 
-        loss_cls = self._cls_loss_from_levels(
-            cls_scores, targets.labels, targets.label_weights, avg_factor=num_pos)
+        loss_cls = level_cls_loss(self.loss_cls, self.loss_cls_fn, cls_scores, targets.labels,
+                                  targets.label_weights, num_pos, self.num_anchors)
         loss_bbox = self.loss_bbox_fn(
             box_flat.reshape(-1, 4), targets.bbox_targets.reshape(-1, 4),
             weight=targets.bbox_weights.reshape(-1, 4), avg_factor=num_pos)

@@ -256,6 +256,9 @@ class ConvModule(nn.Module):
     no norm; the norm is ``build_norm``'s under mmdet's name, ``bn`` or
     ``gn``.
 
+    ``bias`` overrides that rule (``ioudet``'s FCOS towers put a bias before
+    their GN).
+
     ``padding='SAME'`` follows ``ioudet``'s ConvModule default (XLA 'SAME'),
     which for a stride-2 3x3 conv on an even input pads (0, 1) where mmdet's
     ``padding=1`` pads (1, 1): the FPN's extra convs inherit this from
@@ -266,7 +269,7 @@ class ConvModule(nn.Module):
                  stride: int = 1, padding: Union[str, int] = "SAME",
                  conv_cfg: Optional[dict] = None,
                  norm_cfg: Optional[dict] = None, act: Optional[str] = "relu",
-                 dtype: Union[None, str, torch.dtype] = None):
+                 dtype: Union[None, str, torch.dtype] = None, bias: Optional[bool] = None):
         super().__init__()
         if act not in ("relu", None):
             raise NotImplementedError(f"activation {act!r} is not ported yet")
@@ -278,7 +281,8 @@ class ConvModule(nn.Module):
             padding = 0 if self.pad_per_call else (kernel_size - 1) // 2
         dtype = compute_dtype(dtype)
         self.conv = conv_class(conv_cfg)(in_channels, out_channels, kernel_size, stride,
-                                         padding, bias=norm_cfg is None, compute_dtype=dtype)
+                                         padding, bias=norm_cfg is None if bias is None else bias,
+                                         compute_dtype=dtype)
         self.norm_name = None
         if norm_cfg is not None:
             self.norm_name, norm = build_norm(norm_cfg, out_channels, dtype)
@@ -295,3 +299,15 @@ class ConvModule(nn.Module):
             x = getattr(self, self.norm_name)(x)
         return F.relu(x) if self.act == "relu" else x
 
+
+class Scale(nn.Module):
+    """A learnable scalar multiplier (mmdet's ``Scale``, ``ioudet``'s
+    ``layers.Scale``): the parameter ``scale``, 0-d, ``init_value`` at
+    construction."""
+
+    def __init__(self, init_value: float = 1.0):
+        super().__init__()
+        self.scale = nn.Parameter(torch.tensor(float(init_value)))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return x * self.scale

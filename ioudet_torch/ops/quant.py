@@ -162,7 +162,12 @@ def eligible_convs(model: nn.Module, skip: Sequence[str] = DEFAULT_SKIP
                    ) -> Iterator[Tuple[str, nn.Conv2d]]:
     """(path, module) of every ``nn.Conv2d`` of ``model`` that
     ``quantize_calls`` reroutes: all but those whose own or parent's name
-    contains an entry of ``skip``."""
+    contains an entry of ``skip``.  A model holding a module whose class
+    sets ``INT8 = False`` (the anchor-free heads) raises
+    ``NotImplementedError``: its int8 serving is not ported."""
+    for mod in model.modules():
+        if getattr(type(mod), "INT8", True) is False:
+            raise NotImplementedError(f"int8 serving of {type(mod).__name__} is not ported yet")
     for path, mod in model.named_modules():
         if isinstance(mod, nn.Conv2d):
             own, parent = _names(path)

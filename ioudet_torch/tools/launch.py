@@ -13,6 +13,7 @@ import socket
 from typing import List
 
 import torch
+import torch.distributed as dist
 
 
 def free_port() -> int:
@@ -35,7 +36,14 @@ def check_devices(n: int, device: str) -> None:
 def _rank(index: int, module: str, argv: List[str], n: int, port: int) -> None:
     os.environ.update(RANK=str(index), LOCAL_RANK=str(index), WORLD_SIZE=str(n),
                       LOCAL_WORLD_SIZE=str(n), MASTER_ADDR="localhost", MASTER_PORT=str(port))
-    importlib.import_module(module).main(argv)
+    try:
+        importlib.import_module(module).main(argv)
+    finally:
+        # leave the group before the interpreter exits: a gloo group torn
+        # down at exit, while a peer is still connected, can abort the rank
+        # ("terminate called without an active exception", SIGABRT)
+        if dist.is_initialized():
+            dist.destroy_process_group()
 
 
 def spawn(module: str, argv: List[str], n: int) -> None:
