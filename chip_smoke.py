@@ -2,8 +2,8 @@
 (f32, bf16 and data parallel) and evaluation paths, and Faster R-CNN's,
 Mask R-CNN's, the cascade family's (HTC, Cascade R-CNN, GN + WS), the rest
 of Faster R-CNN's family's, Mask Scoring R-CNN's, Grid R-CNN's, the
-two-stage TTA's, SSD's, FCOS's and FoveaBox's, once on one NVIDIA GPU and
-check them.
+two-stage TTA's, SSD's, FCOS's and FoveaBox's, GHM's, FreeAnchor's and
+Libra R-CNN's, once on one NVIDIA GPU and check them.
 
     python3 chip_smoke.py                  # everything, as below
     python3 chip_smoke.py --kernels-only   # phases 1-2: a short first run
@@ -281,7 +281,33 @@ Phases (any failure exits non-zero):
      timings: ``predict`` at batch 8 and 1 of the three, TF32 off and on,
      split into backbone + FPN, head towers and decode + NMS by CUDA events,
      with peak memory; K1 on each one's own candidates; K3a / K3b at FCOS's
-     P3 (8, 104, 168, 80) against their bounds; the train steps at batch 4.
+     P3 (8, 104, 168, 80) against their bounds; the train steps at batch 4;
+  16. GHM, FreeAnchor and Libra at full width (R-50-FPN, 81 classes, seeded
+     random weights, RetinaNet heads' classifier bias zeroed, the BFP's
+     non-local ``conv_out`` drawn, f32, TF32 off for the checks): (16a)
+     configs/libra_retinanet_r50_fpn_1x.py (FPN -> non-local BFP, Balanced
+     L1) ``predict`` at batch 8 and 1 as 15a, three ``inference_detector``
+     requests, GPU against CPU at batch 1; step 1 at batch 8 with 100 gt
+     slots against the plain K2 / K3 (cuDNN deterministic), K2a / K2b on the
+     step's own targets bit-equal to their plain versions, K3a / K3b on its
+     own level logits at A = 9, then two ``train_detector`` steps (K2 1 + 1,
+     K3 5 + 5 a step); (16e) 14c's ``single_device_test`` by both routes,
+     ``evaluate``, ``tools.test`` and ``tools.train`` with the Libra config
+     on 8 planted images; (16b) configs/retinanet_ghm_r50_fpn_1x.py
+     ``predict``, three steps at batch 8 (anchor sampling, no kernel), after
+     each both EMA sums bit-equal to a plain replay (``torch.bincount``) of
+     the step's own bin ids and moved from zero, then a fourth step from
+     the saved ``.pth`` bit-equal to the run that went on; (16c)
+     configs/retinanet_free_anchor_r50_fpn_1x.py ``predict``, its loss on
+     the step's head outputs of one image card against CPU, two steps with
+     each step's peak memory beside Libra RetinaNet's; (16d)
+     configs/libra_faster_rcnn_r50_fpn_1x.py (IoU-balanced sampler) as 12b
+     (K1 at both stages, step 1 against its plain-NMS replay, two steps),
+     configs/libra_fast_rcnn_r50_fpn_1x.py ``predict`` on planted .pkl
+     proposals and two steps from its train_pipeline; (16f) timings:
+     ``predict`` at batch 8 and 1, TF32 off and on, with the BFP's gather,
+     non-local refine and scatter apart by CUDA events, K1 on each one's
+     own candidates, the train steps with peak memory.
 The last two lines are the card's name and power limit, then
 ``{"ok": true, "device": {...}}``; the line before them lists the kernels.
 """
@@ -5908,24 +5934,25 @@ def af_training(B, A, Fc, handle, cfg, dataset, work_dir: str, what: str, tag: s
 
 
 def af_timing(K, Fc, what: str, handle, inputs, card: str, runner=None, batch=None,
-              levels=None) -> None:
-    """15e: ``predict`` at batch 8 and 1, TF32 off and on, with peak memory and
-    the backbone + FPN / head towers / decode + NMS split by CUDA events;
-    K1 on the predict's own candidates; with ``runner`` the train step at
-    batch 4 with peak memory, TF32 off; with ``levels`` K3a / K3b at P3 on
+              levels=None, spans=None, phase: str = "15e") -> None:
+    """15e (16f): ``predict`` at batch 8 and 1, TF32 off and on, with peak
+    memory and the backbone + FPN / head towers / decode + NMS split by CUDA
+    events (or ``spans``, as ``family_split`` takes them); K1 on the
+    predict's own candidates; with ``runner`` the train step at the batch of
+    ``batch`` with peak memory, TF32 off; with ``levels`` K3a / K3b at P3 on
     the head's own batch-8 logits, against their bounds."""
     from ioudet_torch.apis.inference import predict
 
     model = handle.model
-    spans = ([("start", model.backbone, "pre"), ("backbone + FPN", model.neck, "post"),
-              ("head towers", model.bbox_head, "post")], "decode + NMS")
+    spans = spans or ([("start", model.backbone, "pre"), ("backbone + FPN", model.neck, "post"),
+                       ("head towers", model.bbox_head, "post")], "decode + NMS")
     for tf32 in (False, True):
         set_tf32(tf32)
         tag = f"[{card}; f32, TF32 {'on' if tf32 else 'off'}]"
         ms, peak, parts = family_split(handle, inputs, AF_REPS, spans)
         one = tuple(x[:1] for x in inputs)
         ms1 = host_ms(lambda: predict(handle, *one), reps=AF_REPS)
-        print(f"15e {what} predict batch {inputs[0].shape[0]}: median of {AF_REPS} {ms:.3f} "
+        print(f"{phase} {what} predict batch {inputs[0].shape[0]}: median of {AF_REPS} {ms:.3f} "
               f"ms, {inputs[0].shape[0] * 1e3 / ms:.2f} img/s, peak memory {peak:.2f} GiB; by "
               "CUDA events, ms: " + ", ".join(f"{k} {v:.3f}" for k, v in parts.items()) +
               f"; batch 1 {ms1:.3f} ms {tag}", flush=True)
@@ -5953,7 +5980,7 @@ def af_timing(K, Fc, what: str, handle, inputs, card: str, runner=None, batch=No
                  2 * x.numel() * 4 + small + 4, x.numel() * FOCAL_BWD_FLOPS)):
             ms, plain_ms = cuda_ms(call, 20), cuda_ms(plain, 5)
             bnd, by = bound(nbytes, flops)
-            print(f"15e {name} {what} P3 {tuple(x.shape)}, A = {a}, gamma {gamma}, the head's "
+            print(f"{phase} {name} {what} P3 {tuple(x.shape)}, A = {a}, gamma {gamma}, the head's "
                   f"own logits ({x.numel() * 4 / 1e6:.1f} MB): {ms:.4f} ms, {100 * bnd / ms:.1f}% "
                   f"of its bound {bnd:.4f} ms by {by}; plain {plain_ms:.4f} ms [{card}; f32]",
                   flush=True)
@@ -5963,8 +5990,9 @@ def af_timing(K, Fc, what: str, handle, inputs, card: str, runner=None, batch=No
     torch.cuda.reset_peak_memory_stats()
     ms = host_ms(lambda: runner.train_step(batch, runner.step), reps=AF_REPS)
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
-    print(f"15e {what} train step batch {AF_TRAIN_BATCH}: median of {AF_REPS} {ms:.3f} ms, "
-          f"{AF_TRAIN_BATCH * 1e3 / ms:.2f} img/s, peak memory {peak:.2f} GiB [{card}; f32, TF32 "
+    bsz = batch["img"].shape[0]
+    print(f"{phase} {what} train step batch {bsz}: median of {AF_REPS} {ms:.3f} ms, "
+          f"{bsz * 1e3 / ms:.2f} img/s, peak memory {peak:.2f} GiB [{card}; f32, TF32 "
           "off]", flush=True)
     runner.model.eval()
 
@@ -6063,6 +6091,457 @@ def phase_anchor_free(B, K, A, Fc, rng, card: str) -> dict:
         af_timing(K, Fc, what, fhandle, inputs, card, frunner, fbatch)
     print(f"15e: {time.perf_counter() - t:.2f} s", flush=True)
     del handle, runner, batch, inputs, foveas
+    work.cleanup()
+    torch.cuda.empty_cache()
+    return counts
+
+
+LIBRA_RETINA = "libra_retinanet_r50_fpn_1x.py"
+GHM = "retinanet_ghm_r50_fpn_1x.py"
+FREE_ANCHOR = "retinanet_free_anchor_r50_fpn_1x.py"
+LIBRA_FASTER = "libra_faster_rcnn_r50_fpn_1x.py"
+LIBRA_FAST = "libra_fast_rcnn_r50_fpn_1x.py"
+S16_BATCH = 8         # 16a-16c: predict's and the steps' batch, 100 gt slots
+S16_STEPS = 2         # 16a / 16c / 16d: train_detector steps
+GHM_STEPS = 3         # 16b: steps before the save, then a fourth from the .pth
+S16_SIZES = ((800, 1333),) * 6 + ((1333, 800),) * 2   # 16d / 16e: planted images
+RETINA_NAMES = ("bbox_head.retina_cls.weight", "bbox_head.retina_reg.weight")
+BFP_NAMES = ("neck.1.refine.theta.conv.weight", "neck.1.refine.g.conv.weight",
+             "neck.1.refine.conv_out.conv.weight")
+
+
+def s16_handle(name: str, two_stage: bool = False):
+    """(config, handle) of configs/``name`` at full width on the card,
+    seeded random weights; a RetinaNet head's ``retina_cls.bias`` zeroed
+    (random-weight scores then clear score_thr, and the NMS sees its 2000
+    candidates; the steps train from there); a BFP's non-local ``conv_out``
+    (zero at init: the block starts as the identity) drawn at std 1 /
+    sqrt(fan_in), so that the attention takes part in every forward."""
+    from ioudet_torch.apis.inference import init_detector
+
+    cfg = two_stage_cfg(name) if two_stage else ssd_cfg(name)
+    handle = init_detector(cfg, device="cuda", seed=0)
+    model = handle.model
+    with torch.no_grad():
+        if type(model.neck).__name__ == "NeckSequence":
+            conv = model.neck[1].refine.conv_out.conv
+            conv.weight.normal_(0.0, conv.in_channels ** -0.5,
+                                generator=torch.Generator("cuda").manual_seed(16))
+        if hasattr(model.bbox_head, "retina_cls"):
+            model.bbox_head.retina_cls.bias.zero_()
+    return cfg, handle
+
+
+@contextlib.contextmanager
+def assign_calls(A, seen: list):
+    """Every (anchors, valid, table, thresholds...) that the fused anchor
+    assignment hands K2b inside the block, in call order; the kernels run."""
+    targets = A.assign_targets
+
+    def capture(anchors, valid, table, gtmax, *args):
+        seen.append((anchors, valid, table, args))
+        return targets(anchors, valid, table, gtmax, *args)
+
+    A.assign_targets = capture
+    try:
+        yield
+    finally:
+        A.assign_targets = targets
+
+
+def check_step_assign(A, model, batch, what: str) -> None:
+    """K2a / K2b on the step's own anchors, valid flags and gt table against
+    their plain versions: gt max, labels, weights, positive mask, matched gt
+    and dx / dy bit for bit, dw / dh to 1e-6 (phase 2's rule)."""
+    seen = []
+    with assign_calls(A, seen), torch.no_grad():
+        model.forward_train(batch["img"], batch["gt_bboxes"], batch["gt_labels"],
+                            batch["gt_valid"], batch["img_shape"], batch["pad_shape"])
+    (anchors, valid, table, args), = seen
+    gtmax = A.assign_gtmax(anchors, valid, table)
+    plain_gtmax = A.assign_gtmax_plain(anchors, valid, table)
+    outs = A.assign_targets(anchors, valid, table, gtmax, *args)
+    plain = A.assign_targets_plain(anchors, valid, table, plain_gtmax, *args)
+    exact = (torch.equal(gtmax, plain_gtmax) and
+             all(torch.equal(o, q) for o, q in zip(outs[:3] + outs[4:], plain[:3] + plain[4:]))
+             and torch.equal(outs[3][..., :2], plain[3][..., :2]))
+    dwh = max_abs(outs[3][..., 2:], plain[3][..., 2:])
+    check(exact and dwh <= 1e-6,
+          f"{what}: K2a / K2b on the step's own targets ({anchors.shape[0]} anchors, "
+          f"{tuple(table.shape)} gt table, {int(outs[2].sum())} positives) bit-equal to their "
+          f"plain versions, dw / dh within {dwh:.1e}")
+
+
+def check_focal_levels(Fc, levels, num_anchors: int, what: str) -> None:
+    """K3a and K3b on the step's own f32 logits and targets at each level:
+    the sum to rtol 1e-5 of the plain version's, the dx to rtol 1e-5 /
+    atol 1e-6 (phase 15's)."""
+    check(len(levels) == 5 and all(lv[6] == num_anchors and lv[1].shape[-1] == 80 * num_anchors
+                                   for lv in levels),
+          f"{what}: one backward hands K3b five levels of (B, H, W, {num_anchors} x 80) logits: "
+          + ", ".join(str(tuple(lv[1].shape)) for lv in levels))
+    for g, x, lab, lw, gam, alpha, a in levels:
+        torch.testing.assert_close(Fc.focal_level_sum(x, lab, lw, gam, alpha, a),
+                                   Fc.focal_level_sum_plain(x, lab, lw, gam, alpha, a),
+                                   rtol=1e-5, atol=0.0)
+        torch.testing.assert_close(Fc.focal_level_dx(g, x, lab, lw, gam, alpha, a),
+                                   Fc.focal_level_dx_plain(g, x, lab, lw, gam, alpha, a),
+                                   rtol=1e-5, atol=1e-6)
+    check(True, f"{what}: K3a and K3b at each level against their plain versions on the "
+          "step's own logits (sum rtol 1e-5, dx rtol 1e-5 / atol 1e-6)")
+
+
+def s16_batch() -> dict:
+    return {k: torch.from_numpy(v).cuda() for k, v in train_batch(S16_BATCH, NUM_GTS).items()}
+
+
+def s16_steps(B, handle, cfg, batch, work_dir: str, steps: int, want: dict, what: str,
+              tag: str, replay=None, on_step=None) -> tuple:
+    """``train_detector`` for ``steps`` steps on ``batch`` into ``work_dir``:
+    each step's launches ``want`` (nothing else), every loss finite, step
+    1's losses ``replay``'s where given, ``on_step(step)`` after each step.
+    Returns (launch counts, runner, each step's peak GiB)."""
+    from ioudet_torch.apis.train import train_detector
+
+    per_step, history, peaks = [], [], []
+
+    def hook(step, log_vars):
+        per_step.append(dict(B.launches))
+        history.append({k: float(v) for k, v in log_vars.items()})
+        peaks.append(torch.cuda.max_memory_allocated() / 2 ** 30)
+        if on_step is not None:
+            on_step(step)
+        B.reset_launches()
+        torch.cuda.reset_peak_memory_stats()
+
+    torch.cuda.synchronize()
+    B.reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    runner = train_detector(handle, [batch] * steps, cfg, work_dir, device="cuda",
+                            step_hook=hook)
+    check(len(per_step) == steps and all({k: v for k, v in c.items() if v} == want
+                                         for c in per_step),
+          f"{tag} {what}: {len(per_step)} train_detector steps at batch "
+          f"{batch['img'].shape[0]}, each launching {want or 'no kernel'} and nothing else: "
+          f"{per_step}")
+    check(all(np.isfinite(v) for r in history for v in r.values()),
+          f"{tag} {what}: every step's losses finite: " + "; ".join(
+              ", ".join(f"{k} {v:.4f}" for k, v in r.items()) for r in history))
+    check(all(bool(torch.isfinite(p).all()) for p in handle.model.parameters()),
+          f"{tag} {what}: every parameter finite after the steps")
+    for k, v in (replay or {}).items():
+        check(abs(history[0][k] - float(v)) <= 1e-5 * abs(float(v)),
+              f"{tag} {what}: step 1's {k} of train_detector equals the replay's")
+    print(f"{tag} {what}: each step's peak memory " +
+          ", ".join(f"{p:.2f}" for p in peaks) + " GiB", flush=True)
+    counts = {}
+    for c in per_step:
+        counts = add_counts(counts, c)
+    return counts, runner, peaks
+
+
+def s16_requests(B, handle, rng, tag: str, what: str) -> dict:
+    """Three ``inference_detector`` requests (480x640, 800x1333, 1333x800):
+    80 per-class lists of finite (k, 5) arrays, K1 once each."""
+    from ioudet_torch.apis.inference import inference_detector
+
+    requests = [rng.integers(0, 256, (h, w, 3), dtype=np.uint8)
+                for h, w in ((480, 640), (800, 1333), (1333, 800))]
+    B.reset_launches()
+    results = [inference_detector(handle, im) for im in requests]
+    torch.cuda.synchronize()
+    counts = dict(B.launches)
+    check(all(len(r) == 80 and all(a.ndim == 2 and a.shape[1] == 5 and np.isfinite(a).all()
+                                   for a in r) for r in results) and
+          counts["nms_mask_kernel"] == 3,
+          f"{tag} {what}: three inference_detector requests: "
+          f"{[sum(map(len, r)) for r in results]} dets in 80 per-class lists, K1 once each")
+    return counts
+
+
+@contextlib.contextmanager
+def ghm_calls(seen: list):
+    """Each call of GHM's density weighting inside the block: (g, valid,
+    bins, momentum, the carried sums, norm, per), copied; the weighting
+    runs."""
+    from ioudet_torch.models.losses import ghm_loss
+
+    weights = ghm_loss._bin_weights
+
+    def capture(g, valid, bins, momentum, acc_sum, norm, per=1.0):
+        seen.append((g.detach().clone(), valid.clone(), bins, momentum, acc_sum.clone(), per))
+        return weights(g, valid, bins, momentum, acc_sum, norm, per)
+
+    ghm_loss._bin_weights = capture
+    try:
+        yield
+    finally:
+        ghm_loss._bin_weights = weights
+
+
+def ghm_replay(call) -> torch.Tensor:
+    """The EMA sums of one GHM call replayed plainly on the card: the bin
+    ids of the valid entries counted by ``torch.bincount``, then the EMA of
+    the non-empty bins."""
+    g, valid, bins, momentum, acc, _ = call
+    ids = (g * bins).to(torch.int32).clamp(0, bins - 1)
+    counts = torch.bincount(ids[valid].long(), minlength=bins).float()
+    return torch.where(counts > 0, momentum * acc + (1 - momentum) * counts, acc)
+
+
+def ghm_training(B, handle, cfg, batch, work_dir: str) -> tuple:
+    """16b: GHM_STEPS ``train_detector`` steps at batch 8 (the config's
+    anchor sampler: 256 an image; no kernel: GHMCAdapter is not the focal
+    family, so the general assignment runs); after each step both EMA sums
+    (``cls_acc_sum``, ``bbox_acc_sum``) equal a plain replay of that step's
+    own bin ids, bit for bit, and have moved from zero; then the saved
+    ``epoch_1.pth`` loaded into a fresh model and its fourth step against
+    the fourth step of the run that went on: parameters and sums bit-equal
+    (cuDNN deterministic).  Returns (launch counts, runner)."""
+    from ioudet_torch.apis.checkpoint import load_checkpoint
+    from ioudet_torch.apis.train import (build_optimizer, make_lr_schedule, make_train_step,
+                                         make_trainable_mask)
+
+    head = handle.model.bbox_head
+    calls = []
+
+    def on_step(step):
+        (cls_call, box_call) = calls[-2:]
+        for name, call in (("cls_acc_sum", cls_call), ("bbox_acc_sum", box_call)):
+            buf = getattr(head, name)
+            want = ghm_replay(call)
+            check(torch.equal(buf, want) and float(buf.sum()) > 0,
+                  f"16b GHM step {step}: {name} ({call[2]} bins, {int(call[1].sum())} valid "
+                  f"entries) equals the plain replay of the step's bin ids bit for bit: "
+                  + ", ".join(f"{v:.2f}" for v in buf.tolist()))
+        calls.clear()
+
+    model = handle.model.train()
+    check(all(float(getattr(head, n).abs().sum()) == 0 for n in ("cls_acc_sum", "bbox_acc_sum")),
+          "16b GHM: the EMA sums start at zero")
+    with ghm_calls(calls):
+        counts, runner, peaks = s16_steps(B, handle, cfg, batch, work_dir, GHM_STEPS, {},
+                                          "GHM RetinaNet", "16b", on_step=on_step)
+    torch.backends.cudnn.deterministic = True
+    try:
+        twin = copy.deepcopy(model)
+        with torch.no_grad():
+            for prm in twin.parameters():
+                prm.zero_()
+            for buf in twin.buffers():
+                buf.zero_()
+        make_trainable_mask(twin)
+        twin_opt = build_optimizer(twin, cfg["optimizer"])
+        meta = load_checkpoint(twin, os.path.join(work_dir, "epoch_1.pth"), optimizer=twin_opt)
+        sched = make_lr_schedule(cfg["optimizer"]["lr"], cfg["lr_config"], GHM_STEPS, 1)
+        twin_step = make_train_step(twin, twin_opt, sched, cfg["optimizer_config"]["grad_clip"])
+        runner.train_step(batch, GHM_STEPS)
+        twin_step(batch, GHM_STEPS)
+        torch.cuda.synchronize()
+    finally:
+        torch.backends.cudnn.deterministic = False
+    live = model.state_dict()
+    worst = max(max_abs(v, live[k]) for k, v in twin.state_dict().items())
+    check(meta["step"] == GHM_STEPS and worst == 0.0 and
+          torch.equal(twin.bbox_head.cls_acc_sum, head.cls_acc_sum),
+          f"16b GHM: epoch_1.pth (step {meta['step']}) into a fresh model, one more step: "
+          "parameters and EMA sums bit-equal to the run that went on")
+    return counts, runner
+
+
+def check_free_anchor_loss(model, batch, what: str) -> None:
+    """FreeAnchor's loss on the step's own head outputs of the first image,
+    card against CPU: each loss to rtol 1e-5, the gradient w.r.t. the head
+    outputs to 1e-5 of its largest |value|, finite on both."""
+    with torch.no_grad():
+        outs = model(batch["img"][:1])
+    one = {k: v[:1] for k, v in batch.items()}
+    losses, grads = [], []
+    for dev in ("cuda", "cpu"):
+        b = {k: v.to(dev) for k, v in one.items()}
+        leaves = [[t.detach().to(dev).requires_grad_() for t in lvl] for lvl in outs]
+        out = model.bbox_head.loss(*leaves, b["gt_bboxes"], b["gt_labels"], b["gt_valid"],
+                                   b["img_shape"], b["pad_shape"], dict(model.train_cfg or {}))
+        sum(out.values()).backward()
+        losses.append({k: float(v.detach()) for k, v in out.items()})
+        grads.append([t.grad.cpu() for lvl in leaves for t in lvl])
+    for k, want in losses[1].items():
+        check(abs(losses[0][k] - want) <= 1e-5 * abs(want) and want > 0,
+              f"{what}: FreeAnchorRetinaHead.loss of image 1's head outputs: {k} on the card "
+              f"{losses[0][k]:.6f}, on the CPU {want:.6f} (rtol 1e-5)")
+    scale = max(float(c.abs().max()) for c in grads[1])
+    diff = max(max_abs(g, c) for g, c in zip(*grads))
+    check(scale > 0 and all(bool(torch.isfinite(g).all()) for g in grads[0]) and
+          diff <= 1e-5 * scale,
+          f"{what}: its gradient w.r.t. the head outputs on the card against the CPU: max abs "
+          f"diff {diff:.2e} of max {scale:.2e} (limit 1e-5 of it), finite")
+
+
+def bfp_spans(model, head: str = "head towers") -> list:
+    """``family_split``'s spans of a detector with the FPN -> BFP chain: the
+    BFP's gather and average, its non-local refine and its scatter apart."""
+    bfp = model.neck[1]
+    return [("start", model.backbone, "pre"), ("backbone + FPN", model.neck[0], "post"),
+            ("BFP gather + average", bfp.refine, "pre"), ("BFP non-local refine", bfp.refine,
+                                                          "post"),
+            ("BFP scatter", bfp, "post")] + ([(head, model.bbox_head, "post")] if head else [])
+
+
+def phase_libra_ghm_free_anchor(B, K, A, Fc, rng, card: str) -> dict:
+    """Phase 16: Libra RetinaNet, GHM RetinaNet, FreeAnchor RetinaNet, Libra
+    Faster R-CNN and Libra Fast R-CNN at full width (R-50-FPN, 81 classes,
+    832x1344 canvases, seeded random weights, f32, TF32 off for the checks)
+    served, trained and evaluated through the port's entry points; then
+    their timings.  Returns the kernels' launch counts of its main-path
+    runs."""
+    from ioudet_torch.data import build_dataset
+
+    set_tf32(False)
+    work = tempfile.TemporaryDirectory()
+    ann_file, img_dir = plant_coco(work.name, S16_SIZES, 80, seed=23)
+    inputs = canvases(S16_BATCH, rng)
+    timed = []
+
+    t = time.perf_counter()
+    cfg, handle = s16_handle(LIBRA_RETINA)
+    model = handle.model
+    print(f"16a: Libra RetinaNet ({LIBRA_RETINA}, {sum(p.numel() for p in model.parameters()):,} "
+          "parameters; FPN -> BFP, its non-local refine at P5, 26x42)", flush=True)
+    counts = ssd_serving(B, K, handle, inputs, "Libra RetinaNet", "16a", max_per_img=100,
+                         iou_thr=0.5)
+    counts = add_counts(counts, ssd_serving(B, K, handle, tuple(x[:1] for x in inputs),
+                                            "Libra RetinaNet batch 1", "16a", max_per_img=100,
+                                            iou_thr=0.5))
+    counts = add_counts(counts, s16_requests(B, handle, rng, "16a", "Libra RetinaNet"))
+    af_reference(handle, "16a Libra RetinaNet")
+    batch = s16_batch()
+    model.train()
+    names = RETINA_NAMES + BFP_NAMES
+    torch.cuda.synchronize()
+    B.reset_launches()
+    torch.backends.cudnn.deterministic = True   # the replay differs in the kernels only
+    try:
+        replay, grads = check_step_replay(A, Fc, model, batch, names, "16a Libra RetinaNet step 1")
+        seen = dict(B.launches)
+        check_step_assign(A, model, batch, "16a Libra RetinaNet step 1")
+        levels = focal_level_inputs(Fc, model, batch, names)
+    finally:
+        torch.backends.cudnn.deterministic = False
+    check(seen == {**{k: 0 for k in seen}, "assign_gtmax_kernel": 1, "assign_targets_kernel": 1,
+                   "focal_sum_kernel": 5, "focal_dx_kernel": 5} and
+          all(float(grads[n].abs().max()) > 0 for n in names),
+          f"16a Libra RetinaNet: step 1 through the kernels launched K2a / K2b once and K3a / "
+          f"K3b 5 times (A = 9) and nothing else: {seen}; nonzero gradients of {names}")
+    check_focal_levels(Fc, levels, 9, "16a Libra RetinaNet step 1")
+    del levels
+    got, runner, peaks = s16_steps(
+        B, handle, cfg, batch, os.path.join(work.name, "train"), S16_STEPS,
+        {"assign_gtmax_kernel": 1, "assign_targets_kernel": 1, "focal_sum_kernel": 5,
+         "focal_dx_kernel": 5}, "Libra RetinaNet", "16a", replay)
+    counts = add_counts(counts, got)
+    timed.append(("Libra RetinaNet", handle, runner, batch, (bfp_spans(model), "decode + NMS")))
+    print(f"16a: {time.perf_counter() - t:.2f} s", flush=True)
+
+    t = time.perf_counter()
+    counts = add_counts(counts, ssd_eval(B, handle, cfg, ann_file, img_dir, work.name,
+                                         name=LIBRA_RETINA, tag="16e", steps=S16_STEPS))
+    print(f"16e: {time.perf_counter() - t:.2f} s", flush=True)
+
+    t = time.perf_counter()
+    gcfg, ghandle = s16_handle(GHM)
+    print(f"16b: GHM RetinaNet ({GHM}: GHMC 30 bins, momentum 0.75; GHMR mu 0.02, 10 bins, "
+          "momentum 0.7, weight 10)", flush=True)
+    counts = add_counts(counts, ssd_serving(B, K, ghandle, inputs, "GHM RetinaNet", "16b",
+                                            max_per_img=100, iou_thr=0.5))
+    got, grunner = ghm_training(B, ghandle, gcfg, batch, os.path.join(work.name, "ghm"))
+    counts = add_counts(counts, got)
+    timed.append(("GHM RetinaNet", ghandle, grunner, batch, None))
+    print(f"16b: {time.perf_counter() - t:.2f} s", flush=True)
+
+    t = time.perf_counter()
+    fcfg, fhandle = s16_handle(FREE_ANCHOR)
+    print(f"16c: FreeAnchor RetinaNet ({FREE_ANCHOR}: bags of 50 anchors, bbox_thr 0.6)",
+          flush=True)
+    counts = add_counts(counts, ssd_serving(B, K, fhandle, inputs, "FreeAnchor RetinaNet",
+                                            "16c", max_per_img=100, iou_thr=0.5))
+    fhandle.model.train()
+    check_free_anchor_loss(fhandle.model, batch, "16c FreeAnchor")
+    got, frunner, fpeaks = s16_steps(B, fhandle, fcfg, batch, os.path.join(work.name, "fa"),
+                                     S16_STEPS, {}, "FreeAnchor RetinaNet", "16c")
+    counts = add_counts(counts, got)
+    # this check's gap on an H100 80GB HBM3 at 700 W was 17.51 GiB (30.68 against 13.17);
+    # 25 is about 1.4x it, and the (G, A, C) product alone would add 54 GB
+    check(max(fpeaks) < max(peaks) + 25.0,
+          f"16c FreeAnchor: the step's peak {max(fpeaks):.2f} GiB against Libra RetinaNet's "
+          f"{max(peaks):.2f} at the same batch, within 25 GiB: no (G, A, C) product "
+          "(54 GB at batch 8)")
+    timed.append(("FreeAnchor RetinaNet", fhandle, frunner, batch, None))
+    print(f"16c: {time.perf_counter() - t:.2f} s", flush=True)
+
+    t = time.perf_counter()
+    lcfg, lhandle = s16_handle(LIBRA_FASTER, two_stage=True)
+    lmodel = lhandle.model
+    sampler = lmodel.train_cfg["rcnn"]["sampler"]
+    print(f"16d: Libra Faster R-CNN ({LIBRA_FASTER}, "
+          f"{sum(p.numel() for p in lmodel.parameters()):,} parameters; BFP at P4, 52x84; "
+          f"R-CNN sampler {sampler['type']} {sampler['num']} at {sampler['pos_fraction']}, "
+          f"{sampler['num_bins']} IoU bins; box loss {lmodel.bbox_head.loss_bbox_fn}), rcnn "
+          "score_thr 0", flush=True)
+    check(sampler["type"] == "IoUBalancedNegSampler" and
+          type(lmodel.bbox_head.loss_bbox_fn).__name__ == "BalancedL1Loss",
+          "16d: the config's IoUBalancedNegSampler and BalancedL1Loss reach the model")
+    counts = add_counts(counts, two_stage_serving(B, K, lhandle, inputs, "Libra Faster R-CNN",
+                                                  "16d", batches=(TWO_STAGE_BATCH,)))
+    got, lrunner, lbatch = two_stage_training(
+        B, K, lhandle, lcfg, None, TWO_STAGE_NAMES + BFP_NAMES, "Libra Faster R-CNN", "16d",
+        S16_STEPS, nonzero=BFP_NAMES)
+    counts = add_counts(counts, got)
+    lhandle.model.eval()
+    timed.append(("Libra Faster R-CNN", lhandle, lrunner, lbatch, None))
+
+    ccfg, chandle = s16_handle(LIBRA_FAST, two_stage=True)
+    _, props = plant_proposals(ann_file, os.path.join(work.name, "all.pkl"))
+    finputs = inputs + cut_proposals(props, TEST_PROPOSALS)
+    print(f"16d: Libra Fast R-CNN ({LIBRA_FAST}) on planted .pkl proposals, "
+          f"{TEST_PROPOSALS} slots an image, valid {finputs[5].sum(1).tolist()}", flush=True)
+    counts = add_counts(counts, two_stage_serving(B, K, chandle, finputs, "Libra Fast R-CNN",
+                                                  "16d", batches=(TWO_STAGE_BATCH,), stages=1))
+    ann = subset_ann(ann_file, os.path.join(work.name, "fast.json"), 4)
+    pkl, _ = plant_proposals(ann, os.path.join(work.name, "fast.pkl"), seed=13)
+    fast_set = build_dataset(dict(ccfg["data"]["train"], ann_file=ann, img_prefix=img_dir,
+                                  proposal_file=pkl))
+    per_step = []
+
+    def hook(step, log_vars):
+        per_step.append((dict(B.launches), {k: float(v) for k, v in log_vars.items()}))
+        B.reset_launches()
+
+    from ioudet_torch.apis.train import train_detector
+    torch.cuda.synchronize()
+    B.reset_launches()
+    train_detector(chandle, fast_set, dict(ccfg, log_config=dict(interval=1)),
+                   os.path.join(work.name, "fast"), device="cuda", step_hook=hook)
+    check(len(per_step) == 2 and
+          all(not any(c.values()) and sorted(r) == ["loss", "loss_bbox", "loss_cls"] and
+              all(np.isfinite(v) for v in r.values()) for c, r in per_step),
+          "16d Libra Fast R-CNN: two train_detector steps at batch 2 from the config's "
+          "train_pipeline on 4 planted images with their .pkl proposals, no kernel launched, "
+          "losses finite: " + "; ".join(", ".join(f"{k} {v:.4f}" for k, v in r.items())
+                                       for _, r in per_step))
+    del chandle
+    print(f"16d: {time.perf_counter() - t:.2f} s", flush=True)
+
+    t = time.perf_counter()
+    for what, h, run, b, spans in timed:
+        h.model.eval()
+        if getattr(h.model, "rpn_head", None) is not None:
+            family_timing(K, h, inputs, card, what, run, b, batch1=True, phase="16f",
+                          spans=(bfp_spans(h.model, head=None) +
+                                 family_spans(h.model)[0][2:], "decode + final NMS"))
+        else:
+            af_timing(K, Fc, what, h, inputs, card, run, b, spans=spans, phase="16f")
+    print(f"16f: {time.perf_counter() - t:.2f} s", flush=True)
+    del timed, handle, ghandle, fhandle, lhandle, runner, grunner, frunner, lrunner, inputs
     work.cleanup()
     torch.cuda.empty_cache()
     return counts
@@ -6286,6 +6765,20 @@ def main() -> int:
     af_launches = phase_anchor_free(B, K, A, Fc, rng, card)
     launches = {k: launches[k] + af_launches.get(k, 0) for k in launches}
     print(f"phase 15: {time.perf_counter() - t:.2f} s", flush=True)
+
+    print("phase 16: Libra RetinaNet, GHM RetinaNet, FreeAnchor RetinaNet, Libra Faster R-CNN "
+          "and Libra Fast R-CNN at full width; TF32 off for the checks: 16a Libra RetinaNet "
+          f"predict at batch {S16_BATCH} and 1 (K1), inference_detector, GPU against CPU, "
+          f"{S16_STEPS} train steps at batch {S16_BATCH} (K2 and K3 on the step's own targets "
+          f"and logits); 16e its single_device_test, evaluate, tools.test, tools.train; 16b GHM "
+          f"predict, {GHM_STEPS} steps with the EMA sums against a plain replay, .pth resume; "
+          f"16c FreeAnchor predict, {S16_STEPS} steps with their peak memory; 16d Libra Faster "
+          "R-CNN (K1 at both stages) and Libra Fast R-CNN on planted .pkl proposals; 16f "
+          "timings" + since(start), flush=True)
+    t = time.perf_counter()
+    s16_launches = phase_libra_ghm_free_anchor(B, K, A, Fc, rng, card)
+    launches = {k: launches[k] + s16_launches.get(k, 0) for k in launches}
+    print(f"phase 16: {time.perf_counter() - t:.2f} s", flush=True)
     check(all(launches[name] > 0 for name in KERNELS if name not in REPLACED) and
           all(launches[name] == 0 for name in REPLACED),
           "every kernel was launched on a main path, and none of those the wgmma kernels "

@@ -6,7 +6,7 @@ The port's modules use the mmdet state_dict key layout, so a reference
 parameter tree for the RetinaNet family, SSD, FCOS, FoveaBox, Faster R-CNN /
 RPN / Mask R-CNN,
 Mask Scoring R-CNN, Grid R-CNN and the cascades (Cascade R-CNN, HTC: a head
-a stage, the semantic head),
+a stage, the semantic head), with FPN or the FPN -> BFP chain,
 with FrozenBN or GN and plain or weight-standardized convs (nested dicts of
 arrays, HWIO conv kernels, (in, out) dense kernels) into that layout: it is
 the inverse of ``ioudet``'s ``convert_torch_retinanet``,
@@ -21,8 +21,9 @@ marker file beside it for auto-resume.  ``load_checkpoint`` also reads
 ``ioudet``'s checkpoint directories (``state.msgpack`` + ``meta.json``,
 ``ioudet/apis/checkpoint.py``): the parameters through
 ``state_dict_from_flax``, the optax state into the torch optimizer's
-(``load_optax_state``) and the meta with its ``step`` and ``epoch``.  The port
-writes ``.pth`` files only.
+(``load_optax_state``), GHM's EMA bin counts (the 'ghm' collection of its
+``model_state``) into the head's buffers, and the meta with its ``step`` and
+``epoch``.  The port writes ``.pth`` files only.
 """
 
 from __future__ import annotations
@@ -176,6 +177,20 @@ def _shared_head(sd: dict, tree: dict, prefix: str = "shared_head") -> None:
 
 
 def _neck(sd: dict, tree: dict, prefix: str = "neck") -> None:
+    """FPN's tree {lateral_<i>, fpn_<i>, extra_<j>} -> mmdet's lateral_convs /
+    fpn_convs; BFP's {refine} -> ``_bfp``; a chain of necks (flax names a
+    tuple of submodules ``necks_<i>``) -> mmdet's ``nn.Sequential`` names
+    ``<prefix>.<i>``."""
+    if any(re.fullmatch(r"necks_\d+", k) for k in tree):
+        for name, node in tree.items():
+            m = re.fullmatch(r"necks_(\d+)", name)
+            if not m:
+                raise KeyError(f"unknown neck chain param {name}")
+            _neck(sd, node, f"{prefix}.{m.group(1)}")
+        return
+    if "refine" in tree:
+        _bfp(sd, tree, prefix)
+        return
     num_laterals = sum(1 for k in tree if k.startswith("lateral_"))
     for name, node in tree.items():
         group, idx = name.rsplit("_", 1)
@@ -189,6 +204,21 @@ def _neck(sd: dict, tree: dict, prefix: str = "neck") -> None:
         else:
             raise KeyError(f"unknown neck param {name}")
         _conv_module(sd, f"{prefix}.{dst}", node)
+
+
+def _bfp(sd: dict, tree: dict, prefix: str) -> None:
+    """BFP's refine: a ConvModule {conv} -> ``refine.conv``; the non-local
+    block {theta, phi, g, conv_out} -> ``refine.<name>.conv``."""
+    for name, node in tree.items():
+        if name != "refine":
+            raise KeyError(f"unknown BFP param {name}")
+        if "conv" in node:
+            _conv_module(sd, f"{prefix}.refine", node)
+            continue
+        for sub, leaf in node.items():
+            if sub not in ("theta", "phi", "g", "conv_out"):
+                raise KeyError(f"unknown non-local param {sub}")
+            _conv(sd, f"{prefix}.refine.{sub}.conv", leaf)
 
 
 ROI_FEAT_SIZE = 7   # the RoI feature's side in every box head the port builds
@@ -687,11 +717,15 @@ def read_weights(filename: str, types: Optional[Dict[str, str]] = None
     state is optax's tree, ``{}`` where there is none)."""
     if os.path.isdir(filename):
         state, meta = read_flax_checkpoint(filename)
-        if state.get("model_state"):
-            raise NotImplementedError(f"{filename}: model_state {sorted(state['model_state'])} "
-                                      "(GHM's EMA) is not ported")
-        return state_dict_from_flax(state.get("params", state), types), \
-            state.get("opt_state") or {}, meta
+        model_state = dict(state.get("model_state") or {})
+        ghm = model_state.pop("ghm", {})
+        if model_state:
+            raise NotImplementedError(f"{filename}: model_state collection(s) "
+                                      f"{sorted(model_state)} are not ported (the port reads "
+                                      "'ghm', GHM's EMA bin counts)")
+        sd = state_dict_from_flax(state.get("params", state), types)
+        sd.update(ghm_buffers(ghm))
+        return sd, state.get("opt_state") or {}, meta
     ckpt = torch.load(filename, map_location="cpu", weights_only=True)
     if not isinstance(ckpt, dict):
         raise TypeError(f"{filename}: expected a dict, got {type(ckpt)}")
@@ -699,6 +733,18 @@ def read_weights(filename: str, types: Optional[Dict[str, str]] = None
     sd = {(k[len("module."):] if k.startswith("module.") else k): v
           for k, v in sd.items() if not k.endswith("num_batches_tracked")}
     return sd, ckpt.get("optimizer") or {}, ckpt.get("meta", {})
+
+
+def ghm_buffers(tree: dict, prefix: str = "") -> Dict[str, torch.Tensor]:
+    """``ioudet``'s 'ghm' collection ({head: {cls_acc_sum, bbox_acc_sum}})
+    -> the heads' buffers under their state_dict names."""
+    out = {}
+    for name, node in tree.items():
+        if isinstance(node, dict):
+            out.update(ghm_buffers(node, f"{prefix}{name}."))
+        else:
+            out[prefix + name] = _tensor(node)
+    return out
 
 
 def load_checkpoint(model: torch.nn.Module, filename: str, strict: bool = True,

@@ -186,8 +186,9 @@ def data_parallel(model: nn.Module) -> DistributedDataParallel:
     """``model.forward_train`` wrapped in DDP over the default group, with
     summed gradients.  On a card, ``device_ids`` is the model's device.
     Every trainable parameter gets a gradient every step, so
-    ``find_unused_parameters`` stays off; FrozenBN's statistics never change,
-    so no buffers are broadcast."""
+    ``find_unused_parameters`` stays off; FrozenBN's statistics never change
+    and GHM's EMA sums move alike on every rank (their counts are summed
+    over the ranks), so no buffers are broadcast."""
     device = next(model.parameters()).device
     ddp = DistributedDataParallel(
         _ForwardTrain(model), device_ids=[device] if device.type == "cuda" else None,

@@ -2,9 +2,9 @@
 the same nested config dicts ``ioudet`` takes (``type`` keys).
 
 Only the components of the ported slice are known; any other ``type``
-raises ``KeyError`` naming what is available, and a structure the port
-does not build yet (a chain of necks) raises ``NotImplementedError``.  A
-config with ``rpn_head`` or ``bbox_roi_extractor`` builds a two-stage
+raises ``KeyError`` naming what is available.  A ``neck`` given as a list
+builds the chain (``NeckSequence``, Libra R-CNN's FPN -> BFP).  A config
+with ``rpn_head`` or ``bbox_roi_extractor`` builds a two-stage
 detector (``FasterRCNN``, ``DoubleHeadRCNN``, ``RPN``, ``MaskRCNN`` with
 ``mask_roi_extractor`` and ``mask_head``, ``MaskScoringRCNN`` with a
 ``mask_iou_head`` too, ``GridRCNN`` with ``grid_roi_extractor`` and
@@ -14,8 +14,8 @@ cascade from a list of box heads (``CascadeRCNN``; ``HybridTaskCascade``
 with a list of mask heads and optionally ``semantic_roi_extractor`` and
 ``semantic_head``).  Of these, Faster R-CNN and Mask R-CNN with FPN and
 RoIAlign also build in bf16 (``BF16_TWO_STAGE``); every other one raises
-``NotImplementedError`` in bf16, as SSD and the anchor-free heads (FCOS,
-FoveaBox) do.
+``NotImplementedError`` in bf16, as SSD, the anchor-free heads (FCOS,
+FoveaBox), FreeAnchor, the GHM losses and BFP do.
 """
 
 from __future__ import annotations
@@ -40,30 +40,34 @@ from .detectors.mask_scoring_rcnn import MaskScoringRCNN
 from .detectors.two_stage import RPN, DoubleHeadRCNN, FasterRCNN, TwoStageDetector
 from .heads.fcos_head import FCOSHead
 from .heads.fovea_head import FoveaHead
+from .heads.free_anchor_retina_head import FreeAnchorRetinaHead
 from .heads.iou_aware_retina_head import IoUAwareRetinaHead
 from .heads.retina_head import RetinaHead
 from .heads.rpn_head import RPNHead
 from .heads.ssd_head import SSDHead
 from .losses import (BoundedIoULoss, CrossEntropyLoss, FocalLoss, GIoULoss, IoULoss, L1Loss,
                      SmoothL1Loss)
+from .losses.balanced_l1_loss import BalancedL1Loss
+from .losses.ghm_loss import GHMC, GHMR, GHMCAdapter, GHMRAdapter
 from .mask_heads.fcn_mask_head import FCNMaskHead, HTCMaskHead
 from .mask_heads.fused_semantic_head import FusedSemanticHead
 from .mask_heads.grid_head import GridHead
 from .mask_heads.maskiou_head import MaskIoUHead
-from .necks.fpn import FPN
+from .necks import BFP, FPN, NeckSequence
 from .roi_extractors.single_level import DEFORM_POOLS, SingleRoIExtractor
 from .shared_heads.res_layer import ResLayer
 from .utils.layers import compute_dtype
 
 BACKBONES = {"ResNet": ResNet, "ResNeXt": ResNeXt, "SSDVGG": SSDVGG}
-NECKS = {"FPN": FPN}
+NECKS = {"FPN": FPN, "BFP": BFP}
 HEADS = {"RetinaHead": RetinaHead, "IoUAwareRetinaHead": IoUAwareRetinaHead,
          "RPNHead": RPNHead, "BBoxHead": BBoxHead, "ConvFCBBoxHead": ConvFCBBoxHead,
          "SharedFCBBoxHead": SharedFCBBoxHead, "DoubleConvFCBBoxHead": DoubleConvFCBBoxHead,
          "FCNMaskHead": FCNMaskHead, "HTCMaskHead": HTCMaskHead,
          "FusedSemanticHead": FusedSemanticHead, "ResLayer": ResLayer,
          "MaskIoUHead": MaskIoUHead, "GridHead": GridHead, "SSDHead": SSDHead,
-         "FCOSHead": FCOSHead, "FoveaHead": FoveaHead}
+         "FCOSHead": FCOSHead, "FoveaHead": FoveaHead,
+         "FreeAnchorRetinaHead": FreeAnchorRetinaHead}
 ROI_EXTRACTORS = {"SingleRoIExtractor": SingleRoIExtractor}
 DETECTORS = {"SingleStageDetector": SingleStageDetector,
              "RetinaNet": RetinaNet, "IoUAwareRetinaNet": IoUAwareRetinaNet,
@@ -82,7 +86,9 @@ DETECTOR_OPTIONS = {"CascadeRCNN": CASCADE_OPTIONS,
                     "HybridTaskCascade": CASCADE_OPTIONS + ("interleaved", "mask_info_flow")}
 LOSSES = {"FocalLoss": FocalLoss, "SmoothL1Loss": SmoothL1Loss, "L1Loss": L1Loss,
           "CrossEntropyLoss": CrossEntropyLoss, "IoULoss": IoULoss,
-          "BoundedIoULoss": BoundedIoULoss, "GIoULoss": GIoULoss}
+          "BoundedIoULoss": BoundedIoULoss, "GIoULoss": GIoULoss,
+          "BalancedL1Loss": BalancedL1Loss, "GHMC": GHMC, "GHMR": GHMR,
+          "GHMCAdapter": GHMCAdapter, "GHMRAdapter": GHMRAdapter}
 
 
 def _build(cfg: dict, table: dict, kind: str):
@@ -115,15 +121,15 @@ def build_detector(cfg: dict, train_cfg: Optional[dict] = None,
         return part
 
     det_type = cfg.pop("type")
-    if isinstance(cfg.get("neck"), (list, tuple)):
-        raise NotImplementedError("a chain of necks (ioudet's NeckSequence, e.g. FPN -> "
-                                  "BFP) is not ported yet")
     if det_type not in DETECTORS:
         raise KeyError(f"detector {det_type!r} is not ported; "
                        f"available: {sorted(DETECTORS)}")
     parts = dict(backbone=_build(with_dtype(cfg.pop("backbone")), BACKBONES, "backbone"))
     if "neck" in cfg:
-        parts["neck"] = _build(with_dtype(cfg.pop("neck")), NECKS, "neck")
+        neck = cfg.pop("neck")
+        parts["neck"] = (NeckSequence(*[_build(with_dtype(n), NECKS, "neck") for n in neck])
+                         if isinstance(neck, (list, tuple)) else
+                         _build(with_dtype(neck), NECKS, "neck"))
     if "rpn_head" in cfg or "bbox_roi_extractor" in cfg:
         # the two-stage family (ioudet's config keys)
         roi_layer = dict(dict(cfg.get("bbox_roi_extractor") or {}).get("roi_layer") or {})

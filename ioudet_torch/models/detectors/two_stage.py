@@ -36,8 +36,9 @@ from ...core.bbox import MaxIoUAssigner, delta2bbox
 from ...core.bbox.samplers import build_sampler, uniform
 from ...core.post_processing import multiclass_nms
 from ...core.post_processing.bbox_nms import topk_stable
+from ...parallel.mesh import global_count
 from ..bbox_heads.bbox_head import bbox_target_single
-from ..heads.anchor_head import clip_boxes, global_count, take
+from ..heads.anchor_head import clip_boxes, take
 
 
 def sample_rois_batch(generator, proposals, prop_valid, gt_bboxes, gt_valid, gt_labels,

@@ -1,7 +1,8 @@
 """Anchor-based head base (counterpart of ``ioudet/models/heads/anchor_head.py``):
 configuration, anchors, the training loss (with the RPN's anchor
-subsampling where the classification loss is not the focal family's), the
-sigmoid decode, box clipping and the batched multiclass NMS tail.
+subsampling where the classification loss is not the focal family's, and
+GHM's EMA bin counts as the head's buffers, ``call_loss``), the sigmoid
+decode, box clipping and the batched multiclass NMS tail.
 
 Head outputs are NHWC per level at the public functions, with the
 anchor-major channel layout ``a*C + c``, so that flattening a level gives the
@@ -10,10 +11,10 @@ anchor-major channel layout ``a*C + c``, so that flattening a level gives the
 
 from __future__ import annotations
 
+import functools
 from typing import Dict, List, Optional, Sequence, Tuple, Union
 
 import torch
-import torch.distributed as dist
 from torch import nn
 
 from ...core.anchor import AnchorGenerator, anchor_target
@@ -21,8 +22,9 @@ from ...core.bbox import MaxIoUAssigner, delta2bbox
 from ...core.bbox.samplers import build_sampler
 from ...core.post_processing import multiclass_nms
 from ...core.post_processing.bbox_nms import topk_stable
+from ...parallel.mesh import global_count
 from ..losses import fused_level_focal_sum
-from ...parallel.mesh import world_size
+from ..losses.ghm_loss import GHM_LOSSES
 from ..utils.layers import compute_dtype
 
 DEFAULT_LOSS_CLS = dict(type="FocalLoss", use_sigmoid=True, gamma=2.0, alpha=0.25,
@@ -69,6 +71,14 @@ class AnchorHead(nn.Module):
         self.loss_bbox = dict(loss_bbox or DEFAULT_LOSS_BBOX)
         self.loss_cls_fn = build_loss(self.loss_cls)
         self.loss_bbox_fn = build_loss(self.loss_bbox)
+        for fn, state in ((self.loss_cls_fn, "cls_acc_sum"), (self.loss_bbox_fn, "bbox_acc_sum")):
+            if isinstance(fn, GHM_LOSSES) and self.dtype != torch.float32:
+                raise NotImplementedError(f"{type(fn).__name__} in {self.dtype} is not ported "
+                                          "yet (it runs in float32)")
+            if getattr(fn, "stateful", False):
+                # GHM's EMA bin counts (ioudet's 'ghm' collection): zeros at
+                # init, in the state_dict, written by training steps only
+                self.register_buffer(state, torch.zeros(fn.bins))
         self._anchor_cache: Dict[tuple, List[torch.Tensor]] = {}
 
     @property
@@ -113,6 +123,23 @@ class AnchorHead(nn.Module):
     def _flatten_levels(self, preds: Sequence[torch.Tensor], ch: int) -> torch.Tensor:
         """(B, H, W, A*ch) per level -> (B, A_tot, ch), in anchor order."""
         return torch.cat([p.reshape(p.shape[0], -1, ch) for p in preds], dim=1)
+
+    def call_loss(self, fn, state: str, *args, **kwargs) -> torch.Tensor:
+        """``fn(*args, **kwargs)``; a stateful loss (GHM with momentum) also
+        takes the head's buffer ``state`` as its ``acc_sum`` and returns the
+        new sums, which are written back to the buffer in a training step
+        (the module in training mode with autograd on) and nowhere else: not
+        in ``predict`` and not in a loss evaluated under ``torch.no_grad()``
+        or in eval mode, where ``ioudet``'s 'ghm' collection is not mutable
+        either."""
+        if not getattr(fn, "stateful", False):
+            return fn(*args, **kwargs)
+        acc = getattr(self, state)
+        out, new_acc = fn(*args, acc_sum=acc, **kwargs)
+        if self.training and torch.is_grad_enabled():
+            with torch.no_grad():
+                acc.copy_(new_acc)
+        return out
 
     @property
     def sampling(self) -> bool:
@@ -165,9 +192,13 @@ class AnchorHead(nn.Module):
         _, targets, num_pos = self._targets(
             featmap_sizes, gt_bboxes, gt_labels, gt_valid, img_shapes, pad_shapes,
             train_cfg, gt_bboxes_ignore, gt_ignore_valid, generator)
-        loss_cls = level_cls_loss(self.loss_cls, self.loss_cls_fn, cls_scores, targets.labels,
-                                  targets.label_weights, num_pos, self.num_anchors)
-        loss_bbox = self.loss_bbox_fn(
+        loss_cls = level_cls_loss(self.loss_cls,
+                                  functools.partial(self.call_loss, self.loss_cls_fn,
+                                                    "cls_acc_sum"),
+                                  cls_scores, targets.labels, targets.label_weights, num_pos,
+                                  self.num_anchors)
+        loss_bbox = self.call_loss(
+            self.loss_bbox_fn, "bbox_acc_sum",
             self._flatten_levels(bbox_preds, 4).reshape(-1, 4),
             targets.bbox_targets.reshape(-1, 4),
             weight=targets.bbox_weights.reshape(-1, 4), avg_factor=num_pos)
@@ -236,15 +267,6 @@ def level_cls_loss(cfg: dict, loss_fn, cls_scores, labels: torch.Tensor,
             alpha, num_anchors)
         start += n
     return cfg.get("loss_weight", 1.0) * total / avg_factor.clamp(min=1e-12)
-
-
-def global_count(count: torch.Tensor) -> torch.Tensor:
-    """``count`` summed over the ranks of a process group of more than one
-    rank (data-parallel training), else as it is."""
-    if world_size() > 1:
-        count = count.clone()
-        dist.all_reduce(count)
-    return count
 
 
 def take(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:

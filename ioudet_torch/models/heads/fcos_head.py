@@ -33,9 +33,10 @@ from torch import nn
 
 from ...core.bbox import distance2bbox
 from ...core.post_processing.bbox_nms import topk_stable
+from ...parallel.mesh import global_count
 from ..losses import binary_cross_entropy_with_logits, iou_loss
 from ..utils.layers import Conv2d, ConvModule, Scale, bias_init_with_prob, compute_dtype
-from .anchor_head import batched_nms, clip_boxes, global_count, level_cls_loss, sigmoid, take
+from .anchor_head import batched_nms, clip_boxes, level_cls_loss, sigmoid, take
 from .retina_head import nhwc
 
 INF = 1e8

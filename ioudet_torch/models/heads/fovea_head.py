@@ -32,8 +32,9 @@ import torch
 from torch import nn
 
 from ...core.post_processing.bbox_nms import topk_stable
+from ...parallel.mesh import global_count
 from ..utils.layers import Conv2d, ConvModule, bias_init_with_prob
-from .anchor_head import batched_nms, clip_boxes, global_count, level_cls_loss, sigmoid, take
+from .anchor_head import batched_nms, clip_boxes, level_cls_loss, sigmoid, take
 from .fcos_head import f32_only, init_anchor_free
 from .guided_anchor_head import FeatureAdaption
 from .retina_head import nhwc

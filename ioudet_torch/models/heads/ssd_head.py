@@ -27,9 +27,10 @@ from torch import nn
 from ...core.anchor import AnchorGenerator, anchor_target
 from ...core.bbox import MaxIoUAssigner, delta2bbox
 from ...core.post_processing.bbox_nms import topk_stable
+from ...parallel.mesh import global_count
 from ..losses.cross_entropy_loss import cross_entropy
 from ..losses.smooth_l1_loss import smooth_l1_loss
-from .anchor_head import AnchorHead, clip_boxes, global_count, normal_init, take
+from .anchor_head import AnchorHead, clip_boxes, normal_init, take
 from .retina_head import nhwc
 
 

@@ -23,7 +23,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ..heads.anchor_head import global_count
+from ...parallel.mesh import global_count
 from ..losses.cross_entropy_loss import binary_cross_entropy_with_logits
 from ..utils.layers import Conv2d, ConvModule, ConvTranspose2d, compute_dtype
 

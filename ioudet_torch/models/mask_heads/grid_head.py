@@ -35,7 +35,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ..heads.anchor_head import global_count, sigmoid
+from ...parallel.mesh import global_count
+from ..heads.anchor_head import sigmoid
 from ..losses.cross_entropy_loss import binary_cross_entropy_with_logits
 from ..utils.layers import Conv2d, ConvTranspose2d, GroupNorm, compute_dtype
 

@@ -21,7 +21,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ..heads.anchor_head import global_count
+from ...parallel.mesh import global_count
 from ..utils.layers import Conv2d, Linear, compute_dtype
 
 

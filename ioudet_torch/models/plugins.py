@@ -1,6 +1,7 @@
-"""Backbone plugins (counterpart of ``ioudet/models/plugins.py``): the
-global-context block (GCNet).  ``NonLocal2D`` and ``GeneralizedAttention``
-are not ported yet.
+"""Plugins (counterpart of ``ioudet/models/plugins.py``): the
+global-context block (GCNet) and the embedded-Gaussian non-local block
+(``NonLocal2D``, Libra R-CNN's BFP refine).  ``GeneralizedAttention`` is not
+ported yet.
 
 mmdet's state_dict layout: ``conv_mask``, ``channel_add_conv.{0,1,3}`` and
 ``channel_mul_conv.{0,1,3}`` (1x1 conv, LayerNorm over (planes, 1, 1), ReLU,
@@ -16,7 +17,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from .utils.layers import Conv2d
+from .utils.layers import Conv2d, ConvModule
 
 FUSIONS = ("channel_add", "channel_mul")
 
@@ -73,3 +74,43 @@ class ContextBlock(nn.Module):
             t = getattr(self, f"{fusion}_conv")(context)
             out = out + t if fusion == "channel_add" else out * torch.sigmoid(t)
         return out
+
+
+class NonLocal2D(nn.Module):
+    """Embedded-Gaussian non-local block as BFP builds it (``ioudet``'s
+    ``NonLocal2D(reduction=1, use_scale=False)``): 1x1 convs ``theta``,
+    ``phi``, ``g`` at ``in_channels``, the softmax over the positions of
+    theta . phi, the attention-weighted sum of ``g``, and ``conv_out`` added
+    to the input.  mmdet's names: ``theta.conv``, ``phi.conv``, ``g.conv``,
+    ``conv_out.conv``.  The two products are ``torch.matmul``, as they are
+    XLA products in ``ioudet``; at Libra Faster R-CNN's refine level (P4 of
+    832x1344, 4368 positions) the attention is 76 MB an image.  f32 only
+    (BFP, its one user, runs in f32)."""
+
+    INT8 = False   # w8a8 serving of the non-local block is not ported
+
+    def __init__(self, in_channels: int):
+        super().__init__()
+        for name in ("theta", "phi", "g", "conv_out"):
+            setattr(self, name, ConvModule(in_channels, in_channels, 1, act=None))
+
+    def init_weights(self, generator: torch.Generator) -> None:
+        """theta, phi, g normal(0.01), ``conv_out`` zero (the block starts as
+        the identity, as ``ioudet``'s), biases 0."""
+        with torch.no_grad():
+            for name in ("theta", "phi", "g", "conv_out"):
+                conv = getattr(self, name).conv
+                if name == "conv_out":
+                    conv.weight.zero_()
+                else:
+                    conv.weight.normal_(0.0, 0.01, generator=generator)
+                conv.bias.zero_()
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        b, c, h, w = x.shape
+        q = self.theta(x).reshape(b, c, h * w).transpose(1, 2)
+        k = self.phi(x).reshape(b, c, h * w)
+        v = self.g(x).reshape(b, c, h * w).transpose(1, 2)
+        attn = torch.softmax(torch.matmul(q, k), dim=-1)
+        y = torch.matmul(attn, v).transpose(1, 2).reshape(b, c, h, w)
+        return x + self.conv_out(y)

@@ -11,6 +11,8 @@ global batch (``data/loader.py``, sharded by rank).
     environment (``torchrun``, or ``tools/train.py --n-devices``);
   * ``rank`` / ``world_size`` / ``local_rank`` read it (0 / 1 / 0 without
     one);
+  * ``global_count`` sums a device tensor over the ranks (the losses'
+    normalizers, counted over the global batch as ``ioudet`` counts them);
   * ``allgather_pytrees`` gathers one tree of host numpy arrays from every
     rank (the evaluation merge).
 """
@@ -41,6 +43,15 @@ def rank() -> int:
 
 def world_size() -> int:
     return dist.get_world_size() if is_initialized() else 1
+
+
+def global_count(count: torch.Tensor) -> torch.Tensor:
+    """``count`` summed over the ranks of a process group of more than one
+    rank (data-parallel training), else as it is."""
+    if world_size() > 1:
+        count = count.clone()
+        dist.all_reduce(count)
+    return count
 
 
 def local_rank() -> int:

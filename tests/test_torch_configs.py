@@ -8,7 +8,9 @@ and the paper's family (the 11 ``configs/*iou_aware_*.py``,
 ``faster_rcnn_r50_fpn_gn_ws_1x.py``, ``fast_rcnn_r50_fpn_1x.py``,
 ``double_head_rcnn_r50_fpn_1x.py``, ``ms_rcnn_r50_fpn_1x.py``,
 ``grid_rcnn_r50_fpn_2x.py``, ``ssd300_coco.py``,
-``fcos_r50_caffe_fpn_gn_1x_4gpu.py``, ``fovea_align_gn_r50_fpn_4gpu_2x.py``)
+``fcos_r50_caffe_fpn_gn_1x_4gpu.py``, ``fovea_align_gn_r50_fpn_4gpu_2x.py``,
+``retinanet_free_anchor_r50_fpn_1x.py`` and the three Libra R-50 configs,
+whose FPN -> BFP chain crosses as flax's ``necks_<i>``)
 also go through the weight bridge: ``ioudet``
 builds under ``jax.eval_shape``, its parameter tree (of ``simple_test`` for
 a two-stage detector, whose ``__call__`` runs the RPN alone) goes through
@@ -38,7 +40,7 @@ FAMILY = sorted(os.path.basename(f) for f in glob.glob(
     os.path.join(ROOT, "configs", "*iou_aware_*.py")))
 
 
-# every config the port builds (82 of 109); what stops the rest is in
+# every config the port builds (92 of 109); what stops the rest is in
 # ROADMAP.md ("Configs")
 BUILDS = FAMILY + [
     "retinanet_r50_fpn_1x.py", "retinanet_r50_fpn_2x.py", "retinanet_r101_fpn_1x.py",
@@ -77,10 +79,16 @@ BUILDS = FAMILY + [
     "fcos_r50_fpn_1x.py", "fcos_r101_fpn_1x.py", "fcos_r50_caffe_fpn_gn_1x_4gpu.py",
     "fcos_mstrain_640_800_r101_caffe_fpn_gn_2x_4gpu.py",
     "fcos_mstrain_640_800_x101_64x4d_fpn_gn_2x.py",
-    "fovea_r50_fpn_4gpu_1x.py", "fovea_align_gn_r50_fpn_4gpu_2x.py"]
+    "fovea_r50_fpn_4gpu_1x.py", "fovea_align_gn_r50_fpn_4gpu_2x.py",
+    "retinanet_ghm_r50_fpn_1x.py", "retinanet_ghm_r101_fpn_1x.py",
+    "retinanet_ghm_x101_64x4d_fpn_1x.py",
+    "retinanet_free_anchor_r50_fpn_1x.py", "retinanet_free_anchor_r101_fpn_1x.py",
+    "retinanet_free_anchor_x101_32x4d_fpn_1x.py",
+    "libra_retinanet_r50_fpn_1x.py", "libra_faster_rcnn_r50_fpn_1x.py",
+    "libra_faster_rcnn_x101_64x4d_fpn_1x.py", "libra_fast_rcnn_r50_fpn_1x.py"]
 ALL = sorted(os.path.basename(f) for f in glob.glob(os.path.join(ROOT, "configs", "*.py")))
 LIBRA = ("libra_fast_rcnn_r50_fpn_1x.py", "libra_faster_rcnn_r50_fpn_1x.py",
-         "libra_retinanet_r50_fpn_1x.py")
+         "libra_faster_rcnn_x101_64x4d_fpn_1x.py", "libra_retinanet_r50_fpn_1x.py")
 
 
 def gn_double_head(cfg: dict) -> dict:
@@ -120,9 +128,14 @@ def test_other_configs_raise_not_ported(name):
 
 
 @pytest.mark.parametrize("name", LIBRA)
-def test_neck_chains_raise_naming_neck_sequence(name):
-    with pytest.raises(NotImplementedError, match="NeckSequence"):
-        build(name)
+def test_libra_configs_build_fpn_then_bfp(name):
+    """A ``neck`` list builds the chain in its order: FPN, then the
+    non-local BFP at the config's refine level."""
+    neck = build(name).neck
+    assert type(neck).__name__ == "NeckSequence"
+    assert [type(n).__name__ for n in neck] == ["FPN", "BFP"]
+    assert neck[1].refine_type == "non_local" and neck[1].refine_level == 2
+    assert type(neck[1].refine).__name__ == "NonLocal2D"
 
 
 def test_the_family_is_all_there():
@@ -138,7 +151,11 @@ def test_the_family_is_all_there():
                                   "double_head_rcnn_r50_fpn_1x.py", "ms_rcnn_r50_fpn_1x.py",
                                   "grid_rcnn_r50_fpn_2x.py", "ssd300_coco.py",
                                   "fcos_r50_caffe_fpn_gn_1x_4gpu.py",
-                                  "fovea_align_gn_r50_fpn_4gpu_2x.py"])
+                                  "fovea_align_gn_r50_fpn_4gpu_2x.py",
+                                  "retinanet_free_anchor_r50_fpn_1x.py",
+                                  "libra_retinanet_r50_fpn_1x.py",
+                                  "libra_faster_rcnn_r50_fpn_1x.py",
+                                  "libra_fast_rcnn_r50_fpn_1x.py"])
 def test_config_builds_and_bridges_one_for_one(name):
     model = build(name, gn=True)
     ours = {k: tuple(v.shape) for k, v in model.state_dict().items()}
@@ -166,7 +183,7 @@ def test_config_builds_and_bridges_one_for_one(name):
 
 
 def test_the_configs_count():
-    """82 of the 109 configs build; every other one raises its named
+    """92 of the 109 configs build; every other one raises its named
     not-ported error (``test_other_configs_raise_not_ported``)."""
-    assert len(ALL) == 109 and len(set(BUILDS)) == len(BUILDS) == 82
+    assert len(ALL) == 109 and len(set(BUILDS)) == len(BUILDS) == 92
     assert set(BUILDS) <= set(ALL)

@@ -91,8 +91,8 @@ def test_focal_loss_module_and_build_loss():
     close(ours, ref)
     with pytest.raises(NotImplementedError):
         build_loss(dict(cfg, use_sigmoid=False))
-    with pytest.raises(KeyError, match="GHMC"):
-        build_loss(dict(type="GHMC"))
+    with pytest.raises(KeyError, match="MSELoss"):
+        build_loss(dict(type="MSELoss"))
 
 
 @pytest.mark.parametrize("beta", [0.11, 1.0])
