@@ -2,8 +2,9 @@
 (f32, bf16 and data parallel) and evaluation paths, and Faster R-CNN's,
 Mask R-CNN's, the cascade family's (HTC, Cascade R-CNN, GN + WS), the rest
 of Faster R-CNN's family's, Mask Scoring R-CNN's, Grid R-CNN's, the
-two-stage TTA's, SSD's, FCOS's and FoveaBox's, GHM's, FreeAnchor's and
-Libra R-CNN's, once on one NVIDIA GPU and check them.
+two-stage TTA's, SSD's, FCOS's and FoveaBox's, GHM's, FreeAnchor's,
+Libra R-CNN's and guided anchoring's, once on one NVIDIA GPU and check
+them.
 
     python3 chip_smoke.py                  # everything, as below
     python3 chip_smoke.py --kernels-only   # phases 1-2: a short first run
@@ -307,7 +308,31 @@ Phases (any failure exits non-zero):
      proposals and two steps from its train_pipeline; (16f) timings:
      ``predict`` at batch 8 and 1, TF32 off and on, with the BFP's gather,
      non-local refine and scatter apart by CUDA events, K1 on each one's
-     own candidates, the train steps with peak memory.
+     own candidates, the train steps with peak memory;
+  17. guided anchoring at full width (R-50-FPN, 832x1344 canvases, seeded
+     random weights at ``ioudet``'s init, f32, TF32 off for the checks):
+     (17a) configs/ga_retinanet_r50_fpn_1x.py (``conv_cls.bias`` zeroed)
+     ``predict`` at batch 8 and 1 as 15a, three ``inference_detector``
+     requests, GPU against CPU at batch 1: the features, then the head at
+     the init's ``conv_loc`` (the loc mask's knife-edge: the cells within
+     2e-3 of the threshold's logit counted, the others' masks equal) and
+     with ``conv_loc`` drawn at std 1 (no cell near it); (17b) step 1 at
+     batch 4 from the config's train_pipeline on 8 planted images against
+     K3's plain versions, K3a / K3b 5 times each at A = 1 and held on the
+     step's own logits, the head's loss on the step's outputs, the loc
+     targets and the approx assignment card against CPU, step 1's four
+     losses and a tower's gradient on one image against a CPU copy, two
+     ``train_detector`` steps; (17c) 14c's ``single_device_test`` by both
+     routes, ``evaluate``, ``tools.test`` and ``tools.train``; (17d)
+     configs/ga_faster_rcnn_r50_fpn_1x.py ``predict`` at batch 8 (K1 at
+     both stages) against the plain-NMS replay, step 1 against its replay
+     and two steps at batch 2 (six losses, the GA-RPN's four > 0),
+     ``single_device_test`` and ``evaluate``; configs/ga_rpn_r50_fpn_1x.py
+     ``predict`` and the proposal recall hook; (17e) timings: ``predict``
+     at batch 8 and 1, TF32 off and on, GA-RetinaNet's split into backbone
+     + FPN, towers, loc + shape branches, feature adaption and cls / reg
+     convs by CUDA events, with peak memory; K1 on each one's own
+     candidates, K3 at GA-RetinaNet's P3; the train steps with peak memory.
 The last two lines are the card's name and power limit, then
 ``{"ok": true, "device": {...}}``; the line before them lists the kernels.
 """
@@ -3723,11 +3748,31 @@ def two_stage_eval(B, dataset) -> dict:
     phase 6's planted dataset, bit-equal to a ``predict`` replay, K1 twice a
     predict; the RPN config's ``predict`` and its AR@100/300/1000 by the
     proposal recall hook.  Returns the launch counts."""
-    from ioudet_torch.apis.inference import init_detector, predict
-    from ioudet_torch.apis.test import make_proposal_recall_hook, single_device_test
+    from ioudet_torch.apis.inference import init_detector
     from ioudet_torch.core.evaluation import eval_recalls
 
     handle = init_detector(two_stage_cfg(), device="cuda", seed=0)
+    counts = two_stage_test_loop(B, handle, dataset, "Faster R-CNN", "9c")
+    del handle
+    torch.cuda.empty_cache()
+
+    rpn = init_detector(two_stage_cfg(RPN_ONLY), device="cuda", seed=0)
+    counts = add_counts(counts, rpn_serving(B, None, rpn, canvases(
+        TWO_STAGE_BATCH, np.random.default_rng(4)), dataset, "RPN", "9c"))
+    gts = [dataset.get_ann_info(i)["bboxes"] for i in range(len(dataset))]
+    full = eval_recalls(gts, [np.concatenate([g, np.ones((len(g), 1))], 1) for g in gts],
+                        (100, 300, 1000), [0.5])
+    check(bool((full == 1.0).all()), "the ground truth fed back as proposals: AR@100, "
+          "AR@300 and AR@1000 exactly 1")
+    return counts
+
+
+def two_stage_test_loop(B, handle, dataset, what: str, tag: str) -> dict:
+    """9c / 17d: a two-stage detector through ``single_device_test`` and
+    ``evaluate``, every image's result bit-equal to a ``predict`` replay,
+    K1 twice a predict.  Returns the launch counts."""
+    from ioudet_torch.apis.test import single_device_test
+
     torch.cuda.synchronize()
     B.reset_launches()
     t = time.perf_counter()
@@ -3735,42 +3780,52 @@ def two_stage_eval(B, dataset) -> dict:
     torch.cuda.synchronize()
     run_s = time.perf_counter() - t
     counts = dict(B.launches)
-    n = check_results_replay(handle, dataset, results, False, "Faster R-CNN single_device_test")
+    n = check_results_replay(handle, dataset, results, False,
+                             f"{tag} {what} single_device_test")
     check(counts["nms_mask_kernel"] == 2 * n and counts["nms_reduce_kernel"] == 2 * n,
-          f"single_device_test: K1a and K1b launched twice for each of its {n} predicts")
+          f"{tag} {what} single_device_test: K1a and K1b launched twice for each of its {n} "
+          "predicts")
     metrics = dataset.evaluate(results)
     check(all(np.isfinite(v) and -1 <= v <= 1 for v in metrics.values()),
-          f"Faster R-CNN on {len(dataset)} planted images: loop {run_s:.2f} s; random "
+          f"{tag} {what} on {len(dataset)} planted images: loop {run_s:.2f} s; random "
           f"weights: AP {metrics['AP']:.4f}, AP50 {metrics['AP50']:.4f}, "
           f"AR100 {metrics['AR100']:.4f}")
-    del handle
-    torch.cuda.empty_cache()
+    return counts
 
-    rpn = init_detector(two_stage_cfg(RPN_ONLY), device="cuda", seed=0)
-    inputs = canvases(TWO_STAGE_BATCH, np.random.default_rng(4))
+
+def rpn_serving(B, K, rpn, inputs, dataset, what: str, tag: str) -> dict:
+    """9c / 17d: a proposal model's ``predict`` at batch 8: (B, 2000, 5)
+    proposals of one class, K1 once (with ``K``: host syncs made errors and
+    bit-equal to a plain-NMS replay); its AR@100/300/1000 on ``dataset`` by
+    ``make_proposal_recall_hook``.  Returns the launch counts."""
+    from ioudet_torch.apis.inference import predict
+    from ioudet_torch.apis.test import make_proposal_recall_hook
+
     predict(rpn, *inputs)   # warm-up
     torch.cuda.synchronize()
     B.reset_launches()
-    dets, labels = predict(rpn, *inputs)
+    dets, labels = (set_sync_errors(lambda: predict(rpn, *inputs)) if K is not None else
+                    predict(rpn, *inputs))
     torch.cuda.synchronize()
     seen = dict(B.launches)
-    counts = add_counts(counts, seen)
     check(seen["nms_mask_kernel"] == 1 and seen["nms_reduce_kernel"] == 1 and
           tuple(dets.shape) == (inputs[0].shape[0], 2000, 5) and
           bool(((labels == 0) | (labels == -1)).all()),
-          f"RPN predict at batch {inputs[0].shape[0]}: (B, 2000, 5) proposals of one class, "
-          f"K1 once; {int((labels == 0).sum())} valid")
+          f"{tag} {what} predict at batch {inputs[0].shape[0]}: (B, 2000, 5) proposals of one "
+          f"class, K1 once; {int((labels == 0).sum())} valid")
+    if K is not None:
+        with plain_nms(K):
+            plain = predict(rpn, *inputs)
+        check(torch.equal(plain[0], dets) and torch.equal(plain[1], labels),
+              f"{tag} {what}: host syncs made errors; proposals bit-equal to the plain-NMS "
+              "replay")
     t = time.perf_counter()
     recall = make_proposal_recall_hook(dataset, imgs_per_batch=EVAL_BATCH)(rpn.model)
     check(all(0.0 <= v <= 1.0 for v in recall.values()),
-          f"RPN proposal recall on {len(dataset)} planted images ({time.perf_counter() - t:.2f}"
-          " s), random weights: " + ", ".join(f"{k} {v:.4f}" for k, v in recall.items()))
-    gts = [dataset.get_ann_info(i)["bboxes"] for i in range(len(dataset))]
-    full = eval_recalls(gts, [np.concatenate([g, np.ones((len(g), 1))], 1) for g in gts],
-                        (100, 300, 1000), [0.5])
-    check(bool((full == 1.0).all()), "the ground truth fed back as proposals: AR@100, "
-          "AR@300 and AR@1000 exactly 1")
-    return counts
+          f"{tag} {what} proposal recall on {len(dataset)} planted images "
+          f"({time.perf_counter() - t:.2f} s), random weights: " +
+          ", ".join(f"{k} {v:.4f}" for k, v in recall.items()))
+    return seen
 
 
 def two_stage_split(handle, inputs, reps: int = 5) -> dict:
@@ -5731,7 +5786,14 @@ AF_NAMES = {"FCOSHead": ("bbox_head.fcos_cls.weight", "bbox_head.fcos_reg.weight
                          "backbone.layer4.0.conv2.weight") +
             tuple(f"bbox_head.scales.{i}.scale" for i in range(5)),
             "FoveaHead": ("bbox_head.fovea_cls.weight", "bbox_head.fovea_reg.weight",
-                          "bbox_head.cls_convs.0.conv.weight", "backbone.layer4.0.conv2.weight")}
+                          "bbox_head.cls_convs.0.conv.weight", "backbone.layer4.0.conv2.weight"),
+            # phase 17's
+            "GARetinaHead": ("bbox_head.conv_cls.weight", "bbox_head.conv_reg.weight",
+                             "bbox_head.conv_loc.weight", "bbox_head.conv_shape.weight",
+                             "bbox_head.feature_adaption.conv_offset.weight",
+                             "bbox_head.feature_adaption.conv_adaption.weight",
+                             "bbox_head.cls_convs.0.conv.weight",
+                             "backbone.layer4.0.conv2.weight")}
 AF_ALIGN_NAMES = ("bbox_head.feature_adaption.conv_offset.weight",
                   "bbox_head.feature_adaption.conv_adaption.weight",
                   "bbox_head.cls_convs.1.gn.weight")
@@ -5899,7 +5961,10 @@ def af_training(B, A, Fc, handle, cfg, dataset, work_dir: str, what: str, tag: s
     check_af_focal_levels(Fc, levels, head.loss_cls.get("gamma", 2.0)
                           if kind == "FoveaHead" else 2.0, f"{tag} {what}")
     del levels
-    check_af_targets(head, batch, f"{tag} {what}")
+    if kind == "GARetinaHead":
+        check_ga_targets(head, batch, dict(model.train_cfg or {}), f"{tag} {what}")
+    else:
+        check_af_targets(head, batch, f"{tag} {what}")
     check_af_head_loss(model, batch, f"{tag} {what}")
 
     per_step, history = [], []
@@ -6547,6 +6612,273 @@ def phase_libra_ghm_free_anchor(B, K, A, Fc, rng, card: str) -> dict:
     return counts
 
 
+GA_RETINA = "ga_retinanet_r50_fpn_1x.py"
+GA_FASTER = "ga_faster_rcnn_r50_fpn_1x.py"
+GA_RPN = "ga_rpn_r50_fpn_1x.py"
+GA_BATCH = 8          # 17a / 17d / 17e: predict's batch
+GA_TRAIN_BATCH = 4    # 17b: the steps' batch, as FCOS's and FoveaBox's
+GA_STEPS = 2          # 17b: train_detector steps (8 planted images at batch 4)
+GA_SIZES = ((800, 1333),) * 4 + ((1333, 800),) * 4   # 17b-17d: planted images
+GA_FASTER_NAMES = ("rpn_head.conv_cls.weight", "rpn_head.conv_reg.weight",
+                   "rpn_head.conv_loc.weight", "rpn_head.conv_shape.weight",
+                   "rpn_head.feature_adaption.conv_offset.weight",
+                   "bbox_head.shared_fcs.0.weight", "bbox_head.fc_cls.weight")
+GA_EDGE = float(np.log(0.01 / 0.99))   # the loc logit of loc_filter_thr
+
+
+def ga_handle(name: str, two_stage: bool = False):
+    """(config, handle) of configs/``name`` at full width on the card,
+    seeded random weights at ``ioudet``'s init (``conv_loc`` at the 0.01
+    prior: the loc mask sits on its knife-edge); GA-RetinaNet's
+    ``conv_cls.bias`` zeroed, so that random-weight scores clear score_thr
+    and the NMS sees its 2000 candidates."""
+    from ioudet_torch.apis.inference import init_detector
+
+    cfg = two_stage_cfg(name) if two_stage else ssd_cfg(name)
+    handle = init_detector(cfg, device="cuda", seed=0)
+    if not two_stage:
+        with torch.no_grad():
+            handle.model.bbox_head.conv_cls.bias.zero_()
+    return cfg, handle
+
+
+def ga_loc_edge(head, gpu_feats, cpu_feats, what: str) -> None:
+    """The GA head on the same features on the card and on the CPU (f32,
+    TF32 off): every output to 2e-3 of its largest |value| (15a's limit),
+    the loc logits to half a margin of 1e-4 of their largest |value|; the
+    loc mask ``sigmoid(loc) > loc_filter_thr`` equal cell for cell outside
+    that margin of the threshold's logit, the cells inside it counted."""
+    with torch.inference_mode():
+        gpu = head(gpu_feats)
+        cpu = copy.deepcopy(head).cpu()(cpu_feats)
+    worst = 0.0
+    for g_lvls, c_lvls in zip(gpu, cpu):
+        for g, c in zip(g_lvls, c_lvls):
+            worst = max(worst, float((g.cpu() - c).abs().max()) / (float(c.abs().max()) + 1e-6))
+    loc_g = torch.cat([x.reshape(-1) for x in gpu[3]]).cpu()
+    loc_c = torch.cat([x.reshape(-1) for x in cpu[3]])
+    margin = 1e-4 * float(loc_c.abs().max())
+    loc_err = max_abs(loc_g, loc_c)
+    near = (loc_c - GA_EDGE).abs() <= margin
+    thr = head.loc_filter_thr
+    apart = int(((torch.sigmoid(loc_g) > thr) != (torch.sigmoid(loc_c) > thr))[~near].sum())
+    check(worst <= 2e-3 and loc_err <= margin / 2 and apart == 0,
+          f"{what}: GPU head outputs against the CPU's on the same features: max rel err "
+          f"{worst:.2e}, loc logits within {loc_err:.2e}; loc mask: {int(near.sum())} of "
+          f"{near.numel()} cells within {margin:.2e} of the threshold's logit, the other "
+          f"cells' masks equal ({int((torch.sigmoid(loc_c) > thr).sum())} kept on the CPU)")
+
+
+def ga_reference(handle, what: str) -> None:
+    """17a: the full-width model at batch 1 on an AF_CPU_CANVAS canvas, GPU
+    against CPU (f32, TF32 off): backbone + FPN features, then the head
+    twice, at ``ioudet``'s init of ``conv_loc`` (the knife-edge: cells near
+    the threshold counted) and with ``conv_loc`` drawn at std 1 (no cell
+    near it); the weights are put back."""
+    rng = np.random.default_rng(2)
+    x = torch.from_numpy(rng.normal(0, 1, (1,) + AF_CPU_CANVAS + (3,)).astype(np.float32))
+    model = handle.model
+    with torch.inference_mode():
+        gpu_feats = model.extract_feat(x.cuda())
+        cpu_feats = copy.deepcopy(model).cpu().extract_feat(x)
+    worst = max(float((g.cpu() - c).abs().max()) / (float(c.abs().max()) + 1e-6)
+                for g, c in zip(gpu_feats, cpu_feats))
+    check(worst <= 2e-3, f"{what}: backbone + FPN on the card against the CPU at batch 1 on "
+          f"{AF_CPU_CANVAS}: max rel err {worst:.2e}")
+    head = model.bbox_head
+    ga_loc_edge(head, gpu_feats, cpu_feats, f"{what} at the init's conv_loc")
+    kept = head.conv_loc.weight.detach().clone()
+    with torch.no_grad():
+        head.conv_loc.weight.normal_(0.0, 1.0, generator=torch.Generator("cuda").manual_seed(17))
+    try:
+        ga_loc_edge(head, gpu_feats, cpu_feats, f"{what} with conv_loc at std 1")
+    finally:
+        with torch.no_grad():
+            head.conv_loc.weight.copy_(kept)
+
+
+def check_ga_targets(head, batch, train_cfg: dict, what: str) -> None:
+    """The loc targets and weights and the approx assignment's positives
+    and assigned gts on the card bit-equal to the CPU's for ``batch``'s
+    gts at its canvas."""
+    h, w = batch["img"].shape[1:3]
+    sizes = [(-(-h // s), -(-w // s)) for s in head.anchor_strides]
+    got, want = [], []
+    for dev_batch, out in ((batch, got), ({k: v.cpu() for k, v in batch.items()}, want)):
+        tg, wt = head.loc_targets(dev_batch["gt_bboxes"], dev_batch["gt_valid"], sizes)
+        pos, matched = head.shape_targets(sizes, dev_batch["gt_bboxes"], dev_batch["gt_valid"],
+                                          train_cfg)
+        out.extend(t.cpu() for t in (torch.cat(tg, 1), torch.cat(wt, 1), pos, matched))
+    check(all(torch.equal(a, b) for a, b in zip(got, want)) and int(want[0].sum()) > 0 and
+          int(want[2].sum()) > 0,
+          f"{what}: loc targets and weights ({int(want[0].sum())} positive, "
+          f"{int((want[1] == 0).sum())} ignored of {want[0].numel()} cells) and the approx "
+          f"assignment ({int(want[2].sum())} positive cells) on the card bit-equal to the CPU's")
+
+
+def ga_anchor_targets(head, shape_preds, batch, train_cfg: dict) -> torch.Tensor:
+    """(3, C) labels, label weights and box weights of one image's cells, on
+    its own predicted anchors (the loss's ``anchor_target_single``), on the
+    host."""
+    from ioudet_torch.core.anchor.anchor_target import anchor_target_single
+    from ioudet_torch.core.bbox import MaxIoUAssigner
+
+    anchors = torch.cat(head.predicted_anchors([s.detach() for s in shape_preds]), 1)[0]
+    assigner = MaxIoUAssigner(**{k: v for k, v in train_cfg["assigner"].items() if k != "type"})
+    every = torch.ones((1, anchors.shape[0]), dtype=torch.bool, device=anchors.device)
+    labels, lw, _, bw = anchor_target_single(
+        anchors, every, batch["gt_bboxes"], batch["gt_valid"], batch["gt_labels"],
+        batch["img_shape"], assigner, head.target_means, head.target_stds,
+        allowed_border=train_cfg.get("allowed_border", -1))[:4]
+    return torch.cat([labels.float(), lw, bw[..., 0]]).cpu()
+
+
+def ga_cpu_step(model, batch, what: str) -> None:
+    """17b: step 1 on the batch's first image, card against a CPU copy of
+    the model (a CPU step at batch 4 would take most of the phase's time).
+    Each side assigns the cls / bbox targets on its own predicted anchors:
+    the cells whose targets differ are counted (at most 1e-4 of them, 15d's
+    rule for the fovea cells), and the four losses are held at rtol 1e-4
+    (14b's) where none differ, ``loss_loc`` and ``loss_shape`` (whose
+    targets come from the gts alone) always.  The card's gradient of the
+    loss w.r.t. the head outputs goes back through both copies: the reg
+    tower's first conv's gradient within 2e-3 of its largest |value|
+    (14b's)."""
+    one = {k: v[:1] for k, v in batch.items()}
+    cpu_one = {k: v.cpu() for k, v in one.items()}
+    cfg = dict(model.train_cfg or {})
+    name = "bbox_head.reg_convs.0.conv.weight"
+    sides, cotangents = [], None
+    for m, b in ((model, one), (copy.deepcopy(model).cpu(), cpu_one)):
+        m.zero_grad(set_to_none=True)
+        outs = m(b["img"])
+        flat = [t for lvl in outs for t in lvl]
+        losses = m.bbox_head.loss(*outs, b["gt_bboxes"], b["gt_labels"], b["gt_valid"],
+                                  b["img_shape"], b["pad_shape"], cfg)
+        if cotangents is None:
+            cotangents = torch.autograd.grad(sum(losses.values()), flat, retain_graph=True)
+        torch.autograd.backward(flat, [g.to(flat[0].device) for g in cotangents])
+        sides.append(({k: float(v.detach()) for k, v in losses.items()},
+                      ga_anchor_targets(m.bbox_head, outs[2], b, cfg),
+                      dict(m.named_parameters())[name].grad.cpu()))
+        m.zero_grad(set_to_none=True)
+    (losses, targets, grad), (cpu_losses, cpu_targets, cpu_grad) = sides
+    apart = int((targets != cpu_targets).any(0).sum())
+    check(apart <= 1e-4 * targets.shape[1],
+          f"{what}: step 1 on image 0, the cls / bbox targets on each side's own predicted "
+          f"anchors: {apart} of {targets.shape[1]} cells apart, card against CPU "
+          f"({int((cpu_targets[0] > 0).sum())} positive on the CPU)")
+    for k, want in cpu_losses.items():
+        if apart and k in ("loss_cls", "loss_bbox"):
+            print(f"{what}: {k} on the card {losses[k]:.6f}, on the CPU {want:.6f} "
+                  f"({apart} cells' targets apart)", flush=True)
+            continue
+        check(abs(losses[k] - want) <= 1e-4 * abs(want) and want > 0,
+              f"{what}: step 1 on image 0, {k} on the card {losses[k]:.6f}, on the CPU "
+              f"{want:.6f} (rtol 1e-4)")
+    scale = float(cpu_grad.abs().max())
+    diff = max_abs(grad, cpu_grad)
+    check(scale > 0 and diff <= 2e-3 * scale,
+          f"{what}: step 1 on image 0, the card's output gradient back through both copies: "
+          f"grad of {name} max abs diff {diff:.2e} of max {scale:.2e} (limit 2e-3 of it)")
+
+
+def ga_spans(model) -> tuple:
+    """``family_split``'s spans of GA-RetinaNet's ``predict``: backbone + FPN,
+    the towers, the loc and shape branches, the feature adaption (twice a
+    level), the cls / reg convs; decode + NMS to the end."""
+    head = model.bbox_head
+    return ([("start", model.backbone, "pre"), ("backbone + FPN", model.neck, "post"),
+             ("towers", head.reg_convs[-1], "post"), ("loc + shape branches", head.conv_shape,
+                                                      "post"),
+             ("feature adaption x2", head.feature_adaption, "post"),
+             ("cls / reg convs", head.conv_cls, "post"),
+             ("cls / reg convs", head.conv_reg, "post")], "decode + NMS")
+
+
+def phase_guided_anchoring(B, K, A, Fc, rng, card: str) -> dict:
+    """Phase 17: guided anchoring at full width (R-50-FPN, 832x1344 canvases,
+    seeded random weights at ``ioudet``'s init, f32, TF32 off for the
+    checks): GA-RetinaNet served, trained and evaluated through the port's
+    entry points, GA-Faster R-CNN and GA-RPN served, GA-Faster R-CNN trained
+    and evaluated; then their timings.  Returns the kernels' launch counts
+    of its main-path runs."""
+    from ioudet_torch.data import build_dataset
+
+    set_tf32(False)
+    t = time.perf_counter()
+    cfg, handle = ga_handle(GA_RETINA)
+    model = handle.model
+    print(f"17a: GA-RetinaNet ({GA_RETINA}, {sum(p.numel() for p in model.parameters()):,} "
+          "parameters; one predicted anchor a cell, 23,282 cells on 832x1344)", flush=True)
+    inputs = canvases(GA_BATCH, rng)
+    counts = ssd_serving(B, K, handle, inputs, "GA-RetinaNet", "17a", max_per_img=100,
+                         iou_thr=0.5)
+    counts = add_counts(counts, ssd_serving(B, K, handle, tuple(x[:1] for x in inputs),
+                                            "GA-RetinaNet batch 1", "17a", max_per_img=100,
+                                            iou_thr=0.5))
+    counts = add_counts(counts, s16_requests(B, handle, rng, "17a", "GA-RetinaNet"))
+    ga_reference(handle, "17a GA-RetinaNet")
+    print(f"17a: {time.perf_counter() - t:.2f} s", flush=True)
+
+    t = time.perf_counter()
+    work = tempfile.TemporaryDirectory()
+    ann_file, img_dir = plant_coco(work.name, GA_SIZES, 80, seed=24)
+    dataset = build_dataset(dict(cfg["data"]["train"], ann_file=ann_file, img_prefix=img_dir))
+    got, runner, batch = af_training(B, A, Fc, handle, cfg, dataset,
+                                     os.path.join(work.name, "train"), "GA-RetinaNet", "17b",
+                                     GA_STEPS)
+    counts = add_counts(counts, got)
+    model.train()
+    ga_cpu_step(model, batch, "17b GA-RetinaNet")
+    print(f"17b: {time.perf_counter() - t:.2f} s", flush=True)
+    t = time.perf_counter()
+    counts = add_counts(counts, ssd_eval(B, handle, cfg, ann_file, img_dir, work.name,
+                                         name=GA_RETINA, tag="17c", steps=GA_STEPS))
+    print(f"17c: {time.perf_counter() - t:.2f} s", flush=True)
+
+    t = time.perf_counter()
+    fcfg, fhandle = ga_handle(GA_FASTER, two_stage=True)
+    print(f"17d: GA-Faster R-CNN ({GA_FASTER}, "
+          f"{sum(p.numel() for p in fhandle.model.parameters()):,} parameters; GA-RPN over "
+          "93,093 cells, rcnn score_thr 0)", flush=True)
+    counts = add_counts(counts, two_stage_serving(B, K, fhandle, inputs, "GA-Faster R-CNN",
+                                                  "17d", batches=(GA_BATCH,)))
+    # 17e times the model on these weights: after two random-weight steps the
+    # loc branch masks every cell (no valid proposal, PR 24's first run)
+    untrained = copy.deepcopy(fhandle.model.state_dict())
+    got, frunner, fbatch = two_stage_training(
+        B, K, fhandle, fcfg, None, GA_FASTER_NAMES, "GA-Faster R-CNN", "17d", GA_STEPS,
+        nonzero=GA_FASTER_NAMES,
+        loss_keys=("loss_cls", "loss_bbox", "rpn_loss_cls", "rpn_loss_bbox", "rpn_loss_shape",
+                   "rpn_loss_loc"),
+        positive=("rpn_loss_cls", "rpn_loss_bbox", "rpn_loss_shape", "rpn_loss_loc"))
+    counts = add_counts(counts, got)
+    fhandle.model.eval()
+    test_set = build_dataset(dict(fcfg["data"]["test"], ann_file=ann_file, img_prefix=img_dir))
+    counts = add_counts(counts, two_stage_test_loop(B, fhandle, test_set, "GA-Faster R-CNN",
+                                                    "17d"))
+    _, rpn = ga_handle(GA_RPN, two_stage=True)
+    counts = add_counts(counts, rpn_serving(B, K, rpn, inputs, test_set, "GA-RPN", "17d"))
+    del rpn
+    print(f"17d: {time.perf_counter() - t:.2f} s", flush=True)
+
+    t = time.perf_counter()
+    model.eval()
+    levels = af_p3_levels(Fc, model)
+    af_timing(K, Fc, "GA-RetinaNet", handle, inputs, card, runner, batch, levels,
+              spans=ga_spans(model), phase="17e")
+    del levels
+    fhandle.model.load_state_dict(untrained)
+    family_timing(K, fhandle, inputs, card, "GA-Faster R-CNN", frunner, fbatch, batch1=True,
+                  phase="17e")
+    print(f"17e: {time.perf_counter() - t:.2f} s", flush=True)
+    del handle, runner, batch, fhandle, frunner, fbatch, inputs
+    work.cleanup()
+    torch.cuda.empty_cache()
+    return counts
+
+
 KERNELS = {  # name: (source, the TPU kernel it replaces)
     "nms_mask_kernel": ("nms_kernel.cu", "ioudet/ops/nms_pallas.py:26"),
     "nms_reduce_kernel": ("nms_kernel.cu", "ioudet/ops/nms_pallas.py:81"),
@@ -6779,6 +7111,19 @@ def main() -> int:
     s16_launches = phase_libra_ghm_free_anchor(B, K, A, Fc, rng, card)
     launches = {k: launches[k] + s16_launches.get(k, 0) for k in launches}
     print(f"phase 16: {time.perf_counter() - t:.2f} s", flush=True)
+
+    print("phase 17: guided anchoring at full width; TF32 off for the checks: 17a GA-RetinaNet "
+          f"predict at batch {GA_BATCH} and 1 (K1), inference_detector, GPU against CPU with "
+          f"the loc mask's knife-edge counted; 17b {GA_STEPS} train_detector steps at batch "
+          f"{GA_TRAIN_BATCH} from the config's train_pipeline (K3 at A = 1), the targets and "
+          "step 1 card against CPU; 17c single_device_test, evaluate, tools.test, "
+          f"tools.train; 17d GA-Faster R-CNN predict at batch {GA_BATCH} (K1 at both stages), "
+          f"{GA_STEPS} steps at batch 2, its eval; GA-RPN predict and proposal recall; 17e "
+          "timings" + since(start), flush=True)
+    t = time.perf_counter()
+    ga_launches = phase_guided_anchoring(B, K, A, Fc, rng, card)
+    launches = {k: launches[k] + ga_launches.get(k, 0) for k in launches}
+    print(f"phase 17: {time.perf_counter() - t:.2f} s", flush=True)
     check(all(launches[name] > 0 for name in KERNELS if name not in REPLACED) and
           all(launches[name] == 0 for name in REPLACED),
           "every kernel was launched on a main path, and none of those the wgmma kernels "

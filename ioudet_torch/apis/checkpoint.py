@@ -261,6 +261,12 @@ def _roi_head(sd: dict, tree: dict, prefix: str = "bbox_head") -> None:
             raise KeyError(f"unknown box head param {name}")
 
 
+# the guided-anchoring heads: their branches cross only where
+# ``module_types`` names one of these
+GA_HEADS = ("GuidedAnchorHead", "GARetinaHead", "GARPNHead")
+GA_BRANCHES = ("conv_loc", "conv_shape", "conv_cls", "conv_reg")
+
+
 def _head(sd: dict, tree: dict, prefix: str = "bbox_head", kind: str = "") -> None:
     # SSDHead's per-level output convs are bare convs (``cls_convs.i``); the
     # RetinaNet family's towers are ConvModules (``cls_convs.i.conv``)
@@ -270,10 +276,24 @@ def _head(sd: dict, tree: dict, prefix: str = "bbox_head", kind: str = "") -> No
         if m:
             _conv(sd, f"{prefix}.{m.group(1)}_convs.{m.group(2)}{tower}", leaf)
         elif name in ("retina_cls", "retina_reg", "retina_iou", "rpn_conv", "rpn_cls",
-                      "rpn_reg"):
+                      "rpn_reg") or (kind in GA_HEADS and name in GA_BRANCHES):
             _conv(sd, f"{prefix}.{name}", leaf)
+        elif name == "feature_adaption" and kind in GA_HEADS:
+            _feature_adaption(sd, f"{prefix}.feature_adaption", leaf)
         else:
             raise KeyError(f"unknown head param {name}")
+
+
+def _feature_adaption(sd: dict, prefix: str, tree: dict) -> None:
+    """flax ``FeatureAdaption``'s {conv_offset, adaption_kernel} -> mmdet's
+    ``conv_offset`` and ``conv_adaption.weight``."""
+    for sub, part in tree.items():
+        if sub == "conv_offset":
+            _conv(sd, f"{prefix}.conv_offset", part)
+        elif sub == "adaption_kernel":
+            sd[f"{prefix}.conv_adaption.weight"] = _oihw(part)
+        else:
+            raise KeyError(f"unknown feature adaption param {sub}")
 
 
 def _anchor_free_head(sd: dict, tree: dict, prefix: str, kind: str) -> None:
@@ -300,13 +320,7 @@ def _anchor_free_head(sd: dict, tree: dict, prefix: str, kind: str) -> None:
         elif name in outputs:
             _conv(sd, f"{prefix}.{name}", leaf)
         elif name == "feature_adaption" and kind == "FoveaHead":
-            for sub, part in leaf.items():
-                if sub == "conv_offset":
-                    _conv(sd, f"{prefix}.feature_adaption.conv_offset", part)
-                elif sub == "adaption_kernel":
-                    sd[f"{prefix}.feature_adaption.conv_adaption.weight"] = _oihw(part)
-                else:
-                    raise KeyError(f"unknown feature adaption param {sub}")
+            _feature_adaption(sd, f"{prefix}.feature_adaption", leaf)
         else:
             raise KeyError(f"unknown {kind} param {name}")
 
@@ -493,7 +507,10 @@ def state_dict_from_flax(params: dict, types: Optional[Dict[str, str]] = None
     when named there; without them the ResNet and RetinaNet forms are taken,
     and an SSD tree raises at its first VGG name.  FCOS's and FoveaBox's
     heads (``FCOSHead``, ``FoveaHead``) too are bridged only when named
-    there; without them their names raise as unknown head params."""
+    there; without them their names raise as unknown head params.  So are
+    the guided-anchoring heads' branches (``GA_HEADS``, as ``bbox_head`` or
+    ``rpn_head``): {conv_loc, conv_shape, feature_adaption/{conv_offset,
+    adaption_kernel}, conv_cls, conv_reg} beside the towers or the trunk."""
     types = types or {}
     unknown = {k for k in params if not _STAGE.match(k)} - {
         "backbone", "neck", "rpn_head", "bbox_head", "mask_head", "semantic_head",
@@ -506,7 +523,7 @@ def state_dict_from_flax(params: dict, types: Optional[Dict[str, str]] = None
     if "neck" in params:
         _neck(sd, params["neck"])
     if "rpn_head" in params:
-        _head(sd, params["rpn_head"], "rpn_head")
+        _head(sd, params["rpn_head"], "rpn_head", types.get("rpn_head", ""))
     if "bbox_roi_extractor" in params:
         _roi_extractor(sd, params["bbox_roi_extractor"])
     if "shared_head" in params:
@@ -732,7 +749,26 @@ def read_weights(filename: str, types: Optional[Dict[str, str]] = None
     sd = ckpt.get("state_dict", ckpt)
     sd = {(k[len("module."):] if k.startswith("module.") else k): v
           for k, v in sd.items() if not k.endswith("num_batches_tracked")}
+    check_ga_adaption(sd, types or {})
     return sd, ckpt.get("optimizer") or {}, ckpt.get("meta", {})
+
+
+def check_ga_adaption(sd: dict, types: Dict[str, str]) -> None:
+    """Raise ``NotImplementedError`` where a state_dict's guided-anchoring
+    head is mmdet's form: ``GARetinaHead`` there has two adaptions
+    (``feature_adaption_cls`` / ``_reg``) and mmdet's adaptions 4
+    deformable groups (a 72-channel ``conv_offset``); the port's head, as
+    ``ioudet``'s, has one adaption of one group (18 channels)."""
+    for part, kind in types.items():
+        if kind not in GA_HEADS:
+            continue
+        offset = sd.get(f"{part}.feature_adaption.conv_offset.weight")
+        if (any(k.startswith((f"{part}.feature_adaption_cls.", f"{part}.feature_adaption_reg."))
+                for k in sd) or (offset is not None and offset.shape[0] != 18)):
+            raise NotImplementedError(
+                f"{part}: mmdet's {kind} weights (two feature adaptions with 4 deformable "
+                "groups, a 72-channel conv_offset) are not bridged: the port's head, as "
+                "ioudet's, has one adaption of one group (18 channels)")
 
 
 def ghm_buffers(tree: dict, prefix: str = "") -> Dict[str, torch.Tensor]:

@@ -14,7 +14,8 @@ The reference's rules (mmdet ``MaxIoUAssigner.assign_wrt_overlaps``):
 Padded gts and invalid anchors have their overlaps masked to -1 before any
 max.  This is the general path; the default configuration of the focal
 family goes through the fused kernels of ``ioudet_torch/ops/assign_cuda.py``.
-``PointAssigner`` and ``ApproxMaxIoUAssigner`` are not ported yet.
+``ApproxMaxIoUAssigner`` (guided anchoring's) takes each square's best IoU
+over its approxs before the same rules.  ``PointAssigner`` is not ported yet.
 """
 
 from __future__ import annotations
@@ -113,4 +114,37 @@ class MaxIoUAssigner:
             result = AssignResult(
                 torch.where(hit_ignore, -1, result.gt_inds), result.max_overlaps,
                 torch.where(hit_ignore, 0, result.labels))
+        return result
+
+
+class ApproxMaxIoUAssigner(MaxIoUAssigner):
+    """Guided anchoring's assigner (``ioudet``'s ``ApproxMaxIoUAssigner``,
+    mmdet's ``approx_max_iou_assigner.py``): one square a cell is placed,
+    but it is judged by the best IoU over the cell's ``n_approx`` approxs
+    (the 9 RetinaNet anchors), then by ``assign_max_iou``'s rules; the
+    ignore regions are tested against the squares."""
+
+    def assign_approx(self, approxs: torch.Tensor, squares: torch.Tensor,
+                      gt_bboxes: torch.Tensor, gt_valid: torch.Tensor,
+                      square_valid: torch.Tensor,
+                      gt_labels: Optional[torch.Tensor] = None,
+                      gt_bboxes_ignore: Optional[torch.Tensor] = None,
+                      gt_ignore_valid: Optional[torch.Tensor] = None) -> AssignResult:
+        """approxs (A, n_approx, 4) grouped by square; squares (A, 4);
+        gt_bboxes (..., G, 4) (leading dimensions are images), gt_valid
+        (..., G), square_valid (..., A); ignore regions (..., I, 4) / (..., I)."""
+        num, n_approx = approxs.shape[:2]
+        overlaps = bbox_overlaps(gt_bboxes, approxs.reshape(num * n_approx, 4))
+        overlaps = overlaps.unflatten(-1, (num, n_approx)).amax(dim=-1)   # (..., G, A)
+        result = assign_max_iou(
+            overlaps, gt_valid, square_valid, gt_labels,
+            pos_iou_thr=self.pos_iou_thr, neg_iou_thr=self.neg_iou_thr,
+            min_pos_iou=self.min_pos_iou, gt_max_assign_all=self.gt_max_assign_all)
+        if (self.ignore_iof_thr > 0 and gt_bboxes_ignore is not None
+                and gt_ignore_valid is not None):
+            iof = bbox_overlaps(squares, gt_bboxes_ignore, mode="iof")   # (..., A, I)
+            iof = torch.where(gt_ignore_valid[..., None, :], iof, 0.0)
+            hit = iof.amax(dim=-1) > self.ignore_iof_thr
+            result = AssignResult(torch.where(hit, -1, result.gt_inds), result.max_overlaps,
+                                  torch.where(hit, 0, result.labels))
         return result

@@ -15,7 +15,8 @@ with a list of mask heads and optionally ``semantic_roi_extractor`` and
 ``semantic_head``).  Of these, Faster R-CNN and Mask R-CNN with FPN and
 RoIAlign also build in bf16 (``BF16_TWO_STAGE``); every other one raises
 ``NotImplementedError`` in bf16, as SSD, the anchor-free heads (FCOS,
-FoveaBox), FreeAnchor, the GHM losses and BFP do.
+FoveaBox), FreeAnchor, the guided-anchoring heads (GA-RPN too, inside a
+Faster R-CNN), the GHM losses and BFP do.
 """
 
 from __future__ import annotations
@@ -41,6 +42,7 @@ from .detectors.two_stage import RPN, DoubleHeadRCNN, FasterRCNN, TwoStageDetect
 from .heads.fcos_head import FCOSHead
 from .heads.fovea_head import FoveaHead
 from .heads.free_anchor_retina_head import FreeAnchorRetinaHead
+from .heads.guided_anchor_head import GARetinaHead, GARPNHead, GuidedAnchorHead
 from .heads.iou_aware_retina_head import IoUAwareRetinaHead
 from .heads.retina_head import RetinaHead
 from .heads.rpn_head import RPNHead
@@ -67,7 +69,8 @@ HEADS = {"RetinaHead": RetinaHead, "IoUAwareRetinaHead": IoUAwareRetinaHead,
          "FusedSemanticHead": FusedSemanticHead, "ResLayer": ResLayer,
          "MaskIoUHead": MaskIoUHead, "GridHead": GridHead, "SSDHead": SSDHead,
          "FCOSHead": FCOSHead, "FoveaHead": FoveaHead,
-         "FreeAnchorRetinaHead": FreeAnchorRetinaHead}
+         "FreeAnchorRetinaHead": FreeAnchorRetinaHead, "GuidedAnchorHead": GuidedAnchorHead,
+         "GARetinaHead": GARetinaHead, "GARPNHead": GARPNHead}
 ROI_EXTRACTORS = {"SingleRoIExtractor": SingleRoIExtractor}
 DETECTORS = {"SingleStageDetector": SingleStageDetector,
              "RetinaNet": RetinaNet, "IoUAwareRetinaNet": IoUAwareRetinaNet,

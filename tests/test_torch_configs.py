@@ -9,8 +9,11 @@ and the paper's family (the 11 ``configs/*iou_aware_*.py``,
 ``double_head_rcnn_r50_fpn_1x.py``, ``ms_rcnn_r50_fpn_1x.py``,
 ``grid_rcnn_r50_fpn_2x.py``, ``ssd300_coco.py``,
 ``fcos_r50_caffe_fpn_gn_1x_4gpu.py``, ``fovea_align_gn_r50_fpn_4gpu_2x.py``,
-``retinanet_free_anchor_r50_fpn_1x.py`` and the three Libra R-50 configs,
-whose FPN -> BFP chain crosses as flax's ``necks_<i>``)
+``retinanet_free_anchor_r50_fpn_1x.py``, the three Libra R-50 configs,
+whose FPN -> BFP chain crosses as flax's ``necks_<i>``, and
+``ga_retinanet_r50_fpn_1x.py``, ``ga_faster_rcnn_r50_fpn_1x.py`` and
+``ga_rpn_r50_fpn_1x.py``, whose guided-anchoring heads cross where
+``module_types`` names them)
 also go through the weight bridge: ``ioudet``
 builds under ``jax.eval_shape``, its parameter tree (of ``simple_test`` for
 a two-stage detector, whose ``__call__`` runs the RPN alone) goes through
@@ -40,7 +43,7 @@ FAMILY = sorted(os.path.basename(f) for f in glob.glob(
     os.path.join(ROOT, "configs", "*iou_aware_*.py")))
 
 
-# every config the port builds (92 of 109); what stops the rest is in
+# every config the port builds (99 of 109); what stops the rest is in
 # ROADMAP.md ("Configs")
 BUILDS = FAMILY + [
     "retinanet_r50_fpn_1x.py", "retinanet_r50_fpn_2x.py", "retinanet_r101_fpn_1x.py",
@@ -85,7 +88,10 @@ BUILDS = FAMILY + [
     "retinanet_free_anchor_r50_fpn_1x.py", "retinanet_free_anchor_r101_fpn_1x.py",
     "retinanet_free_anchor_x101_32x4d_fpn_1x.py",
     "libra_retinanet_r50_fpn_1x.py", "libra_faster_rcnn_r50_fpn_1x.py",
-    "libra_faster_rcnn_x101_64x4d_fpn_1x.py", "libra_fast_rcnn_r50_fpn_1x.py"]
+    "libra_faster_rcnn_x101_64x4d_fpn_1x.py", "libra_fast_rcnn_r50_fpn_1x.py",
+    "ga_retinanet_r50_fpn_1x.py", "ga_retinanet_r50_caffe_fpn_1x.py",
+    "ga_retinanet_x101_32x4d_fpn_1x.py", "ga_faster_rcnn_r50_fpn_1x.py",
+    "ga_faster_r50_caffe_fpn_1x.py", "ga_faster_x101_32x4d_fpn_1x.py", "ga_rpn_r50_fpn_1x.py"]
 ALL = sorted(os.path.basename(f) for f in glob.glob(os.path.join(ROOT, "configs", "*.py")))
 LIBRA = ("libra_fast_rcnn_r50_fpn_1x.py", "libra_faster_rcnn_r50_fpn_1x.py",
          "libra_faster_rcnn_x101_64x4d_fpn_1x.py", "libra_retinanet_r50_fpn_1x.py")
@@ -155,7 +161,9 @@ def test_the_family_is_all_there():
                                   "retinanet_free_anchor_r50_fpn_1x.py",
                                   "libra_retinanet_r50_fpn_1x.py",
                                   "libra_faster_rcnn_r50_fpn_1x.py",
-                                  "libra_fast_rcnn_r50_fpn_1x.py"])
+                                  "libra_fast_rcnn_r50_fpn_1x.py",
+                                  "ga_retinanet_r50_fpn_1x.py", "ga_faster_rcnn_r50_fpn_1x.py",
+                                  "ga_rpn_r50_fpn_1x.py"])
 def test_config_builds_and_bridges_one_for_one(name):
     model = build(name, gn=True)
     ours = {k: tuple(v.shape) for k, v in model.state_dict().items()}
@@ -183,7 +191,7 @@ def test_config_builds_and_bridges_one_for_one(name):
 
 
 def test_the_configs_count():
-    """92 of the 109 configs build; every other one raises its named
+    """99 of the 109 configs build; every other one raises its named
     not-ported error (``test_other_configs_raise_not_ported``)."""
-    assert len(ALL) == 109 and len(set(BUILDS)) == len(BUILDS) == 92
+    assert len(ALL) == 109 and len(set(BUILDS)) == len(BUILDS) == 99
     assert set(BUILDS) <= set(ALL)
